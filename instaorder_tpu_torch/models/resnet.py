@@ -1,0 +1,127 @@
+"""ResNet classifier family: init and eval-mode forward, NHWC.
+
+Counterpart of instaorder_tpu/models/resnet.py (`init` and `apply` with
+train=False). The eval forward is the f32 oracle that calibration runs
+(models/quantize.calibrate_folded_resnet works on its folded form).
+Parameter and statistics trees carry the same keys as the JAX pytrees.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from ..convert import tree_to
+from ..core import nn as cnn
+
+# arch name -> (block, layers, groups, width_per_group); the bottleneck
+# family (the basic-block resnet18/34 are not ported)
+ARCHS = {
+    'resnet50': ('bottleneck', (3, 4, 6, 3), 1, 64),
+    'resnet101': ('bottleneck', (3, 4, 23, 3), 1, 64),
+    'resnet152': ('bottleneck', (3, 8, 36, 3), 1, 64),
+    'resnext50_32x4d': ('bottleneck', (3, 4, 6, 3), 32, 4),
+    'resnext101_32x8d': ('bottleneck', (3, 4, 23, 3), 32, 8),
+    'wide_resnet50_2': ('bottleneck', (3, 4, 6, 3), 1, 128),
+    'wide_resnet101_2': ('bottleneck', (3, 4, 23, 3), 1, 128),
+}
+
+_EXPANSION = 4
+
+
+def _block_init(gen, cin, planes, stride, groups, base_width, init, gain):
+    exp = _EXPANSION
+    kw = dict(init=init, gain=gain)
+    p: Dict[str, Any] = {}
+    s: Dict[str, Any] = {}
+    width = int(planes * (base_width / 64.0)) * groups
+    p['conv1'] = cnn.conv_init(gen, 1, 1, cin, width, **kw)
+    p['bn1'], s['bn1'] = cnn.bn_init(width)
+    p['conv2'] = cnn.conv_init(gen, 3, 3, width, width, groups=groups, **kw)
+    p['bn2'], s['bn2'] = cnn.bn_init(width)
+    p['conv3'] = cnn.conv_init(gen, 1, 1, width, planes * exp, **kw)
+    p['bn3'], s['bn3'] = cnn.bn_init(planes * exp)
+    if stride != 1 or cin != planes * exp:
+        p['down_conv'] = cnn.conv_init(gen, 1, 1, cin, planes * exp, **kw)
+        p['down_bn'], s['down_bn'] = cnn.bn_init(planes * exp)
+    return p, s
+
+
+def init(gen, arch='resnet50', in_channels=3, num_classes=1000,
+         weight_init='kaiming_out', gain=0.02,
+         layers_override=None, device='cpu'):
+    """Build (params, stats, static_cfg). gen: torch.Generator on the
+    CPU (weights are drawn there and moved to `device`, so a seed gives
+    the same tree on every device)."""
+    block, layers, groups, base_width = ARCHS[arch]
+    if layers_override is not None:
+        layers = tuple(layers_override)
+    exp = _EXPANSION
+    p: Dict[str, Any] = {}
+    s: Dict[str, Any] = {}
+    p['conv1'] = cnn.conv_init(gen, 7, 7, in_channels, 64, init=weight_init,
+                               gain=gain)
+    p['bn1'], s['bn1'] = cnn.bn_init(64)
+    cin = 64
+    for li, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layers)):
+        stage_p, stage_s = [], []
+        for bi in range(blocks):
+            stride = 2 if (li > 0 and bi == 0) else 1
+            bp, bs = _block_init(gen, cin, planes, stride, groups,
+                                 base_width, weight_init, gain)
+            cin = planes * exp
+            stage_p.append(bp)
+            stage_s.append(bs)
+        p[f'layer{li + 1}'] = stage_p
+        s[f'layer{li + 1}'] = stage_s
+    feat_dim = 512 * exp
+    dual = isinstance(num_classes, (list, tuple))
+    head_init = weight_init if weight_init == 'xavier' else 'torch_default'
+    if dual:
+        p['fc_occ'] = cnn.linear_init(gen, feat_dim, num_classes[0],
+                                      init=head_init, gain=gain)
+        p['fc_depth'] = cnn.linear_init(gen, feat_dim, num_classes[1],
+                                        init=head_init, gain=gain)
+    else:
+        p['fc'] = cnn.linear_init(gen, feat_dim, num_classes,
+                                  init=head_init, gain=gain)
+    cfg = {'arch': arch, 'block': block, 'layers': layers, 'groups': groups,
+           'base_width': base_width, 'feat_dim': feat_dim,
+           'dual_head': dual}
+    return tree_to(p, device), tree_to(s, device), cfg
+
+
+def _block_apply(p, s, x, stride, groups):
+    relu = torch.relu
+    identity = x
+    out = relu(cnn.batch_norm_eval(p['bn1'], s['bn1'],
+                                   cnn.conv2d(p['conv1'], x)))
+    out = relu(cnn.batch_norm_eval(
+        p['bn2'], s['bn2'],
+        cnn.conv2d(p['conv2'], out, stride=stride, padding=1,
+                   groups=groups)))
+    out = cnn.batch_norm_eval(p['bn3'], s['bn3'], cnn.conv2d(p['conv3'], out))
+    if 'down_conv' in p:
+        identity = cnn.batch_norm_eval(
+            p['down_bn'], s['down_bn'],
+            cnn.conv2d(p['down_conv'], x, stride=stride))
+    return relu(out + identity)
+
+
+def apply(params, stats, cfg, x):
+    """Eval-mode forward. x: (N, H, W, C) -> logits (or an (occ, depth)
+    tuple for dual heads)."""
+    out = cnn.conv2d(params['conv1'], x, stride=2, padding=3)
+    out = torch.relu(cnn.batch_norm_eval(params['bn1'], stats['bn1'], out))
+    out = cnn.max_pool(out, 3, 2, 1)
+    for li in range(4):
+        name = f'layer{li + 1}'
+        for bi, (bp, bs) in enumerate(zip(params[name], stats[name])):
+            stride = 2 if (li > 0 and bi == 0) else 1
+            out = _block_apply(bp, bs, out, stride, cfg['groups'])
+    pooled = cnn.avg_pool_global(out)
+    if cfg['dual_head']:
+        return (cnn.linear(params['fc_occ'], pooled),
+                cnn.linear(params['fc_depth'], pooled))
+    return cnn.linear(params['fc'], pooled)

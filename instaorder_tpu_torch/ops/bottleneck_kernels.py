@@ -1,0 +1,235 @@
+"""Kernels 2-4: the boundary-int8 ("v2") bottleneck (csrc/bottleneck_v2.cu).
+
+Each wrapper replaces one TPU kernel of instaorder_tpu/ops/pallas_blocks.py
+and takes NHWC (N, H, W, C) activations (the GPU's channels-last layout;
+the TPU-only (H, W, N, C) view does not carry over):
+
+  fused_bottleneck_i8v2_identity  <- fused_bottleneck_i8v2_hwnc
+      stride 1, identity residual r*x
+  fused_bottleneck_i8v2_down_s2   <- fused_bottleneck_down_s2_i8v2_hwnc
+      stride 2, 1x1/2 projection residual
+  fused_bottleneck_i8v2_stage     <- fused_bottleneck_i8v2_hwnc_stage
+      (down=True): ResNet-50 layer1, the stride-1 projection block then
+      the identity blocks
+
+Math contract (quantize.quantize_folded_v2; the Pallas kernel bodies):
+  h1  = cdt(relu(x . w1 + b1))                    f32 accumulation
+  h2  = cdt(relu(conv3x3_s(h1) . w2 + b2))        pad 1, stride s
+  y   = h2 . w3 + b3 + r*x        (identity)
+  y   = [h2 | x_s] . [[w3],[wd]] + b3 + bd        (projection, one sum)
+  out = clip(rint(y), 0, 127) as int8, or as cdt holding the integers
+x is int8, or cdt holding integers 0..127; weights cdt (bf16 on the
+card); biases f32; r an f32 scalar.
+
+Bound on the H100: tensor-core operations (see csrc/bottleneck_v2.cu).
+Design: each block is three launches of one implicit-GEMM kernel (bf16
+WMMA, f32 accumulators) with h1/h2 in bf16 scratch from `torch.empty`.
+A (64, 64, 256) layer1 plane is 1 MB (int8) per image, far beyond one
+SM's shared memory, so the stage function runs the block kernels once
+per block with the int8 activation between blocks in device memory
+(L2 is 50 MB); fusing across blocks is later work.
+
+On CPU tensors each wrapper runs its `_plain` version (PyTorch, f32 sums
+on operands already rounded to the compute dtype: the same contract).
+On CUDA tensors it launches the kernel or raises, and adds one to its
+`launches` count per call.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+_RELU_BF16, _Q8_INT8, _Q8_BF16 = 0, 1, 2
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _conv3x3(h, w2, stride):
+    return F.conv2d(h.permute(0, 3, 1, 2), w2.permute(3, 2, 0, 1),
+                    stride=stride, padding=1).permute(0, 2, 3, 1)
+
+
+def _block_plain(x, w1, b1, w2, b2, w3, b3, stride=1, r=None, wd=None,
+                 bd=None, out_int8=True):
+    cdt = w1.dtype
+    xf = x.to(cdt).float()
+    h1 = torch.relu(xf @ w1.float() + b1).to(cdt)
+    h2 = torch.relu(_conv3x3(h1.float(), w2.float(), stride) + b2).to(cdt)
+    if wd is not None:
+        xs = xf[:, ::stride, ::stride]
+        y = torch.cat([h2.float(), xs], dim=-1) @ torch.cat(
+            [w3.float(), wd.float()]) + b3 + bd
+    else:
+        y = h2.float() @ w3.float() + b3 + x.float() * r
+    q = torch.clamp(torch.round(y), 0.0, 127.0)
+    return q.to(torch.int8 if out_int8 else cdt)
+
+
+def fused_bottleneck_i8v2_identity_plain(x, w1, b1, w2, b2, w3, b3, r,
+                                         out_int8=True):
+    return _block_plain(x, w1, b1, w2, b2, w3, b3, r=float(r),
+                        out_int8=out_int8)
+
+
+def fused_bottleneck_i8v2_down_s2_plain(x, w1, b1, w2, b2, w3, b3, wd, bd,
+                                        out_int8=True):
+    return _block_plain(x, w1, b1, w2, b2, w3, b3, stride=2, wd=wd, bd=bd,
+                        out_int8=out_int8)
+
+
+def fused_bottleneck_i8v2_stage_plain(x, down, blocks, rs, out_int8=True):
+    h = _block_plain(x, *down[:6], wd=down[6], bd=down[7],
+                     out_int8=out_int8 or bool(blocks))
+    for k, (blk, r) in enumerate(zip(blocks, rs)):
+        last = k == len(blocks) - 1
+        h = _block_plain(h, *blk, r=float(r),
+                         out_int8=out_int8 or not last)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+
+def _check_act(x, what):
+    if x.dim() != 4 or x.dtype not in (torch.int8, torch.bfloat16):
+        raise ValueError(f'{what}: expected an (N, H, W, C) int8 or bf16 '
+                         f'tensor, got {tuple(x.shape)} {x.dtype}')
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f'{what}: activation must be contiguous and '
+                         '16-byte aligned')
+    if x.shape[-1] % 32:
+        raise ValueError(f'{what}: channels must be a multiple of 32')
+
+
+def _check_w(w, k, cout, dev, what):
+    if (w.dtype != torch.bfloat16 or w.device != dev
+            or tuple(w.shape) != (k, cout) or not w.is_contiguous()
+            or w.data_ptr() % 16):
+        raise ValueError(f'{what}: weight must be a contiguous ({k}, {cout}) '
+                         f'bf16 tensor on {dev}, got {tuple(w.shape)} '
+                         f'{w.dtype} {w.device}')
+    if cout % 64:
+        raise ValueError(f'{what}: output channels must be a multiple of 64')
+
+
+def _check_b(b, cout, dev, what):
+    if (b.dtype != torch.float32 or b.device != dev
+            or tuple(b.shape) != (cout,) or not b.is_contiguous()):
+        raise ValueError(f'{what}: bias must be a contiguous ({cout},) f32 '
+                         f'tensor on {dev}')
+
+
+def _gemm(out, segs, bias, mode, bias2=None, res=None, r=0.0):
+    """One launch of the implicit-GEMM kernel. segs: [(act, w, stride,
+    ksize)] (one or two K segments); out (N, Ho, Wo, Cout)."""
+    N, Ho, Wo, Cout = out.shape
+    dev = out.device
+    args = []
+    for act, w, stride, ksize in segs + [(None, None, 1, 1)] * (2 - len(segs)):
+        if act is None:
+            args += [None, None, 0, 32, 1, 1, 1, 1]
+            continue
+        _check_act(act, 'bottleneck input')
+        _check_w(w, ksize * ksize * act.shape[-1], Cout, dev, 'bottleneck')
+        args += [act.data_ptr(), w.data_ptr(), int(act.dtype == torch.int8),
+                 act.shape[-1], act.shape[1], act.shape[2], stride, ksize]
+    _check_b(bias, Cout, dev, 'bottleneck')
+    if bias2 is not None:
+        _check_b(bias2, Cout, dev, 'bottleneck')
+    if res is not None:
+        _check_act(res, 'bottleneck residual')
+        if tuple(res.shape) != tuple(out.shape):
+            raise ValueError('identity residual must match the output shape')
+    rc = _build.library().io_conv_gemm(
+        *args, N, Ho, Wo, Cout, bias.data_ptr(),
+        None if bias2 is None else bias2.data_ptr(),
+        None if res is None else res.data_ptr(),
+        int(res is not None and res.dtype == torch.int8), float(r),
+        out.data_ptr(), mode, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, 'bottleneck gemm')
+    return out
+
+
+def _block_cuda(x, w1, b1, w2, b2, w3, b3, stride=1, r=None, wd=None,
+                bd=None, out_int8=True):
+    if x.device.type != 'cuda':
+        raise ValueError('bottleneck kernel: x must be a CUDA tensor')
+    N, H, W, _ = x.shape
+    Cm, Cout = w1.shape[-1], w3.shape[-1]
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    dev = x.device
+    empty = lambda c, dt, h=Ho, w=Wo: torch.empty((N, h, w, c), dtype=dt,
+                                                  device=dev)
+    h1 = _gemm(empty(Cm, torch.bfloat16, H, W), [(x, w1, 1, 1)], b1,
+               _RELU_BF16)
+    h2 = _gemm(empty(Cm, torch.bfloat16),
+               [(h1, w2.reshape(9 * Cm, Cm), stride, 3)], b2, _RELU_BF16)
+    out = empty(Cout, torch.int8 if out_int8 else torch.bfloat16)
+    mode = _Q8_INT8 if out_int8 else _Q8_BF16
+    if wd is not None:
+        return _gemm(out, [(h2, w3, 1, 1), (x, wd, stride, 1)], b3, mode,
+                     bias2=bd)
+    return _gemm(out, [(h2, w3, 1, 1)], b3, mode, res=x, r=float(r))
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def fused_bottleneck_i8v2_identity(x, w1, b1, w2, b2, w3, b3, r,
+                                   out_int8=True):
+    """Stride-1 identity bottleneck. x (N, H, W, C); w1 (C, Cm); w2
+    (3, 3, Cm, Cm); w3 (Cm, C); r float. -> (N, H, W, C) int8 or cdt."""
+    if x.device.type == 'cpu':
+        return fused_bottleneck_i8v2_identity_plain(
+            x, w1, b1, w2, b2, w3, b3, r, out_int8=out_int8)
+    out = _block_cuda(x, w1, b1, w2, b2, w3, b3, r=r, out_int8=out_int8)
+    fused_bottleneck_i8v2_identity.launches += 1
+    return out
+
+
+def fused_bottleneck_i8v2_down_s2(x, w1, b1, w2, b2, w3, b3, wd, bd,
+                                  out_int8=True):
+    """Stride-2 projection bottleneck. x (N, H, W, Cin); wd (Cin, Cout)
+    -> (N, H/2, W/2, Cout) int8 or cdt."""
+    if x.device.type == 'cpu':
+        return fused_bottleneck_i8v2_down_s2_plain(
+            x, w1, b1, w2, b2, w3, b3, wd, bd, out_int8=out_int8)
+    out = _block_cuda(x, w1, b1, w2, b2, w3, b3, stride=2, wd=wd, bd=bd,
+                      out_int8=out_int8)
+    fused_bottleneck_i8v2_down_s2.launches += 1
+    return out
+
+
+def fused_bottleneck_i8v2_stage(x, down, blocks, rs, out_int8=True):
+    """A stage: the stride-1 projection block `down` = (w1, b1, w2, b2,
+    w3, b3, wd, bd), then the identity blocks `blocks` = [(w1, b1, w2,
+    b2, w3, b3)] with residual scales `rs`. The activation between
+    blocks is int8 in device memory (exact: the values are integers
+    0..127). x (N, H, W, Cin) -> (N, H, W, Cout)."""
+    if x.device.type == 'cpu':
+        return fused_bottleneck_i8v2_stage_plain(x, down, blocks, rs,
+                                                 out_int8=out_int8)
+    if len(blocks) != len(rs):
+        raise ValueError('one residual scale per identity block')
+    h = _block_cuda(x, *down[:6], wd=down[6], bd=down[7],
+                    out_int8=out_int8 or bool(blocks))
+    for k, (blk, r) in enumerate(zip(blocks, rs)):
+        last = k == len(blocks) - 1
+        h = _block_cuda(h, *blk, r=r, out_int8=out_int8 or not last)
+    fused_bottleneck_i8v2_stage.launches += 1
+    return h
+
+
+fused_bottleneck_i8v2_identity.launches = 0
+fused_bottleneck_i8v2_down_s2.launches = 0
+fused_bottleneck_i8v2_stage.launches = 0

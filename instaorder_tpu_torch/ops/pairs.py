@@ -1,0 +1,184 @@
+"""Pair geometry and pair-batch preprocessing (counterpart of
+instaorder_tpu/ops/pairs.py).
+
+  image (H, W, 3) + masks (N, H, W) + per-pair crop rois (P, 4)
+    -> (P, sz, sz, 5) model-ready batch, channels [mask_i, mask_j, R, G, B]
+
+Semantics match cv2 exactly: the crop window pads with 0 outside the
+image, resize taps clamp to the crop window, RGB uses INTER_CUBIC
+(A=-0.75, half-pixel centres) and masks INTER_NEAREST (asymmetric floor
+mapping).
+
+`build_pair_batch_matmul` is the cv2-exact dense-matrix formulation (the
+parity reference); `build_pair_batches_fused` is the serving path, one
+CUDA kernel for all five channels (ops/prep_kernels.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .resize import _cubic_kernel
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+def pair_rois(bboxes, pair_idx):
+    """Union-bbox square crop roi for each pair. bboxes (..., N, 4) f32
+    xywh; pair_idx (P, 2) int. Returns (..., P, 4) f32 [x, y, size,
+    size], int-truncated like the reference."""
+    pair_idx = torch.as_tensor(pair_idx, dtype=torch.long,
+                               device=bboxes.device)
+    b1 = bboxes[..., pair_idx[:, 0], :]
+    b2 = bboxes[..., pair_idx[:, 1], :]
+    left = torch.minimum(b1[..., 0], b2[..., 0])
+    top = torch.minimum(b1[..., 1], b2[..., 1])
+    right = torch.maximum(b1[..., 0] + b1[..., 2], b2[..., 0] + b2[..., 2])
+    bottom = torch.maximum(b1[..., 1] + b1[..., 3], b2[..., 1] + b2[..., 3])
+    w = right - left
+    h = bottom - top
+    size = torch.maximum(torch.sqrt(w * h * 2.0),
+                         torch.maximum(w * 1.1, h * 1.1))
+    cx = left + w / 2.0
+    cy = top + h / 2.0
+    x = torch.trunc(cx - size / 2.0)
+    y = torch.trunc(cy - size / 2.0)
+    s = torch.trunc(size)
+    return torch.stack([x, y, s, s], dim=-1)
+
+
+def all_pair_indices(n: int, p_max: int | None = None):
+    """Upper-triangle (i, j), i<j pair list, padded to p_max. Returns
+    (pair_idx (P, 2) int32, valid (P,) bool) numpy arrays."""
+    idx = [(i, j) for i in range(n) for j in range(i + 1, n)]
+    p = len(idx)
+    if p_max is None:
+        p_max = p
+    assert p_max >= p
+    out = np.zeros((p_max, 2), np.int32)
+    valid = np.zeros((p_max,), bool)
+    if p:
+        out[:p] = np.asarray(idx, np.int32)
+        valid[:p] = True
+    return out, valid
+
+
+def _arange_f32(n, like):
+    return torch.arange(n, dtype=torch.float32, device=like.device)
+
+
+def _nearest_taps(roi_off, roi_size, out_size, src_size):
+    """cv2 INTER_NEAREST indices for a cropped window. roi_off/roi_size
+    (...,) f32 -> idx (..., out) int64 into the source axis, valid (...,
+    out) bool (inside the image)."""
+    d = _arange_f32(out_size, roi_size)
+    size = roi_size[..., None]
+    t = torch.floor(d * size / out_size)
+    t = torch.minimum(torch.clamp(t, min=0.0), size - 1.0)
+    src = t + roi_off[..., None]
+    valid = (src >= 0) & (src <= src_size - 1)
+    # int cast after the clip: a fractional size-1 clamp truncates
+    return torch.clamp(src, 0, src_size - 1).long(), valid
+
+
+def _cubic_taps(roi_off, roi_size, out_size, src_size):
+    """cv2 INTER_CUBIC 4-tap indices/weights for a cropped window:
+    idx (..., out, 4) int64, w (..., out, 4) f32, valid (..., out, 4).
+    Taps clamp to the crop window (replicate); invalid (outside-image)
+    taps are flagged for zero padding."""
+    d = _arange_f32(out_size, roi_size)
+    size = roi_size[..., None, None]
+    f = (d + 0.5) * roi_size[..., None] / out_size - 0.5
+    x0 = torch.floor(f)[..., None]
+    t = f[..., None] - x0
+    ks = torch.arange(-1, 3, dtype=torch.float32, device=d.device)
+    w = _cubic_kernel(ks - t)
+    tap = x0 + ks
+    tap = torch.minimum(torch.clamp(tap, min=0.0), size - 1.0)
+    src = tap + roi_off[..., None, None]
+    valid = (src >= 0) & (src <= src_size - 1)
+    return torch.clamp(src, 0, src_size - 1).long(), w, valid
+
+
+def _seq_sum4(v):
+    """Sum over a trailing axis of 4 in index order (the reference's
+    reduction order for the clamp-accumulated tap mass)."""
+    return ((v[..., 0] + v[..., 1]) + v[..., 2]) + v[..., 3]
+
+
+def _interp_matrix(roi_off, roi_size, out_size, src_size, method='cubic'):
+    """(..., out_size, src_size) dense interpolation matrix for one axis
+    of cropped windows — the crop+resize as a matmul. Out-of-image taps
+    are zero (the crop's zero padding); taps clamp to the crop window.
+    Direct grid evaluation with the same f32 expressions as the JAX
+    package, plus the clamp-accumulated tap mass at the crop borders
+    (c == 0 and c == floor(roi_size - 1))."""
+    if method == 'nearest':
+        idx, valid = _nearest_taps(roi_off, roi_size, out_size, src_size)
+        iota = torch.arange(src_size, device=idx.device)
+        return ((idx[..., None] == iota) & valid[..., None]).float()
+    assert method == 'cubic', method
+    d = _arange_f32(out_size, roi_size)
+    size = roi_size[..., None, None]
+    f = (d + 0.5) * roi_size[..., None] / out_size - 0.5
+    x0 = torch.floor(f)
+    frac = f - x0
+    ks = torch.arange(-1, 3, dtype=torch.float32, device=d.device)
+    w = _cubic_kernel(ks - frac[..., None])              # (..., out, 4)
+    tap = x0[..., None] + ks
+    low = _seq_sum4(w * (tap < 0.0))
+    chigh = torch.floor(size - 1.0)
+    high = _seq_sum4(w * (tap > size - 1.0))
+    c = _arange_f32(src_size, d) - roi_off[..., None, None]  # crop coords
+    inwin = (c >= 0.0) & (c <= size - 1.0)
+    m = _cubic_kernel((c - x0[..., None]) - frac[..., None]) * inwin
+    return (m + low[..., None] * (c == 0.0)) + high[..., None] * (c == chigh)
+
+
+def _normalize(rgb):
+    mean = torch.as_tensor(IMAGENET_MEAN, device=rgb.device)
+    std = torch.as_tensor(IMAGENET_STD, device=rgb.device)
+    return (rgb / 255.0 - mean) / std
+
+
+def build_pair_batch_matmul(image, masks, pair_idx, rois, out_size=256,
+                            normalize=True, dtype=None):
+    """Dense-matrix pair batch for ONE scene, full f32 (the JAX
+    `precision=HIGHEST` parity reference). image (H, W, 3) f32 raw
+    [0, 255]; masks (N, H, W) {0,1}; pair_idx (P, 2); rois (P, 4).
+    Returns (P, out, out, 5)."""
+    H, W = image.shape[0], image.shape[1]
+    wy = _interp_matrix(rois[:, 1], rois[:, 3], out_size, H)
+    wx = _interp_matrix(rois[:, 0], rois[:, 2], out_size, W)
+    img = image.float()
+    stage1 = torch.einsum('pjw,hwc->phjc', wx, img)
+    rgb = torch.einsum('pih,phjc->pijc', wy, stage1)
+    rgb = torch.clamp(torch.round(rgb), 0.0, 255.0)
+    if normalize:
+        rgb = _normalize(rgb)
+    pidx = torch.as_tensor(pair_idx, dtype=torch.long, device=image.device)
+    wyn = _interp_matrix(rois[:, 1], rois[:, 3], out_size, H, 'nearest')
+    wxn = _interp_matrix(rois[:, 0], rois[:, 2], out_size, W, 'nearest')
+    sel = masks.float()[pidx.reshape(-1)].reshape(pidx.shape[0], 2, H, W)
+    m1 = torch.einsum('pjw,pmhw->pmhj', wxn, sel)
+    m = torch.einsum('pih,pmhj->pmij', wyn, m1)
+    out_dtype = rgb.dtype if dtype is None else dtype
+    return torch.cat([m[:, 0, :, :, None], m[:, 1, :, :, None], rgb],
+                     dim=-1).to(out_dtype)
+
+
+def build_pair_batches_fused(images, masks, pair_idx, rois, out_size=256,
+                             passes=3):
+    """Multi-scene 5-channel pair prep through the fused prep kernel
+    (ops/prep_kernels.fused_prep_pairs). images (S, H, W, 3) f32 raw;
+    masks (S, N, H, W) {0,1}; pair_idx (P, 2); rois (S, P, 4) ->
+    (S*P, out, out, 5) bf16. passes: 3 = f32 weights (serving
+    precision), 1 = bf16 weights and row values (the serving-d1 knob).
+
+    The kernel reads its 4x4 cubic taps directly, so any image size
+    works (no 8-multiple padding) and there is no per-call pair cap."""
+    from .prep_kernels import fused_prep_pairs
+    return fused_prep_pairs(images, masks, pair_idx, rois,
+                            out_size=out_size, passes=passes)

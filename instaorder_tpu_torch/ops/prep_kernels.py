@@ -1,0 +1,159 @@
+"""Kernel 1: fused 5-channel pair prep (csrc/prep.cu).
+
+Replaces instaorder_tpu/ops/prep_pallas.py `fused_prep_pairs` (kernel
+body `_prep5_kernel`): per (scene, pair) union-bbox crop, cv2 cubic RGB
+resize, uint8 round/clip, ImageNet normalisation and nearest resize of
+both instance masks, written straight to NHWC (S*P, out, out, 5) bf16.
+
+Bound on the H100: memory (the 5*out*out bf16 output per pair plus each
+scene's image and masks read once, over 3.35 TB/s). The TPU kernel's
+MXU trick — contracting dense interpolation windows as matmuls — does
+not carry over: the CUDA kernel reads each output pixel's 4x4 taps
+directly, one block per (pair, tile of 8 output rows), x taps kept in
+registers, and writes the output once with no transpose pass.
+
+`fused_prep_pairs_plain` is the same function in PyTorch: the same
+merged tap weights (bit-identical to the dense matrix of
+ops/pairs._interp_matrix), the same separable order (sum over x first)
+and the same `passes` contract, so kernel and plain version agree
+bit for bit up to the order of f32 sums.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _build
+from .pairs import IMAGENET_MEAN, IMAGENET_STD, _nearest_taps, _seq_sum4
+from .resize import _cubic_kernel
+
+
+def _merged_cubic_taps(off, size, out_size, src_size, passes):
+    """Per output index the 4 cubic taps as (idx (..., out, 4) int64,
+    w (..., out, 4) f32). A tap's weight is the dense matrix entry of
+    its (crop-clamped) column — interior kernel weight plus the clamped
+    taps' mass at the crop borders — given once per distinct column
+    (zero for a repeat) and zero for a column outside the image. With
+    passes=1 the weights are rounded to bf16."""
+    d = torch.arange(out_size, dtype=torch.float32, device=size.device)
+    f = (d + 0.5) * size[..., None] / out_size - 0.5
+    x0 = torch.floor(f)[..., None]
+    frac = f[..., None] - x0
+    ks = torch.arange(-1, 3, dtype=torch.float32, device=d.device)
+    w4 = _cubic_kernel(ks - frac)
+    tap = x0 + ks
+    lim = size[..., None, None] - 1.0
+    low = _seq_sum4(w4 * (tap < 0.0))
+    high = _seq_sum4(w4 * (tap > lim))
+    chigh = torch.floor(lim)
+    c = torch.minimum(torch.clamp(tap, min=0.0), chigh)
+    inwin = (c >= 0.0) & (c <= lim)
+    m = _cubic_kernel((c - x0) - frac) * inwin
+    ent = (m + low[..., None] * (c == 0.0)) + high[..., None] * (c == chigh)
+    dup = torch.zeros_like(c, dtype=torch.bool)
+    dup[..., 1:] = c[..., 1:] == c[..., :-1]
+    src = c + off[..., None, None]
+    valid = (src >= 0.0) & (src <= src_size - 1)
+    w = torch.where(dup | ~valid, torch.zeros_like(ent), ent)
+    if passes == 1:
+        w = w.bfloat16().float()
+    return torch.clamp(src, 0, src_size - 1).long(), w
+
+
+def fused_prep_pairs_plain(images, masks, pair_idx, rois, out_size=256,
+                           passes=3):
+    """The prep kernel's function in PyTorch (any device). images
+    (S, H, W, 3) f32 raw [0, 255]; masks (S, N, H, W) {0,1}; pair_idx
+    (P, 2); rois (S, P, 4) f32 xywh -> (S*P, out, out, 5) bf16."""
+    if passes not in (1, 3):
+        raise ValueError(f'passes must be 1 or 3, got {passes}')
+    S, H, W, _ = images.shape
+    pidx = torch.as_tensor(pair_idx, dtype=torch.long, device=images.device)
+    P = pidx.shape[0]
+    mean = torch.as_tensor(IMAGENET_MEAN, device=images.device)
+    std = torch.as_tensor(IMAGENET_STD, device=images.device)
+    out = torch.empty((S * P, out_size, out_size, 5), dtype=torch.bfloat16,
+                      device=images.device)
+    ar = torch.arange(P, device=images.device)
+    for s in range(S):
+        r = rois[s].float()
+        iy, wy = _merged_cubic_taps(r[:, 1], r[:, 3], out_size, H, passes)
+        ix, wx = _merged_cubic_taps(r[:, 0], r[:, 2], out_size, W, passes)
+        img = images[s].float()
+        # stage 1 (x axis): (P, H, out, 3) row values
+        g = img[:, ix].permute(1, 0, 2, 4, 3)            # (P, H, out, 3, 4)
+        s1 = _seq_sum4(g * wx[:, None, :, None, :])
+        if passes == 1:
+            s1 = s1.bfloat16().float()
+        # stage 2 (y axis): (P, out_i, out_j, 3)
+        g2 = s1[ar[:, None, None], iy].permute(0, 1, 3, 4, 2)
+        acc = _seq_sum4(g2 * wy[:, :, None, None, :])
+        rgb = torch.clamp(torch.round(acc), 0.0, 255.0)
+        rgb = (rgb / 255.0 - mean) / std
+        ny, vy = _nearest_taps(r[:, 1], r[:, 3], out_size, H)
+        nx, vx = _nearest_taps(r[:, 0], r[:, 2], out_size, W)
+        valid = vy[:, :, None] & vx[:, None, :]
+        sl = slice(s * P, (s + 1) * P)
+        for ch in range(2):
+            mk = masks[s][pidx[:, ch]].float()              # (P, H, W)
+            mv = mk[ar[:, None, None], ny[:, :, None], nx[:, None, :]]
+            out[sl, :, :, ch] = (mv * valid).bfloat16()
+        out[sl, :, :, 2:] = rgb.bfloat16()
+    return out
+
+
+def fused_prep_pairs(images, masks, pair_idx, rois, out_size=256,
+                     passes=3):
+    """5-channel pair prep. On CUDA tensors it launches the CUDA kernel
+    (one launch, counted in `fused_prep_pairs.launches`); on CPU tensors
+    it runs `fused_prep_pairs_plain`.
+
+    CUDA inputs: images (S, H, W, 3) f32, masks (S, N, H, W) uint8,
+    pair_idx (P, 2) int32, rois (S, P, 4) f32, all contiguous on one
+    device. pair_idx entries must index the N masks (a host pair_idx is
+    range-checked before upload)."""
+    if images.device.type == 'cpu':
+        return fused_prep_pairs_plain(images, masks, pair_idx, rois,
+                                      out_size=out_size, passes=passes)
+    if passes not in (1, 3):
+        raise ValueError(f'passes must be 1 or 3, got {passes}')
+    dev = images.device
+    if not isinstance(pair_idx, torch.Tensor) or pair_idx.device != dev:
+        host = np.asarray(pair_idx if not isinstance(pair_idx, torch.Tensor)
+                          else pair_idx.cpu())
+        if host.size and (host.min() < 0 or host.max() >= masks.shape[1]):
+            raise ValueError('pair_idx out of range of the masks')
+        pair_idx = torch.as_tensor(host, dtype=torch.int32, device=dev)
+    S, H, W, C = images.shape
+    P = pair_idx.shape[0]
+    checks = [
+        (images.dtype == torch.float32 and C == 3, 'images (S,H,W,3) f32'),
+        (masks.dtype == torch.uint8 and masks.dim() == 4
+         and masks.shape[0] == S and tuple(masks.shape[2:]) == (H, W),
+         'masks (S,N,H,W) uint8'),
+        (pair_idx.dtype == torch.int32 and tuple(pair_idx.shape) == (P, 2),
+         'pair_idx (P,2) int32'),
+        (rois.dtype == torch.float32 and tuple(rois.shape) == (S, P, 4),
+         'rois (S,P,4) f32'),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise ValueError(f'fused_prep_pairs expects {what}')
+    for t in (images, masks, pair_idx, rois):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError('fused_prep_pairs inputs must be contiguous '
+                             f'and on {dev}')
+    out = torch.empty((S * P, out_size, out_size, 5), dtype=torch.bfloat16,
+                      device=dev)
+    lib = _build.library()
+    rc = lib.io_prep_pairs(
+        images.data_ptr(), masks.data_ptr(), pair_idx.data_ptr(),
+        rois.data_ptr(), out.data_ptr(), S, P, masks.shape[1], H, W,
+        out_size, passes, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, 'fused_prep_pairs')
+    fused_prep_pairs.launches += 1
+    return out
+
+
+fused_prep_pairs.launches = 0
