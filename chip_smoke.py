@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one GPU: builds the kernels,
-holds each against its plain PyTorch version at the serving path's
-shapes, drives the serving-d1 megastep at full ResNet-50 width, and
-prints one JSON line for the kernels plus a final status line.
+holds each against its plain PyTorch version at the serving paths'
+shapes, drives the serving-d1, parity and serving-d2 megasteps at full
+ResNet-50 width, and prints one JSON line for the kernels plus a final
+status line.
 
     python3 chip_smoke.py
 
@@ -10,13 +11,18 @@ Phases (any failed check raises and the script exits nonzero):
   1. build the CUDA sources (instaorder_tpu_torch/csrc) with nvcc; print
      the build time and the card's name and power limit;
   2. each kernel vs its plain version on the card, at the serving
-     batch: the prep on 4 synthetic 480x640 scenes of 10 instances
-     (180 pairs), the bottleneck kernels on the activations the serving
-     trunk hands them (the plain trunk's, call by call); both timed with
-     CUDA events;
-  3. the serving megastep (calibrated, v2-quantized ResNet-50 from seed
-     0): launch counts per megastep, pairs/s, and the logits of a few
-     pairs against the plain path run on the CPU;
+     batch: the preps (5-channel and RGB) on 4 synthetic 480x640 scenes
+     of 10 instances (180 pairs), the v2 bottleneck kernels and the q8
+     stem on the activations the serving trunk hands them, the bf16
+     blocks and the bf16 stem on those of the parity trunk (the plain
+     trunk's, call by call; 360 images, both directions); all timed with
+     CUDA events, and the bf16 kernels beside the plain cuDNN chain the
+     JAX default runs for the same block or stem;
+  3. the megasteps (v2 model calibrated from seed 0; bf16 parity model
+     from seed 0): serving-d1, parity with its default kernels, parity
+     with identity,down,stem and the RGB prep kernel, serving-d2. For
+     each: launch counts per megastep, pairs/s, and the logits of a few
+     pairs (both directions) against the plain path run on the CPU;
   4. the `kernels` JSON line, then {"ok": true, "device": {...}}.
 Exits nonzero without a result when no CUDA device is present.
 """
@@ -39,15 +45,38 @@ PREP = 'fused_prep_pairs'
 STAGE = 'fused_bottleneck_i8v2_hwnc_stage'
 DOWN = 'fused_bottleneck_down_s2_i8v2_hwnc'
 IDEN = 'fused_bottleneck_i8v2_hwnc'
-SOURCES = {PREP: 'instaorder_tpu_torch/csrc/prep.cu',
-           STAGE: 'instaorder_tpu_torch/csrc/bottleneck_v2.cu',
-           DOWN: 'instaorder_tpu_torch/csrc/bottleneck_v2.cu',
-           IDEN: 'instaorder_tpu_torch/csrc/bottleneck_v2.cu'}
+RGB = 'fused_prep_rgb'
+IDEN16 = 'fused_bottleneck'
+DOWN16 = 'fused_bottleneck_down'
+STEM = 'fused_stem'
+_CSRC = 'instaorder_tpu_torch/csrc/'
+SOURCES = {PREP: _CSRC + 'prep.cu', STAGE: _CSRC + 'bottleneck_v2.cu',
+           DOWN: _CSRC + 'bottleneck_v2.cu', IDEN: _CSRC + 'bottleneck_v2.cu',
+           RGB: _CSRC + 'prep.cu', IDEN16: _CSRC + 'bottleneck_v2.cu',
+           DOWN16: _CSRC + 'bottleneck_v2.cu', STEM: _CSRC + 'stem.cu'}
 REPLACES = {PREP: 'instaorder_tpu/ops/prep_pallas.py:315',
             STAGE: 'instaorder_tpu/ops/pallas_blocks.py:1526',
             DOWN: 'instaorder_tpu/ops/pallas_blocks.py:1010',
-            IDEN: 'instaorder_tpu/ops/pallas_blocks.py:739'}
-EXPECTED_LAUNCHES = {PREP: 1, STAGE: 1, DOWN: 3, IDEN: 10}
+            IDEN: 'instaorder_tpu/ops/pallas_blocks.py:739',
+            RGB: 'instaorder_tpu/ops/prep_pallas.py:200',
+            IDEN16: 'instaorder_tpu/ops/pallas_blocks.py:86',
+            DOWN16: 'instaorder_tpu/ops/pallas_blocks.py:1974',
+            STEM: 'instaorder_tpu/ops/pallas_blocks.py:2271'}
+# the megasteps: (name, profile, megastep keywords, launches per step;
+# every other kernel must launch 0 times)
+V2_LAUNCHES = {PREP: 1, STAGE: 1, DOWN: 3, IDEN: 10}
+# pairs of the v2 megasteps whose logit error is printed beside the
+# 4-pair bar (the boundary round() ties leave these paths the least room)
+MARGIN_PAIRS = 12
+KFEATS = ('identity', 'down', 'stem')
+MEGASTEPS = [
+    ('serving-d1', 'serving-d1', {}, V2_LAUNCHES),
+    ('parity', 'parity', {}, {IDEN16: 5}),
+    ('parity+identity,down,stem+prep_rgb=pallas', 'parity',
+     {'prep_rgb': 'pallas', 'use_pallas': KFEATS},
+     {IDEN16: 5, DOWN16: 3, STEM: 1, RGB: 1}),
+    ('serving-d2', 'serving-d2', {}, V2_LAUNCHES),
+]
 
 
 def check(ok, what):
@@ -92,6 +121,24 @@ def diff(torch, what, got, want):
     return err, frac
 
 
+def bf16_diff(torch, what, got, want):
+    """diff() plus the bf16 bars: max |kernel - plain| <= 1e-2 max |plain|
+    and under 1% of values more than one bf16 ulp apart."""
+    err, _ = diff(torch, what, got, want)
+    w = want.float()
+    d = (got.float() - w).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    far = float((d > ulp).float().mean())
+    scale = float(w.abs().max())
+    print(f'  {far:.2e} of values more than one bf16 ulp apart; '
+          f'max |plain| {scale}')
+    check(err <= 1e-2 * scale and far < 0.01,
+          f'{what}: within 1e-2 of max |plain|, <1% beyond one ulp')
+    live = float((w != 0).float().mean())
+    check(live > 0.05, f'{what}: {live:.3f} of outputs nonzero')
+    return err
+
+
 def block_macs(shape, blk, stride):
     """MACs of one bottleneck on an (N, H, W, Cin) input: conv1 at the
     input resolution, conv2/conv3/projection at the output resolution."""
@@ -104,30 +151,28 @@ def block_macs(shape, blk, stride):
     return macs, (n, ho, wo, cout)
 
 
-def trunk_calls(q, BK):
+def trunk_calls(q, BK, FO):
     """The trunk's kernel calls in _apply_trunk_v2's order: (name,
     kernel(h), plain(h), [(block params, stride)] it covers)."""
-    un = lambda c: (c['w'][0, 0], c['b'])
-    iden = lambda b: (*un(b['conv1']), b['conv2']['w'], b['conv2']['b'],
-                      *un(b['conv3']))
     l1 = q['layer1']
-    down = (*iden(l1[0]), *un(l1[0]['down']))
-    run, rs = [iden(b) for b in l1[1:]], [b['r'] for b in l1[1:]]
+    down = FO._kernel_args(l1[0])
+    run = [FO._kernel_args(b) for b in l1[1:]]
+    rs = [b['r'] for b in l1[1:]]
     yield (STAGE, lambda h: BK.fused_bottleneck_i8v2_stage(h, down, run, rs),
            lambda h: BK.fused_bottleneck_i8v2_stage_plain(h, down, run, rs),
            [(b, 1) for b in l1])
     rest = [qb for li in (2, 3, 4) for qb in q[f'layer{li}']]
     for i, qb in enumerate(rest):
         o = i + 1 == len(rest)          # int8 out at the trunk's end only
+        a = FO._kernel_args(qb)
         if 'down' in qb:
-            a = (*iden(qb), *un(qb['down']))
             yield (DOWN,
                    lambda h, a=a, o=o: BK.fused_bottleneck_i8v2_down_s2(
                        h, *a, out_int8=o),
                    lambda h, a=a, o=o: BK.fused_bottleneck_i8v2_down_s2_plain(
                        h, *a, out_int8=o), [(qb, 2)])
         else:
-            a = (*iden(qb), qb['r'])
+            a = (*a, qb['r'])
             yield (IDEN,
                    lambda h, a=a, o=o: BK.fused_bottleneck_i8v2_identity(
                        h, *a, out_int8=o),
@@ -135,16 +180,15 @@ def trunk_calls(q, BK):
                        h, *a, out_int8=o), [(qb, 1)])
 
 
-def check_stage_blocks(torch, BK, q, h):
+def check_stage_blocks(torch, BK, FO, q, h):
     """Each block of the layer1 stage on the plain stage's input: the
     one-block bar holds per block. Over the whole stage a tie flip in
     one block's output moves the next block's input, so the stage's own
     bar is one LSB per chained block."""
     for j, qb in enumerate(q['layer1']):
-        w = (qb['conv1']['w'][0, 0], qb['conv1']['b'], qb['conv2']['w'],
-             qb['conv2']['b'], qb['conv3']['w'][0, 0], qb['conv3']['b'])
-        kw = ({'wd': qb['down']['w'][0, 0], 'bd': qb['down']['b']}
-              if 'down' in qb else {'r': qb['r']})
+        w = FO._kernel_args(qb)
+        kw = ({'wd': w[6], 'bd': w[7]} if 'down' in qb else {'r': qb['r']})
+        w = w[:6]
         want = BK._block_plain(h, *w, **kw)
         err, frac = diff(torch, f'  stage block {j}',
                          BK._block_cuda(h, *w, **kw), want)
@@ -173,12 +217,122 @@ def phase_prep(torch, PK, prep_args, n_pairs):
     return x_k, result
 
 
-def phase_trunk(torch, BK, Q, q, x, results):
+def phase_prep_rgb(torch, PK, images, rois, n_pairs):
+    """The RGB prep kernel at passes 3 (the parity path's --prep-rgb
+    pallas) and 1; the row reports passes 3."""
+    for passes in (1, 3):
+        x_k = PK.fused_prep_rgb(images, rois, out_size=OUT, passes=passes)
+        x_p = PK.fused_prep_rgb_plain(images, rois, out_size=OUT,
+                                      passes=passes)
+        err, frac = diff(torch, f'{RGB} passes={passes}', x_k, x_p)
+        check(err <= 0.03125 + 1e-6 and frac < 0.01,
+              'prep RGB within one uint8 LSB on <1% of pixels')
+    return dict(
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: PK.fused_prep_rgb(images, rois,
+                                                    out_size=OUT)),
+        plain_ms=cuda_ms(torch, lambda: PK.fused_prep_rgb_plain(
+            images, rois, out_size=OUT), reps=2),
+        chain_ms=cuda_ms(torch, lambda: rgb_einsum(torch, images, rois),
+                         reps=2),
+        bytes=nbytes(x_k, images, rois),
+        ops=n_pairs * OUT * OUT * PREP_FLOPS_PER_PIXEL,
+        ops_rate=H100_F32_PER_S)
+
+
+def rgb_einsum(torch, images, rois):
+    """The RGB half of the parity profile's einsum prep (the JAX default
+    route): two dense interpolation matmuls batched over the scenes,
+    round, clip, normalise."""
+    from instaorder_tpu_torch.ops import pairs as P
+    return P._rgb_pair_batch(images, rois, OUT).bfloat16().reshape(
+        -1, OUT, OUT, 3)
+
+
+def phase_stem_q8(torch, SK, FO, q, x):
+    """The v2 path's q8 stem (double width, Cout 128) vs its plain."""
+    c1 = FO.siamese_conv1(q['conv1'])
+    x = x.contiguous()
+    want = SK.fused_stem_plain(x, c1['w'], c1['b'], q8=True)
+    err, frac = diff(torch, f'{STEM} q8 {tuple(x.shape)}->'
+                     f'{tuple(want.shape)}', SK.fused_stem(
+                         x, c1['w'], c1['b'], q8=True), want)
+    check(err <= 1 and frac < 0.01, f'{STEM} q8: <=1 LSB on <1%')
+    live = float(((want > 0) & (want < 127)).float().mean())
+    check(live > 0.05, f'{STEM} q8: {live:.3f} of outputs unclipped')
+    ms = cuda_ms(torch, lambda: SK.fused_stem(x, c1['w'], c1['b'], q8=True))
+    plain_ms = cuda_ms(torch, lambda: SK.fused_stem_plain(
+        x, c1['w'], c1['b'], q8=True), reps=2)
+    print(f'  {STEM} q8: {ms:.4f} ms, plain {plain_ms:.4f} ms')
+
+
+def add_row(results, name, err, kern, plain, chain, nbytes_, ops):
+    r = results.setdefault(name, dict(
+        max_abs_err=0.0, ms=0.0, plain_ms=0.0, chain_ms=0.0, bytes=0,
+        ops=0, ops_rate=H100_BF16_PER_S))
+    r['max_abs_err'] = max(r['max_abs_err'], err)
+    r['ms'] += kern
+    r['plain_ms'] += plain
+    r['chain_ms'] += chain
+    r['bytes'] += nbytes_
+    r['ops'] += ops
+
+
+def phase_trunk_bf16(torch, B16, SK, FO, params, x, results):
+    """Walk the parity trunk with identity,down,stem: each kernel gets the
+    plain trunk's activation at its position; kernel, plain version and
+    the plain cuDNN chain (bf16 biases, the JAX default route) timed."""
+    c1 = FO.siamese_conv1(params['conv1'])
+    b32 = c1['b'].float()
+    x = x.contiguous()
+    want = SK.fused_stem_plain(x, c1['w'], b32)
+    err = bf16_diff(torch, f'{STEM} bf16 {tuple(x.shape)}->'
+                    f'{tuple(want.shape)}', SK.fused_stem(x, c1['w'], b32),
+                    want)
+    n, hc, wc = x.shape[0], (x.shape[1] + 1) // 2, (x.shape[2] + 1) // 2
+    add_row(results, STEM, err,
+            cuda_ms(torch, lambda: SK.fused_stem(x, c1['w'], b32)),
+            cuda_ms(torch, lambda: SK.fused_stem_plain(x, c1['w'], b32),
+                    reps=2),
+            cuda_ms(torch, lambda: FO._plain_stem(c1, x), reps=2),
+            nbytes(x, want, c1['w'], b32),
+            2 * n * hc * wc * c1['w'][..., 0].numel() * c1['w'].shape[-1])
+    h = FO.directions_to_batch(want)
+    for li in range(4):
+        for bi, bp in enumerate(params[f'layer{li + 1}']):
+            stride = 2 if (li > 0 and bi == 0) else 1
+            if bp['conv1']['w'].shape[2] > FO.IDEN_CIN_CAP:
+                h = FO._plain_block(bp, h, stride)      # no kernel here
+                continue
+            args = FO._kernel_args(bp)
+            if 'down' in bp:
+                name = DOWN16
+                kern = lambda h, a=args, s=stride: B16.fused_bottleneck_down(
+                    h, *a, stride=s)
+                plain = lambda h, a=args, s=stride: (
+                    B16.fused_bottleneck_down_plain(h, *a, stride=s))
+            else:
+                name = IDEN16
+                kern = lambda h, a=args: B16.fused_bottleneck(h, *a)
+                plain = lambda h, a=args: B16.fused_bottleneck_plain(h, *a)
+            want = plain(h)
+            err = bf16_diff(torch, f'{name} {tuple(h.shape)}->'
+                            f'{tuple(want.shape)}', kern(h), want)
+            macs, _ = block_macs(tuple(h.shape), bp, stride)
+            add_row(results, name, err, cuda_ms(torch, lambda: kern(h)),
+                    cuda_ms(torch, lambda: plain(h), reps=2),
+                    cuda_ms(torch, lambda: FO._plain_block(bp, h, stride),
+                            reps=2),
+                    nbytes(h, want, *args), 2 * macs)
+            h = want
+
+
+def phase_trunk(torch, BK, Q, FO, q, x, results):
     """Walk the trunk: each kernel gets the plain trunk's activation at
     its position; outputs compared, both versions timed."""
     h = Q._stem_v2(q, x)
-    for name, kern, plain, blocks in trunk_calls(q, BK):
-        bar = check_stage_blocks(torch, BK, q, h) if name == STAGE else 1
+    for name, kern, plain, blocks in trunk_calls(q, BK, FO):
+        bar = check_stage_blocks(torch, BK, FO, q, h) if name == STAGE else 1
         want = plain(h)
         err, frac = diff(torch, f'{name} {tuple(h.shape)}->'
                          f'{tuple(want.shape)} {str(want.dtype)[6:]}',
@@ -204,19 +358,27 @@ def phase_trunk(torch, BK, Q, q, x, results):
         h = want
 
 
-def phase_megastep(torch, serving, Q, tree_to, wrappers, q, cfg, sc, pidx,
-                   x, n_pairs, card):
-    step = lambda: serving.megastep(q, cfg, *sc, pidx, out_size=OUT,
-                                    passes=PASSES)
+def phase_megastep(torch, name, step, reference, wrappers, expected,
+                   n_pairs, card, directions, margin_pairs):
+    """One megastep with the counts set to 0 just before it: launch
+    counts, timing, and the first `few` pairs' logits (both directions at
+    directions=2) against `reference()`, the plain path on the CPU; the
+    error over the first `margin_pairs` pairs is printed beside the bar
+    (it shows how much room the bar leaves)."""
+    print(f'--- megastep {name}')
     for w in wrappers.values():
         w.launches = 0
     logits, ij, ji = step()
     torch.cuda.synchronize()
     launches = {n: w.launches for n, w in wrappers.items()}
     print('launches per megastep:', launches)
-    check(launches == EXPECTED_LAUNCHES, f'launch counts {launches}')
-    check(tuple(logits.shape) == (n_pairs, 2)
-          and bool(torch.isfinite(logits).all()), 'finite (P, 2) logits')
+    want = {n: expected.get(n, 0) for n in wrappers}
+    check(launches == want, f'{name}: launch counts {launches}, '
+          f'expected {want}')
+    outs = logits if directions == 2 else (logits,)
+    check(all(tuple(o.shape) == (n_pairs, 2)
+              and bool(torch.isfinite(o).all()) for o in outs),
+          'finite (P, 2) logits')
 
     iters = 10
     step()
@@ -226,26 +388,41 @@ def phase_megastep(torch, serving, Q, tree_to, wrappers, q, cfg, sc, pidx,
         step()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    print(f'megastep: {n_pairs} pairs, {dt / iters * 1e3:.3f} ms/step, '
-          f'{n_pairs * iters / dt:.1f} pairs/s ({card})')
+    print(f'megastep {name}: {n_pairs} pairs, {dt / iters * 1e3:.3f} '
+          f'ms/step, {n_pairs * iters / dt:.1f} pairs/s ({card})')
 
-    # a handful of pairs through the plain path on the CPU
     few = 4
+    t0 = time.perf_counter()
     with torch.no_grad():
-        ref = Q.apply_folded_v2(tree_to(q, 'cpu'), cfg, x[:few].cpu())
-    got = logits[:few].cpu()
-    scale = max(float(ref.abs().max()), 1e-6)
-    rel = float((got - ref).abs().max()) / scale
-    print(f'logits vs plain CPU path ({few} pairs): max rel err {rel:.3e}')
-    print('logits (card):', got.tolist())
-    print('logits (cpu): ', ref.tolist())
-    check(rel < 0.02 and scale > 1e-3,
-          'nonzero logits within 2% of max |logit|')
-    p = torch.sigmoid(ref)
-    for col, dec in ((1, ij[:few].cpu()), (0, ji[:few].cpu())):
-        sure = (p[:, col] - 0.5).abs() > 1e-2
-        check(bool((dec[sure] == (p[sure, col] > 0.5)).all()),
-              'decisions agree where the reference is sure')
+        ref = reference(max(few, margin_pairs))
+    print(f'plain CPU path on {max(few, margin_pairs)} pairs: '
+          f'{time.perf_counter() - t0:.1f} s')
+    refs = ref if directions == 2 else (ref,)
+
+    def rel_err(got, r):
+        scale = max(float(r.abs().max()), 1e-6)
+        return float((got - r).abs().max()) / scale, scale
+
+    for d, (o, r_all) in enumerate(zip(outs, refs)):
+        got, r = o[:few].cpu(), r_all[:few]
+        rel, scale = rel_err(got, r)
+        print(f'direction {d}: logits vs plain CPU path ({few} pairs): '
+              f'max rel err {rel:.3e}')
+        if margin_pairs > few:
+            print(f'  over {margin_pairs} pairs: max rel err '
+                  f'{rel_err(o[:margin_pairs].cpu(), r_all)[0]:.3e}')
+        print('  logits (card):', got.tolist())
+        print('  logits (cpu): ', r.tolist())
+        check(rel < 0.02 and scale > 1e-3,
+              f'{name}: nonzero logits within 2% of max |logit|')
+    refs = tuple(r[:few] for r in refs)
+    s = [torch.sigmoid(r) for r in refs]
+    p_ij, p_ji = ((s[0][:, 1] + s[1][:, 0]) / 2, (s[0][:, 0] + s[1][:, 1]) / 2) \
+        if directions == 2 else (s[0][:, 1], s[0][:, 0])
+    for p, dec in ((p_ij, ij[:few].cpu()), (p_ji, ji[:few].cpu())):
+        sure = (p - 0.5).abs() > 1e-2
+        check(bool((dec[sure] == (p[sure] > 0.5)).all()),
+              f'{name}: decisions agree where the reference is sure')
     return launches
 
 
@@ -257,11 +434,14 @@ def main():
     from instaorder_tpu_torch import serving
     from instaorder_tpu_torch.convert import tree_to
     from instaorder_tpu_torch.device import resolve_device
+    from instaorder_tpu_torch.models import folding as FO
     from instaorder_tpu_torch.models import quantize as Q
     from instaorder_tpu_torch.ops import _build
+    from instaorder_tpu_torch.ops import bottleneck_bf16_kernels as B16
     from instaorder_tpu_torch.ops import bottleneck_kernels as BK
     from instaorder_tpu_torch.ops import pairs as P
     from instaorder_tpu_torch.ops import prep_kernels as PK
+    from instaorder_tpu_torch.ops import stem_kernels as SK
 
     dev = resolve_device()
     card = card_line()
@@ -287,30 +467,81 @@ def main():
     results = {}
     x, results[PREP] = phase_prep(torch, PK, (sc[0], sc[1], pidx, rois),
                                   n_pairs)
+    results[RGB] = phase_prep_rgb(torch, PK, sc[0], rois, n_pairs)
     # the serving model, calibrated on this prepped batch (as bench.py).
     # kaiming init: bench.py's xavier(0.02) trunk quantizes every
     # activation to 0, which would make every comparison vacuous
     t0 = time.perf_counter()
     q, cfg = serving.build_serving_model(0, x, device=dev,
                                          weight_init='kaiming_out')
+    params16, cfg16 = serving.build_parity_model(0, device=dev,
+                                                 weight_init='kaiming_out')
     torch.cuda.synchronize()
-    print(f'build_serving_model: {time.perf_counter() - t0:.2f} s')
+    print(f'build_serving_model + build_parity_model: '
+          f'{time.perf_counter() - t0:.2f} s')
+    # serving-d2's model is calibrated on its own (3-pass) prep, as the
+    # root bench builds each profile's model
+    x3 = PK.fused_prep_pairs(sc[0], sc[1], pidx, rois, out_size=OUT,
+                             passes=3)
+    q2, _ = serving.build_serving_model(0, x3, device=dev,
+                                        weight_init='kaiming_out')
+    models = {'serving-d1': q, 'serving-d2': q2, 'parity': params16}
     with torch.no_grad():
-        phase_trunk(torch, BK, Q, q, x, results)
+        phase_trunk(torch, BK, Q, FO, q, x, results)
+        # x3 is also the parity path's input at the kernels' shapes
+        phase_stem_q8(torch, SK, FO, q2, x3)
+        phase_trunk_bf16(torch, B16, SK, FO, params16, x3, results)
 
-    # ---- 3. the serving megastep --------------------------------------------
+    # ---- 3. the megasteps ---------------------------------------------------
     wrappers = {PREP: PK.fused_prep_pairs,
                 STAGE: BK.fused_bottleneck_i8v2_stage,
                 DOWN: BK.fused_bottleneck_i8v2_down_s2,
-                IDEN: BK.fused_bottleneck_i8v2_identity}
-    launches = phase_megastep(torch, serving, Q, tree_to, wrappers, q, cfg,
-                              sc, pidx, x, n_pairs, card)
+                IDEN: BK.fused_bottleneck_i8v2_identity,
+                RGB: PK.fused_prep_rgb,
+                IDEN16: B16.fused_bottleneck,
+                DOWN16: B16.fused_bottleneck_down,
+                STEM: SK.fused_stem}
+    launches = {}
+    for name, profile, extra, expected in MEGASTEPS:
+        prof = serving.resolve_profile(profile,
+                                       prep_rgb=extra.get('prep_rgb'))
+        kw = dict(out_size=OUT, passes=prof['passes'],
+                  directions=prof['directions'], prep_rgb=prof['prep_rgb'],
+                  use_pallas=extra.get('use_pallas', True))
+        model = models[profile]
+
+        def reference(few, model=model, kw=kw):
+            xp = serving.prep_pairs(*sc, pidx, out_size=OUT,
+                                    passes=kw['passes'],
+                                    prep_rgb=kw['prep_rgb'])[:few].cpu()
+            m = tree_to(model, 'cpu')
+            if 's_feat' in m:
+                fwd = (Q.apply_folded_v2_siamese if kw['directions'] == 2
+                       else Q.apply_folded_v2)
+                return fwd(m, cfg, xp, use_pallas=kw['use_pallas'])
+            return FO.apply_folded_siamese(m, cfg16, xp, dtype=torch.bfloat16,
+                                           use_pallas=kw['use_pallas'])
+
+        step = lambda model=model, kw=kw: serving.megastep(
+            model, cfg, *sc, pidx, **kw)
+        got = phase_megastep(torch, name, step, reference, wrappers,
+                             expected, n_pairs, card, prof['directions'],
+                             MARGIN_PAIRS if prof['dtype'] == 'int8' else 4)
+        for k, n in got.items():
+            if n and k not in launches:
+                launches[k] = n
+    check(set(launches) == set(wrappers),
+          f'every kernel launched on a main path: {sorted(launches)}')
 
     # ---- 4. report ----------------------------------------------------------
     kernels = []
     for name, r in results.items():
         t_bytes = r['bytes'] / H100_BYTES_PER_S * 1e3
         t_ops = r['ops'] / r['ops_rate'] * 1e3
+        if 'chain_ms' in r:
+            print(f'{name}: kernel {r["ms"]:.4f} ms, plain cuDNN chain of '
+                  f'the JAX default route (several calls) '
+                  f'{r["chain_ms"]:.4f} ms')
         kernels.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches[name],

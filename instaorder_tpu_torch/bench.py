@@ -1,18 +1,22 @@
 #!/usr/bin/env python
-"""Throughput benchmark of the port's serving-d1 path: pairs/sec on one GPU.
+"""Throughput benchmark of the port's serving paths: pairs/sec on one GPU.
 
-Mirrors the root bench.py with its default serving-d1 profile (int8 v2
-trunk, directions=1, fused 5-channel prep with 1-pass RGB): the same
-synthetic COCO-val-like scenes (480x640, 10 instances, 45 pairs each,
-np.random.RandomState(0)), the same step size (1620 pairs), warm-up,
-windows and timing. Each window ends in torch.cuda.synchronize(); the
-best window is reported.
+Mirrors the root bench.py and its profiles (serving.PROFILES): serving-d1
+(the default: int8 v2 trunk, directions=1, fused 5-channel prep with
+1-pass RGB), serving-d2 (the same v2 model, both directions, 3-pass
+prep) and parity (the bf16 folded model, both directions, the cv2-exact
+einsum prep). The same synthetic COCO-val-like scenes (480x640, 10
+instances, 45 pairs each, np.random.RandomState(0)), the same step size
+(1620 pairs), warm-up, windows and timing. Each window ends in
+torch.cuda.synchronize(); the best window is reported.
 
-    python -m instaorder_tpu_torch.bench [--pairs-per-step 1620]
+    python -m instaorder_tpu_torch.bench [--profile serving-d1]
+        [--prep-rgb einsum|pallas|pallas5] [--pallas-features a,b,...]
+        [--pairs-per-step 1620]
 
 Prints ONE JSON line:
   {"metric": "pairs/sec/chip", "value": N, "unit": "pairs/s",
-   "vs_baseline": N / 10000, "device": "<GPU name>"}
+   "vs_baseline": N / 10000, "device": "<GPU name>", "profile": "..."}
 """
 
 from __future__ import annotations
@@ -29,6 +33,27 @@ from .device import resolve_device
 from .ops.pairs import all_pair_indices
 
 
+def add_profile_args(ap):
+    """The profile flags (the root bench's meanings), shared with
+    trace.py."""
+    ap.add_argument('--profile', default='serving-d1',
+                    choices=sorted(serving.PROFILES),
+                    help='parity (bf16 swap ensemble), serving-d2 (v2, '
+                         'both directions) or serving-d1 (v2, one '
+                         'direction; the default)')
+    ap.add_argument('--prep-rgb', default=None,
+                    choices=['einsum', 'pallas', 'pallas5'],
+                    help='prep route: einsum (dense f32 matmuls), pallas '
+                         '(RGB kernel + exact mask matmuls) or pallas5 '
+                         '(the 5-channel kernel); default from the profile')
+    ap.add_argument('--pallas-features', default=None,
+                    help='comma list of kernel features, replacing the '
+                         'profile\'s default set: parity from '
+                         '{identity,down,down1,stem} (default identity), '
+                         'serving-d1/d2 from {hwnc,down2,hwncs1d,dirpack,'
+                         'stem} (default hwnc,down2,hwncs1d,dirpack)')
+
+
 def build_parser():
     ap = argparse.ArgumentParser()
     ap.add_argument('--pairs-per-step', type=int, default=1620)
@@ -39,7 +64,27 @@ def build_parser():
     ap.add_argument('--warmup', type=int, default=3)
     ap.add_argument('--instances', type=int, default=10,
                     help='instances per synthetic scene (45 pairs at 10)')
+    add_profile_args(ap)
     return ap
+
+
+def build_step(args, sc, pidx, out_size, dev):
+    """The megastep of the profile flags in `args` over the uploaded
+    scenes `sc`, as a no-argument function. int8: the boundary scales
+    are calibrated on one prepped batch (f32 forward), then quantized
+    with bf16 compute (root bench.py --dtype int8); bf16: the folded
+    model cast to bf16."""
+    prof = serving.resolve_profile(args.profile, prep_rgb=args.prep_rgb)
+    kw = dict(out_size=out_size, passes=prof['passes'],
+              directions=prof['directions'], prep_rgb=prof['prep_rgb'],
+              use_pallas=tuple(args.pallas_features.split(','))
+              if args.pallas_features else True)
+    calib_x = serving.prep_pairs(*sc, pidx, out_size=out_size,
+                                 passes=prof['passes'],
+                                 prep_rgb=prof['prep_rgb'])
+    q, cfg = serving.build_model(args.profile, 0, calib_x, device=dev)
+    del calib_x
+    return lambda: serving.megastep(q, cfg, *sc, pidx, **kw)
 
 
 def main(argv=None):
@@ -52,16 +97,7 @@ def main(argv=None):
     sc = serving.upload_scenes(images, masks, bboxes, device=dev)
     pair_idx, _ = all_pair_indices(n)
     pidx = torch.as_tensor(pair_idx, dtype=torch.int32, device=dev)
-    sz = args.input_size
-
-    # PTQ: calibrate the boundary scales on one prepped batch (f32
-    # forward), then quantize with bf16 compute (root bench.py --dtype int8)
-    calib_x = serving.prep_pairs(*sc, pidx, out_size=sz, passes=1)
-    q, cfg = serving.build_serving_model(0, calib_x, device=dev)
-    del calib_x
-
-    def step():
-        return serving.megastep(q, cfg, *sc, pidx, out_size=sz, passes=1)
+    step = build_step(args, sc, pidx, args.input_size, dev)
 
     for _ in range(args.warmup):
         step()
@@ -80,6 +116,7 @@ def main(argv=None):
         'unit': 'pairs/s',
         'vs_baseline': round(value / 10000.0, 3),
         'device': torch.cuda.get_device_name(dev),
+        'profile': args.profile,
     }))
 
 

@@ -102,3 +102,13 @@ def avg_pool_global(x):
 
 def linear(params, x):
     return x @ params['w'] + params['b']
+
+
+def tree_cast(tree, dtype):
+    """Every tensor leaf of a nested dict/list tree cast to `dtype`
+    (Python-float leaves stay as they are)."""
+    if isinstance(tree, dict):
+        return {k: tree_cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_cast(v, dtype) for v in tree]
+    return tree.to(dtype) if isinstance(tree, torch.Tensor) else tree

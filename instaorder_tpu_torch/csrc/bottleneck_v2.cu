@@ -1,18 +1,23 @@
-// Boundary-int8 ("v2") ResNet bottleneck as implicit-GEMM convolutions
-// on bf16 tensor cores (WMMA 16x16x16, f32 accumulation), NHWC.
+// ResNet bottlenecks as implicit-GEMM convolutions on bf16 tensor cores
+// (WMMA 16x16x16, f32 accumulation), NHWC.
 //
-// Replaces three TPU kernels of instaorder_tpu/ops/pallas_blocks.py:
+// Boundary-int8 ("v2") blocks replace three TPU kernels of
+// instaorder_tpu/ops/pallas_blocks.py:
 //   fused_bottleneck_i8v2_hwnc          stride 1, identity residual r*x
 //   fused_bottleneck_down_s2_i8v2_hwnc  stride 2, projection residual
 //   fused_bottleneck_i8v2_hwnc_stage    layer1: the stride-1 projection
 //                                       block, then the identity blocks
+// and the bf16 blocks (ops/bottleneck_bf16_kernels.py) two more:
+//   fused_bottleneck                    stride 1, identity residual x
+//   fused_bottleneck_down               stride 1 or 2, projection
 // A block runs as three launches of the one GEMM kernel below
 // (ops/bottleneck_kernels.py sequences them):
 //   h1  = bf16(relu(x . w1 + b1))                      1x1
 //   h2  = bf16(relu(conv3x3_s(h1) . w2 + b2))          3x3, pad 1
-//   out = clip(rint(h2 . w3 + b3 + (r*x | + bd)), 0, 127)
+//   v2:   out = clip(rint(h2 . w3 + b3 + (r*x | + bd)), 0, 127)
+//   bf16: out = bf16(relu(h2 . w3 + b3 + (x | + bd)))
 // with the projection K-packed as one f32 sum [h2 | x_s] . [[w3],[wd]]
-// like the TPU kernel. h1 and h2 live in bf16 device scratch; the
+// like the TPU kernel. h1 and h2 live in bf16 device scratch; the v2
 // output is int8 or bf16 holding the integers 0..127.
 //
 // Bound on the H100: tensor-core operations (~285 M MAC per pair for an
@@ -45,7 +50,8 @@ struct Seg {
   int is_i8, C, H, W, stride, ksize, K;
 };
 
-enum Mode { kReluBf16 = 0, kQ8Int8 = 1, kQ8Bf16 = 2 };
+// kResReluBf16: the bf16 block output, bf16(relu(acc + b (+ b2 | + r*x)))
+enum Mode { kReluBf16 = 0, kQ8Int8 = 1, kQ8Bf16 = 2, kResReluBf16 = 3 };
 
 __device__ __forceinline__ void load_a16(const Seg& s, int n, int ho, int wo,
                                          int k, bool row_ok,
@@ -174,6 +180,10 @@ conv_gemm_kernel(Seg s0, Seg s1, int M, int Ho, int Wo, int Cout,
           ? (float)static_cast<const int8_t*>(res)[o]
           : __bfloat162float(static_cast<const __nv_bfloat16*>(res)[o]);
       y = y + xv * r;
+    }
+    if (mode == kResReluBf16) {
+      static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(fmaxf(y, 0.0f));
+      continue;
     }
     const float q = fminf(fmaxf(rintf(y), 0.0f), 127.0f);
     if (mode == kQ8Int8)

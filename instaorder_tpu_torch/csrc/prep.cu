@@ -1,18 +1,21 @@
-// Fused 5-channel pair prep: per (scene, pair) union-bbox crop, cv2
-// INTER_CUBIC RGB resize, uint8 round/clip, ImageNet normalisation, and
-// INTER_NEAREST resize of both instance masks, written as NHWC
-// (S*P, out, out, 5) bf16 with channels [mask_i, mask_j, R, G, B].
+// Fused pair prep: per (scene, pair) union-bbox crop, cv2 INTER_CUBIC
+// RGB resize, uint8 round/clip, ImageNet normalisation, and (5-channel
+// mode) INTER_NEAREST resize of both instance masks, written as NHWC
+// bf16: (S*P, out, out, 5) with channels [mask_i, mask_j, R, G, B], or
+// (S*P, out, out, 3) RGB only.
 //
-// Replaces instaorder_tpu/ops/prep_pallas.py `fused_prep_pairs`
-// (kernel body `_prep5_kernel`). The TPU kernel contracts dense
+// Replaces two TPU kernels of instaorder_tpu/ops/prep_pallas.py:
+// `fused_prep_pairs` (kernel body `_prep5_kernel`, 5 channels) and
+// `fused_prep_rgb` (`_prep_rgb_kernel`, RGB only, normalisation on or
+// off). The TPU kernels contract dense
 // interpolation windows on the MXU; here every output pixel reads its
 // 4x4 cubic taps directly (the tap form of ops/pairs._cubic_taps, whose
 // weights equal the dense matrix entries bit for bit: taps clamped to
 // the crop window, clamped taps' mass merged onto the border column,
 // source columns outside the image read as zero).
 //
-// Bound on the H100: memory. Per pair it writes 5*out*out bf16 (640 KB
-// at out=256) and does ~100 flops per output pixel, far below the
+// Bound on the H100: memory. Per pair it writes 5 (or 3) * out*out bf16
+// (640 KB at out=256) and does ~100 flops per output pixel, far below the
 // 295 flop/byte ridge; the scene's image and masks are read from L2
 // (each scene is shared by its P pairs). Design: one block per (pair,
 // tile of output rows); each thread owns output columns, computes its
@@ -25,7 +28,8 @@
 //   passes=1  weights and the stage-1 row values are rounded to bf16
 //             (round to nearest even) before they are multiplied, with
 //             f32 accumulation — the 1-pass bf16 dot of prep_pallas._dot3.
-// Output: round half to even, clip to 0..255, (v/255 - mean)/std, bf16.
+// Output: round half to even, clip to 0..255, then (v/255 - mean)/std
+// (or the integer itself with normalisation off), bf16.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -107,13 +111,17 @@ __device__ __forceinline__ void nearest_tap(float d, float off, float size,
   *idx = (int)fminf(fmaxf(src, 0.0f), (float)(src_size - 1));
 }
 
+template <bool kMasks>
 __global__ void __launch_bounds__(kThreads)
 prep_pairs_kernel(const float* __restrict__ images,     // (S, H, W, 3)
                   const uint8_t* __restrict__ masks,    // (S, N, H, W)
                   const int* __restrict__ pair_idx,     // (P, 2)
                   const float* __restrict__ rois,       // (S*P, 4)
-                  __nv_bfloat16* __restrict__ out,      // (S*P, O, O, 5)
-                  int P, int N, int H, int W, int O, int passes) {
+                  __nv_bfloat16* __restrict__ out,      // (S*P, O, O, C)
+                  int P, int N, int H, int W, int O, int passes,
+                  int normalize) {
+  constexpr int kC = kMasks ? 5 : 3;    // output channels
+  constexpr int kRgb = kMasks ? 2 : 0;  // first RGB channel
   const int pp = blockIdx.x;            // scene * P + pair
   const int s = pp / P;
   const int p = pp - s * P;
@@ -122,8 +130,12 @@ prep_pairs_kernel(const float* __restrict__ images,     // (S, H, W, 3)
   const float szx = rois[pp * 4 + 2];
   const float szy = rois[pp * 4 + 3];
   const float* img = images + (int64_t)s * H * W * 3;
-  const uint8_t* mi = masks + ((int64_t)s * N + pair_idx[2 * p]) * H * W;
-  const uint8_t* mj = masks + ((int64_t)s * N + pair_idx[2 * p + 1]) * H * W;
+  const uint8_t* mi = nullptr;
+  const uint8_t* mj = nullptr;
+  if (kMasks) {
+    mi = masks + ((int64_t)s * N + pair_idx[2 * p]) * H * W;
+    mj = masks + ((int64_t)s * N + pair_idx[2 * p + 1]) * H * W;
+  }
   const float mean[3] = {0.485f, 0.456f, 0.406f};
   const float stdv[3] = {0.229f, 0.224f, 0.225f};
   const int i0 = blockIdx.y * kRowsPerBlock;
@@ -133,9 +145,9 @@ prep_pairs_kernel(const float* __restrict__ images,     // (S, H, W, 3)
     int cx[4];
     float wx[4];
     cubic_taps((float)j, ox, szx, O, W, passes, cx, wx);
-    int nx;
-    bool vx;
-    nearest_tap((float)j, ox, szx, O, W, &nx, &vx);
+    int nx = 0;
+    bool vx = false;
+    if (kMasks) nearest_tap((float)j, ox, szx, O, W, &nx, &vx);
     for (int i = i0; i < i1; ++i) {
       int ry[4];
       float wy[4];
@@ -157,18 +169,21 @@ prep_pairs_kernel(const float* __restrict__ images,     // (S, H, W, 3)
           acc[c] = acc[c] + wy[a] * v;
         }
       }
-      int ny;
-      bool vy;
-      nearest_tap((float)i, oy, szy, O, H, &ny, &vy);
-      __nv_bfloat16* o = out + (((int64_t)pp * O + i) * O + j) * 5;
-      const bool mv = vx && vy;
-      const int64_t moff = (int64_t)ny * W + nx;
-      o[0] = __float2bfloat16_rn(mv ? (float)__ldg(mi + moff) : 0.0f);
-      o[1] = __float2bfloat16_rn(mv ? (float)__ldg(mj + moff) : 0.0f);
+      __nv_bfloat16* o = out + (((int64_t)pp * O + i) * O + j) * kC;
+      if (kMasks) {
+        int ny;
+        bool vy;
+        nearest_tap((float)i, oy, szy, O, H, &ny, &vy);
+        const bool mv = vx && vy;
+        const int64_t moff = (int64_t)ny * W + nx;
+        o[0] = __float2bfloat16_rn(mv ? (float)__ldg(mi + moff) : 0.0f);
+        o[1] = __float2bfloat16_rn(mv ? (float)__ldg(mj + moff) : 0.0f);
+      }
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         const float q = fminf(fmaxf(rintf(acc[c]), 0.0f), 255.0f);
-        o[2 + c] = __float2bfloat16_rn((q / 255.0f - mean[c]) / stdv[c]);
+        o[kRgb + c] = __float2bfloat16_rn(
+            normalize ? (q / 255.0f - mean[c]) / stdv[c] : q);
       }
     }
   }
@@ -181,8 +196,20 @@ extern "C" int io_prep_pairs(const void* images, const void* masks,
                              void* out, int S, int P, int N, int H, int W,
                              int out_size, int passes, void* stream) {
   dim3 grid(S * P, (out_size + kRowsPerBlock - 1) / kRowsPerBlock);
-  prep_pairs_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  prep_pairs_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)images, (const uint8_t*)masks, (const int*)pair_idx,
-      (const float*)rois, (__nv_bfloat16*)out, P, N, H, W, out_size, passes);
+      (const float*)rois, (__nv_bfloat16*)out, P, N, H, W, out_size, passes,
+      1);
+  return (int)cudaGetLastError();
+}
+
+// RGB only: (S*P, out, out, 3) bf16, normalised or raw 0..255.
+extern "C" int io_prep_rgb(const void* images, const void* rois, void* out,
+                           int S, int P, int H, int W, int out_size,
+                           int passes, int normalize, void* stream) {
+  dim3 grid(S * P, (out_size + kRowsPerBlock - 1) / kRowsPerBlock);
+  prep_pairs_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)images, nullptr, nullptr, (const float*)rois,
+      (__nv_bfloat16*)out, P, 0, H, W, out_size, passes, normalize);
   return (int)cudaGetLastError();
 }

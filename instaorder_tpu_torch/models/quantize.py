@@ -12,10 +12,16 @@ CPU tests). Scale algebra per block with boundary scales s_in / s_out:
   output: clip(round(relu(.)), 0, 127) -> int8
 The stem folds 1/s_stem into conv1.
 
-Routing matches the JAX package's default kernel set: all of layer1 (the
-stride-1 projection and its identity run) is one stage call, the three
-stride-2 projections go to the stride-2 kernel and the remaining
-identity blocks to the identity kernel (ops/bottleneck_kernels.py).
+`use_pallas` routes blocks to the kernels by the JAX package's v2
+feature names (PALLAS_VOCAB_V2). The default set is the JAX default: all
+of layer1 (the stride-1 projection and its identity run) is one stage
+call ('hwncs1d'), the three stride-2 projections go to the stride-2
+kernel ('down2') and the remaining identity blocks to the identity
+kernel ('hwnc') (ops/bottleneck_kernels.py), with the cuDNN stem. The
+'stem' feature runs the fused stem kernel with its in-kernel int8
+quantisation (ops/stem_kernels.py, q8). An explicit set replaces the
+default, so `('stem',)` is the plain trunk behind the fused stem and
+False the plain path throughout.
 """
 
 from __future__ import annotations
@@ -27,6 +33,17 @@ import torch
 
 from ..core import nn as cnn
 from ..ops import bottleneck_kernels as bk
+from ..ops.stem_kernels import fused_stem
+from .folding import (IDEN_CIN_CAP, _kernel_args, _pallas_features,
+                      _stem_fusable, siamese_forward)
+
+# v2 kernel features the port has (the JAX package's names; see
+# _apply_trunk_v2) and its default set, the JAX default: all of the
+# trunk on the kernels, the cuDNN stem. 'dirpack' is accepted as a no-op.
+PALLAS_VOCAB_V2 = frozenset(('hwnc', 'down2', 'hwncs1d', 'dirpack', 'stem'))
+PALLAS_DEFAULT_V2 = frozenset(('hwnc', 'down2', 'hwncs1d', 'dirpack'))
+# with 'hwnc' on, every identity block goes to the kernel
+HWNC_CIN_CAP = 2048
 
 # calibration forward chunk (images per forward): bounds the f32
 # forward's activation memory; absmax is chunk-associative
@@ -142,65 +159,107 @@ def quantize_folded_v2(folded, cfg, scales, compute_dtype=torch.bfloat16):
 
 
 def _q8(y):
-    """Pre-activation -> one-sided int8 boundary storage."""
-    return torch.clamp(torch.round(torch.relu(y)), 0, 127).to(torch.int8)
+    """Pre-activation -> one-sided int8 boundary storage. Works in place
+    on `y`, a fresh tensor at every caller (one f32 layer1 plane of the
+    2x1620-image serving-d2 batch is 13.6 GB)."""
+    return y.relu_().round_().clamp_(0, 127).to(torch.int8)
 
 
-def _stem_v2(q, x):
+def _v2_features(use_pallas, default=PALLAS_DEFAULT_V2):
+    return _pallas_features(use_pallas, default=default,
+                            vocab=PALLAS_VOCAB_V2)
+
+
+def _stem_v2(q, x, use_pallas=True):
     """Compute-dtype stem conv (1/s_stem folded) + relu -> 3x3/2 max-pool
     -> int8 requant after the pool. The conv runs in the compute dtype
     and its output is rounded to it BEFORE the f32 bias is added (as
-    jax's conv-then-add promotes), then relu and a cast back."""
+    jax's conv-then-add promotes), then relu and a cast back.
+
+    use_pallas with 'stem': the fused stem kernel with q8 (the bias is
+    added in f32 before the one rounding; see ops/stem_kernels.py)."""
     cdt = q['conv1']['w'].dtype
+    if ('stem' in _v2_features(use_pallas, default=frozenset())
+            and _stem_fusable(q['conv1']['w'], x)):
+        return fused_stem(x.to(cdt).contiguous(),
+                          q['conv1']['w'].contiguous(), q['conv1']['b'],
+                          q8=True)
     h = cnn.conv2d(q['conv1'], x.to(cdt), stride=2, padding=3)
     h = torch.relu(h).to(cdt)
     return _q8(cnn.max_pool(h, 3, 2, 1))
 
 
-def _unpack(c):
-    return c['w'][0, 0], c['b']
+def _plain_block_v2(qb, h8, stride):
+    """One v2 block as the plain conv chain (cuDNN on the card; the JAX
+    package's XLA route): each conv in the compute dtype, rounded to it
+    before the f32 bias is added."""
+    cdt = qb['conv1']['w'].dtype
+    xb = h8.to(cdt)
+    h = torch.relu(cnn.conv2d(qb['conv1'], xb)).to(cdt)
+    h = torch.relu(cnn.conv2d(qb['conv2'], h, stride=stride,
+                              padding=1)).to(cdt)
+    y = cnn.conv2d(qb['conv3'], h)
+    if 'down' in qb:
+        y.add_(cnn.conv2d(qb['down'], xb, stride=stride))
+    else:
+        y.add_(xb.to(torch.float32, copy=True).mul_(qb['r']))
+    return _q8(y)
 
 
-def _apply_trunk_v2(q, cfg, h8):
+def _apply_trunk_v2(q, cfg, h8, use_pallas=True):
     """int8 stem output (N, H, W, 64) -> boundary-int8 trunk -> f32 head
-    logits. Inter-kernel activations stay in the compute dtype except at
-    the stage output and the trunk's last block (int8), as in the JAX
-    default routing."""
+    logits, routed by the v2 features as the JAX package routes them:
+    'hwncs1d' runs all of layer1 (the stride-1 projection and its
+    identity run) as one stage call, 'down2' the stride-2 projections
+    (conv1 Cin <= IDEN_CIN_CAP unless 'hwnc' is on) and 'hwnc' the
+    other identity blocks (ops/bottleneck_kernels.py); every other
+    block is the plain chain. Between two kernels the activation stays
+    in the compute dtype (the same integers); it is int8 at the stage
+    output, before a plain block and at the trunk's end."""
     assert cfg['block'] == 'bottleneck' and cfg['groups'] == 1, \
         'v2 path targets the resnet50 family'
+    feats = _v2_features(use_pallas)
+    hwnc_on = bool(feats & {'hwnc', 'hwncs1d'})
+    cap = HWNC_CIN_CAP if hwnc_on else IDEN_CIN_CAP
     blocks = [(li, bi, qb) for li in range(4)
               for bi, qb in enumerate(q[f'layer{li + 1}'])]
+
+    def kernel_ok(li, bi, qb):
+        if qb['conv1']['w'].shape[2] > cap:
+            return False
+        if li > 0 and bi == 0:
+            return 'down2' in feats
+        if 'down' in qb:
+            return 'hwncs1d' in feats
+        return hwnc_on
+
+    ok = [kernel_ok(*b) for b in blocks] + [False]
     k = 0
     while k < len(blocks):
         li, bi, qb = blocks[k]
         stride = 2 if (li > 0 and bi == 0) else 1
-        if 'down' in qb and stride == 1:
+        out_i8 = not ok[k + 1]
+        if not ok[k]:
+            h8 = _plain_block_v2(qb, h8, stride)
+            k += 1
+        elif 'down' in qb and stride == 1:
             # layer1: the projection block and its identity run, one call
             j = k + 1
-            while j < len(blocks) and 'down' not in blocks[j][2]:
+            while ok[j] and 'down' not in blocks[j][2]:
                 j += 1
             run = [blocks[i][2] for i in range(k + 1, j)]
-            down = (*_unpack(qb['conv1']), qb['conv2']['w'],
-                    qb['conv2']['b'], *_unpack(qb['conv3']),
-                    *_unpack(qb['down']))
-            iden = [(*_unpack(b['conv1']), b['conv2']['w'], b['conv2']['b'],
-                     *_unpack(b['conv3'])) for b in run]
             h8 = bk.fused_bottleneck_i8v2_stage(
-                h8, down, iden, [b['r'] for b in run], out_int8=True)
+                h8, _kernel_args(qb), [_kernel_args(b) for b in run],
+                [b['r'] for b in run], out_int8=True)
             k = j
-            continue
-        out_i8 = k + 1 == len(blocks)
-        if 'down' in qb:
-            h8 = bk.fused_bottleneck_i8v2_down_s2(
-                h8, *_unpack(qb['conv1']), qb['conv2']['w'],
-                qb['conv2']['b'], *_unpack(qb['conv3']),
-                *_unpack(qb['down']), out_int8=out_i8)
+        elif 'down' in qb:
+            h8 = bk.fused_bottleneck_i8v2_down_s2(h8, *_kernel_args(qb),
+                                                  out_int8=out_i8)
+            k += 1
         else:
             h8 = bk.fused_bottleneck_i8v2_identity(
-                h8, *_unpack(qb['conv1']), qb['conv2']['w'],
-                qb['conv2']['b'], *_unpack(qb['conv3']), qb['r'],
-                out_int8=out_i8)
-        k += 1
+                h8, *_kernel_args(qb), qb['r'], out_int8=out_i8)
+            k += 1
     pooled = (h8.float() * q['s_feat']).mean(dim=(1, 2))
     if cfg['dual_head']:
         return (cnn.linear(q['fc_occ'], pooled),
@@ -208,6 +267,20 @@ def _apply_trunk_v2(q, cfg, h8):
     return cnn.linear(q['fc'], pooled)
 
 
-def apply_folded_v2(q, cfg, x):
+def apply_folded_v2(q, cfg, x, use_pallas=True):
     """Prep output (N, H, W, 5) -> boundary-int8 trunk -> f32 logits."""
-    return _apply_trunk_v2(q, cfg, _stem_v2(q, x))
+    return _apply_trunk_v2(q, cfg, _stem_v2(q, x, use_pallas=use_pallas),
+                           use_pallas=use_pallas)
+
+
+def apply_folded_v2_siamese(q, cfg, x, use_pallas=True):
+    """Both swap directions via the swapped conv1 (models/folding
+    `siamese_forward`): one double-width stem over x, one trunk call on
+    the 2N batch [direction 0; direction 1]. (The JAX package's
+    `dirpack` interleave is a TPU layout device; the trunk is per-image,
+    so the batch order changes nothing and the feature is accepted as a
+    no-op.) Returns (out1, out2)."""
+    return siamese_forward(
+        q['conv1'], x,
+        lambda c1, x: _stem_v2(dict(q, conv1=c1), x, use_pallas=use_pallas),
+        lambda h8: _apply_trunk_v2(q, cfg, h8, use_pallas=use_pallas))

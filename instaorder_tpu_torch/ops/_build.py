@@ -26,8 +26,8 @@ SRC_DIR = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
 
 # -fmad=false: the prep weights must equal numpy's f32 values bit for bit
-# (a contracted FMA can flip a bf16 rounding); the bottleneck epilogues
-# follow the unfused f32 order of the reference kernels.
+# (a contracted FMA can flip a bf16 rounding); the bottleneck and stem
+# epilogues follow the unfused f32 order of the reference kernels.
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-std=c++17', '-Xcompiler', '-fPIC', '-fmad=false',
               '-Xptxas', '-v']
@@ -107,6 +107,12 @@ def library() -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.io_prep_pairs.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P]
     lib.io_prep_pairs.restype = I
+    # images, rois, out, S, P, H, W, out_size, passes, normalize, stream
+    lib.io_prep_rgb.argtypes = [P, P, P, I, I, I, I, I, I, I, P]
+    lib.io_prep_rgb.restype = I
+    # x, w, bias, out, N, H, W, C, cout, q8, stream
+    lib.io_fused_stem.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
+    lib.io_fused_stem.restype = I
     lib.io_conv_gemm.argtypes = (
         # two K segments: activation, its (K, Cout) bf16 weight rows,
         # is_int8, C, H, W, stride, ksize

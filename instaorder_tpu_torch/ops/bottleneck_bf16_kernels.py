@@ -1,0 +1,119 @@
+"""Kernels 10 and 13: the bf16 ResNet bottleneck (csrc/bottleneck_v2.cu).
+
+Each wrapper replaces one TPU kernel of instaorder_tpu/ops/pallas_blocks.py
+and takes NHWC (N, H, W, C) activations:
+
+  fused_bottleneck       <- fused_bottleneck
+      stride 1, identity residual x (the `identity` feature)
+  fused_bottleneck_down  <- fused_bottleneck_down (stride 1 and 2 sites)
+      1x1/s projection residual (the `down` / `down1` features)
+
+Math contract (the Pallas kernel bodies `_bottleneck_kernel`,
+`_bottleneck_down_kernel`, `_bottleneck_down_s2_kernel`), cdt = x.dtype:
+  h1  = cdt(relu(x . w1 + b1))                    f32 accumulation
+  h2  = cdt(relu(conv3x3_s(h1) . w2 + b2))        pad 1, stride s
+  out = cdt(relu(h2 . w3 + b3 + x))               (identity)
+  out = cdt(relu(h2 . w3 + b3 + x_s . wd + bd))   (projection)
+with the biases added in f32. The CUDA kernel K-packs the projection as
+one f32 sum [h2 | x_s] . [[w3],[wd]], which changes only the order of
+the f32 sums.
+
+Bound on the H100: tensor-core operations (the block's MACs against one
+read of x and one write of out). Design: the same three launches of the
+implicit-GEMM kernel as the boundary-int8 blocks
+(ops/bottleneck_kernels.py), with the epilogue mode that adds the bias
+and the residual (or the second bias) in f32 and rounds relu(y) to bf16
+once. The TPU kernel's space-to-depth parity planes for stride 2 do not
+carry over: the GEMM's im2col view reads strided taps directly.
+
+On CPU tensors each wrapper runs its `_plain` version (PyTorch, f32 sums
+on operands in the compute dtype; f32 or bf16). On CUDA tensors it
+launches the kernel or raises, and adds one to its `launches` count per
+call. The card takes bf16 activations and weights and f32 biases only;
+f32 compute on the card is not ported (ROADMAP.md queue 2, "f32 on the
+card").
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .bottleneck_kernels import _RES_RELU_BF16, _block_gemms, _conv3x3
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _plain(x, w1, b1, w2, b2, w3, b3, stride=1, wd=None, bd=None):
+    cdt = x.dtype
+    xf = x.float()
+    h1 = torch.relu(xf @ w1.float() + b1.float()).to(cdt)
+    h2 = torch.relu(_conv3x3(h1.float(), w2.float(), stride)
+                    + b2.float()).to(cdt)
+    out = h2.float() @ w3.float() + b3.float()
+    if wd is None:
+        out = out + xf
+    else:
+        out = out + xf[:, ::stride, ::stride] @ wd.float() + bd.float()
+    return torch.relu(out).to(cdt)
+
+
+def fused_bottleneck_plain(x, w1, b1, w2, b2, w3, b3):
+    return _plain(x, w1, b1, w2, b2, w3, b3)
+
+
+def fused_bottleneck_down_plain(x, w1, b1, w2, b2, w3, b3, wd, bd,
+                                stride=1):
+    return _plain(x, w1, b1, w2, b2, w3, b3, stride=stride, wd=wd, bd=bd)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def _cuda_block(x, w1, b1, w2, b2, w3, b3, stride=1, wd=None, bd=None):
+    if x.dtype != torch.bfloat16:
+        raise ValueError(
+            f'bf16 bottleneck kernel: x is {x.dtype}; the card takes bf16 '
+            'activations (f32 compute on the card is not ported: '
+            'ROADMAP.md queue 2, "f32 on the card")')
+    N, H, W, _ = x.shape
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    out = torch.empty((N, Ho, Wo, w3.shape[-1]), dtype=torch.bfloat16,
+                      device=x.device)
+    return _block_gemms(x, w1, b1, w2, b2, w3, b3, out, _RES_RELU_BF16,
+                        stride=stride, r=1.0 if wd is None else None,
+                        wd=wd, bd=bd)
+
+
+def fused_bottleneck(x, w1, b1, w2, b2, w3, b3):
+    """Stride-1 identity bottleneck. x (N, H, W, C); w1 (C, Cm); w2
+    (3, 3, Cm, Cm) HWIO; w3 (Cm, C); biases (Cm,) / (C,), f32 on the
+    card. -> (N, H, W, C) in x.dtype."""
+    if x.device.type == 'cpu':
+        return fused_bottleneck_plain(x, w1, b1, w2, b2, w3, b3)
+    out = _cuda_block(x, w1, b1, w2, b2, w3, b3)
+    fused_bottleneck.launches += 1
+    return out
+
+
+def fused_bottleneck_down(x, w1, b1, w2, b2, w3, b3, wd, bd, stride=1):
+    """Projection bottleneck at stride 1 or 2. x (N, H, W, Cin); w3
+    (Cm, Cout); wd (Cin, Cout) -> (N, ceil(H/s), ceil(W/s), Cout) in
+    x.dtype."""
+    if stride not in (1, 2):
+        raise ValueError(f'stride must be 1 or 2, got {stride}')
+    if x.device.type == 'cpu':
+        return fused_bottleneck_down_plain(x, w1, b1, w2, b2, w3, b3, wd,
+                                           bd, stride=stride)
+    out = _cuda_block(x, w1, b1, w2, b2, w3, b3, stride=stride, wd=wd,
+                      bd=bd)
+    fused_bottleneck_down.launches += 1
+    return out
+
+
+fused_bottleneck.launches = 0
+fused_bottleneck_down.launches = 0

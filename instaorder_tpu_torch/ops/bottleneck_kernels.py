@@ -42,7 +42,8 @@ import torch.nn.functional as F
 
 from . import _build
 
-_RELU_BF16, _Q8_INT8, _Q8_BF16 = 0, 1, 2
+# epilogue modes of csrc/bottleneck_v2.cu
+_RELU_BF16, _Q8_INT8, _Q8_BF16, _RES_RELU_BF16 = 0, 1, 2, 3
 
 
 # ---------------------------------------------------------------------------
@@ -158,26 +159,38 @@ def _gemm(out, segs, bias, mode, bias2=None, res=None, r=0.0):
     return out
 
 
-def _block_cuda(x, w1, b1, w2, b2, w3, b3, stride=1, r=None, wd=None,
-                bd=None, out_int8=True):
+def _block_gemms(x, w1, b1, w2, b2, w3, b3, out, mode, stride=1, r=None,
+                 wd=None, bd=None):
+    """The three launches of one bottleneck into `out` (N, Ho, Wo, Cout):
+    conv1 and the 3x3 into bf16 scratch, then conv3 with the epilogue
+    `mode` and the identity residual r*x or the K-packed projection."""
     if x.device.type != 'cuda':
         raise ValueError('bottleneck kernel: x must be a CUDA tensor')
     N, H, W, _ = x.shape
-    Cm, Cout = w1.shape[-1], w3.shape[-1]
-    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    Cm = w1.shape[-1]
+    Ho, Wo = out.shape[1], out.shape[2]
     dev = x.device
-    empty = lambda c, dt, h=Ho, w=Wo: torch.empty((N, h, w, c), dtype=dt,
-                                                  device=dev)
-    h1 = _gemm(empty(Cm, torch.bfloat16, H, W), [(x, w1, 1, 1)], b1,
-               _RELU_BF16)
-    h2 = _gemm(empty(Cm, torch.bfloat16),
+    h1 = _gemm(torch.empty((N, H, W, Cm), dtype=torch.bfloat16, device=dev),
+               [(x, w1, 1, 1)], b1, _RELU_BF16)
+    h2 = _gemm(torch.empty((N, Ho, Wo, Cm), dtype=torch.bfloat16,
+                           device=dev),
                [(h1, w2.reshape(9 * Cm, Cm), stride, 3)], b2, _RELU_BF16)
-    out = empty(Cout, torch.int8 if out_int8 else torch.bfloat16)
-    mode = _Q8_INT8 if out_int8 else _Q8_BF16
     if wd is not None:
         return _gemm(out, [(h2, w3, 1, 1), (x, wd, stride, 1)], b3, mode,
                      bias2=bd)
     return _gemm(out, [(h2, w3, 1, 1)], b3, mode, res=x, r=float(r))
+
+
+def _block_cuda(x, w1, b1, w2, b2, w3, b3, stride=1, r=None, wd=None,
+                bd=None, out_int8=True):
+    N, H, W, _ = x.shape
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    out = torch.empty((N, Ho, Wo, w3.shape[-1]),
+                      dtype=torch.int8 if out_int8 else torch.bfloat16,
+                      device=x.device)
+    return _block_gemms(x, w1, b1, w2, b2, w3, b3, out,
+                        _Q8_INT8 if out_int8 else _Q8_BF16, stride=stride,
+                        r=r, wd=wd, bd=bd)
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,10 @@ image, resize taps clamp to the crop window, RGB uses INTER_CUBIC
 mapping).
 
 `build_pair_batch_matmul` is the cv2-exact dense-matrix formulation (the
-parity reference); `build_pair_batches_fused` is the serving path, one
-CUDA kernel for all five channels (ops/prep_kernels.py).
+parity reference; `build_pair_batches_matmul` runs it over S scenes, the
+`parity` profile's prep); `build_pair_batches_fused` is the kernel path:
+one CUDA kernel for all five channels, or the RGB kernel plus the exact
+mask matmuls (ops/prep_kernels.py).
 """
 
 from __future__ import annotations
@@ -143,42 +145,82 @@ def _normalize(rgb):
     return (rgb / 255.0 - mean) / std
 
 
+def _mask_pair_batch(masks, pair_idx, rois, out_size):
+    """Both instance masks of every pair as nearest one-hot matmuls ->
+    (..., P, 2, out, out) f32, exact over {0, 1} data. masks (..., N, H,
+    W); pair_idx (P, 2); rois (..., P, 4): one scene, or S scenes in one
+    batched product."""
+    H, W = masks.shape[-2], masks.shape[-1]
+    pidx = torch.as_tensor(pair_idx, dtype=torch.long, device=masks.device)
+    wyn = _interp_matrix(rois[..., 1], rois[..., 3], out_size, H, 'nearest')
+    wxn = _interp_matrix(rois[..., 0], rois[..., 2], out_size, W, 'nearest')
+    sel = masks.float().index_select(-3, pidx.reshape(-1)).reshape(
+        *masks.shape[:-3], pidx.shape[0], 2, H, W)
+    m1 = torch.einsum('...pjw,...pmhw->...pmhj', wxn, sel)
+    return torch.einsum('...pih,...pmhj->...pmij', wyn, m1)
+
+
+def _with_masks(m, rgb, dtype):
+    """(..., P, 2, out, out) masks + (..., P, out, out, 3) RGB ->
+    (..., P, out, out, 5) in `dtype`, channels [mask_i, mask_j, R, G, B]."""
+    return torch.cat([m[..., 0, :, :, None].to(dtype),
+                      m[..., 1, :, :, None].to(dtype), rgb.to(dtype)], dim=-1)
+
+
+def _rgb_pair_batch(image, rois, out_size, normalize=True):
+    """The RGB channels of every pair as two dense cubic matmuls, full
+    f32: image (..., H, W, 3) raw [0, 255]; rois (..., P, 4) -> (..., P,
+    out, out, 3) (normalised, or the integers 0..255)."""
+    H, W = image.shape[-3], image.shape[-2]
+    wy = _interp_matrix(rois[..., 1], rois[..., 3], out_size, H)
+    wx = _interp_matrix(rois[..., 0], rois[..., 2], out_size, W)
+    stage1 = torch.einsum('...pjw,...hwc->...phjc', wx, image.float())
+    rgb = torch.einsum('...pih,...phjc->...pijc', wy, stage1)
+    rgb = torch.clamp(torch.round(rgb), 0.0, 255.0)
+    return _normalize(rgb) if normalize else rgb
+
+
 def build_pair_batch_matmul(image, masks, pair_idx, rois, out_size=256,
                             normalize=True, dtype=None):
-    """Dense-matrix pair batch for ONE scene, full f32 (the JAX
-    `precision=HIGHEST` parity reference). image (H, W, 3) f32 raw
-    [0, 255]; masks (N, H, W) {0,1}; pair_idx (P, 2); rois (P, 4).
-    Returns (P, out, out, 5)."""
-    H, W = image.shape[0], image.shape[1]
-    wy = _interp_matrix(rois[:, 1], rois[:, 3], out_size, H)
-    wx = _interp_matrix(rois[:, 0], rois[:, 2], out_size, W)
-    img = image.float()
-    stage1 = torch.einsum('pjw,hwc->phjc', wx, img)
-    rgb = torch.einsum('pih,phjc->pijc', wy, stage1)
-    rgb = torch.clamp(torch.round(rgb), 0.0, 255.0)
-    if normalize:
-        rgb = _normalize(rgb)
-    pidx = torch.as_tensor(pair_idx, dtype=torch.long, device=image.device)
-    wyn = _interp_matrix(rois[:, 1], rois[:, 3], out_size, H, 'nearest')
-    wxn = _interp_matrix(rois[:, 0], rois[:, 2], out_size, W, 'nearest')
-    sel = masks.float()[pidx.reshape(-1)].reshape(pidx.shape[0], 2, H, W)
-    m1 = torch.einsum('pjw,pmhw->pmhj', wxn, sel)
-    m = torch.einsum('pih,pmhj->pmij', wyn, m1)
-    out_dtype = rgb.dtype if dtype is None else dtype
-    return torch.cat([m[:, 0, :, :, None], m[:, 1, :, :, None], rgb],
-                     dim=-1).to(out_dtype)
+    """Dense-matrix pair batch, full f32 (the JAX `Precision.HIGH`/
+    `HIGHEST` reference: both equal f32 under the uint8 round). image
+    (..., H, W, 3) f32 raw [0, 255]; masks (..., N, H, W) {0,1};
+    pair_idx (P, 2); rois (..., P, 4). Returns (..., P, out, out, 5) in
+    `dtype` (default f32)."""
+    rgb = _rgb_pair_batch(image, rois, out_size, normalize)
+    m = _mask_pair_batch(masks, pair_idx, rois, out_size)
+    return _with_masks(m, rgb, rgb.dtype if dtype is None else dtype)
+
+
+def build_pair_batches_matmul(images, masks, pair_idx, rois, out_size=256,
+                              normalize=True, dtype=None):
+    """`build_pair_batch_matmul` over S scenes as batched products (the
+    JAX bench vmaps it): images (S, H, W, 3), masks (S, N, H, W), rois
+    (S, P, 4) -> (S*P, out, out, 5)."""
+    x = build_pair_batch_matmul(images, masks, pair_idx, rois,
+                                out_size=out_size, normalize=normalize,
+                                dtype=dtype)
+    return x.reshape(-1, *x.shape[2:])
 
 
 def build_pair_batches_fused(images, masks, pair_idx, rois, out_size=256,
-                             passes=3):
-    """Multi-scene 5-channel pair prep through the fused prep kernel
-    (ops/prep_kernels.fused_prep_pairs). images (S, H, W, 3) f32 raw;
-    masks (S, N, H, W) {0,1}; pair_idx (P, 2); rois (S, P, 4) ->
+                             passes=3, fuse_masks=False):
+    """Multi-scene pair prep through the prep kernels
+    (ops/prep_kernels.py). images (S, H, W, 3) f32 raw; masks
+    (S, N, H, W) {0,1}; pair_idx (P, 2); rois (S, P, 4) ->
     (S*P, out, out, 5) bf16. passes: 3 = f32 weights (serving
     precision), 1 = bf16 weights and row values (the serving-d1 knob).
 
-    The kernel reads its 4x4 cubic taps directly, so any image size
+    fuse_masks: all five channels in one kernel (`fused_prep_pairs`);
+    otherwise the RGB kernel (`fused_prep_rgb`) plus the exact one-hot
+    mask matmuls of `_mask_pair_batch`, as the JAX default.
+
+    The kernels read their 4x4 cubic taps directly, so any image size
     works (no 8-multiple padding) and there is no per-call pair cap."""
-    from .prep_kernels import fused_prep_pairs
-    return fused_prep_pairs(images, masks, pair_idx, rois,
-                            out_size=out_size, passes=passes)
+    from .prep_kernels import fused_prep_pairs, fused_prep_rgb
+    if fuse_masks:
+        return fused_prep_pairs(images, masks, pair_idx, rois,
+                                out_size=out_size, passes=passes)
+    rgb = fused_prep_rgb(images, rois, out_size=out_size, passes=passes)
+    m = _mask_pair_batch(masks, pair_idx, rois, out_size)
+    return _with_masks(m.reshape(-1, *m.shape[2:]), rgb, torch.bfloat16)

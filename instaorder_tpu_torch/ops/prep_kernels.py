@@ -1,18 +1,22 @@
-"""Kernel 1: fused 5-channel pair prep (csrc/prep.cu).
+"""Kernels 1 and 5: the fused pair prep (csrc/prep.cu).
 
-Replaces instaorder_tpu/ops/prep_pallas.py `fused_prep_pairs` (kernel
-body `_prep5_kernel`): per (scene, pair) union-bbox crop, cv2 cubic RGB
-resize, uint8 round/clip, ImageNet normalisation and nearest resize of
-both instance masks, written straight to NHWC (S*P, out, out, 5) bf16.
+Replaces two TPU kernels of instaorder_tpu/ops/prep_pallas.py:
+  fused_prep_pairs <- `fused_prep_pairs` (kernel body `_prep5_kernel`):
+      per (scene, pair) union-bbox crop, cv2 cubic RGB resize, uint8
+      round/clip, ImageNet normalisation and nearest resize of both
+      instance masks, written straight to NHWC (S*P, out, out, 5) bf16;
+  fused_prep_rgb   <- `fused_prep_rgb` (`_prep_rgb_kernel`): the RGB
+      channels only, (S*P, out, out, 3) bf16 NHWC (the TPU kernel writes
+      channel-major), normalised or the raw integers 0..255.
 
-Bound on the H100: memory (the 5*out*out bf16 output per pair plus each
-scene's image and masks read once, over 3.35 TB/s). The TPU kernel's
-MXU trick — contracting dense interpolation windows as matmuls — does
-not carry over: the CUDA kernel reads each output pixel's 4x4 taps
-directly, one block per (pair, tile of 8 output rows), x taps kept in
-registers, and writes the output once with no transpose pass.
+Bound on the H100: memory (the 5 or 3 * out*out bf16 output per pair
+plus each scene's image and masks read once, over 3.35 TB/s). The TPU
+kernels' MXU trick — contracting dense interpolation windows as
+matmuls — does not carry over: the CUDA kernel reads each output pixel's
+4x4 taps directly, one block per (pair, tile of 8 output rows), x taps
+kept in registers, and writes the output once with no transpose pass.
 
-`fused_prep_pairs_plain` is the same function in PyTorch: the same
+The `_plain` versions are the same functions in PyTorch: the same
 merged tap weights (bit-identical to the dense matrix of
 ops/pairs._interp_matrix), the same separable order (sum over x first)
 and the same `passes` contract, so kernel and plain version agree
@@ -61,36 +65,59 @@ def _merged_cubic_taps(off, size, out_size, src_size, passes):
     return torch.clamp(src, 0, src_size - 1).long(), w
 
 
+def _check_passes(passes):
+    if passes not in (1, 3):
+        raise ValueError(f'passes must be 1 or 3, got {passes}')
+
+
+def _rgb_plain(img, r, out_size, passes, normalize):
+    """One scene's RGB: img (H, W, 3) f32, rois r (P, 4) -> (P, out, out,
+    3) f32 (normalised, or the integers 0..255)."""
+    H, W, _ = img.shape
+    iy, wy = _merged_cubic_taps(r[:, 1], r[:, 3], out_size, H, passes)
+    ix, wx = _merged_cubic_taps(r[:, 0], r[:, 2], out_size, W, passes)
+    # stage 1 (x axis): (P, H, out, 3) row values
+    g = img[:, ix].permute(1, 0, 2, 4, 3)            # (P, H, out, 3, 4)
+    s1 = _seq_sum4(g * wx[:, None, :, None, :])
+    if passes == 1:
+        s1 = s1.bfloat16().float()
+    # stage 2 (y axis): (P, out_i, out_j, 3)
+    ar = torch.arange(r.shape[0], device=img.device)
+    g2 = s1[ar[:, None, None], iy].permute(0, 1, 3, 4, 2)
+    rgb = torch.clamp(torch.round(_seq_sum4(g2 * wy[:, :, None, None, :])),
+                      0.0, 255.0)
+    if normalize:
+        mean = torch.as_tensor(IMAGENET_MEAN, device=img.device)
+        std = torch.as_tensor(IMAGENET_STD, device=img.device)
+        rgb = (rgb / 255.0 - mean) / std
+    return rgb
+
+
+def fused_prep_rgb_plain(images, rois, out_size=256, normalize=True,
+                         passes=3):
+    """The RGB prep kernel's function in PyTorch (any device). images
+    (S, H, W, 3) f32 raw [0, 255]; rois (S, P, 4) f32 xywh ->
+    (S*P, out, out, 3) bf16."""
+    _check_passes(passes)
+    return torch.cat([
+        _rgb_plain(images[s].float(), rois[s].float(), out_size, passes,
+                   normalize) for s in range(images.shape[0])]).bfloat16()
+
+
 def fused_prep_pairs_plain(images, masks, pair_idx, rois, out_size=256,
                            passes=3):
     """The prep kernel's function in PyTorch (any device). images
     (S, H, W, 3) f32 raw [0, 255]; masks (S, N, H, W) {0,1}; pair_idx
     (P, 2); rois (S, P, 4) f32 xywh -> (S*P, out, out, 5) bf16."""
-    if passes not in (1, 3):
-        raise ValueError(f'passes must be 1 or 3, got {passes}')
+    _check_passes(passes)
     S, H, W, _ = images.shape
     pidx = torch.as_tensor(pair_idx, dtype=torch.long, device=images.device)
     P = pidx.shape[0]
-    mean = torch.as_tensor(IMAGENET_MEAN, device=images.device)
-    std = torch.as_tensor(IMAGENET_STD, device=images.device)
     out = torch.empty((S * P, out_size, out_size, 5), dtype=torch.bfloat16,
                       device=images.device)
     ar = torch.arange(P, device=images.device)
     for s in range(S):
         r = rois[s].float()
-        iy, wy = _merged_cubic_taps(r[:, 1], r[:, 3], out_size, H, passes)
-        ix, wx = _merged_cubic_taps(r[:, 0], r[:, 2], out_size, W, passes)
-        img = images[s].float()
-        # stage 1 (x axis): (P, H, out, 3) row values
-        g = img[:, ix].permute(1, 0, 2, 4, 3)            # (P, H, out, 3, 4)
-        s1 = _seq_sum4(g * wx[:, None, :, None, :])
-        if passes == 1:
-            s1 = s1.bfloat16().float()
-        # stage 2 (y axis): (P, out_i, out_j, 3)
-        g2 = s1[ar[:, None, None], iy].permute(0, 1, 3, 4, 2)
-        acc = _seq_sum4(g2 * wy[:, :, None, None, :])
-        rgb = torch.clamp(torch.round(acc), 0.0, 255.0)
-        rgb = (rgb / 255.0 - mean) / std
         ny, vy = _nearest_taps(r[:, 1], r[:, 3], out_size, H)
         nx, vx = _nearest_taps(r[:, 0], r[:, 2], out_size, W)
         valid = vy[:, :, None] & vx[:, None, :]
@@ -99,7 +126,8 @@ def fused_prep_pairs_plain(images, masks, pair_idx, rois, out_size=256,
             mk = masks[s][pidx[:, ch]].float()              # (P, H, W)
             mv = mk[ar[:, None, None], ny[:, :, None], nx[:, None, :]]
             out[sl, :, :, ch] = (mv * valid).bfloat16()
-        out[sl, :, :, 2:] = rgb.bfloat16()
+        out[sl, :, :, 2:] = _rgb_plain(images[s].float(), r, out_size,
+                                       passes, True).bfloat16()
     return out
 
 
@@ -116,8 +144,7 @@ def fused_prep_pairs(images, masks, pair_idx, rois, out_size=256,
     if images.device.type == 'cpu':
         return fused_prep_pairs_plain(images, masks, pair_idx, rois,
                                       out_size=out_size, passes=passes)
-    if passes not in (1, 3):
-        raise ValueError(f'passes must be 1 or 3, got {passes}')
+    _check_passes(passes)
     dev = images.device
     if not isinstance(pair_idx, torch.Tensor) or pair_idx.device != dev:
         host = np.asarray(pair_idx if not isinstance(pair_idx, torch.Tensor)
@@ -156,4 +183,39 @@ def fused_prep_pairs(images, masks, pair_idx, rois, out_size=256,
     return out
 
 
+def fused_prep_rgb(images, rois, out_size=256, normalize=True, passes=3):
+    """RGB-only pair prep. On CUDA tensors it launches the CUDA kernel
+    (one launch, counted in `fused_prep_rgb.launches`); on CPU tensors it
+    runs `fused_prep_rgb_plain`.
+
+    CUDA inputs: images (S, H, W, 3) f32, rois (S, P, 4) f32, contiguous
+    on one device -> (S*P, out, out, 3) bf16."""
+    if images.device.type == 'cpu':
+        return fused_prep_rgb_plain(images, rois, out_size=out_size,
+                                    normalize=normalize, passes=passes)
+    _check_passes(passes)
+    dev = images.device
+    S, H, W, C = images.shape
+    if images.dtype != torch.float32 or C != 3:
+        raise ValueError('fused_prep_rgb expects images (S,H,W,3) f32')
+    if (rois.dtype != torch.float32 or rois.dim() != 3
+            or rois.shape[0] != S or rois.shape[2] != 4):
+        raise ValueError('fused_prep_rgb expects rois (S,P,4) f32')
+    for t in (images, rois):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError('fused_prep_rgb inputs must be contiguous and '
+                             f'on {dev}')
+    P = rois.shape[1]
+    out = torch.empty((S * P, out_size, out_size, 3), dtype=torch.bfloat16,
+                      device=dev)
+    rc = _build.library().io_prep_rgb(
+        images.data_ptr(), rois.data_ptr(), out.data_ptr(), S, P, H, W,
+        out_size, passes, int(bool(normalize)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, 'fused_prep_rgb')
+    fused_prep_rgb.launches += 1
+    return out
+
+
 fused_prep_pairs.launches = 0
+fused_prep_rgb.launches = 0

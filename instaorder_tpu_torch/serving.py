@@ -1,13 +1,19 @@
-"""The serving-d1 occlusion path: pair prep -> boundary-int8 ResNet-50 ->
-sigmoid/threshold, one direction per pair.
-
-Counterpart of the root bench.py megastep with the serving-d1 profile
-(`--dtype int8 --directions 1`, fused 5-channel prep, 1-pass RGB):
+"""The occlusion serving paths: pair prep -> ResNet-50 -> sigmoid /
+threshold, the counterpart of the root bench.py megastep and its three
+profiles (`PROFILES`, `resolve_profile`):
 
   images (S, H, W, 3) + masks (S, N, H, W) + bboxes (S, N, 4)
-    -> pair_rois -> fused prep kernel -> (S*P, 256, 256, 5) bf16
-    -> apply_folded_v2 (bf16 stem conv, trunk kernels, f32 head)
-    -> (S*P, 2) logits -> i_over_j, j_over_i decisions
+    -> pair_rois -> pair prep -> (S*P, 256, 256, 5) bf16
+    -> parity:     apply_folded_siamese (bf16 folded ResNet-50)
+       serving-d2: apply_folded_v2_siamese (boundary-int8 v2)
+       serving-d1: apply_folded_v2, one direction per pair
+    -> logits -> i_over_j, j_over_i decisions (the swap average of both
+       directions at directions=2)
+
+Prep routes (`prep_rgb`, as the root bench's --prep-rgb): 'einsum' the
+cv2-exact dense matmuls (ops/pairs.build_pair_batches_matmul), 'pallas'
+the RGB kernel plus the exact mask matmuls, 'pallas5' the 5-channel
+kernel.
 """
 
 from __future__ import annotations
@@ -15,12 +21,36 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.nn import tree_cast
 from .device import resolve_device
 from .eval.decode import decode_occ
 from .models import quantize as Q
 from .models import resnet
-from .models.folding import fold_resnet
-from .ops.pairs import build_pair_batches_fused, pair_rois
+from .models.folding import apply_folded, apply_folded_siamese, fold_resnet
+from .ops.pairs import (build_pair_batches_fused, build_pair_batches_matmul,
+                        pair_rois)
+
+# the root bench.py profiles (its PROFILES): dtype 'bf16' is the folded
+# bf16 model, 'int8' the boundary-int8 v2 model; prep_precision 'high'
+# is the 3-pass (f32) prep, 'default' the 1-pass bf16 knob
+PROFILES = {
+    'parity': {'dtype': 'bf16', 'directions': 2, 'prep_rgb': 'einsum',
+               'prep_precision': 'high'},
+    'serving-d2': {'dtype': 'int8', 'directions': 2,
+                   'prep_precision': 'high'},
+    'serving-d1': {'dtype': 'int8', 'directions': 1,
+                   'prep_precision': 'default'},
+}
+
+
+def resolve_profile(profile, prep_rgb=None):
+    """A profile's settings, an explicit prep_rgb winning: {'dtype',
+    'directions', 'prep_rgb', 'passes'}. prep_rgb defaults to 'pallas5'
+    where the profile does not pin it, as in the root bench."""
+    preset = PROFILES[profile]
+    return {'dtype': preset['dtype'], 'directions': preset['directions'],
+            'prep_rgb': prep_rgb or preset.get('prep_rgb', 'pallas5'),
+            'passes': 1 if preset['prep_precision'] == 'default' else 3}
 
 
 def synthetic_scenes(S, H=480, W=640, N=10, seed=0):
@@ -49,11 +79,29 @@ def upload_scenes(images, masks, bboxes, device=None):
             torch.as_tensor(bboxes, dtype=torch.float32, device=dev))
 
 
-def prep_pairs(images, masks, bboxes, pair_idx, out_size=256, passes=1):
-    """(S*P, out, out, 5) bf16 pair batch for every pair of every scene."""
+def prep_pairs(images, masks, bboxes, pair_idx, out_size=256, passes=1,
+               prep_rgb='pallas5'):
+    """(S*P, out, out, 5) bf16 pair batch for every pair of every scene
+    through the `prep_rgb` route ('einsum' is full f32 and ignores
+    `passes`)."""
     rois = pair_rois(bboxes, pair_idx)
+    if prep_rgb == 'einsum':
+        return build_pair_batches_matmul(images, masks, pair_idx, rois,
+                                         out_size=out_size,
+                                         dtype=torch.bfloat16)
+    if prep_rgb not in ('pallas', 'pallas5'):
+        raise ValueError(f'unknown prep_rgb {prep_rgb!r}')
     return build_pair_batches_fused(images, masks, pair_idx, rois,
-                                    out_size=out_size, passes=passes)
+                                    out_size=out_size, passes=passes,
+                                    fuse_masks=prep_rgb == 'pallas5')
+
+
+def _init_folded(seed, dev, weight_init):
+    gen = torch.Generator().manual_seed(seed)
+    params, stats, cfg = resnet.init(
+        gen, arch='resnet50', in_channels=5, num_classes=2,
+        weight_init=weight_init, device=dev)
+    return fold_resnet(params, stats, cfg), cfg
 
 
 def build_serving_model(seed, calib_x, device=None, weight_init='xavier'):
@@ -68,23 +116,53 @@ def build_serving_model(seed, calib_x, device=None, weight_init='xavier'):
     constructor default) keeps the activations alive, which a check of
     the logits needs."""
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
-    params, stats, cfg = resnet.init(
-        gen, arch='resnet50', in_channels=5, num_classes=2,
-        weight_init=weight_init, device=dev)
-    folded = fold_resnet(params, stats, cfg)
+    folded, cfg = _init_folded(seed, dev, weight_init)
     scales = Q.calibrate_folded_resnet(folded, cfg,
                                        [calib_x.to(dev).float()])
     return Q.quantize_folded_v2(folded, cfg, scales), cfg
 
 
+def build_parity_model(seed, device=None, weight_init='xavier'):
+    """The `parity` profile's model: the same network from `seed`,
+    BN-folded, every leaf cast to bf16 (the fc head too, as the root
+    bench's tree_cast; the forward widens it back to f32). Returns
+    (params, cfg)."""
+    folded, cfg = _init_folded(seed, resolve_device(device), weight_init)
+    return tree_cast(folded, torch.bfloat16), cfg
+
+
+def build_model(profile, seed, calib_x, device=None, weight_init='xavier'):
+    """The model of `profile`'s dtype: build_parity_model for 'bf16',
+    build_serving_model (calibrated on `calib_x`) for 'int8'."""
+    if PROFILES[profile]['dtype'] == 'bf16':
+        return build_parity_model(seed, device=device,
+                                  weight_init=weight_init)
+    return build_serving_model(seed, calib_x, device=device,
+                               weight_init=weight_init)
+
+
 @torch.no_grad()
 def megastep(q, cfg, images, masks, bboxes, pair_idx, out_size=256,
-             passes=1):
-    """One directions=1 serving step over S scenes. Returns (logits
-    (S*P, 2) f32, i_over_j (S*P,) bool, j_over_i (S*P,) bool)."""
+             passes=1, directions=1, prep_rgb='pallas5', use_pallas=True):
+    """One serving step over S scenes. `q` is a v2 model
+    (build_serving_model) or a bf16 folded model (build_parity_model);
+    use_pallas is the kernel feature set (models/folding for the bf16
+    model, models/quantize for v2).
+
+    Returns (logits, i_over_j (S*P,) bool, j_over_i (S*P,) bool), logits
+    (S*P, 2) f32 at directions=1 and the pair (out1, out2) at
+    directions=2 (out2 is the mask-swapped direction)."""
+    if directions not in (1, 2):
+        raise ValueError(f'directions must be 1 or 2, got {directions}')
     x = prep_pairs(images, masks, bboxes, pair_idx, out_size=out_size,
-                   passes=passes)
-    logits = Q.apply_folded_v2(q, cfg, x)
-    i_over_j, j_over_i = decode_occ(logits)
+                   passes=passes, prep_rgb=prep_rgb)
+    if 's_feat' in q:
+        fwd = Q.apply_folded_v2_siamese if directions == 2 \
+            else Q.apply_folded_v2
+        logits = fwd(q, cfg, x, use_pallas=use_pallas)
+    else:
+        fwd = apply_folded_siamese if directions == 2 else apply_folded
+        logits = fwd(q, cfg, x, dtype=torch.bfloat16, use_pallas=use_pallas)
+    i_over_j, j_over_i = decode_occ(*logits) if directions == 2 \
+        else decode_occ(logits)
     return logits, i_over_j, j_over_i

@@ -3,7 +3,8 @@
 kernel (torch.profiler, CUDA activity) and the device's idle share over
 the traced steps, at the bench.py configuration.
 
-    python -m instaorder_tpu_torch.trace [--pairs-per-step 1620]
+    python -m instaorder_tpu_torch.trace [--profile serving-d1]
+        [--prep-rgb ...] [--pallas-features ...] [--pairs-per-step 1620]
 
 Prints a table (device ms per step by kernel name) and ONE JSON line:
   {"step_ms", "device_busy_ms", "idle_share", "pairs_per_step",
@@ -21,6 +22,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import serving
+from .bench import add_profile_args, build_step
 from .device import resolve_device
 from .ops.pairs import all_pair_indices
 
@@ -28,29 +30,28 @@ from .ops.pairs import all_pair_indices
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument('--pairs-per-step', type=int, default=1620)
+    add_profile_args(ap)
     args = ap.parse_args(argv)
-    steps, top = 3, 12
+    steps, top = 3, 16
     dev = resolve_device()
     n = 10
     S = max(1, int(np.ceil(args.pairs_per_step / 45)))
     sc = serving.upload_scenes(*serving.synthetic_scenes(S, 480, 640, n),
                                device=dev)
     pidx = torch.as_tensor(all_pair_indices(n)[0], device=dev)
-    q, cfg = serving.build_serving_model(
-        0, serving.prep_pairs(*sc, pidx), device=dev)
-    step = lambda: serving.megastep(q, cfg, *sc, pidx)
+    step = build_step(args, sc, pidx, 256, dev)
     for _ in range(2):
         step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as tracer:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e3
     rows = []
-    for e in prof.key_averages():
+    for e in tracer.key_averages():
         # kernels only: an operator's row repeats its kernels' time
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -66,7 +67,7 @@ def main(argv=None):
     print(json.dumps({
         'step_ms': wall, 'device_busy_ms': busy,
         'idle_share': max(0.0, 1.0 - busy / wall),
-        'pairs_per_step': S * 45,
+        'pairs_per_step': S * 45, 'profile': args.profile,
         'device': torch.cuda.get_device_name(dev),
         'top': [[name, calls, ms] for name, calls, ms in rows[:top]],
     }))

@@ -7,8 +7,10 @@ so on a machine without it run it without the repo's conftest:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Bars as in chip_smoke.py: prep masks exact and RGB within one uint8 LSB
-on under 1% of pixels; bottleneck outputs within one int8 LSB on under
-1% of elements (f32 sums in another order move rare round() ties)."""
+on under 1% of pixels; v2 bottleneck outputs and the q8 stem within one
+int8 LSB on under 1% of elements (f32 sums in another order move rare
+round() ties); bf16 blocks and the bf16 stem within 1e-2 of the output
+scale, with under 1% of values more than one bf16 ulp apart."""
 
 import numpy as np
 import pytest
@@ -116,3 +118,131 @@ def test_prep_kernel_odd_sizes(dev, passes):
     d = (got[..., 2:].float() - want[..., 2:].float()).abs()
     assert float(d.max()) <= 0.03125 + 1e-6
     assert float((d > 0).float().mean()) < 0.01
+
+
+def _bf16_close(got, want):
+    """max |got - want| <= 1e-2 max |want|; under 1% of values more than
+    one bf16 ulp (of the plain value) apart."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    assert float(d.max()) <= 1e-2 * float(w.abs().max()), float(d.max())
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    assert float((d > ulp).float().mean()) < 0.01
+    assert float((w != 0).float().mean()) > 0.05, 'degenerate test data'
+
+
+def _bf16_blk(rng, dev, cin, cm, cout, down):
+    t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev).contiguous()
+    p = [t(rng.randn(cin, cm) / np.sqrt(cin), torch.bfloat16),
+         t(rng.randn(cm) * 0.1, torch.float32),
+         t(rng.randn(3, 3, cm, cm) / np.sqrt(9 * cm), torch.bfloat16),
+         t(rng.randn(cm) * 0.1, torch.float32),
+         t(rng.randn(cm, cout) / np.sqrt(cm), torch.bfloat16),
+         t(rng.randn(cout) * 0.1, torch.float32)]
+    if down:
+        p += [t(rng.randn(cin, cout) / np.sqrt(cin), torch.bfloat16),
+              t(rng.randn(cout) * 0.1, torch.float32)]
+    return p
+
+
+@pytest.mark.parametrize('n,hw', [(1, 7), (3, 10), (2, 13)])
+def test_bf16_identity_kernel_ragged(dev, n, hw):
+    from instaorder_tpu_torch.ops import bottleneck_bf16_kernels as B16
+    rng = np.random.RandomState(10 + n)
+    x = torch.as_tensor(rng.randn(n, hw, hw, 64), dtype=torch.bfloat16,
+                        device=dev)
+    p = _bf16_blk(rng, dev, 64, 64, 64, False)
+    before = B16.fused_bottleneck.launches
+    got = B16.fused_bottleneck(x, *p)
+    assert B16.fused_bottleneck.launches == before + 1
+    _bf16_close(got, B16.fused_bottleneck_plain(x, *p))
+
+
+@pytest.mark.parametrize('stride,n,hw', [(1, 3, 9), (2, 1, 9), (2, 3, 14)])
+def test_bf16_down_kernel_ragged(dev, stride, n, hw):
+    from instaorder_tpu_torch.ops import bottleneck_bf16_kernels as B16
+    rng = np.random.RandomState(20 + hw)
+    x = torch.as_tensor(rng.randn(n, hw, hw, 64), dtype=torch.bfloat16,
+                        device=dev)
+    p = _bf16_blk(rng, dev, 64, 64, 128, True)
+    got = B16.fused_bottleneck_down(x, *p, stride=stride)
+    assert got.shape[1] == (hw - 1) // stride + 1
+    _bf16_close(got, B16.fused_bottleneck_down_plain(x, *p, stride=stride))
+
+
+@pytest.mark.parametrize('n,hw,cout,q8', [
+    (1, 36, 64, False), (3, 50, 128, False), (2, 30, 128, True),
+    (3, 64, 64, True)])
+def test_stem_kernel_ragged(dev, n, hw, cout, q8):
+    """Pooled sizes 9, 13, 8, 16: tiles of 8 pooled rows that do not
+    divide the output, and odd conv sizes."""
+    from instaorder_tpu_torch.ops import stem_kernels as SK
+    rng = np.random.RandomState(hw)
+    scale = 30.0 if q8 else 1.0
+    x = torch.as_tensor(rng.randn(n, hw, hw, 5), dtype=torch.bfloat16,
+                        device=dev)
+    w = torch.as_tensor(rng.randn(7, 7, 5, cout) * scale / np.sqrt(245),
+                        dtype=torch.bfloat16, device=dev)
+    b = torch.as_tensor(rng.randn(cout) * 0.1 * scale, dtype=torch.float32,
+                        device=dev)
+    before = SK.fused_stem.launches
+    got = SK.fused_stem(x, w, b, q8=q8)
+    assert SK.fused_stem.launches == before + 1
+    want = SK.fused_stem_plain(x, w, b, q8=q8)
+    ho = ((hw - 1) // 2) // 2 + 1
+    assert tuple(got.shape) == (n, ho, ho, cout)
+    if q8:
+        _close(got, want)
+        assert float(((want > 0) & (want < 127)).float().mean()) > 0.2
+    else:
+        _bf16_close(got, want)
+
+
+@pytest.mark.parametrize('passes,normalize', [(1, True), (3, True),
+                                              (3, False)])
+def test_prep_rgb_kernel_odd_sizes(dev, passes, normalize):
+    from instaorder_tpu_torch import serving
+    from instaorder_tpu_torch.ops import pairs as P
+    from instaorder_tpu_torch.ops import prep_kernels as PK
+    images, masks, bboxes = serving.synthetic_scenes(3, 131, 203, 4, seed=5)
+    sc = serving.upload_scenes(images, masks, bboxes, device=dev)
+    pidx = torch.as_tensor(P.all_pair_indices(4)[0], device=dev)
+    rois = P.pair_rois(sc[2], pidx).contiguous()
+    rois[1, 2] = torch.tensor([-40.0, -30.0, 260.0, 260.0])  # off-image
+    before = PK.fused_prep_rgb.launches
+    got = PK.fused_prep_rgb(sc[0], rois, out_size=72, normalize=normalize,
+                            passes=passes)
+    assert PK.fused_prep_rgb.launches == before + 1
+    want = PK.fused_prep_rgb_plain(sc[0], rois, out_size=72,
+                                   normalize=normalize, passes=passes)
+    assert got.shape == want.shape == (18, 72, 72, 3)
+    d = (got.float() - want.float()).abs()
+    assert float(d.max()) <= (0.03125 if normalize else 1.0) + 1e-6
+    assert float((d > 0).float().mean()) < 0.01
+
+
+def test_bf16_kernel_wrappers_refuse_bad_inputs(dev):
+    """f32 activations on the card and non-f32 biases raise."""
+    from instaorder_tpu_torch.ops import bottleneck_bf16_kernels as B16
+    from instaorder_tpu_torch.ops import stem_kernels as SK
+    rng = np.random.RandomState(0)
+    p = _bf16_blk(rng, dev, 64, 64, 64, False)
+    x = torch.zeros((1, 8, 8, 64), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match='f32 on the card'):
+        B16.fused_bottleneck(x, *p)
+    pb = [a if i % 2 == 0 else a.bfloat16() for i, a in enumerate(p)]
+    with pytest.raises(ValueError, match='bias'):
+        B16.fused_bottleneck(x.bfloat16(), *pb)
+    pd = _bf16_blk(rng, dev, 64, 64, 128, True)
+    pd[7] = pd[7].bfloat16()
+    with pytest.raises(ValueError, match='bias'):
+        B16.fused_bottleneck_down(x.bfloat16(), *pd, stride=2)
+    xs = torch.zeros((1, 32, 32, 5), dtype=torch.float32, device=dev)
+    w = torch.zeros((7, 7, 5, 64), dtype=torch.bfloat16, device=dev)
+    b = torch.zeros((64,), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match='f32 on the card'):
+        SK.fused_stem(xs, w, b)
+    with pytest.raises(ValueError, match='bias'):
+        SK.fused_stem(xs.bfloat16(), w, b.bfloat16())

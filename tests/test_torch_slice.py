@@ -174,6 +174,10 @@ def test_port_imports_without_jax():
         for p in pkg.rglob('*.py'))
     mods = [m[:-len('.__init__')] if m.endswith('.__init__') else m
             for m in mods]
+    for m in ('ops.bottleneck_bf16_kernels', 'ops.stem_kernels',
+              'ops.prep_kernels', 'models.folding', 'models.quantize',
+              'serving', 'bench', 'trace'):
+        assert 'instaorder_tpu_torch.' + m in mods, m
     code = ('import sys; sys.modules["jax"] = None; '
             'sys.modules["instaorder_tpu"] = None; import importlib\n'
             f'for m in {mods!r}: importlib.import_module(m)\n'
