@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one GPU: builds the kernels,
 holds each against its plain PyTorch version at the serving paths'
-shapes, drives the serving-d1, parity and serving-d2 megasteps at full
-ResNet-50 width, and prints one JSON line for the kernels plus a final
-status line.
+shapes, drives the serving-d1, parity and serving-d2 megasteps (v2 and
+int8c) at full ResNet-50 width, and prints one JSON line for the kernels
+plus a final status line.
 
     python3 chip_smoke.py
 
@@ -15,14 +15,23 @@ Phases (any failed check raises and the script exits nonzero):
      of 10 instances (180 pairs), the v2 bottleneck kernels and the q8
      stem on the activations the serving trunk hands them, the bf16
      blocks and the bf16 stem on those of the parity trunk (the plain
-     trunk's, call by call; 360 images, both directions); all timed with
-     CUDA events, and the bf16 kernels beside the plain cuDNN chain the
-     JAX default runs for the same block or stem;
-  3. the megasteps (v2 model calibrated from seed 0; bf16 parity model
-     from seed 0): serving-d1, parity with its default kernels, parity
-     with identity,down,stem and the RGB prep kernel, serving-d2. For
-     each: launch counts per megastep, pairs/s, and the logits of a few
-     pairs (both directions) against the plain path run on the CPU;
+     trunk's, call by call; 360 images, both directions); the int8c
+     blocks and stems on the plain int8c trunks' activations (the d1
+     model's 180 images through the NHWC kernels, the d2 model's 360
+     through the double-width stem and the hwnc-named kernels), each
+     equal to its plain version on every value; all timed with CUDA
+     events, and the bf16 kernels beside the plain cuDNN chain the JAX
+     default runs for the same block or stem;
+  3. the megasteps (v2 and int8c models calibrated from seed 0 on their
+     own prep; bf16 parity model from seed 0): serving-d1, parity with
+     its default kernels, parity with identity,down,stem and the RGB
+     prep kernel, serving-d2, serving-d1 --dtype int8c, serving-d2
+     --dtype int8c with hwnc,down,stem. For each: launch counts per
+     megastep, pairs/s, and the logits of a few pairs (both directions)
+     against the plain path run on the CPU (the v2 error also over 12
+     pairs and over all pairs); for int8c also the trunk's int8 output
+     equal to the plain int8c forward's on the same prepped tensor on
+     the card, logits within 1e-5 of max |logit|;
   4. the `kernels` JSON line, then {"ok": true, "device": {...}}.
 Exits nonzero without a result when no CUDA device is present.
 """
@@ -39,6 +48,7 @@ OUT = 256
 PASSES = 1                      # serving-d1: 1-pass bf16 prep weights
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_BF16_PER_S = 989e12        # dense bf16 tensor-core peak
+H100_INT8_PER_S = 1979e12       # dense int8 tensor-core peak
 H100_F32_PER_S = 67e12          # f32 outside the tensor cores
 PREP_FLOPS_PER_PIXEL = 3 * (4 * 4 + 4) * 2 + 12   # taps + epilogue
 PREP = 'fused_prep_pairs'
@@ -49,11 +59,21 @@ RGB = 'fused_prep_rgb'
 IDEN16 = 'fused_bottleneck'
 DOWN16 = 'fused_bottleneck_down'
 STEM = 'fused_stem'
+I8 = 'fused_bottleneck_int8'
+D8 = 'fused_bottleneck_down_int8'
+STEM8 = 'fused_stem_int8'
+I8H = 'fused_bottleneck_int8_hwnc'
+D8H1 = 'fused_bottleneck_down_int8_hwnc'
+D8H2 = 'fused_bottleneck_down_s2_int8_hwnc'
 _CSRC = 'instaorder_tpu_torch/csrc/'
 SOURCES = {PREP: _CSRC + 'prep.cu', STAGE: _CSRC + 'bottleneck_v2.cu',
            DOWN: _CSRC + 'bottleneck_v2.cu', IDEN: _CSRC + 'bottleneck_v2.cu',
            RGB: _CSRC + 'prep.cu', IDEN16: _CSRC + 'bottleneck_v2.cu',
-           DOWN16: _CSRC + 'bottleneck_v2.cu', STEM: _CSRC + 'stem.cu'}
+           DOWN16: _CSRC + 'bottleneck_v2.cu', STEM: _CSRC + 'stem.cu',
+           I8: _CSRC + 'bottleneck_int8.cu', D8: _CSRC + 'bottleneck_int8.cu',
+           STEM8: _CSRC + 'stem.cu', I8H: _CSRC + 'bottleneck_int8.cu',
+           D8H1: _CSRC + 'bottleneck_int8.cu',
+           D8H2: _CSRC + 'bottleneck_int8.cu'}
 REPLACES = {PREP: 'instaorder_tpu/ops/prep_pallas.py:315',
             STAGE: 'instaorder_tpu/ops/pallas_blocks.py:1526',
             DOWN: 'instaorder_tpu/ops/pallas_blocks.py:1010',
@@ -61,7 +81,13 @@ REPLACES = {PREP: 'instaorder_tpu/ops/prep_pallas.py:315',
             RGB: 'instaorder_tpu/ops/prep_pallas.py:200',
             IDEN16: 'instaorder_tpu/ops/pallas_blocks.py:86',
             DOWN16: 'instaorder_tpu/ops/pallas_blocks.py:1974',
-            STEM: 'instaorder_tpu/ops/pallas_blocks.py:2271'}
+            STEM: 'instaorder_tpu/ops/pallas_blocks.py:2271',
+            I8: 'instaorder_tpu/ops/pallas_blocks.py:460',
+            D8: 'instaorder_tpu/ops/pallas_blocks.py:2122',
+            STEM8: 'instaorder_tpu/ops/pallas_blocks.py:2354',
+            I8H: 'instaorder_tpu/ops/pallas_blocks.py:1134',
+            D8H1: 'instaorder_tpu/ops/pallas_blocks.py:1234',
+            D8H2: 'instaorder_tpu/ops/pallas_blocks.py:1348'}
 # the megasteps: (name, profile, megastep keywords, launches per step;
 # every other kernel must launch 0 times)
 V2_LAUNCHES = {PREP: 1, STAGE: 1, DOWN: 3, IDEN: 10}
@@ -76,6 +102,11 @@ MEGASTEPS = [
      {'prep_rgb': 'pallas', 'use_pallas': KFEATS},
      {IDEN16: 5, DOWN16: 3, STEM: 1, RGB: 1}),
     ('serving-d2', 'serving-d2', {}, V2_LAUNCHES),
+    ('serving-d1 --dtype int8c', 'serving-d1', {'dtype': 'int8c'},
+     {PREP: 1, I8: 12, D8: 4}),
+    ('serving-d2 --dtype int8c +hwnc,down,stem', 'serving-d2',
+     {'dtype': 'int8c', 'use_pallas': ('hwnc', 'down', 'stem')},
+     {PREP: 1, I8H: 12, D8H1: 1, D8H2: 3, STEM8: 1}),
 ]
 
 
@@ -266,14 +297,18 @@ def phase_stem_q8(torch, SK, FO, q, x):
     print(f'  {STEM} q8: {ms:.4f} ms, plain {plain_ms:.4f} ms')
 
 
-def add_row(results, name, err, kern, plain, chain, nbytes_, ops):
+def add_row(results, name, err, kern, plain, chain, nbytes_, ops,
+            rate=H100_BF16_PER_S):
+    """Add one call's numbers to the kernel's row (chain: the cuDNN
+    route's ms, or None where the row has no such column)."""
     r = results.setdefault(name, dict(
-        max_abs_err=0.0, ms=0.0, plain_ms=0.0, chain_ms=0.0, bytes=0,
-        ops=0, ops_rate=H100_BF16_PER_S))
+        max_abs_err=0.0, ms=0.0, plain_ms=0.0, bytes=0, ops=0,
+        ops_rate=rate))
     r['max_abs_err'] = max(r['max_abs_err'], err)
     r['ms'] += kern
     r['plain_ms'] += plain
-    r['chain_ms'] += chain
+    if chain is not None:
+        r['chain_ms'] = r.get('chain_ms', 0.0) + chain
     r['bytes'] += nbytes_
     r['ops'] += ops
 
@@ -327,6 +362,79 @@ def phase_trunk_bf16(torch, B16, SK, FO, params, x, results):
             h = want
 
 
+def exact(torch, what, got, want):
+    """The int8c bar: kernel equal to its plain version on every value,
+    and over 5% of the outputs unclipped (not all 0 or 127)."""
+    err, frac = diff(torch, what, got, want)
+    check(err == 0 and frac == 0, f'{what}: 0 differing values')
+    live = float(((want > 0) & (want < 127)).float().mean())
+    check(live > 0.05, f'{what}: {live:.3f} of outputs unclipped')
+    return err
+
+
+def int8_block_calls(IK, Q, qb, stride, hwnc):
+    """The int8c kernel wrapper(s) for one block: [(row name, kernel(h))]
+    and the plain version (the NHWC rows 16 and 17, or the hwnc-named
+    rows 19-21 of the JAX package's 'hwnc' route)."""
+    a = Q._int8_args(qb)
+    if 'down' not in qb:
+        fn = IK.fused_bottleneck_int8_hwnc if hwnc else IK.fused_bottleneck_int8
+        return ((I8H if hwnc else I8), lambda h: fn(h, *a, qb['sxr']),
+                lambda h: IK.fused_bottleneck_int8_plain(h, *a, qb['sxr']))
+    plain = lambda h: IK.fused_bottleneck_down_int8_plain(h, *a,
+                                                          stride=stride)
+    if not hwnc:
+        return D8, lambda h: IK.fused_bottleneck_down_int8(
+            h, *a, stride=stride), plain
+    if stride == 2:
+        return D8H2, lambda h: IK.fused_bottleneck_down_s2_int8_hwnc(h, *a), \
+            plain
+    return D8H1, lambda h: IK.fused_bottleneck_down_int8_hwnc(h, *a), plain
+
+
+def phase_trunk_int8(torch, IK, SK, Q, FO, q, x, results, wide):
+    """Walk an int8c model on the prepped batch x: the stem kernel, then
+    each block kernel on the plain trunk's activation at its position,
+    each equal to its plain version, both timed. wide: the serving-d2
+    route (double-width stem, Cout 128, its halves as the batch halves;
+    the hwnc-named kernels, rows 18-21); else serving-d1's (the NHWC
+    kernels, rows 16-17; the Cout-64 stem is checked and timed but not
+    a row: no main path launches it)."""
+    x8 = Q.quantize_input(x, q['cfg_scales']['in'])
+    c1 = FO.siamese_conv1(q['conv1']) if wide else q['conv1']
+    args = (c1['w'], c1['m'], c1['b'])
+    want = SK.fused_stem_int8_plain(x8, *args)
+    err = exact(torch, f'{STEM8} {tuple(x8.shape)}->{tuple(want.shape)}',
+                SK.fused_stem_int8(x8, *args), want)
+    kern = cuda_ms(torch, lambda: SK.fused_stem_int8(x8, *args))
+    plain = cuda_ms(torch, lambda: SK.fused_stem_int8_plain(x8, *args),
+                    reps=2)
+    n, hc, wc = x8.shape[0], (x8.shape[1] + 1) // 2, (x8.shape[2] + 1) // 2
+    if wide:
+        add_row(results, STEM8, err, kern, plain, None,
+                nbytes(x8, want, *args),
+                2 * n * hc * wc * c1['w'][..., 0].numel() * c1['w'].shape[-1],
+                rate=H100_INT8_PER_S)
+    else:
+        print(f'  {STEM8} Cout 64: {kern:.4f} ms, plain {plain:.4f} ms')
+    h = FO.directions_to_batch(want) if wide else want
+    for li in range(4):
+        for bi, qb in enumerate(q[f'layer{li + 1}']):
+            stride = 2 if (li > 0 and bi == 0) else 1
+            name, kern, plain = int8_block_calls(IK, Q, qb, stride, wide)
+            want = plain(h)
+            err = exact(torch, f'{name} {tuple(h.shape)}->'
+                        f'{tuple(want.shape)}', kern(h), want)
+            macs, _ = block_macs(tuple(h.shape), qb, stride)
+            weights = [t for c in ('conv1', 'conv2', 'conv3', 'down')
+                       if c in qb for t in qb[c].values()]
+            add_row(results, name, err, cuda_ms(torch, lambda: kern(h)),
+                    cuda_ms(torch, lambda: plain(h), reps=1), None,
+                    nbytes(h, want, *weights), 2 * macs,
+                    rate=H100_INT8_PER_S)
+            h = want
+
+
 def phase_trunk(torch, BK, Q, FO, q, x, results):
     """Walk the trunk: each kernel gets the plain trunk's activation at
     its position; outputs compared, both versions timed."""
@@ -359,12 +467,13 @@ def phase_trunk(torch, BK, Q, FO, q, x, results):
 
 
 def phase_megastep(torch, name, step, reference, wrappers, expected,
-                   n_pairs, card, directions, margin_pairs):
+                   n_pairs, card, directions, margins):
     """One megastep with the counts set to 0 just before it: launch
     counts, timing, and the first `few` pairs' logits (both directions at
     directions=2) against `reference()`, the plain path on the CPU; the
-    error over the first `margin_pairs` pairs is printed beside the bar
-    (it shows how much room the bar leaves)."""
+    error over the first m pairs, for each m in `margins`, is printed
+    beside the bar (it shows how much room the bar leaves). Returns the
+    launch counts and the logits."""
     print(f'--- megastep {name}')
     for w in wrappers.values():
         w.launches = 0
@@ -392,10 +501,11 @@ def phase_megastep(torch, name, step, reference, wrappers, expected,
           f'ms/step, {n_pairs * iters / dt:.1f} pairs/s ({card})')
 
     few = 4
+    n_ref = max([few, *margins])
     t0 = time.perf_counter()
     with torch.no_grad():
-        ref = reference(max(few, margin_pairs))
-    print(f'plain CPU path on {max(few, margin_pairs)} pairs: '
+        ref = reference(n_ref)
+    print(f'plain CPU path on {n_ref} pairs: '
           f'{time.perf_counter() - t0:.1f} s')
     refs = ref if directions == 2 else (ref,)
 
@@ -408,9 +518,9 @@ def phase_megastep(torch, name, step, reference, wrappers, expected,
         rel, scale = rel_err(got, r)
         print(f'direction {d}: logits vs plain CPU path ({few} pairs): '
               f'max rel err {rel:.3e}')
-        if margin_pairs > few:
-            print(f'  over {margin_pairs} pairs: max rel err '
-                  f'{rel_err(o[:margin_pairs].cpu(), r_all)[0]:.3e}')
+        for m in margins:
+            print(f'  over {m} pairs: max rel err '
+                  f'{rel_err(o[:m].cpu(), r_all[:m])[0]:.3e}')
         print('  logits (card):', got.tolist())
         print('  logits (cpu): ', r.tolist())
         check(rel < 0.02 and scale > 1e-3,
@@ -423,7 +533,37 @@ def phase_megastep(torch, name, step, reference, wrappers, expected,
         sure = (p - 0.5).abs() > 1e-2
         check(bool((dec[sure] == (p[sure] > 0.5)).all()),
               f'{name}: decisions agree where the reference is sure')
-    return launches
+    return launches, logits
+
+
+def check_int8c_same_input(torch, Q, FO, q, cfg, x, directions, feats,
+                           logits):
+    """The int8c kernel route against the plain int8c forward on the same
+    prepped card tensor x: the trunk's int8 output equal on every value,
+    the megastep's logits within 1e-5 of max |logit| (only the f32 head
+    may reassociate)."""
+    def trunk(use):
+        x8 = Q.quantize_input(x, q['cfg_scales']['in'])
+        if directions == 2:
+            wide = dict(q, conv1=FO.siamese_conv1(q['conv1']))
+            h = FO.directions_to_batch(Q._stem_int8(wide, x8, use_pallas=use))
+        else:
+            h = Q._stem_int8(q, x8, use_pallas=use)
+        return Q._trunk_int8(q, cfg, h, use_pallas=use)
+
+    hk, hp = trunk(feats), trunk(False)
+    diff(torch, 'int8c trunk output, kernels vs plain (same input)', hk, hp)
+    check(torch.equal(hk, hp), 'int8c trunk output equal to the plain one')
+    fwd = Q.apply_folded_int8_siamese if directions == 2 \
+        else Q.apply_folded_int8
+    want = fwd(q, cfg, x, use_pallas=False)
+    for d, (o, w) in enumerate(zip(*((logits, want) if directions == 2
+                                     else ((logits,), (want,))))):
+        scale = max(float(w.abs().max()), 1e-6)
+        rel = float((o - w).abs().max()) / scale
+        print(f'direction {d}: logits vs the plain int8c forward on the card '
+              f'(same input, all pairs): max rel err {rel:.3e}')
+        check(rel <= 1e-5, 'int8c logits within 1e-5 of the plain forward')
 
 
 def main():
@@ -439,6 +579,7 @@ def main():
     from instaorder_tpu_torch.ops import _build
     from instaorder_tpu_torch.ops import bottleneck_bf16_kernels as B16
     from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    from instaorder_tpu_torch.ops import int8_kernels as IK
     from instaorder_tpu_torch.ops import pairs as P
     from instaorder_tpu_torch.ops import prep_kernels as PK
     from instaorder_tpu_torch.ops import stem_kernels as SK
@@ -485,12 +626,23 @@ def main():
                              passes=3)
     q2, _ = serving.build_serving_model(0, x3, device=dev,
                                         weight_init='kaiming_out')
-    models = {'serving-d1': q, 'serving-d2': q2, 'parity': params16}
+    # the int8c models, each calibrated on its own profile's prep
+    q8c, _ = serving.build_int8c_model(0, x, device=dev,
+                                       weight_init='kaiming_out')
+    q8c2, _ = serving.build_int8c_model(0, x3, device=dev,
+                                        weight_init='kaiming_out')
+    models = {('serving-d1', 'int8'): q, ('serving-d2', 'int8'): q2,
+              ('parity', 'bf16'): params16, ('serving-d1', 'int8c'): q8c,
+              ('serving-d2', 'int8c'): q8c2}
     with torch.no_grad():
         phase_trunk(torch, BK, Q, FO, q, x, results)
         # x3 is also the parity path's input at the kernels' shapes
         phase_stem_q8(torch, SK, FO, q2, x3)
         phase_trunk_bf16(torch, B16, SK, FO, params16, x3, results)
+        t0 = time.perf_counter()
+        phase_trunk_int8(torch, IK, SK, Q, FO, q8c, x, results, wide=False)
+        phase_trunk_int8(torch, IK, SK, Q, FO, q8c2, x3, results, wide=True)
+        print(f'int8c kernels vs plain: {time.perf_counter() - t0:.1f} s')
 
     # ---- 3. the megasteps ---------------------------------------------------
     wrappers = {PREP: PK.fused_prep_pairs,
@@ -500,21 +652,32 @@ def main():
                 RGB: PK.fused_prep_rgb,
                 IDEN16: B16.fused_bottleneck,
                 DOWN16: B16.fused_bottleneck_down,
-                STEM: SK.fused_stem}
+                STEM: SK.fused_stem,
+                I8: IK.fused_bottleneck_int8,
+                D8: IK.fused_bottleneck_down_int8,
+                STEM8: SK.fused_stem_int8,
+                I8H: IK.fused_bottleneck_int8_hwnc,
+                D8H1: IK.fused_bottleneck_down_int8_hwnc,
+                D8H2: IK.fused_bottleneck_down_s2_int8_hwnc}
     launches = {}
     for name, profile, extra, expected in MEGASTEPS:
         prof = serving.resolve_profile(profile,
-                                       prep_rgb=extra.get('prep_rgb'))
+                                       prep_rgb=extra.get('prep_rgb'),
+                                       dtype=extra.get('dtype'))
         kw = dict(out_size=OUT, passes=prof['passes'],
                   directions=prof['directions'], prep_rgb=prof['prep_rgb'],
                   use_pallas=extra.get('use_pallas', True))
-        model = models[profile]
+        model = models[profile, prof['dtype']]
 
         def reference(few, model=model, kw=kw):
             xp = serving.prep_pairs(*sc, pidx, out_size=OUT,
                                     passes=kw['passes'],
                                     prep_rgb=kw['prep_rgb'])[:few].cpu()
             m = tree_to(model, 'cpu')
+            if 'cfg_scales' in m:
+                fwd = (Q.apply_folded_int8_siamese if kw['directions'] == 2
+                       else Q.apply_folded_int8)
+                return fwd(m, cfg, xp, use_pallas=kw['use_pallas'])
             if 's_feat' in m:
                 fwd = (Q.apply_folded_v2_siamese if kw['directions'] == 2
                        else Q.apply_folded_v2)
@@ -524,9 +687,18 @@ def main():
 
         step = lambda model=model, kw=kw: serving.megastep(
             model, cfg, *sc, pidx, **kw)
-        got = phase_megastep(torch, name, step, reference, wrappers,
-                             expected, n_pairs, card, prof['directions'],
-                             MARGIN_PAIRS if prof['dtype'] == 'int8' else 4)
+        got, logits = phase_megastep(
+            torch, name, step, reference, wrappers, expected, n_pairs, card,
+            prof['directions'],
+            (MARGIN_PAIRS, n_pairs) if prof['dtype'] == 'int8' else ())
+        if prof['dtype'] == 'int8c':
+            with torch.no_grad():
+                xp = serving.prep_pairs(*sc, pidx, out_size=OUT,
+                                        passes=kw['passes'],
+                                        prep_rgb=kw['prep_rgb'])
+                check_int8c_same_input(torch, Q, FO, model, cfg, xp,
+                                       prof['directions'], kw['use_pallas'],
+                                       logits)
         for k, n in got.items():
             if n and k not in launches:
                 launches[k] = n

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Throughput benchmark of the port's serving paths: pairs/sec on one GPU.
 
-Mirrors the root bench.py and its profiles (serving.PROFILES): serving-d1
+Mirrors the root bench.py, its profiles (serving.PROFILES) and its
+--dtype (int8c, int8, bf16; f32 is not ported to the card): serving-d1
 (the default: int8 v2 trunk, directions=1, fused 5-channel prep with
 1-pass RGB), serving-d2 (the same v2 model, both directions, 3-pass
 prep) and parity (the bf16 folded model, both directions, the cv2-exact
@@ -11,7 +12,8 @@ instances, 45 pairs each, np.random.RandomState(0)), the same step size
 torch.cuda.synchronize(); the best window is reported.
 
     python -m instaorder_tpu_torch.bench [--profile serving-d1]
-        [--prep-rgb einsum|pallas|pallas5] [--pallas-features a,b,...]
+        [--dtype int8c|int8|bf16] [--prep-rgb einsum|pallas|pallas5]
+        [--pallas-features a,b,...]
         [--pairs-per-step 1620]
 
 Prints ONE JSON line:
@@ -46,12 +48,17 @@ def add_profile_args(ap):
                     help='prep route: einsum (dense f32 matmuls), pallas '
                          '(RGB kernel + exact mask matmuls) or pallas5 '
                          '(the 5-channel kernel); default from the profile')
+    ap.add_argument('--dtype', default=None, choices=serving.DTYPES,
+                    help='model: int8 (boundary-int8 v2, bf16 compute), '
+                         'int8c (fully quantized int8 compute) or bf16 '
+                         '(the folded model); default from the profile')
     ap.add_argument('--pallas-features', default=None,
                     help='comma list of kernel features, replacing the '
-                         'profile\'s default set: parity from '
+                         'default set of the model\'s dtype: bf16 from '
                          '{identity,down,down1,stem} (default identity), '
-                         'serving-d1/d2 from {hwnc,down2,hwncs1d,dirpack,'
-                         'stem} (default hwnc,down2,hwncs1d,dirpack)')
+                         'int8 from {hwnc,down2,hwncs1d,dirpack,stem} '
+                         '(default hwnc,down2,hwncs1d,dirpack), int8c from '
+                         '{identity,down,stem,hwnc} (default identity,down)')
 
 
 def build_parser():
@@ -70,11 +77,12 @@ def build_parser():
 
 def build_step(args, sc, pidx, out_size, dev):
     """The megastep of the profile flags in `args` over the uploaded
-    scenes `sc`, as a no-argument function. int8: the boundary scales
+    scenes `sc`, as a no-argument function. int8 and int8c: the scales
     are calibrated on one prepped batch (f32 forward), then quantized
-    with bf16 compute (root bench.py --dtype int8); bf16: the folded
-    model cast to bf16."""
-    prof = serving.resolve_profile(args.profile, prep_rgb=args.prep_rgb)
+    (root bench.py --dtype int8: bf16 compute; --dtype int8c: int8
+    compute); bf16: the folded model cast to bf16."""
+    prof = serving.resolve_profile(args.profile, prep_rgb=args.prep_rgb,
+                                   dtype=args.dtype)
     kw = dict(out_size=out_size, passes=prof['passes'],
               directions=prof['directions'], prep_rgb=prof['prep_rgb'],
               use_pallas=tuple(args.pallas_features.split(','))
@@ -82,7 +90,8 @@ def build_step(args, sc, pidx, out_size, dev):
     calib_x = serving.prep_pairs(*sc, pidx, out_size=out_size,
                                  passes=prof['passes'],
                                  prep_rgb=prof['prep_rgb'])
-    q, cfg = serving.build_model(args.profile, 0, calib_x, device=dev)
+    q, cfg = serving.build_model(args.profile, 0, calib_x, device=dev,
+                                 dtype=prof['dtype'])
     del calib_x
     return lambda: serving.megastep(q, cfg, *sc, pidx, **kw)
 
@@ -117,6 +126,8 @@ def main(argv=None):
         'vs_baseline': round(value / 10000.0, 3),
         'device': torch.cuda.get_device_name(dev),
         'profile': args.profile,
+        'dtype': serving.resolve_profile(args.profile,
+                                         dtype=args.dtype)['dtype'],
     }))
 
 

@@ -185,10 +185,12 @@ def apply_folded(params, cfg, x, dtype=None, use_pallas=False):
 
 def siamese_conv1(conv1):
     """The double-width stem's conv1: both directions' weights on the
-    output axis, [conv1 | swap_conv1_w(conv1)], the bias twice."""
-    return {'w': torch.cat([conv1['w'], swap_conv1_w(conv1['w'])],
-                           dim=3).contiguous(),
-            'b': torch.cat([conv1['b'], conv1['b']])}
+    output axis, [conv1 | swap_conv1_w(conv1)], and every per-channel
+    leaf beside them (the bias; the int8c requant multiplier `m`) twice."""
+    out = {k: torch.cat([v, v]) for k, v in conv1.items() if k != 'w'}
+    out['w'] = torch.cat([conv1['w'], swap_conv1_w(conv1['w'])],
+                         dim=3).contiguous()
+    return out
 
 
 def directions_to_batch(hcat):

@@ -1,5 +1,7 @@
-"""Boundary-int8 ("v2") post-training quantization of the folded ResNet
-serving trunk (counterpart of instaorder_tpu/models/quantize.py, v2 path).
+"""Post-training quantization of the folded ResNet serving trunk
+(counterpart of instaorder_tpu/models/quantize.py): the boundary-int8
+("v2") path first, the fully quantized int8c path at the end of the file
+(`quantize_folded_resnet`, `apply_folded_int8*`, its own notes there).
 
 int8 is only the storage format at block boundaries — the stem output
 and every bottleneck output hold integers 0..127 — while all arithmetic
@@ -33,7 +35,9 @@ import torch
 
 from ..core import nn as cnn
 from ..ops import bottleneck_kernels as bk
-from ..ops.stem_kernels import fused_stem
+from ..ops import int8_kernels as ik
+from ..ops.stem_kernels import (fused_stem, fused_stem_int8,
+                                fused_stem_int8_plain)
 from .folding import (IDEN_CIN_CAP, _kernel_args, _pallas_features,
                       _stem_fusable, siamese_forward)
 
@@ -284,3 +288,183 @@ def apply_folded_v2_siamese(q, cfg, x, use_pallas=True):
         q['conv1'], x,
         lambda c1, x: _stem_v2(dict(q, conv1=c1), x, use_pallas=use_pallas),
         lambda h8: _apply_trunk_v2(q, cfg, h8, use_pallas=use_pallas))
+
+
+# ---------------------------------------------------------------------------
+# int8c: the fully quantized path (the JAX package's round-2 scheme,
+# `quantize_folded_resnet` / `apply_folded_int8*`). Every conv is s8 x s8
+# -> s32 and every activation int8, h1 and h2 included; each conv's
+# epilogue folds m = s_in * s_w / s_out per output channel and b =
+# bias / s_out:
+#   rq8(acc) = clip(round(f32(acc) * m + b), 0, 127)
+# The residual adds f32(x) * sxr (sxr = s_x / s_out) or the projection's
+# own (accd * md + bd) before the round. s32 sums are exact, so the path
+# equals the JAX package bit for bit up to the f32 head.
+# ---------------------------------------------------------------------------
+
+# int8c kernel features (the JAX package's names) and its default set.
+# 'hwnc' routes the identity blocks, and with 'down' the projections, to
+# the kernels named after the JAX hwnc kernels; the port has no hwnc view,
+# so they launch the NHWC kernel (ops/int8_kernels.py).
+PALLAS_VOCAB_INT8 = frozenset(('identity', 'down', 'stem', 'hwnc'))
+PALLAS_DEFAULT_INT8 = frozenset(('identity', 'down'))
+
+
+def _int8_features(use_pallas):
+    return _pallas_features(use_pallas, default=PALLAS_DEFAULT_INT8,
+                            vocab=PALLAS_VOCAB_INT8)
+
+
+def _quant_w(w):
+    """HWIO weight -> (int8 weight, per-out-channel f32 scale)."""
+    w = w.float()
+    s = (w.abs().reshape(-1, w.shape[-1]).amax(dim=0) / 127.0).clamp_min(
+        1e-8)
+    return torch.round(w / s).clamp_(-127, 127).to(torch.int8).contiguous(), s
+
+
+def _qconv(p, s_in, s_out):
+    w8, sw = _quant_w(p['w'])
+    return {'w': w8, 'm': (s_in * sw / s_out).contiguous(),
+            'b': (p['b'].float() / s_out).contiguous()}
+
+
+def quantize_folded_resnet(folded, cfg, scales):
+    """folded f32 params + calibration scales -> int8c serving params:
+    int8 HWIO weights with f32 per-channel `m`, `b` for every conv, the
+    Python-float scalars `sxr` (identity blocks), `s_out`, `s_feat`, and
+    `cfg_scales` {'in', 'stem'} (the key that tells an int8c tree from a
+    v2 one)."""
+    s_in, s_stem = float(scales['in']), float(scales['stem'])
+    q: Dict[str, Any] = {'cfg_scales': {'in': s_in, 'stem': s_stem},
+                         'conv1': _qconv(folded['conv1'], s_in, s_stem)}
+    s_prev = s_stem
+    for li in range(4):
+        name = f'layer{li + 1}'
+        stage = []
+        for bi, bp in enumerate(folded[name]):
+            sc = scales[name][bi]
+            s_h1, s_h2, s_out = (float(sc['h1']), float(sc['h2']),
+                                 float(sc['out']))
+            qb: Dict[str, Any] = {
+                'conv1': _qconv(bp['conv1'], s_prev, s_h1),
+                'conv2': _qconv(bp['conv2'], s_h1, s_h2),
+                'conv3': _qconv(bp['conv3'], s_h2, s_out)}
+            if 'down' in bp:
+                # the projection feeds the residual add in conv3's output
+                # scale domain
+                qb['down'] = _qconv(bp['down'], s_prev, s_out)
+            else:
+                qb['sxr'] = float(np.float32(s_prev / s_out))
+            qb['s_out'] = float(np.float32(s_out))
+            stage.append(qb)
+            s_prev = s_out
+        q[name] = stage
+    for fc in ('fc', 'fc_occ', 'fc_depth'):
+        if fc in folded:
+            q[fc] = {k: v.float() for k, v in folded[fc].items()}
+    q['s_feat'] = float(np.float32(s_prev))
+    return q
+
+
+def quantize_input(x, s_in):
+    """Prep output -> int8 input: clip(round(f32(x) / s_in), -127, 127)."""
+    return torch.round(x.float() / s_in).clamp_(-127, 127).to(torch.int8)
+
+
+def _stem_int8(q, x8, use_pallas=False):
+    """int8 stem: the fused kernel with 'stem' (ops/stem_kernels
+    `fused_stem_int8`), else the plain s32 conv, requant and int8 pool."""
+    c1 = q['conv1']
+    if ('stem' in _int8_features(use_pallas)
+            and _stem_fusable(c1['w'], x8)):
+        return fused_stem_int8(x8.contiguous(), c1['w'], c1['m'], c1['b'])
+    return fused_stem_int8_plain(x8, c1['w'], c1['m'], c1['b'])
+
+
+def _int8_args(qb):
+    """A block's convs as the int8 kernels take them: (w1, m1, b1, w2,
+    m2, b2, w3, m3, b3), 1x1 weights as (Cin, Cout) matrices, then (wd,
+    md, bd) where the block has a projection."""
+    args = []
+    for c in ('conv1', 'conv2', 'conv3', 'down'):
+        if c in qb:
+            w = qb[c]['w']
+            args += [w if c == 'conv2' else w[0, 0], qb[c]['m'], qb[c]['b']]
+    return args
+
+
+def _plain_block_int8(qb, h8, stride):
+    """One int8c block as the plain conv chain (the XLA int8 oracle)."""
+    if 'down' in qb:
+        return ik.fused_bottleneck_down_int8_plain(h8, *_int8_args(qb),
+                                                   stride=stride)
+    return ik.fused_bottleneck_int8_plain(h8, *_int8_args(qb), qb['sxr'])
+
+
+def _trunk_int8(q, cfg, h8, use_pallas=True):
+    """int8 stem output -> int8 trunk output, routed as the JAX package's
+    `_apply_trunk_int8`: with 'hwnc' every stride-1 identity block goes
+    to `fused_bottleneck_int8_hwnc` and, with 'down' too, the projections
+    to `fused_bottleneck_down_int8_hwnc` (stride 1) and
+    `fused_bottleneck_down_s2_int8_hwnc` (stride 2); otherwise 'identity'
+    sends identity blocks to `fused_bottleneck_int8` and 'down' the
+    projections to `fused_bottleneck_down_int8`; every other block runs
+    the plain chain. No conv1 Cin cap (unlike v2). The JAX package's
+    pad-to-8 and hwnc transposes are TPU layout devices and do not carry
+    over."""
+    assert cfg['block'] == 'bottleneck' and cfg['groups'] == 1, \
+        'int8c path targets the resnet50 family'
+    feats = _int8_features(use_pallas)
+    for li in range(4):
+        for bi, qb in enumerate(q[f'layer{li + 1}']):
+            stride = 2 if (li > 0 and bi == 0) else 1
+            a = _int8_args(qb)
+            down = 'down' in qb
+            if not down and stride == 1 and 'hwnc' in feats:
+                h8 = ik.fused_bottleneck_int8_hwnc(h8, *a, qb['sxr'])
+            elif down and {'hwnc', 'down'} <= feats:
+                fn = (ik.fused_bottleneck_down_s2_int8_hwnc if stride == 2
+                      else ik.fused_bottleneck_down_int8_hwnc)
+                h8 = fn(h8, *a)
+            elif not down and stride == 1 and 'identity' in feats:
+                h8 = ik.fused_bottleneck_int8(h8, *a, qb['sxr'])
+            elif down and 'down' in feats:
+                h8 = ik.fused_bottleneck_down_int8(h8, *a, stride=stride)
+            else:
+                h8 = _plain_block_int8(qb, h8, stride)
+    return h8
+
+
+def _head_int8(q, cfg, h8):
+    """f32 head: h8 * s_feat, mean-pool, fc (dual head where configured)."""
+    pooled = (h8.float() * q['s_feat']).mean(dim=(1, 2))
+    if cfg['dual_head']:
+        return (cnn.linear(q['fc_occ'], pooled),
+                cnn.linear(q['fc_depth'], pooled))
+    return cnn.linear(q['fc'], pooled)
+
+
+def _apply_trunk_int8(q, cfg, h8, use_pallas=True):
+    return _head_int8(q, cfg, _trunk_int8(q, cfg, h8, use_pallas=use_pallas))
+
+
+def apply_folded_int8(q, cfg, x, use_pallas=True):
+    """Prep output (N, H, W, 5) -> int8 input -> int8c stem and trunk ->
+    f32 logits."""
+    x8 = quantize_input(x, q['cfg_scales']['in'])
+    return _apply_trunk_int8(q, cfg, _stem_int8(q, x8, use_pallas=use_pallas),
+                             use_pallas=use_pallas)
+
+
+def apply_folded_int8_siamese(q, cfg, x, use_pallas=True):
+    """Both swap directions (models/folding `siamese_forward`): the input
+    quantised once, one double-width stem whose per-channel `m` and `b`
+    are concatenated like its weights, one trunk call on the 2N batch.
+    Returns (out1, out2)."""
+    x8 = quantize_input(x, q['cfg_scales']['in'])
+    return siamese_forward(
+        q['conv1'], x8,
+        lambda c1, x8: _stem_int8(dict(q, conv1=c1), x8,
+                                  use_pallas=use_pallas),
+        lambda h8: _apply_trunk_int8(q, cfg, h8, use_pallas=use_pallas))

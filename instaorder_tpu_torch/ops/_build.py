@@ -122,6 +122,17 @@ def library() -> ctypes.CDLL:
            P, I, F,                     # identity residual, its dtype, r
            P, I, P])                    # out, epilogue mode, stream
     lib.io_conv_gemm.restype = I
+    # x, w, m, b (int8 / f32), out, N, H, W, C, cout, stream
+    lib.io_fused_stem_s8.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+    lib.io_fused_stem_s8.restype = I
+    lib.io_conv_gemm_s8.argtypes = (
+        # two K segments: int8 activation, its (K, Cout) int8 weight rows,
+        # f32 multiplier and bias, C, H, W, stride, ksize
+        [P, P, P, P, I, I, I, I, I] * 2
+        + [I, I, I, I,                  # N, Ho, Wo, Cout
+           P, F,                        # identity residual, sxr
+           P, I, P])                    # out, epilogue mode, stream
+    lib.io_conv_gemm_s8.restype = I
     return lib
 
 

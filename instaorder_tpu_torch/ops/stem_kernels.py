@@ -1,4 +1,5 @@
-"""Kernel 15: the fused ResNet stem (csrc/stem.cu).
+"""Kernels 15 and 18: the fused ResNet stem, bf16/q8 and int8c
+(csrc/stem.cu).
 
 Replaces instaorder_tpu/ops/pallas_blocks.py `fused_stem` (kernel body
 `_stem_v2_kernel`, with its `q8` option): conv 7x7 / stride 2 / pad 3,
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .int8_kernels import batch_chunks, conv_int8, requant
 
 
 def fused_stem_plain(x, w, b, q8=False):
@@ -86,3 +88,70 @@ def fused_stem(x, w, b, q8=False):
 
 
 fused_stem.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 18: the int8c stem (csrc/stem.cu `stem_s8_kernel`), replacing
+# pallas_blocks.py `fused_stem_int8` (kernel body `_stem_v2_int8_kernel`):
+# s8 conv 7x7 / stride 2 / pad 3 with s32 accumulation, the requant
+# rq8(acc) = clip(round(f32(acc) * m + b), 0, 127), max-pool 3x3 / stride
+# 2 / pad 1 on int8. Bound on the H100: int8 tensor-core operations at the
+# double-width stem; the design is the bf16 kernel's with s8 WMMA and an
+# int8 conv tile (the weight tile is 32 KB at Cout 128).
+# ---------------------------------------------------------------------------
+
+
+def fused_stem_int8_plain(x8, w8, m, b):
+    """x8 (N, H, W, C) int8; w8 (7, 7, C, Cout) int8 HWIO; m, b (Cout,)
+    f32 -> (N, Ho, Wo, Cout) int8: the exact s32 conv, the requant, then
+    the max-pool (its -inf padding equals the reference's -128 on int8).
+    The batch is split so that the float64 conv output of a chunk stays
+    near 4 GB (1,620 double-width images would need 27 GB at once)."""
+    _, H, W, _ = x8.shape
+    per_image = ((H + 1) // 2) * ((W + 1) // 2) * w8.shape[-1] * 8
+    outs = []
+    for xc in batch_chunks(x8, per_image):
+        h = requant(conv_int8(xc, w8, 2, 3), m, b)
+        # int8 values 0..127 are exact in f32, and max-pool only compares
+        pooled = F.max_pool2d(h.permute(0, 3, 1, 2).float(), 3, 2, 1)
+        outs.append(pooled.permute(0, 2, 3, 1).to(torch.int8).contiguous())
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def fused_stem_int8(x8, w8, m, b):
+    """Fused int8c stem. x8 (N, H, W, C) int8 with C <= 5; w8 (7, 7, C,
+    Cout) int8, Cout 64 or 128; m, b (Cout,) f32. -> (N, ceil(H/4),
+    ceil(W/4), Cout) int8."""
+    if x8.device.type == 'cpu':
+        return fused_stem_int8_plain(x8, w8, m, b)
+    dev = x8.device
+    if x8.dtype != torch.int8 or x8.dim() != 4 or not x8.is_contiguous():
+        raise ValueError(f'fused_stem_int8: x must be a contiguous (N, H, W, '
+                         f'C) int8 tensor, got {tuple(x8.shape)} {x8.dtype}')
+    N, H, W, C = x8.shape
+    cout = w8.shape[-1]
+    if tuple(w8.shape) != (7, 7, C, cout) or C > 5 or cout not in (64, 128):
+        raise ValueError(f'fused_stem_int8: w must be (7, 7, C<=5, 64|128) '
+                         f'for x {tuple(x8.shape)}, got {tuple(w8.shape)}')
+    if (w8.dtype != torch.int8 or w8.device != dev
+            or not w8.is_contiguous() or w8.data_ptr() % 16):
+        raise ValueError(f'fused_stem_int8: w must be contiguous int8 on '
+                         f'{dev}')
+    for t, name in ((m, 'multiplier'), (b, 'bias')):
+        if (t.dtype != torch.float32 or t.device != dev
+                or tuple(t.shape) != (cout,) or not t.is_contiguous()):
+            raise ValueError(f'fused_stem_int8: {name} must be a contiguous '
+                             f'({cout},) f32 tensor on {dev}')
+    Hc, Wc = (H - 1) // 2 + 1, (W - 1) // 2 + 1
+    out = torch.empty((N, (Hc - 1) // 2 + 1, (Wc - 1) // 2 + 1, cout),
+                      dtype=torch.int8, device=dev)
+    rc = _build.library().io_fused_stem_s8(
+        x8.data_ptr(), w8.data_ptr(), m.data_ptr(), b.data_ptr(),
+        out.data_ptr(), N, H, W, C, cout,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, 'fused_stem_int8')
+    fused_stem_int8.launches += 1
+    return out
+
+
+fused_stem_int8.launches = 0

@@ -7,6 +7,8 @@ profiles (`PROFILES`, `resolve_profile`):
     -> parity:     apply_folded_siamese (bf16 folded ResNet-50)
        serving-d2: apply_folded_v2_siamese (boundary-int8 v2)
        serving-d1: apply_folded_v2, one direction per pair
+       --dtype int8c (any profile): apply_folded_int8[_siamese], the
+                   fully quantized int8 model
     -> logits -> i_over_j, j_over_i decisions (the swap average of both
        directions at directions=2)
 
@@ -31,8 +33,9 @@ from .ops.pairs import (build_pair_batches_fused, build_pair_batches_matmul,
                         pair_rois)
 
 # the root bench.py profiles (its PROFILES): dtype 'bf16' is the folded
-# bf16 model, 'int8' the boundary-int8 v2 model; prep_precision 'high'
-# is the 3-pass (f32) prep, 'default' the 1-pass bf16 knob
+# bf16 model, 'int8' the boundary-int8 v2 model ('int8c', the fully
+# quantized model, is chosen with an explicit dtype); prep_precision
+# 'high' is the 3-pass (f32) prep, 'default' the 1-pass bf16 knob
 PROFILES = {
     'parity': {'dtype': 'bf16', 'directions': 2, 'prep_rgb': 'einsum',
                'prep_precision': 'high'},
@@ -43,12 +46,21 @@ PROFILES = {
 }
 
 
-def resolve_profile(profile, prep_rgb=None):
-    """A profile's settings, an explicit prep_rgb winning: {'dtype',
-    'directions', 'prep_rgb', 'passes'}. prep_rgb defaults to 'pallas5'
-    where the profile does not pin it, as in the root bench."""
+# model dtypes the port serves (the root bench's --dtype without 'f32':
+# the CUDA wrappers take no f32, ROADMAP.md queue 2 "f32 on the card")
+DTYPES = ('int8c', 'int8', 'bf16')
+
+
+def resolve_profile(profile, prep_rgb=None, dtype=None):
+    """A profile's settings, an explicit prep_rgb or dtype winning (as the
+    root bench's resolve_profile): {'dtype', 'directions', 'prep_rgb',
+    'passes'}. prep_rgb defaults to 'pallas5' where the profile does not
+    pin it, as in the root bench."""
     preset = PROFILES[profile]
-    return {'dtype': preset['dtype'], 'directions': preset['directions'],
+    if dtype is not None and dtype not in DTYPES:
+        raise ValueError(f'dtype must be one of {DTYPES}, got {dtype!r}')
+    return {'dtype': dtype or preset['dtype'],
+            'directions': preset['directions'],
             'prep_rgb': prep_rgb or preset.get('prep_rgb', 'pallas5'),
             'passes': 1 if preset['prep_precision'] == 'default' else 3}
 
@@ -104,6 +116,15 @@ def _init_folded(seed, dev, weight_init):
     return fold_resnet(params, stats, cfg), cfg
 
 
+def _calibrated(seed, calib_x, device, weight_init):
+    """The folded f32 network from `seed` and its activation scales,
+    calibrated on the prepped batch `calib_x`."""
+    dev = resolve_device(device)
+    folded, cfg = _init_folded(seed, dev, weight_init)
+    return folded, cfg, Q.calibrate_folded_resnet(
+        folded, cfg, [calib_x.to(dev).float()])
+
+
 def build_serving_model(seed, calib_x, device=None, weight_init='xavier'):
     """InstaOrderNet_o for serving: a 5-channel ResNet-50 with a 2-logit
     occlusion head initialised from `seed`, BN-folded, calibrated in f32
@@ -115,11 +136,17 @@ def build_serving_model(seed, calib_x, device=None, weight_init='xavier'):
     so every logit quantizes to 0. 'kaiming_out' (the torchvision
     constructor default) keeps the activations alive, which a check of
     the logits needs."""
-    dev = resolve_device(device)
-    folded, cfg = _init_folded(seed, dev, weight_init)
-    scales = Q.calibrate_folded_resnet(folded, cfg,
-                                       [calib_x.to(dev).float()])
+    folded, cfg, scales = _calibrated(seed, calib_x, device, weight_init)
     return Q.quantize_folded_v2(folded, cfg, scales), cfg
+
+
+def build_int8c_model(seed, calib_x, device=None, weight_init='xavier'):
+    """The fully quantized (int8c) model: the same network from `seed`,
+    BN-folded, calibrated in f32 on `calib_x`, then quantized with int8
+    weights and per-channel f32 requant scales (quantize_folded_resnet).
+    Returns (qparams, cfg)."""
+    folded, cfg, scales = _calibrated(seed, calib_x, device, weight_init)
+    return Q.quantize_folded_resnet(folded, cfg, scales), cfg
 
 
 def build_parity_model(seed, device=None, weight_init='xavier'):
@@ -131,23 +158,27 @@ def build_parity_model(seed, device=None, weight_init='xavier'):
     return tree_cast(folded, torch.bfloat16), cfg
 
 
-def build_model(profile, seed, calib_x, device=None, weight_init='xavier'):
-    """The model of `profile`'s dtype: build_parity_model for 'bf16',
-    build_serving_model (calibrated on `calib_x`) for 'int8'."""
-    if PROFILES[profile]['dtype'] == 'bf16':
+def build_model(profile, seed, calib_x, device=None, weight_init='xavier',
+                dtype=None):
+    """The model of `profile`'s dtype, or of an explicit `dtype`:
+    build_parity_model for 'bf16', build_serving_model (calibrated on
+    `calib_x`) for 'int8', build_int8c_model for 'int8c'."""
+    dtype = resolve_profile(profile, dtype=dtype)['dtype']
+    if dtype == 'bf16':
         return build_parity_model(seed, device=device,
                                   weight_init=weight_init)
-    return build_serving_model(seed, calib_x, device=device,
-                               weight_init=weight_init)
+    build = build_int8c_model if dtype == 'int8c' else build_serving_model
+    return build(seed, calib_x, device=device, weight_init=weight_init)
 
 
 @torch.no_grad()
 def megastep(q, cfg, images, masks, bboxes, pair_idx, out_size=256,
              passes=1, directions=1, prep_rgb='pallas5', use_pallas=True):
-    """One serving step over S scenes. `q` is a v2 model
+    """One serving step over S scenes. `q` is an int8c model
+    (build_int8c_model, told by its 'cfg_scales' key), a v2 model
     (build_serving_model) or a bf16 folded model (build_parity_model);
     use_pallas is the kernel feature set (models/folding for the bf16
-    model, models/quantize for v2).
+    model, models/quantize for v2 and int8c).
 
     Returns (logits, i_over_j (S*P,) bool, j_over_i (S*P,) bool), logits
     (S*P, 2) f32 at directions=1 and the pair (out1, out2) at
@@ -156,7 +187,11 @@ def megastep(q, cfg, images, masks, bboxes, pair_idx, out_size=256,
         raise ValueError(f'directions must be 1 or 2, got {directions}')
     x = prep_pairs(images, masks, bboxes, pair_idx, out_size=out_size,
                    passes=passes, prep_rgb=prep_rgb)
-    if 's_feat' in q:
+    if 'cfg_scales' in q:
+        fwd = Q.apply_folded_int8_siamese if directions == 2 \
+            else Q.apply_folded_int8
+        logits = fwd(q, cfg, x, use_pallas=use_pallas)
+    elif 's_feat' in q:
         fwd = Q.apply_folded_v2_siamese if directions == 2 \
             else Q.apply_folded_v2
         logits = fwd(q, cfg, x, use_pallas=use_pallas)

@@ -4,7 +4,8 @@ kernel (torch.profiler, CUDA activity) and the device's idle share over
 the traced steps, at the bench.py configuration.
 
     python -m instaorder_tpu_torch.trace [--profile serving-d1]
-        [--prep-rgb ...] [--pallas-features ...] [--pairs-per-step 1620]
+        [--dtype int8c|int8|bf16] [--prep-rgb ...] [--pallas-features ...]
+        [--pairs-per-step 1620]
 
 Prints a table (device ms per step by kernel name) and ONE JSON line:
   {"step_ms", "device_busy_ms", "idle_share", "pairs_per_step",
@@ -68,6 +69,8 @@ def main(argv=None):
         'step_ms': wall, 'device_busy_ms': busy,
         'idle_share': max(0.0, 1.0 - busy / wall),
         'pairs_per_step': S * 45, 'profile': args.profile,
+        'dtype': serving.resolve_profile(args.profile,
+                                         dtype=args.dtype)['dtype'],
         'device': torch.cuda.get_device_name(dev),
         'top': [[name, calls, ms] for name, calls, ms in rows[:top]],
     }))

@@ -10,7 +10,9 @@ Bars as in chip_smoke.py: prep masks exact and RGB within one uint8 LSB
 on under 1% of pixels; v2 bottleneck outputs and the q8 stem within one
 int8 LSB on under 1% of elements (f32 sums in another order move rare
 round() ties); bf16 blocks and the bf16 stem within 1e-2 of the output
-scale, with under 1% of values more than one bf16 ulp apart."""
+scale, with under 1% of values more than one bf16 ulp apart; the int8c
+blocks and stem equal to their plain versions on every value (s32 sums
+are exact and the f32 epilogues keep the reference's order)."""
 
 import numpy as np
 import pytest
@@ -246,3 +248,114 @@ def test_bf16_kernel_wrappers_refuse_bad_inputs(dev):
         SK.fused_stem(xs, w, b)
     with pytest.raises(ValueError, match='bias'):
         SK.fused_stem(xs.bfloat16(), w, b.bfloat16())
+
+
+# ---------------------------------------------------------------------------
+# int8c kernels: exact integer arithmetic, so kernel and plain version
+# must agree on every value
+# ---------------------------------------------------------------------------
+
+
+def _i8_conv(rng, dev, k, cout, shape):
+    """int8 weights of `shape` and requant (m, b) that put about half of
+    the outputs inside 1..126 for int8 inputs 0..127."""
+    t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev).contiguous()
+    w = t(rng.randint(-127, 128, shape), torch.int8)
+    m = t(60.0 / (np.sqrt(k) * 64 * 73) * (1 + 0.2 * rng.rand(cout)),
+          torch.float32)
+    b = t(rng.randn(cout) * 10, torch.float32)
+    return [w, m, b]
+
+
+def _i8_blk(rng, dev, cin, cm, cout, down):
+    p = (_i8_conv(rng, dev, cin, cm, (cin, cm))
+         + _i8_conv(rng, dev, 9 * cm, cm, (3, 3, cm, cm))
+         + _i8_conv(rng, dev, cm, cout, (cm, cout)))
+    if down:
+        p += _i8_conv(rng, dev, cin, cout, (cin, cout))
+    return p
+
+
+def _exact(got, want):
+    assert got.dtype == want.dtype == torch.int8
+    assert got.shape == want.shape
+    assert int((got != want).sum()) == 0, int((got != want).sum())
+    live = float(((want > 0) & (want < 127)).float().mean())
+    assert live > 0.05, 'degenerate test data'
+
+
+@pytest.mark.parametrize('n,hw,c,cm', [(3, 7, 64, 64), (2, 10, 256, 64),
+                                       (1, 6, 512, 128), (2, 5, 1024, 256)])
+def test_int8_identity_kernel_exact(dev, n, hw, c, cm):
+    from instaorder_tpu_torch.ops import int8_kernels as IK
+    rng = np.random.RandomState(30 + hw)
+    x = torch.as_tensor(rng.randint(0, 128, (n, hw, hw, c)), device=dev,
+                        dtype=torch.int8)
+    p = _i8_blk(rng, dev, c, cm, c, False)
+    want = IK.fused_bottleneck_int8_plain(x, *p, 0.55)
+    for fn in (IK.fused_bottleneck_int8, IK.fused_bottleneck_int8_hwnc):
+        before = fn.launches
+        _exact(fn(x, *p, 0.55), want)
+        assert fn.launches == before + 1
+
+
+@pytest.mark.parametrize('stride,n,hw,cin,cm,cout', [
+    (1, 3, 9, 64, 64, 256), (2, 2, 9, 256, 128, 512),
+    (2, 1, 7, 512, 256, 1024), (2, 2, 5, 1024, 512, 2048)])
+def test_int8_projection_kernel_exact(dev, stride, n, hw, cin, cm, cout):
+    """Odd planes at stride 2: the output is ceil(hw / 2)."""
+    from instaorder_tpu_torch.ops import int8_kernels as IK
+    rng = np.random.RandomState(40 + hw + cin)
+    x = torch.as_tensor(rng.randint(0, 128, (n, hw, hw, cin)), device=dev,
+                        dtype=torch.int8)
+    p = _i8_blk(rng, dev, cin, cm, cout, True)
+    want = IK.fused_bottleneck_down_int8_plain(x, *p, stride=stride)
+    assert want.shape[1] == (hw - 1) // stride + 1
+    hwnc = (IK.fused_bottleneck_down_s2_int8_hwnc if stride == 2
+            else IK.fused_bottleneck_down_int8_hwnc)
+    before = (IK.fused_bottleneck_down_int8.launches, hwnc.launches)
+    _exact(IK.fused_bottleneck_down_int8(x, *p, stride=stride), want)
+    _exact(hwnc(x, *p), want)
+    assert (IK.fused_bottleneck_down_int8.launches,
+            hwnc.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize('n,hw,cout', [(1, 36, 64), (3, 50, 128),
+                                       (2, 30, 128), (3, 64, 64)])
+def test_int8_stem_kernel_exact(dev, n, hw, cout):
+    from instaorder_tpu_torch.ops import stem_kernels as SK
+    rng = np.random.RandomState(50 + hw)
+    x = torch.as_tensor(rng.randint(-127, 128, (n, hw, hw, 5)), device=dev,
+                        dtype=torch.int8)
+    w, m, b = _i8_conv(rng, dev, 245, cout, (7, 7, 5, cout))
+    before = SK.fused_stem_int8.launches
+    got = SK.fused_stem_int8(x, w, m, b)
+    assert SK.fused_stem_int8.launches == before + 1
+    ho = ((hw - 1) // 2) // 2 + 1
+    assert tuple(got.shape) == (n, ho, ho, cout)
+    _exact(got, SK.fused_stem_int8_plain(x, w, m, b))
+
+
+def test_int8_kernel_wrappers_refuse_bad_inputs(dev):
+    """bf16 or f32 activations, a non-contiguous activation and weights
+    on the CPU beside a CUDA activation raise."""
+    from instaorder_tpu_torch.ops import int8_kernels as IK
+    from instaorder_tpu_torch.ops import stem_kernels as SK
+    rng = np.random.RandomState(1)
+    p = _i8_blk(rng, dev, 64, 64, 64, False)
+    x = torch.zeros((1, 8, 8, 64), dtype=torch.int8, device=dev)
+    for bad in (x.bfloat16(), x.float(), x.transpose(1, 2)):
+        with pytest.raises(ValueError):
+            IK.fused_bottleneck_int8(bad, *p, 0.5)
+    with pytest.raises(ValueError):
+        IK.fused_bottleneck_int8(x, *[a.cpu() for a in p], 0.5)
+    pd = _i8_blk(rng, dev, 64, 64, 128, True)
+    with pytest.raises(ValueError):
+        IK.fused_bottleneck_down_int8(x.float(), *pd, stride=2)
+    xs = torch.zeros((1, 32, 32, 5), dtype=torch.int8, device=dev)
+    w, m, b = _i8_conv(rng, dev, 245, 64, (7, 7, 5, 64))
+    for bad in (xs.bfloat16(), xs.float()):
+        with pytest.raises(ValueError):
+            SK.fused_stem_int8(bad, w, m, b)
+    with pytest.raises(ValueError):
+        SK.fused_stem_int8(xs, w.cpu(), m, b)

@@ -175,6 +175,7 @@ def test_port_imports_without_jax():
     mods = [m[:-len('.__init__')] if m.endswith('.__init__') else m
             for m in mods]
     for m in ('ops.bottleneck_bf16_kernels', 'ops.stem_kernels',
+              'ops.int8_kernels',
               'ops.prep_kernels', 'models.folding', 'models.quantize',
               'serving', 'bench', 'trace'):
         assert 'instaorder_tpu_torch.' + m in mods, m
