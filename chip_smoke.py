@@ -65,6 +65,18 @@ STEM8 = 'fused_stem_int8'
 I8H = 'fused_bottleneck_int8_hwnc'
 D8H1 = 'fused_bottleneck_down_int8_hwnc'
 D8H2 = 'fused_bottleneck_down_s2_int8_hwnc'
+HWNCP = 'fused_bottleneck_i8v2_hwncp_stage'
+DOWN1H = 'fused_bottleneck_down_i8v2_hwnc'
+IDENN = 'fused_bottleneck_i8v2'
+DOWN1N = 'fused_bottleneck_down_i8v2'
+STAGE16 = 'fused_bottleneck_stage'
+SSTAGE16 = 'fused_bottleneck_stage_stream'
+HWNC16 = 'fused_bottleneck_hwnc'
+# kernel 2's down=False mode (an identity run): its own entry in the
+# kernels line, counted by STAGE's wrapper
+RUN = STAGE + '[down=False]'
+# not a kernel: the v2 plain-chain blocks of a megastep, counted too
+PLAIN_V2 = 'plain v2 blocks'
 _CSRC = 'instaorder_tpu_torch/csrc/'
 SOURCES = {PREP: _CSRC + 'prep.cu', STAGE: _CSRC + 'bottleneck_v2.cu',
            DOWN: _CSRC + 'bottleneck_v2.cu', IDEN: _CSRC + 'bottleneck_v2.cu',
@@ -73,7 +85,10 @@ SOURCES = {PREP: _CSRC + 'prep.cu', STAGE: _CSRC + 'bottleneck_v2.cu',
            I8: _CSRC + 'bottleneck_int8.cu', D8: _CSRC + 'bottleneck_int8.cu',
            STEM8: _CSRC + 'stem.cu', I8H: _CSRC + 'bottleneck_int8.cu',
            D8H1: _CSRC + 'bottleneck_int8.cu',
-           D8H2: _CSRC + 'bottleneck_int8.cu'}
+           D8H2: _CSRC + 'bottleneck_int8.cu',
+           **{k: _CSRC + 'bottleneck_v2.cu' for k in (
+               HWNCP, DOWN1H, IDENN, DOWN1N, STAGE16, SSTAGE16, HWNC16,
+               RUN)}}
 REPLACES = {PREP: 'instaorder_tpu/ops/prep_pallas.py:315',
             STAGE: 'instaorder_tpu/ops/pallas_blocks.py:1526',
             DOWN: 'instaorder_tpu/ops/pallas_blocks.py:1010',
@@ -87,7 +102,15 @@ REPLACES = {PREP: 'instaorder_tpu/ops/prep_pallas.py:315',
             STEM8: 'instaorder_tpu/ops/pallas_blocks.py:2354',
             I8H: 'instaorder_tpu/ops/pallas_blocks.py:1134',
             D8H1: 'instaorder_tpu/ops/pallas_blocks.py:1234',
-            D8H2: 'instaorder_tpu/ops/pallas_blocks.py:1348'}
+            D8H2: 'instaorder_tpu/ops/pallas_blocks.py:1348',
+            HWNCP: 'instaorder_tpu/ops/pallas_blocks.py:1787',
+            DOWN1H: 'instaorder_tpu/ops/pallas_blocks.py:872',
+            IDENN: 'instaorder_tpu/ops/pallas_blocks.py:551',
+            DOWN1N: 'instaorder_tpu/ops/pallas_blocks.py:633',
+            STAGE16: 'instaorder_tpu/ops/pallas_blocks.py:172',
+            SSTAGE16: 'instaorder_tpu/ops/pallas_blocks.py:259',
+            HWNC16: 'instaorder_tpu/ops/pallas_blocks.py:2439',
+            RUN: 'instaorder_tpu/ops/pallas_blocks.py:1526'}
 # the megasteps: (name, profile, megastep keywords, launches per step;
 # every other kernel must launch 0 times)
 V2_LAUNCHES = {PREP: 1, STAGE: 1, DOWN: 3, IDEN: 10}
@@ -95,6 +118,8 @@ V2_LAUNCHES = {PREP: 1, STAGE: 1, DOWN: 3, IDEN: 10}
 # 4-pair bar (the boundary round() ties leave these paths the least room)
 MARGIN_PAIRS = 12
 KFEATS = ('identity', 'down', 'stem')
+# the megastep whose stage launches are all kernel 2's down=False mode
+HWNCS_STEP = 'serving-d1 +hwnc,down1,down2,hwncs,hwncs1'
 MEGASTEPS = [
     ('serving-d1', 'serving-d1', {}, V2_LAUNCHES),
     ('parity', 'parity', {}, {IDEN16: 5}),
@@ -107,6 +132,23 @@ MEGASTEPS = [
     ('serving-d2 --dtype int8c +hwnc,down,stem', 'serving-d2',
      {'dtype': 'int8c', 'use_pallas': ('hwnc', 'down', 'stem')},
      {PREP: 1, I8H: 12, D8H1: 1, D8H2: 3, STEM8: 1}),
+    # the remaining feature sets of the root bench
+    ('serving-d1 +hwnc,down2,hwncp,dirpack', 'serving-d1',
+     {'use_pallas': ('hwnc', 'down2', 'hwncp', 'dirpack')},
+     {PREP: 1, HWNCP: 1, DOWN: 3, IDEN: 10}),
+    ('serving-d2 +hwnc,down2,hwncp,dirpack', 'serving-d2',
+     {'use_pallas': ('hwnc', 'down2', 'hwncp', 'dirpack')},
+     {PREP: 1, HWNCP: 1, DOWN: 3, IDEN: 10}),
+    (HWNCS_STEP, 'serving-d1',
+     {'use_pallas': ('hwnc', 'down1', 'down2', 'hwncs', 'hwncs1')},
+     {PREP: 1, DOWN1H: 1, STAGE: 4, DOWN: 3}),
+    ('serving-d1 +identity,down1,stem2,qpool', 'serving-d1',
+     {'use_pallas': ('identity', 'down1', 'stem2', 'qpool')},
+     {PREP: 1, DOWN1N: 1, IDENN: 5, PLAIN_V2: 10}),
+    ('parity +hwnc', 'parity', {'use_pallas': ('hwnc',)}, {HWNC16: 5}),
+    ('parity +stage', 'parity', {'use_pallas': ('stage',)}, {STAGE16: 2}),
+    ('parity +sstage', 'parity', {'use_pallas': ('sstage',)},
+     {SSTAGE16: 2}),
 ]
 
 
@@ -152,9 +194,9 @@ def diff(torch, what, got, want):
     return err, frac
 
 
-def bf16_diff(torch, what, got, want):
+def bf16_diff(torch, what, got, want, share=0.01):
     """diff() plus the bf16 bars: max |kernel - plain| <= 1e-2 max |plain|
-    and under 1% of values more than one bf16 ulp apart."""
+    and under `share` of the values more than one bf16 ulp apart."""
     err, _ = diff(torch, what, got, want)
     w = want.float()
     d = (got.float() - w).abs()
@@ -163,8 +205,8 @@ def bf16_diff(torch, what, got, want):
     scale = float(w.abs().max())
     print(f'  {far:.2e} of values more than one bf16 ulp apart; '
           f'max |plain| {scale}')
-    check(err <= 1e-2 * scale and far < 0.01,
-          f'{what}: within 1e-2 of max |plain|, <1% beyond one ulp')
+    check(err <= 1e-2 * scale and far < share,
+          f'{what}: within 1e-2 of max |plain|, <{share} beyond one ulp')
     live = float((w != 0).float().mean())
     check(live > 0.05, f'{what}: {live:.3f} of outputs nonzero')
     return err
@@ -211,12 +253,12 @@ def trunk_calls(q, BK, FO):
                        h, *a, out_int8=o), [(qb, 1)])
 
 
-def check_stage_blocks(torch, BK, FO, q, h):
-    """Each block of the layer1 stage on the plain stage's input: the
-    one-block bar holds per block. Over the whole stage a tie flip in
-    one block's output moves the next block's input, so the stage's own
-    bar is one LSB per chained block."""
-    for j, qb in enumerate(q['layer1']):
+def check_stage_blocks(torch, BK, FO, blocks, h):
+    """Each block of a stage (a list of block params) on the plain
+    stage's input: the one-block bar holds per block. Over the whole
+    stage a tie flip in one block's output moves the next block's input,
+    so the stage's own bar is one LSB per chained block."""
+    for j, qb in enumerate(blocks):
         w = FO._kernel_args(qb)
         kw = ({'wd': w[6], 'bd': w[7]} if 'down' in qb else {'r': qb['r']})
         w = w[:6]
@@ -225,7 +267,7 @@ def check_stage_blocks(torch, BK, FO, q, h):
                          BK._block_cuda(h, *w, **kw), want)
         check(err <= 1 and frac < 0.01, f'stage block {j}: <=1 LSB on <1%')
         h = want
-    return len(q['layer1'])
+    return len(blocks)
 
 
 def phase_prep(torch, PK, prep_args, n_pairs):
@@ -350,16 +392,59 @@ def phase_trunk_bf16(torch, B16, SK, FO, params, x, results):
                 name = IDEN16
                 kern = lambda h, a=args: B16.fused_bottleneck(h, *a)
                 plain = lambda h, a=args: B16.fused_bottleneck_plain(h, *a)
+            if name == IDEN16 and bi == 1:
+                bf16_stage_rows(torch, B16, FO, params[f'layer{li + 1}'][1:],
+                                h, results)
             want = plain(h)
             err = bf16_diff(torch, f'{name} {tuple(h.shape)}->'
                             f'{tuple(want.shape)}', kern(h), want)
             macs, _ = block_macs(tuple(h.shape), bp, stride)
+            chain = cuda_ms(torch, lambda: FO._plain_block(bp, h, stride),
+                            reps=2)
             add_row(results, name, err, cuda_ms(torch, lambda: kern(h)),
-                    cuda_ms(torch, lambda: plain(h), reps=2),
-                    cuda_ms(torch, lambda: FO._plain_block(bp, h, stride),
-                            reps=2),
+                    cuda_ms(torch, lambda: plain(h), reps=2), chain,
                     nbytes(h, want, *args), 2 * macs)
+            if name == IDEN16:
+                err = bf16_diff(torch, f'{HWNC16} {tuple(h.shape)}',
+                                B16.fused_bottleneck_hwnc(h, *args), want)
+                add_row(results, HWNC16, err,
+                        cuda_ms(torch, lambda: B16.fused_bottleneck_hwnc(
+                            h, *args)),
+                        cuda_ms(torch, lambda: B16.fused_bottleneck_hwnc_plain(
+                            h, *args), reps=2), chain,
+                        nbytes(h, want, *args), 2 * macs)
             h = want
+
+
+def bf16_stage_rows(torch, B16, FO, run, h, results):
+    """The stage kernels (11, 12) on a layer's identity run of K blocks
+    at the plain trunk's activation h: against the plain stage within
+    1e-2 of max |plain|, timed beside the cuDNN chain of the same K
+    blocks. The share beyond one ulp may grow with K, by 10% per block:
+    a moved rounding is read again by the next block's residual, 1x1s
+    and 3x3, so on random weights the share grows along the run (4.3%
+    after layer2's three blocks; each block alone holds the 1% bar in
+    the fused_bottleneck rows on the same activations). Bytes: one read
+    of h and one write of the output, plus the weights."""
+    blocks = [FO._kernel_args(bp) for bp in run]
+    want = B16.fused_bottleneck_stage_plain(h, blocks)
+    macs = sum(block_macs(tuple(h.shape), bp, 1)[0] for bp in run)
+    weights = [t for blk in blocks for t in blk]
+
+    def chain():
+        o = h
+        for bp in run:
+            o = FO._plain_block(bp, o, 1)
+        return o
+    chain_ms = cuda_ms(torch, chain, reps=2)
+    for name, fn in ((STAGE16, B16.fused_bottleneck_stage),
+                     (SSTAGE16, B16.fused_bottleneck_stage_stream)):
+        err = bf16_diff(torch, f'{name} K={len(run)} {tuple(h.shape)}',
+                        fn(h, blocks), want, share=0.1 * len(run))
+        add_row(results, name, err, cuda_ms(torch, lambda: fn(h, blocks)),
+                cuda_ms(torch, lambda: B16.fused_bottleneck_stage_plain(
+                    h, blocks), reps=2), chain_ms,
+                nbytes(h, want, *weights), 2 * macs)
 
 
 def exact(torch, what, got, want):
@@ -435,35 +520,100 @@ def phase_trunk_int8(torch, IK, SK, Q, FO, q, x, results, wide):
             h = want
 
 
+def v2_row(torch, results, name, kern, plain, h, blocks, bar=1,
+           share=0.01):
+    """One v2 kernel call on the plain trunk's activation h against its
+    plain version: within `bar` LSB (one per block chained in the call)
+    on under `share` of the values (None: any share); both timed, the
+    row's bytes and operations added. blocks: [(block params, stride)]
+    the call covers. Returns the plain output."""
+    want = plain(h)
+    err, frac = diff(torch, f'{name} {tuple(h.shape)}->'
+                     f'{tuple(want.shape)} {str(want.dtype)[6:]}',
+                     kern(h), want)
+    check(err <= bar and (share is None or frac < share),
+          f'{name}: <={bar} LSB on <{share} of values')
+    live = float(((want > 0) & (want < 127)).float().mean())
+    check(live > 0.05, f'{name}: {live:.3f} of outputs unclipped')
+    macs, shape = 0, tuple(h.shape)
+    for blk, stride in blocks:
+        m, shape = block_macs(shape, blk, stride)
+        macs += m
+    weights = [t for blk, _ in blocks
+               for c in ('conv1', 'conv2', 'conv3', 'down') if c in blk
+               for t in blk[c].values()]
+    add_row(results, name, err, cuda_ms(torch, lambda: kern(h)),
+            cuda_ms(torch, lambda: plain(h), reps=2), None,
+            nbytes(h, want, *weights), 2 * macs)
+    return want
+
+
 def phase_trunk(torch, BK, Q, FO, q, x, results):
     """Walk the trunk: each kernel gets the plain trunk's activation at
     its position; outputs compared, both versions timed."""
     h = Q._stem_v2(q, x)
     for name, kern, plain, blocks in trunk_calls(q, BK, FO):
-        bar = check_stage_blocks(torch, BK, FO, q, h) if name == STAGE else 1
-        want = plain(h)
-        err, frac = diff(torch, f'{name} {tuple(h.shape)}->'
-                         f'{tuple(want.shape)} {str(want.dtype)[6:]}',
-                         kern(h), want)
-        check(err <= bar and frac < 0.01, f'{name}: <={bar} LSB on <1%')
-        live = float(((want > 0) & (want < 127)).float().mean())
-        check(live > 0.05, f'{name}: {live:.3f} of outputs unclipped')
-        macs, shape = 0, tuple(h.shape)
-        for blk, stride in blocks:
-            m, shape = block_macs(shape, blk, stride)
-            macs += m
-        weights = [t for blk, _ in blocks
-                   for c in ('conv1', 'conv2', 'conv3', 'down') if c in blk
-                   for t in blk[c].values()]
-        r = results.setdefault(name, dict(
-            max_abs_err=0.0, ms=0.0, plain_ms=0.0, bytes=0, ops=0,
-            ops_rate=H100_BF16_PER_S))
-        r['max_abs_err'] = max(r['max_abs_err'], err)
-        r['ms'] += cuda_ms(torch, lambda: kern(h))
-        r['plain_ms'] += cuda_ms(torch, lambda: plain(h), reps=2)
-        r['bytes'] += nbytes(h, want, *weights)
-        r['ops'] += 2 * macs
-        h = want
+        bar = (check_stage_blocks(torch, BK, FO, q['layer1'], h)
+               if name == STAGE else 1)
+        h = v2_row(torch, results, name, kern, plain, h, blocks, bar)
+
+
+def phase_trunk_v2_variants(torch, BK, Q, FO, q, x, results):
+    """The other v2 feature sets' kernels on the plain trunk's
+    activations: at layer1's input the hwncp stage (kernel 6) and the
+    stride-1 projections (7, 9); at each layer's identity run the
+    down=False stage (kernel 2's second mode); each identity block with
+    conv1 Cin <= 512 through kernel 8. Output dtypes as the megasteps
+    give them."""
+    h = Q._stem_v2(q, x)
+    for li in range(1, 5):
+        layer = q[f'layer{li}']
+        a = FO._kernel_args(layer[0])
+        run = [FO._kernel_args(b) for b in layer[1:]]
+        rs = [b['r'] for b in layer[1:]]
+        if li == 1:
+            v2_row(torch, results, HWNCP,
+                   lambda h: BK.fused_bottleneck_i8v2_hwncp_stage(
+                       h, a, run, rs),
+                   lambda h: BK.fused_bottleneck_i8v2_hwncp_stage_plain(
+                       h, a, run, rs), h, [(b, 1) for b in layer],
+                   bar=len(layer))
+            v2_row(torch, results, DOWN1N,
+                   lambda h: BK.fused_bottleneck_down_i8v2(
+                       h, *a, out_int8=False),
+                   lambda h: BK.fused_bottleneck_down_i8v2_plain(
+                       h, *a, out_int8=False), h, [(layer[0], 1)])
+            h = v2_row(torch, results, DOWN1H,
+                       lambda h: BK.fused_bottleneck_down_i8v2_hwnc(h, *a),
+                       lambda h: BK.fused_bottleneck_down_i8v2_hwnc_plain(
+                           h, *a), h, [(layer[0], 1)])
+        else:
+            h = BK.fused_bottleneck_i8v2_down_s2_plain(h, *a)
+        # an identity run of k blocks: each block within the one-block
+        # bar on the plain run's input, the run within k LSB. The share
+        # of differing values is not bounded: a flipped value is read
+        # again by the next block's residual, 1x1s and 3x3, so on random
+        # weights the share grows along the run (18.5% after layer3's
+        # five blocks, each alone at ~2e-4)
+        k = check_stage_blocks(torch, BK, FO, layer[1:], h)
+        o = li in (1, 4)        # int8 out at layer1 and the trunk's end
+        want = v2_row(torch, results, RUN,
+                      lambda h: BK.fused_bottleneck_i8v2_stage(
+                          h, None, run, rs, out_int8=o),
+                      lambda h: BK.fused_bottleneck_i8v2_stage_plain(
+                          h, None, run, rs, out_int8=o),
+                      h, [(b, 1) for b in layer[1:]], bar=k, share=None)
+        if layer[1]['conv1']['w'].shape[2] > FO.IDEN_CIN_CAP:
+            h = want.to(torch.int8)
+            continue
+        for k, (blk, r) in enumerate(zip(run, rs)):
+            o = k == len(run) - 1   # int8 before the plain stride-2 block
+            h = v2_row(torch, results, IDENN,
+                       lambda h, blk=blk, r=r, o=o: BK.fused_bottleneck_i8v2(
+                           h, *blk, r, out_int8=o),
+                       lambda h, blk=blk, r=r, o=o:
+                       BK.fused_bottleneck_i8v2_plain(h, *blk, r, out_int8=o),
+                       h, [(layer[k + 1], 1)])
 
 
 def phase_megastep(torch, name, step, reference, wrappers, expected,
@@ -636,6 +786,7 @@ def main():
               ('serving-d2', 'int8c'): q8c2}
     with torch.no_grad():
         phase_trunk(torch, BK, Q, FO, q, x, results)
+        phase_trunk_v2_variants(torch, BK, Q, FO, q, x, results)
         # x3 is also the parity path's input at the kernels' shapes
         phase_stem_q8(torch, SK, FO, q2, x3)
         phase_trunk_bf16(torch, B16, SK, FO, params16, x3, results)
@@ -658,7 +809,21 @@ def main():
                 STEM8: SK.fused_stem_int8,
                 I8H: IK.fused_bottleneck_int8_hwnc,
                 D8H1: IK.fused_bottleneck_down_int8_hwnc,
-                D8H2: IK.fused_bottleneck_down_s2_int8_hwnc}
+                D8H2: IK.fused_bottleneck_down_s2_int8_hwnc,
+                HWNCP: BK.fused_bottleneck_i8v2_hwncp_stage,
+                DOWN1H: BK.fused_bottleneck_down_i8v2_hwnc,
+                IDENN: BK.fused_bottleneck_i8v2,
+                DOWN1N: BK.fused_bottleneck_down_i8v2,
+                STAGE16: B16.fused_bottleneck_stage,
+                SSTAGE16: B16.fused_bottleneck_stage_stream,
+                HWNC16: B16.fused_bottleneck_hwnc}
+    plain_v2 = Q._plain_block_v2
+
+    def counted_plain_v2(*a, **kw):
+        counted_plain_v2.launches += 1
+        return plain_v2(*a, **kw)
+    Q._plain_block_v2 = counted_plain_v2
+    counters = dict(wrappers, **{PLAIN_V2: counted_plain_v2})
     launches = {}
     for name, profile, extra, expected in MEGASTEPS:
         prof = serving.resolve_profile(profile,
@@ -688,7 +853,7 @@ def main():
         step = lambda model=model, kw=kw: serving.megastep(
             model, cfg, *sc, pidx, **kw)
         got, logits = phase_megastep(
-            torch, name, step, reference, wrappers, expected, n_pairs, card,
+            torch, name, step, reference, counters, expected, n_pairs, card,
             prof['directions'],
             (MARGIN_PAIRS, n_pairs) if prof['dtype'] == 'int8' else ())
         if prof['dtype'] == 'int8c':
@@ -700,9 +865,11 @@ def main():
                                        prof['directions'], kw['use_pallas'],
                                        logits)
         for k, n in got.items():
-            if n and k not in launches:
+            if n and k not in launches and k in wrappers:
                 launches[k] = n
-    check(set(launches) == set(wrappers),
+        if name == HWNCS_STEP:
+            launches[RUN] = got[STAGE]
+    check(set(launches) == set(wrappers) | {RUN},
           f'every kernel launched on a main path: {sorted(launches)}')
 
     # ---- 4. report ----------------------------------------------------------

@@ -54,11 +54,13 @@ def add_profile_args(ap):
                          '(the folded model); default from the profile')
     ap.add_argument('--pallas-features', default=None,
                     help='comma list of kernel features, replacing the '
-                         'default set of the model\'s dtype: bf16 from '
-                         '{identity,down,down1,stem} (default identity), '
-                         'int8 from {hwnc,down2,hwncs1d,dirpack,stem} '
-                         '(default hwnc,down2,hwncs1d,dirpack), int8c from '
-                         '{identity,down,stem,hwnc} (default identity,down)')
+                         'default set of the model\'s dtype; every dtype '
+                         'takes the root bench\'s names (identity, stage, '
+                         'sstage, down, down1, down2, stem, stem2, qpool, '
+                         'hwnc, hwncs, hwncs1, hwncs1d, hwncp, dirpack) '
+                         'and ignores those it does not use. Defaults: '
+                         'bf16 identity, int8 hwnc,down2,hwncs1d,dirpack, '
+                         'int8c identity,down')
 
 
 def build_parser():

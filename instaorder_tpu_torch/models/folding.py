@@ -7,13 +7,17 @@ Eval-mode BN is an affine map, so it folds into the preceding conv:
   b' = beta - mean * gamma / sqrt(var + eps)
 
 The folded forward routes blocks to the bf16 kernels by `use_pallas`
-features, as the JAX package does: 'identity' (stride-1 identity blocks
-with conv1 Cin <= IDEN_CIN_CAP -> ops/bottleneck_bf16_kernels
-`fused_bottleneck`), 'down' / 'down1' (projection blocks, all or stride
-1 only -> `fused_bottleneck_down`) and 'stem' (ops/stem_kernels
-`fused_stem`). Everything else is the plain conv chain (cuDNN on the
-card). The kernels take f32 biases, as the TPU kernels cast them; the
-plain chain adds the bias in the compute dtype, as jax does.
+features, as the JAX package does (`_apply_trunk`), among the stride-1
+identity blocks with conv1 Cin <= IDEN_CIN_CAP first 'hwnc' (each block
+-> ops/bottleneck_bf16_kernels `fused_bottleneck_hwnc`), then 'stage' /
+'sstage' (each run of such blocks -> `fused_bottleneck_stage` /
+`fused_bottleneck_stage_stream`, a run of one -> `fused_bottleneck`),
+then 'identity' (`fused_bottleneck`); 'down' / 'down1' send the
+projection blocks, all or stride 1 only, to `fused_bottleneck_down` and
+'stem' the stem to ops/stem_kernels `fused_stem`. Everything else is the
+plain conv chain (cuDNN on the card). The kernels take f32 biases, as
+the TPU kernels cast them; the plain chain adds the bias in the compute
+dtype, as jax does.
 """
 
 from __future__ import annotations
@@ -68,28 +72,51 @@ def swap_conv1_w(w):
     return w[:, :, perm, :]
 
 
-# `use_pallas` features the port has kernels for; the JAX package's other
-# features (stage, sstage, hwnc, ...) are still to be ported
-PALLAS_VOCAB = frozenset(('identity', 'down', 'down1', 'stem'))
+# `use_pallas` features: the JAX package's one vocabulary for every model
+# path (bf16 here, v2 and int8c in models/quantize). Each path routes the
+# names it uses and ignores the rest; an unknown name raises.
+PALLAS_VOCAB = frozenset(('identity', 'stage', 'sstage', 'down', 'down1',
+                          'down2', 'stem', 'stem2', 'qpool', 'hwnc',
+                          'hwncs', 'hwncs1', 'hwncs1d', 'hwncp', 'dirpack'))
 PALLAS_DEFAULT = frozenset(('identity',))
 
 
-def _pallas_features(use_pallas, default=PALLAS_DEFAULT, vocab=PALLAS_VOCAB):
-    """False -> no kernels; True / 'default' -> `default`; else the
-    explicit feature collection, which must lie in `vocab` (the bf16
-    path's PALLAS_VOCAB, or the v2 path's, models/quantize)."""
+def _pallas_features(use_pallas, default=PALLAS_DEFAULT):
+    """False -> no kernels; True / 'default' -> the path's `default`;
+    else the explicit feature collection, which must lie in
+    PALLAS_VOCAB."""
     if not use_pallas:
         return frozenset()
     if use_pallas is True or use_pallas == 'default':
         return default
     feats = frozenset(use_pallas)
-    unknown = feats - vocab
+    unknown = feats - PALLAS_VOCAB
     if unknown:
-        raise ValueError(
-            f'pallas feature(s) {sorted(unknown)} have no kernel on this '
-            f'path of the port (valid: {sorted(vocab)}); the remaining '
-            'TPU kernels are listed in ROADMAP.md queue 2')
+        raise ValueError(f'unknown pallas feature(s) {sorted(unknown)}; '
+                         f'valid: {sorted(PALLAS_VOCAB)}')
     return feats
+
+
+def s2d_conv1_w(w):
+    """The 7x7/stride-2 stem conv as a 4x4 stride-1 conv over the 2x2
+    space-to-depth input ('stem2'; the same taps): w2[du, dxu, (sy, sx,
+    c)] = w[2du+sy-1, 2dxu+sx-1, c], zero where the index leaves 0..6."""
+    C, Co = w.shape[2], w.shape[3]
+    wp = torch.nn.functional.pad(w, (0, 0, 0, 0, 1, 0, 1, 0))
+    w2 = wp.reshape(4, 2, 4, 2, C, Co).permute(0, 2, 1, 3, 4, 5)
+    return w2.reshape(4, 4, 4 * C, Co).contiguous()
+
+
+def s2d_stem_input(x):
+    """Pad (4, 2) x (4, 2) and 2x2 space-to-depth: (N, H, W, C) ->
+    (N, H/2 + 3, W/2 + 3, 4C), channel order (sy, sx, c) to match
+    s2d_conv1_w. Requires even H, W."""
+    n, H, W, C = x.shape
+    assert H % 2 == 0 and W % 2 == 0, (H, W)
+    xp = torch.nn.functional.pad(x, (0, 0, 4, 2, 4, 2))
+    x2 = xp.reshape(n, (H + 6) // 2, 2, (W + 6) // 2, 2, C)
+    return x2.permute(0, 1, 3, 2, 4, 5).reshape(
+        n, (H + 6) // 2, (W + 6) // 2, 4 * C)
 
 
 def _stem_fusable(w, x):
@@ -150,20 +177,45 @@ def _apply_trunk(params, cfg, out, use_pallas=False):
     feats = _pallas_features(use_pallas)
     block, groups = cfg['block'], cfg['groups']
     fusable = block == 'bottleneck' and groups == 1
+
+    def iden_ok(bp):
+        return (fusable and 'down' not in bp
+                and bp['conv1']['w'].shape[2] <= IDEN_CIN_CAP)
+
     for li in range(4):
-        for bi, bp in enumerate(params[f'layer{li + 1}']):
+        blocks = params[f'layer{li + 1}']
+        bi = 0
+        while bi < len(blocks):
+            bp = blocks[bi]
             stride = 2 if (li > 0 and bi == 0) else 1
             small = fusable and bp['conv1']['w'].shape[2] <= IDEN_CIN_CAP
-            if small and 'down' in bp and (
+            if 'hwnc' in feats and iden_ok(bp):
+                out = bk16.fused_bottleneck_hwnc(out.contiguous(),
+                                                 *_kernel_args(bp))
+            elif feats & {'stage', 'sstage'} and iden_ok(bp):
+                run = [bp]
+                while bi + len(run) < len(blocks) and iden_ok(
+                        blocks[bi + len(run)]):
+                    run.append(blocks[bi + len(run)])
+                if len(run) == 1:
+                    out = bk16.fused_bottleneck(out.contiguous(),
+                                                *_kernel_args(bp))
+                else:
+                    fn = (bk16.fused_bottleneck_stage_stream
+                          if 'sstage' in feats else bk16.fused_bottleneck_stage)
+                    out = fn(out.contiguous(), [_kernel_args(p) for p in run])
+                bi += len(run)
+                continue
+            elif small and 'down' in bp and (
                     'down' in feats or ('down1' in feats and stride == 1)):
                 out = bk16.fused_bottleneck_down(
                     out.contiguous(), *_kernel_args(bp), stride=stride)
-            elif small and 'down' not in bp and (
-                    'identity' in feats and stride == 1):
+            elif 'identity' in feats and iden_ok(bp):
                 out = bk16.fused_bottleneck(out.contiguous(),
                                             *_kernel_args(bp))
             else:
                 out = _plain_block(bp, out, stride, block, groups)
+            bi += 1
     pooled = out.float().mean(dim=(1, 2))
     head = lambda name: cnn.linear(cnn.tree_cast(params[name],
                                                  torch.float32), pooled)

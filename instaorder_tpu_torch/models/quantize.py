@@ -14,16 +14,17 @@ CPU tests). Scale algebra per block with boundary scales s_in / s_out:
   output: clip(round(relu(.)), 0, 127) -> int8
 The stem folds 1/s_stem into conv1.
 
-`use_pallas` routes blocks to the kernels by the JAX package's v2
-feature names (PALLAS_VOCAB_V2). The default set is the JAX default: all
-of layer1 (the stride-1 projection and its identity run) is one stage
-call ('hwncs1d'), the three stride-2 projections go to the stride-2
-kernel ('down2') and the remaining identity blocks to the identity
-kernel ('hwnc') (ops/bottleneck_kernels.py), with the cuDNN stem. The
-'stem' feature runs the fused stem kernel with its in-kernel int8
-quantisation (ops/stem_kernels.py, q8). An explicit set replaces the
-default, so `('stem',)` is the plain trunk behind the fused stem and
-False the plain path throughout.
+`use_pallas` routes blocks to the kernels by the JAX package's feature
+names (models/folding.PALLAS_VOCAB; `_apply_trunk_v2` has the rules).
+The default set is the JAX default: all of layer1 (the stride-1
+projection and its identity run) is one stage call ('hwncs1d'), the
+three stride-2 projections go to the stride-2 kernel ('down2') and the
+remaining identity blocks to the identity kernel ('hwnc')
+(ops/bottleneck_kernels.py), with the cuDNN stem. The 'stem' feature
+runs the fused stem kernel with its in-kernel int8 quantisation
+(ops/stem_kernels.py, q8); 'stem2' and 'qpool' are cuDNN stem routes.
+An explicit set replaces the default, so `('stem',)` is the plain trunk
+behind the fused stem and False the plain path throughout.
 """
 
 from __future__ import annotations
@@ -39,15 +40,20 @@ from ..ops import int8_kernels as ik
 from ..ops.stem_kernels import (fused_stem, fused_stem_int8,
                                 fused_stem_int8_plain)
 from .folding import (IDEN_CIN_CAP, _kernel_args, _pallas_features,
-                      _stem_fusable, siamese_forward)
+                      _stem_fusable, s2d_conv1_w, s2d_stem_input,
+                      siamese_forward)
 
-# v2 kernel features the port has (the JAX package's names; see
-# _apply_trunk_v2) and its default set, the JAX default: all of the
-# trunk on the kernels, the cuDNN stem. 'dirpack' is accepted as a no-op.
-PALLAS_VOCAB_V2 = frozenset(('hwnc', 'down2', 'hwncs1d', 'dirpack', 'stem'))
+# the v2 default feature set, the JAX default: all of the trunk on the
+# kernels, the cuDNN stem. 'dirpack' changes nothing here (see
+# apply_folded_v2_siamese).
 PALLAS_DEFAULT_V2 = frozenset(('hwnc', 'down2', 'hwncs1d', 'dirpack'))
-# with 'hwnc' on, every identity block goes to the kernel
+# the hwnc features; with any of them on, the conv1 Cin cap is
+# HWNC_CIN_CAP (every block of ResNet-50), else IDEN_CIN_CAP
+HWNC_FEATS = frozenset(('hwnc', 'hwncs', 'hwncs1', 'hwncs1d', 'hwncp'))
 HWNC_CIN_CAP = 2048
+# H * W * conv1 Cin up to which 'hwncs' fuses an identity run (layers
+# 2-4 of ResNet-50 at 256^2 inputs; the JAX package's VMEM limit)
+HWNCS_PLANE_CAP = 600_000
 
 # calibration forward chunk (images per forward): bounds the f32
 # forward's activation memory; absmax is chunk-associative
@@ -170,8 +176,7 @@ def _q8(y):
 
 
 def _v2_features(use_pallas, default=PALLAS_DEFAULT_V2):
-    return _pallas_features(use_pallas, default=default,
-                            vocab=PALLAS_VOCAB_V2)
+    return _pallas_features(use_pallas, default=default)
 
 
 def _stem_v2(q, x, use_pallas=True):
@@ -181,15 +186,28 @@ def _stem_v2(q, x, use_pallas=True):
     jax's conv-then-add promotes), then relu and a cast back.
 
     use_pallas with 'stem': the fused stem kernel with q8 (the bias is
-    added in f32 before the one rounding; see ops/stem_kernels.py)."""
+    added in f32 before the one rounding; see ops/stem_kernels.py). It
+    wins over 'stem2' (the same conv as a 4x4 stride-1 conv over the 2x2
+    space-to-depth input: the same taps, f32 sums in another order) and
+    'qpool' (requant before the pool: relu, round, clip and max are
+    monotone, so the int8 output is the same; the requantised integers
+    are pooled in the compute dtype, where 0..127 are exact, as torch's
+    int8 max-pool refuses large channels-last planes)."""
     cdt = q['conv1']['w'].dtype
-    if ('stem' in _v2_features(use_pallas, default=frozenset())
-            and _stem_fusable(q['conv1']['w'], x)):
-        return fused_stem(x.to(cdt).contiguous(),
-                          q['conv1']['w'].contiguous(), q['conv1']['b'],
-                          q8=True)
-    h = cnn.conv2d(q['conv1'], x.to(cdt), stride=2, padding=3)
+    feats = _v2_features(use_pallas, default=frozenset())
+    w = q['conv1']['w']
+    if 'stem' in feats and _stem_fusable(w, x):
+        return fused_stem(x.to(cdt).contiguous(), w.contiguous(),
+                          q['conv1']['b'], q8=True)
+    if ('stem2' in feats and w.shape[:2] == (7, 7)
+            and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
+        h = cnn.conv2d({'w': s2d_conv1_w(w), 'b': q['conv1']['b']},
+                       s2d_stem_input(x.to(cdt)))
+    else:
+        h = cnn.conv2d(q['conv1'], x.to(cdt), stride=2, padding=3)
     h = torch.relu(h).to(cdt)
+    if 'qpool' in feats:
+        return cnn.max_pool(_q8(h).to(cdt), 3, 2, 1).to(torch.int8)
     return _q8(cnn.max_pool(h, 3, 2, 1))
 
 
@@ -212,18 +230,32 @@ def _plain_block_v2(qb, h8, stride):
 
 def _apply_trunk_v2(q, cfg, h8, use_pallas=True):
     """int8 stem output (N, H, W, 64) -> boundary-int8 trunk -> f32 head
-    logits, routed by the v2 features as the JAX package routes them:
-    'hwncs1d' runs all of layer1 (the stride-1 projection and its
-    identity run) as one stage call, 'down2' the stride-2 projections
-    (conv1 Cin <= IDEN_CIN_CAP unless 'hwnc' is on) and 'hwnc' the
-    other identity blocks (ops/bottleneck_kernels.py); every other
-    block is the plain chain. Between two kernels the activation stays
-    in the compute dtype (the same integers); it is int8 at the stage
-    output, before a plain block and at the trunk's end."""
+    logits, routed by the features as the JAX package's `_apply_trunk_v2`
+    routes them. A block may take a kernel when its conv1 Cin is within
+    the cap (HWNC_CIN_CAP with an hwnc feature on, else IDEN_CIN_CAP)
+    and, for a stride-2 projection, 'down2' is on; for the stride-1
+    projection 'down1', 'hwncs1d' or 'hwncp'; for an identity block
+    'identity' or an hwnc feature. Such blocks go, with an hwnc feature
+    on, to:
+      the stride-1 projection and its identity run: one stage call
+        ('hwncp' -> fused_bottleneck_i8v2_hwncp_stage, else 'hwncs1d' ->
+        fused_bottleneck_i8v2_stage), else the projection alone
+        (fused_bottleneck_down_i8v2_hwnc);
+      an identity run: one fused_bottleneck_i8v2_stage(down=None) call
+        where 'hwncs' is on and H * W * Cin <= HWNCS_PLANE_CAP, or where
+        'hwncs1' is on in layer1; else one fused_bottleneck_i8v2_identity
+        call per block;
+    and without one, the stride-1 projection to fused_bottleneck_down_i8v2
+    and identity blocks to fused_bottleneck_i8v2. Stride-2 projections go
+    to fused_bottleneck_i8v2_down_s2; every other block is the plain
+    chain. Between two kernels the activation stays in the compute dtype
+    (the same integers); it is int8 at a stage's output, before a plain
+    block and at the trunk's end. The JAX package's pad-to-8 and hwnc
+    transposes are TPU layout devices and do not carry over."""
     assert cfg['block'] == 'bottleneck' and cfg['groups'] == 1, \
         'v2 path targets the resnet50 family'
     feats = _v2_features(use_pallas)
-    hwnc_on = bool(feats & {'hwnc', 'hwncs1d'})
+    hwnc_on = bool(feats & HWNC_FEATS)
     cap = HWNC_CIN_CAP if hwnc_on else IDEN_CIN_CAP
     blocks = [(li, bi, qb) for li in range(4)
               for bi, qb in enumerate(q[f'layer{li + 1}'])]
@@ -234,36 +266,57 @@ def _apply_trunk_v2(q, cfg, h8, use_pallas=True):
         if li > 0 and bi == 0:
             return 'down2' in feats
         if 'down' in qb:
-            return 'hwncs1d' in feats
-        return hwnc_on
+            return bool(feats & {'down1', 'hwncs1d', 'hwncp'})
+        return bool(feats & (HWNC_FEATS | {'identity'}))
 
     ok = [kernel_ok(*b) for b in blocks] + [False]
+
+    def run_end(j):
+        """The end of the identity run of kernel blocks from j."""
+        while ok[j] and 'down' not in blocks[j][2]:
+            j += 1
+        return j
+
+    def run_args(i, j):
+        run = [blocks[t][2] for t in range(i, j)]
+        return [_kernel_args(b) for b in run], [b['r'] for b in run]
+
     k = 0
     while k < len(blocks):
         li, bi, qb = blocks[k]
         stride = 2 if (li > 0 and bi == 0) else 1
         out_i8 = not ok[k + 1]
+        a = _kernel_args(qb)
+        j = k + 1
         if not ok[k]:
             h8 = _plain_block_v2(qb, h8, stride)
-            k += 1
-        elif 'down' in qb and stride == 1:
-            # layer1: the projection block and its identity run, one call
-            j = k + 1
-            while ok[j] and 'down' not in blocks[j][2]:
-                j += 1
-            run = [blocks[i][2] for i in range(k + 1, j)]
-            h8 = bk.fused_bottleneck_i8v2_stage(
-                h8, _kernel_args(qb), [_kernel_args(b) for b in run],
-                [b['r'] for b in run], out_int8=True)
-            k = j
+        elif stride == 2:
+            h8 = bk.fused_bottleneck_i8v2_down_s2(h8, *a, out_int8=out_i8)
+        elif 'down' in qb and hwnc_on:
+            j = run_end(k + 1)
+            if j > k + 1 and feats & {'hwncs1d', 'hwncp'}:
+                fn = (bk.fused_bottleneck_i8v2_hwncp_stage if 'hwncp' in feats
+                      else bk.fused_bottleneck_i8v2_stage)
+                h8 = fn(h8, a, *run_args(k + 1, j), out_int8=True)
+            else:
+                j = k + 1
+                h8 = bk.fused_bottleneck_down_i8v2_hwnc(
+                    h8, *a, out_int8=out_i8 or 'hwncs1' in feats)
+        elif hwnc_on:
+            plane = h8.shape[1] * h8.shape[2] * qb['conv1']['w'].shape[2]
+            if (('hwncs' in feats and plane <= HWNCS_PLANE_CAP)
+                    or ('hwncs1' in feats and li == 0)):
+                j = run_end(k)
+                h8 = bk.fused_bottleneck_i8v2_stage(
+                    h8, None, *run_args(k, j), out_int8=li == 0 or not ok[j])
+            else:
+                h8 = bk.fused_bottleneck_i8v2_identity(h8, *a, qb['r'],
+                                                       out_int8=out_i8)
         elif 'down' in qb:
-            h8 = bk.fused_bottleneck_i8v2_down_s2(h8, *_kernel_args(qb),
-                                                  out_int8=out_i8)
-            k += 1
+            h8 = bk.fused_bottleneck_down_i8v2(h8, *a, out_int8=out_i8)
         else:
-            h8 = bk.fused_bottleneck_i8v2_identity(
-                h8, *_kernel_args(qb), qb['r'], out_int8=out_i8)
-            k += 1
+            h8 = bk.fused_bottleneck_i8v2(h8, *a, qb['r'], out_int8=out_i8)
+        k = j
     pooled = (h8.float() * q['s_feat']).mean(dim=(1, 2))
     if cfg['dual_head']:
         return (cnn.linear(q['fc_occ'], pooled),
@@ -302,17 +355,16 @@ def apply_folded_v2_siamese(q, cfg, x, use_pallas=True):
 # equals the JAX package bit for bit up to the f32 head.
 # ---------------------------------------------------------------------------
 
-# int8c kernel features (the JAX package's names) and its default set.
-# 'hwnc' routes the identity blocks, and with 'down' the projections, to
-# the kernels named after the JAX hwnc kernels; the port has no hwnc view,
-# so they launch the NHWC kernel (ops/int8_kernels.py).
-PALLAS_VOCAB_INT8 = frozenset(('identity', 'down', 'stem', 'hwnc'))
+# the int8c default feature set (the JAX default). The path routes
+# 'identity', 'down', 'stem' and 'hwnc' and ignores the vocabulary's
+# other names: 'hwnc' sends the identity blocks, and with 'down' the
+# projections, to the kernels named after the JAX hwnc kernels; the port
+# has no hwnc view, so they launch the NHWC kernel (ops/int8_kernels.py).
 PALLAS_DEFAULT_INT8 = frozenset(('identity', 'down'))
 
 
 def _int8_features(use_pallas):
-    return _pallas_features(use_pallas, default=PALLAS_DEFAULT_INT8,
-                            vocab=PALLAS_VOCAB_INT8)
+    return _pallas_features(use_pallas, default=PALLAS_DEFAULT_INT8)
 
 
 def _quant_w(w):

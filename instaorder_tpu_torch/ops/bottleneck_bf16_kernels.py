@@ -1,4 +1,4 @@
-"""Kernels 10 and 13: the bf16 ResNet bottleneck (csrc/bottleneck_v2.cu).
+"""Kernels 10-14: the bf16 ResNet bottleneck (csrc/bottleneck_v2.cu).
 
 Each wrapper replaces one TPU kernel of instaorder_tpu/ops/pallas_blocks.py
 and takes NHWC (N, H, W, C) activations:
@@ -7,6 +7,19 @@ and takes NHWC (N, H, W, C) activations:
       stride 1, identity residual x (the `identity` feature)
   fused_bottleneck_down  <- fused_bottleneck_down (stride 1 and 2 sites)
       1x1/s projection residual (the `down` / `down1` features)
+  fused_bottleneck_stage <- fused_bottleneck_stage
+      K identity blocks in order (the `stage` feature)
+  fused_bottleneck_stage_stream <- fused_bottleneck_stage_stream
+      the same function (the `sstage` feature)
+  fused_bottleneck_hwnc  <- fused_bottleneck_hwnc
+      fused_bottleneck's function (the `hwnc` feature)
+
+The TPU devices that set the last three apart (VMEM-resident or streamed
+weight stacks, the activation kept in VMEM across a stage, the (H, W, N,
+C) view) do not carry over: the stage wrappers run the identity block's
+launches once per block, with the bf16 activation between blocks in
+device memory, and the hwnc wrapper launches the NHWC block. Each counts
+its own launches.
 
 Math contract (the Pallas kernel bodies `_bottleneck_kernel`,
 `_bottleneck_down_kernel`, `_bottleneck_down_s2_kernel`), cdt = x.dtype:
@@ -115,5 +128,57 @@ def fused_bottleneck_down(x, w1, b1, w2, b2, w3, b3, wd, bd, stride=1):
     return out
 
 
+def fused_bottleneck_stage_plain(x, blocks):
+    for blk in blocks:
+        x = _plain(x, *blk)
+    return x
+
+
+fused_bottleneck_stage_stream_plain = fused_bottleneck_stage_plain
+fused_bottleneck_hwnc_plain = fused_bottleneck_plain
+
+
+def _cuda_stage(x, blocks):
+    if not blocks:
+        raise ValueError('a stage needs at least one block')
+    for blk in blocks:
+        x = _cuda_block(x, *blk)
+    return x
+
+
+def fused_bottleneck_stage(x, blocks):
+    """K stride-1 identity bottlenecks in order. blocks: [(w1, b1, w2, b2,
+    w3, b3)] as fused_bottleneck takes them. x (N, H, W, C) -> the
+    same shape in x.dtype, rounded to it between blocks."""
+    if x.device.type == 'cpu':
+        return fused_bottleneck_stage_plain(x, blocks)
+    out = _cuda_stage(x, blocks)
+    fused_bottleneck_stage.launches += 1
+    return out
+
+
+def fused_bottleneck_stage_stream(x, blocks):
+    """fused_bottleneck_stage's function (the JAX kernel streams the
+    per-block weights through VMEM; the card reads them per launch)."""
+    if x.device.type == 'cpu':
+        return fused_bottleneck_stage_stream_plain(x, blocks)
+    out = _cuda_stage(x, blocks)
+    fused_bottleneck_stage_stream.launches += 1
+    return out
+
+
+def fused_bottleneck_hwnc(x, w1, b1, w2, b2, w3, b3):
+    """fused_bottleneck's function on NHWC (the JAX kernel takes the
+    (H, W, N, C) view)."""
+    if x.device.type == 'cpu':
+        return fused_bottleneck_hwnc_plain(x, w1, b1, w2, b2, w3, b3)
+    out = _cuda_block(x, w1, b1, w2, b2, w3, b3)
+    fused_bottleneck_hwnc.launches += 1
+    return out
+
+
 fused_bottleneck.launches = 0
 fused_bottleneck_down.launches = 0
+fused_bottleneck_stage.launches = 0
+fused_bottleneck_stage_stream.launches = 0
+fused_bottleneck_hwnc.launches = 0

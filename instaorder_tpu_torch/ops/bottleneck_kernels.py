@@ -1,4 +1,5 @@
-"""Kernels 2-4: the boundary-int8 ("v2") bottleneck (csrc/bottleneck_v2.cu).
+"""Kernels 2-4 and 6-9: the boundary-int8 ("v2") bottleneck
+(csrc/bottleneck_v2.cu).
 
 Each wrapper replaces one TPU kernel of instaorder_tpu/ops/pallas_blocks.py
 and takes NHWC (N, H, W, C) activations (the GPU's channels-last layout;
@@ -9,8 +10,21 @@ the TPU-only (H, W, N, C) view does not carry over):
   fused_bottleneck_i8v2_down_s2   <- fused_bottleneck_down_s2_i8v2_hwnc
       stride 2, 1x1/2 projection residual
   fused_bottleneck_i8v2_stage     <- fused_bottleneck_i8v2_hwnc_stage
-      (down=True): ResNet-50 layer1, the stride-1 projection block then
-      the identity blocks
+      down=True: ResNet-50 layer1, the stride-1 projection block then
+      the identity blocks; down=False (down=None here): an identity run
+  fused_bottleneck_i8v2_hwncp_stage <- fused_bottleneck_i8v2_hwncp_stage
+      the down=True stage's function (the TPU kernel lane-packs the
+      identity 3x3s; the card's GEMM tiles Cm = 64 at full width)
+  fused_bottleneck_down_i8v2_hwnc <- fused_bottleneck_down_i8v2_hwnc
+      stride 1, projection residual (K-packed)
+  fused_bottleneck_i8v2           <- fused_bottleneck_i8v2
+      the identity block on NHWC
+  fused_bottleneck_down_i8v2      <- fused_bottleneck_down_i8v2
+      stride 1, projection residual; the TPU kernel sums conv3 and the
+      projection as two dots, the card K-packs them (f32 sums in another
+      order: within the one-LSB block bar)
+The last four launch the kernels of the first three and count their own
+launches.
 
 Math contract (quantize.quantize_folded_v2; the Pallas kernel bodies):
   h1  = cdt(relu(x . w1 + b1))                    f32 accumulation
@@ -84,14 +98,41 @@ def fused_bottleneck_i8v2_down_s2_plain(x, w1, b1, w2, b2, w3, b3, wd, bd,
                         out_int8=out_int8)
 
 
+def fused_bottleneck_down_i8v2_hwnc_plain(x, w1, b1, w2, b2, w3, b3, wd, bd,
+                                          out_int8=True):
+    return _block_plain(x, w1, b1, w2, b2, w3, b3, wd=wd, bd=bd,
+                        out_int8=out_int8)
+
+
+fused_bottleneck_i8v2_plain = fused_bottleneck_i8v2_identity_plain
+
+
+def fused_bottleneck_down_i8v2_plain(x, w1, b1, w2, b2, w3, b3, wd, bd,
+                                     out_int8=True):
+    """Stride-1 projection with conv3 and the projection as two f32 dots,
+    summed in the TPU kernel's order ((h2.w3 + b3) + x.wd) + bd."""
+    cdt = w1.dtype
+    xf = x.to(cdt).float()
+    h1 = torch.relu(xf @ w1.float() + b1).to(cdt)
+    h2 = torch.relu(_conv3x3(h1.float(), w2.float(), 1) + b2).to(cdt)
+    y = h2.float() @ w3.float() + b3 + xf @ wd.float() + bd
+    q = torch.clamp(torch.round(y), 0.0, 127.0)
+    return q.to(torch.int8 if out_int8 else cdt)
+
+
 def fused_bottleneck_i8v2_stage_plain(x, down, blocks, rs, out_int8=True):
-    h = _block_plain(x, *down[:6], wd=down[6], bd=down[7],
-                     out_int8=out_int8 or bool(blocks))
+    h = x
+    if down is not None:
+        h = _block_plain(x, *down[:6], wd=down[6], bd=down[7],
+                         out_int8=out_int8 or bool(blocks))
     for k, (blk, r) in enumerate(zip(blocks, rs)):
         last = k == len(blocks) - 1
         h = _block_plain(h, *blk, r=float(r),
                          out_int8=out_int8 or not last)
     return h
+
+
+fused_bottleneck_i8v2_hwncp_stage_plain = fused_bottleneck_i8v2_stage_plain
 
 
 # ---------------------------------------------------------------------------
@@ -223,26 +264,92 @@ def fused_bottleneck_i8v2_down_s2(x, w1, b1, w2, b2, w3, b3, wd, bd,
     return out
 
 
-def fused_bottleneck_i8v2_stage(x, down, blocks, rs, out_int8=True):
-    """A stage: the stride-1 projection block `down` = (w1, b1, w2, b2,
-    w3, b3, wd, bd), then the identity blocks `blocks` = [(w1, b1, w2,
-    b2, w3, b3)] with residual scales `rs`. The activation between
-    blocks is int8 in device memory (exact: the values are integers
-    0..127). x (N, H, W, Cin) -> (N, H, W, Cout)."""
-    if x.device.type == 'cpu':
-        return fused_bottleneck_i8v2_stage_plain(x, down, blocks, rs,
-                                                 out_int8=out_int8)
+def _stage_cuda(x, down, blocks, rs, out_int8):
     if len(blocks) != len(rs):
         raise ValueError('one residual scale per identity block')
-    h = _block_cuda(x, *down[:6], wd=down[6], bd=down[7],
-                    out_int8=out_int8 or bool(blocks))
+    if down is None and not blocks:
+        raise ValueError('a stage needs at least one block')
+    h = x
+    if down is not None:
+        h = _block_cuda(x, *down[:6], wd=down[6], bd=down[7],
+                        out_int8=out_int8 or bool(blocks))
     for k, (blk, r) in enumerate(zip(blocks, rs)):
         last = k == len(blocks) - 1
         h = _block_cuda(h, *blk, r=r, out_int8=out_int8 or not last)
+    return h
+
+
+def fused_bottleneck_i8v2_stage(x, down, blocks, rs, out_int8=True):
+    """A stage: the stride-1 projection block `down` = (w1, b1, w2, b2,
+    w3, b3, wd, bd), or None for an identity run alone, then the
+    identity blocks `blocks` = [(w1, b1, w2, b2, w3, b3)] with residual
+    scales `rs`. The activation between blocks is int8 in device memory
+    (exact: the values are integers 0..127). x (N, H, W, Cin) -> (N, H,
+    W, Cout)."""
+    if x.device.type == 'cpu':
+        return fused_bottleneck_i8v2_stage_plain(x, down, blocks, rs,
+                                                 out_int8=out_int8)
+    h = _stage_cuda(x, down, blocks, rs, out_int8)
     fused_bottleneck_i8v2_stage.launches += 1
     return h
+
+
+def fused_bottleneck_i8v2_hwncp_stage(x, down, blocks, rs, out_int8=True):
+    """fused_bottleneck_i8v2_stage's function with a projection block
+    (ResNet-50 layer1: the `hwncp` feature)."""
+    if down is None:
+        raise ValueError('the hwncp stage starts with its projection block')
+    if x.device.type == 'cpu':
+        return fused_bottleneck_i8v2_hwncp_stage_plain(x, down, blocks, rs,
+                                                       out_int8=out_int8)
+    h = _stage_cuda(x, down, blocks, rs, out_int8)
+    fused_bottleneck_i8v2_hwncp_stage.launches += 1
+    return h
+
+
+def fused_bottleneck_down_i8v2_hwnc(x, w1, b1, w2, b2, w3, b3, wd, bd,
+                                    out_int8=True):
+    """Stride-1 projection bottleneck, conv3 and the projection K-packed
+    into one f32 sum. x (N, H, W, Cin); wd (Cin, Cout) -> (N, H, W,
+    Cout) int8 or cdt."""
+    if x.device.type == 'cpu':
+        return fused_bottleneck_down_i8v2_hwnc_plain(
+            x, w1, b1, w2, b2, w3, b3, wd, bd, out_int8=out_int8)
+    out = _block_cuda(x, w1, b1, w2, b2, w3, b3, wd=wd, bd=bd,
+                      out_int8=out_int8)
+    fused_bottleneck_down_i8v2_hwnc.launches += 1
+    return out
+
+
+def fused_bottleneck_i8v2(x, w1, b1, w2, b2, w3, b3, r, out_int8=True):
+    """fused_bottleneck_i8v2_identity's function (the `identity`
+    feature)."""
+    if x.device.type == 'cpu':
+        return fused_bottleneck_i8v2_plain(x, w1, b1, w2, b2, w3, b3, r,
+                                           out_int8=out_int8)
+    out = _block_cuda(x, w1, b1, w2, b2, w3, b3, r=r, out_int8=out_int8)
+    fused_bottleneck_i8v2.launches += 1
+    return out
+
+
+def fused_bottleneck_down_i8v2(x, w1, b1, w2, b2, w3, b3, wd, bd,
+                               out_int8=True):
+    """Stride-1 projection bottleneck (the `down1` feature without an
+    hwnc feature); on the card the K-packed launch of
+    fused_bottleneck_down_i8v2_hwnc."""
+    if x.device.type == 'cpu':
+        return fused_bottleneck_down_i8v2_plain(
+            x, w1, b1, w2, b2, w3, b3, wd, bd, out_int8=out_int8)
+    out = _block_cuda(x, w1, b1, w2, b2, w3, b3, wd=wd, bd=bd,
+                      out_int8=out_int8)
+    fused_bottleneck_down_i8v2.launches += 1
+    return out
 
 
 fused_bottleneck_i8v2_identity.launches = 0
 fused_bottleneck_i8v2_down_s2.launches = 0
 fused_bottleneck_i8v2_stage.launches = 0
+fused_bottleneck_i8v2_hwncp_stage.launches = 0
+fused_bottleneck_down_i8v2_hwnc.launches = 0
+fused_bottleneck_i8v2.launches = 0
+fused_bottleneck_down_i8v2.launches = 0

@@ -406,10 +406,14 @@ def test_int8c_routes_by_features(net, monkeypatch, use_pallas, calls):
 
 
 def test_int8c_features_refuse_unported():
+    """The int8c path's vocabulary is the JAX package's (with 'hwnc,down2'
+    legal: 'down2' is a v2 name the path ignores), its default JAX's."""
     assert TQ._int8_features(True) == JQ._PALLAS_DEFAULT_INT8
     assert TQ._int8_features(False) == frozenset()
-    with pytest.raises(ValueError, match='ROADMAP.md queue 2'):
-        TQ._int8_features(('hwnc', 'down2'))
+    assert TQ._int8_features(tuple(JF._PALLAS_VOCAB)) == JF._PALLAS_VOCAB
+    assert TQ._int8_features(('hwnc', 'down2')) == {'hwnc', 'down2'}
+    with pytest.raises(ValueError, match='unknown pallas feature'):
+        TQ._int8_features(('hwnc', 'hwnc_v9'))
 
 
 @pytest.mark.parametrize('profile', sorted(serving.PROFILES))

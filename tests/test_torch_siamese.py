@@ -128,18 +128,33 @@ def test_siamese_out2_is_the_swapped_input(net, use_pallas):
                                       use_pallas=use_pallas), atol=1e-4)
 
 
-@pytest.mark.parametrize('path', ['bf16', 'v2'])
-def test_pallas_features_refuse_unported(path):
-    """Each path's default feature set is the JAX package's; a feature
-    whose kernel the port lacks on that path raises."""
-    features, default, unported = {
-        'bf16': (TF._pallas_features, JF._PALLAS_DEFAULT, ('identity', 'hwnc')),
-        'v2': (TQ._v2_features, JQ._PALLAS_DEFAULT_V2, ('hwnc', 'identity')),
-    }[path]
-    assert features(True) == default
+VOCAB_PATHS = {
+    'bf16': (TF._pallas_features, JF._PALLAS_DEFAULT),
+    'v2': (TQ._v2_features, JQ._PALLAS_DEFAULT_V2),
+    'int8c': (TQ._int8_features, JQ._PALLAS_DEFAULT_INT8),
+}
+
+
+def check_feature_vocabulary(path):
+    """A path's features: exactly the JAX package's vocabulary (each
+    name accepted, the names a path does not use ignored), its default
+    set the JAX default, an unknown name refused."""
+    features, default = VOCAB_PATHS[path]
+    assert TF.PALLAS_VOCAB == JF._PALLAS_VOCAB
+    assert features(True) == features('default') == default
     assert features(False) == frozenset()
-    with pytest.raises(ValueError, match='ROADMAP.md queue 2'):
-        features(unported)
+    assert features(tuple(JF._PALLAS_VOCAB)) == JF._PALLAS_VOCAB
+    for name in JF._PALLAS_VOCAB:
+        assert features((name,)) == {name}
+    with pytest.raises(ValueError, match='unknown pallas feature'):
+        features(('hwnc', 'hwnc_v9'))
+
+
+@pytest.mark.parametrize('path', ['bf16', 'v2', 'int8c'])
+def test_pallas_features_refuse_unported(path):
+    """Every model path accepts the JAX vocabulary with the JAX defaults
+    and refuses a name outside it."""
+    check_feature_vocabulary(path)
 
 
 def _scenes(seed=3, S=2, H=96, W=128, N=3):
