@@ -20,8 +20,10 @@ Phases (any failed check raises and the script exits nonzero):
      model's 180 images through the NHWC kernels, the d2 model's 360
      through the double-width stem and the hwnc-named kernels), each
      equal to its plain version on every value; all timed with CUDA
-     events, and the bf16 kernels beside the plain cuDNN chain the JAX
-     default runs for the same block or stem;
+     events, the bf16 kernels beside the plain cuDNN chain the JAX
+     default runs for the same block or stem, and every bf16 / v2 row
+     beside its convolutions alone (`conv_only_ms`: bf16 conv2d,
+     channels_last, no epilogues; a yardstick the port never calls);
   3. the megasteps (v2 and int8c models calibrated from seed 0 on their
      own prep; bf16 parity model from seed 0): serving-d1, parity with
      its default kernels, parity with identity,down,stem and the RGB
@@ -212,6 +214,36 @@ def bf16_diff(torch, what, got, want, share=0.01):
     return err
 
 
+def conv_only_ms(torch, shape, blocks):
+    """The yardstick beside a bf16 / v2 row: device ms of the blocks'
+    convolutions alone (torch.nn.functional.conv2d in bf16,
+    channels_last; no bias, activation, residual or rounding) at the
+    row's shapes, chained as the call chains its blocks. The port never
+    calls it. blocks: [(block params, stride)]; shape (N, H, W, Cin)."""
+    F = torch.nn.functional
+    cl = torch.channels_last
+    t = lambda *s: torch.randn(*s, device='cuda', dtype=torch.bfloat16
+                               ).to(memory_format=cl)
+    n, h, w, cin = shape
+    x = t(n, cin, h, w)
+    convs = []
+    for blk, stride in blocks:
+        cm, cout = blk['conv1']['w'].shape[-1], blk['conv3']['w'].shape[-1]
+        convs.append((t(cm, cin, 1, 1), t(cm, cm, 3, 3), t(cout, cm, 1, 1),
+                      t(cout, cin, 1, 1) if 'down' in blk else None, stride))
+        cin = cout
+
+    def run():
+        h = x
+        for w1, w2, w3, wd, stride in convs:
+            o = F.conv2d(F.conv2d(F.conv2d(h, w1), w2, stride=stride,
+                                  padding=1), w3)
+            if wd is not None:
+                F.conv2d(h, wd, stride=stride)
+            h = o
+    return cuda_ms(torch, run)
+
+
 def block_macs(shape, blk, stride):
     """MACs of one bottleneck on an (N, H, W, Cin) input: conv1 at the
     input resolution, conv2/conv3/projection at the output resolution."""
@@ -340,9 +372,10 @@ def phase_stem_q8(torch, SK, FO, q, x):
 
 
 def add_row(results, name, err, kern, plain, chain, nbytes_, ops,
-            rate=H100_BF16_PER_S):
+            rate=H100_BF16_PER_S, conv_only=None):
     """Add one call's numbers to the kernel's row (chain: the cuDNN
-    route's ms, or None where the row has no such column)."""
+    route's ms, conv_only: conv_only_ms(); None where the row has no
+    such column)."""
     r = results.setdefault(name, dict(
         max_abs_err=0.0, ms=0.0, plain_ms=0.0, bytes=0, ops=0,
         ops_rate=rate))
@@ -351,6 +384,8 @@ def add_row(results, name, err, kern, plain, chain, nbytes_, ops,
     r['plain_ms'] += plain
     if chain is not None:
         r['chain_ms'] = r.get('chain_ms', 0.0) + chain
+    if conv_only is not None:
+        r['conv_only_ms'] = r.get('conv_only_ms', 0.0) + conv_only
     r['bytes'] += nbytes_
     r['ops'] += ops
 
@@ -401,9 +436,10 @@ def phase_trunk_bf16(torch, B16, SK, FO, params, x, results):
             macs, _ = block_macs(tuple(h.shape), bp, stride)
             chain = cuda_ms(torch, lambda: FO._plain_block(bp, h, stride),
                             reps=2)
+            conv = conv_only_ms(torch, tuple(h.shape), [(bp, stride)])
             add_row(results, name, err, cuda_ms(torch, lambda: kern(h)),
                     cuda_ms(torch, lambda: plain(h), reps=2), chain,
-                    nbytes(h, want, *args), 2 * macs)
+                    nbytes(h, want, *args), 2 * macs, conv_only=conv)
             if name == IDEN16:
                 err = bf16_diff(torch, f'{HWNC16} {tuple(h.shape)}',
                                 B16.fused_bottleneck_hwnc(h, *args), want)
@@ -412,7 +448,7 @@ def phase_trunk_bf16(torch, B16, SK, FO, params, x, results):
                             h, *args)),
                         cuda_ms(torch, lambda: B16.fused_bottleneck_hwnc_plain(
                             h, *args), reps=2), chain,
-                        nbytes(h, want, *args), 2 * macs)
+                        nbytes(h, want, *args), 2 * macs, conv_only=conv)
             h = want
 
 
@@ -437,6 +473,7 @@ def bf16_stage_rows(torch, B16, FO, run, h, results):
             o = FO._plain_block(bp, o, 1)
         return o
     chain_ms = cuda_ms(torch, chain, reps=2)
+    conv = conv_only_ms(torch, tuple(h.shape), [(bp, 1) for bp in run])
     for name, fn in ((STAGE16, B16.fused_bottleneck_stage),
                      (SSTAGE16, B16.fused_bottleneck_stage_stream)):
         err = bf16_diff(torch, f'{name} K={len(run)} {tuple(h.shape)}',
@@ -444,7 +481,7 @@ def bf16_stage_rows(torch, B16, FO, run, h, results):
         add_row(results, name, err, cuda_ms(torch, lambda: fn(h, blocks)),
                 cuda_ms(torch, lambda: B16.fused_bottleneck_stage_plain(
                     h, blocks), reps=2), chain_ms,
-                nbytes(h, want, *weights), 2 * macs)
+                nbytes(h, want, *weights), 2 * macs, conv_only=conv)
 
 
 def exact(torch, what, got, want):
@@ -461,20 +498,21 @@ def int8_block_calls(IK, Q, qb, stride, hwnc):
     """The int8c kernel wrapper(s) for one block: [(row name, kernel(h))]
     and the plain version (the NHWC rows 16 and 17, or the hwnc-named
     rows 19-21 of the JAX package's 'hwnc' route)."""
-    a = Q._int8_args(qb)
+    a, wk = Q._int8_args(qb), qb['wk']
     if 'down' not in qb:
         fn = IK.fused_bottleneck_int8_hwnc if hwnc else IK.fused_bottleneck_int8
-        return ((I8H if hwnc else I8), lambda h: fn(h, *a, qb['sxr']),
+        return ((I8H if hwnc else I8), lambda h: fn(h, *a, qb['sxr'], wk=wk),
                 lambda h: IK.fused_bottleneck_int8_plain(h, *a, qb['sxr']))
     plain = lambda h: IK.fused_bottleneck_down_int8_plain(h, *a,
                                                           stride=stride)
     if not hwnc:
         return D8, lambda h: IK.fused_bottleneck_down_int8(
-            h, *a, stride=stride), plain
+            h, *a, stride=stride, wk=wk), plain
     if stride == 2:
-        return D8H2, lambda h: IK.fused_bottleneck_down_s2_int8_hwnc(h, *a), \
-            plain
-    return D8H1, lambda h: IK.fused_bottleneck_down_int8_hwnc(h, *a), plain
+        return D8H2, lambda h: IK.fused_bottleneck_down_s2_int8_hwnc(
+            h, *a, wk=wk), plain
+    return D8H1, lambda h: IK.fused_bottleneck_down_int8_hwnc(
+        h, *a, wk=wk), plain
 
 
 def phase_trunk_int8(torch, IK, SK, Q, FO, q, x, results, wide):
@@ -544,7 +582,8 @@ def v2_row(torch, results, name, kern, plain, h, blocks, bar=1,
                for t in blk[c].values()]
     add_row(results, name, err, cuda_ms(torch, lambda: kern(h)),
             cuda_ms(torch, lambda: plain(h), reps=2), None,
-            nbytes(h, want, *weights), 2 * macs)
+            nbytes(h, want, *weights), 2 * macs,
+            conv_only=conv_only_ms(torch, tuple(h.shape), blocks))
     return want
 
 
@@ -881,13 +920,16 @@ def main():
             print(f'{name}: kernel {r["ms"]:.4f} ms, plain cuDNN chain of '
                   f'the JAX default route (several calls) '
                   f'{r["chain_ms"]:.4f} ms')
+        if 'conv_only_ms' in r:
+            print(f'{name}: kernel {r["ms"]:.4f} ms, its convolutions alone '
+                  f'(bf16 conv2d, channels_last) {r["conv_only_ms"]:.4f} ms')
         kernels.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches[name],
             'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': max(t_bytes, t_ops),
             'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
-            'library_ms': None})
+            'library_ms': None, 'conv_only_ms': r.get('conv_only_ms')})
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

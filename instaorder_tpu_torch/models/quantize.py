@@ -37,6 +37,7 @@ import torch
 from ..core import nn as cnn
 from ..ops import bottleneck_kernels as bk
 from ..ops import int8_kernels as ik
+from ..ops.gemm_layout import kmajor
 from ..ops.stem_kernels import (fused_stem, fused_stem_int8,
                                 fused_stem_int8_plain)
 from .folding import (IDEN_CIN_CAP, _kernel_args, _pallas_features,
@@ -446,6 +447,20 @@ def _int8_args(qb):
     return args
 
 
+def add_kernel_weights(q):
+    """Give every block of the int8c tree `q` its K-major weights
+    (`wk`: the (Cout, K) copies of w1, w2, w3 and wd that the card's
+    int8 kernel reads, ops/gemm_layout.kmajor), once, when the model is
+    built on the card. The JAX-layout weights stay beside them for the
+    plain versions. Returns q."""
+    for li in range(4):
+        for qb in q[f'layer{li + 1}']:
+            qb['wk'] = [kmajor(qb[c]['w'])
+                        for c in ('conv1', 'conv2', 'conv3', 'down')
+                        if c in qb]
+    return q
+
+
 def _plain_block_int8(qb, h8, stride):
     """One int8c block as the plain conv chain (the XLA int8 oracle)."""
     if 'down' in qb:
@@ -472,17 +487,19 @@ def _trunk_int8(q, cfg, h8, use_pallas=True):
         for bi, qb in enumerate(q[f'layer{li + 1}']):
             stride = 2 if (li > 0 and bi == 0) else 1
             a = _int8_args(qb)
+            wk = qb.get('wk')
             down = 'down' in qb
             if not down and stride == 1 and 'hwnc' in feats:
-                h8 = ik.fused_bottleneck_int8_hwnc(h8, *a, qb['sxr'])
+                h8 = ik.fused_bottleneck_int8_hwnc(h8, *a, qb['sxr'], wk=wk)
             elif down and {'hwnc', 'down'} <= feats:
                 fn = (ik.fused_bottleneck_down_s2_int8_hwnc if stride == 2
                       else ik.fused_bottleneck_down_int8_hwnc)
-                h8 = fn(h8, *a)
+                h8 = fn(h8, *a, wk=wk)
             elif not down and stride == 1 and 'identity' in feats:
-                h8 = ik.fused_bottleneck_int8(h8, *a, qb['sxr'])
+                h8 = ik.fused_bottleneck_int8(h8, *a, qb['sxr'], wk=wk)
             elif down and 'down' in feats:
-                h8 = ik.fused_bottleneck_down_int8(h8, *a, stride=stride)
+                h8 = ik.fused_bottleneck_down_int8(h8, *a, stride=stride,
+                                                   wk=wk)
             else:
                 h8 = _plain_block_int8(qb, h8, stride)
     return h8

@@ -117,7 +117,7 @@ def library() -> ctypes.CDLL:
         # two K segments: activation, its (K, Cout) bf16 weight rows,
         # is_int8, C, H, W, stride, ksize
         [P, P, I, I, I, I, I, I] * 2
-        + [I, I, I, I,                  # N, Ho, Wo, Cout
+        + [I, I, I, I, I,               # N, Ho, Wo, Cout, tile width
            P, P,                        # bias, second bias (or null)
            P, I, F,                     # identity residual, its dtype, r
            P, I, P])                    # out, epilogue mode, stream
@@ -126,10 +126,10 @@ def library() -> ctypes.CDLL:
     lib.io_fused_stem_s8.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
     lib.io_fused_stem_s8.restype = I
     lib.io_conv_gemm_s8.argtypes = (
-        # two K segments: int8 activation, its (K, Cout) int8 weight rows,
-        # f32 multiplier and bias, C, H, W, stride, ksize
+        # two K segments: int8 activation, its (Cout, K) int8 weight
+        # rows, f32 multiplier and bias, C, H, W, stride, ksize
         [P, P, P, P, I, I, I, I, I] * 2
-        + [I, I, I, I,                  # N, Ho, Wo, Cout
+        + [I, I, I, I, I,               # N, Ho, Wo, Cout, tile width
            P, F,                        # identity residual, sxr
            P, I, P])                    # out, epilogue mode, stream
     lib.io_conv_gemm_s8.restype = I

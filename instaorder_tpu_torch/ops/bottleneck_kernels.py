@@ -37,7 +37,8 @@ card); biases f32; r an f32 scalar.
 
 Bound on the H100: tensor-core operations (see csrc/bottleneck_v2.cu).
 Design: each block is three launches of one implicit-GEMM kernel (bf16
-WMMA, f32 accumulators) with h1/h2 in bf16 scratch from `torch.empty`.
+wgmma, f32 accumulators, 128 x 128 or 128 x 64 output tiles by
+`gemm_layout.tile_n`) with h1/h2 in bf16 scratch from `torch.empty`.
 A (64, 64, 256) layer1 plane is 1 MB (int8) per image, far beyond one
 SM's shared memory, so the stage function runs the block kernels once
 per block with the int8 activation between blocks in device memory
@@ -54,7 +55,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, gemm_layout
 
 # epilogue modes of csrc/bottleneck_v2.cu
 _RELU_BF16, _Q8_INT8, _Q8_BF16, _RES_RELU_BF16 = 0, 1, 2, 3
@@ -158,8 +159,6 @@ def _check_w(w, k, cout, dev, what):
         raise ValueError(f'{what}: weight must be a contiguous ({k}, {cout}) '
                          f'bf16 tensor on {dev}, got {tuple(w.shape)} '
                          f'{w.dtype} {w.device}')
-    if cout % 64:
-        raise ValueError(f'{what}: output channels must be a multiple of 64')
 
 
 def _check_b(b, cout, dev, what):
@@ -174,6 +173,9 @@ def _gemm(out, segs, bias, mode, bias2=None, res=None, r=0.0):
     ksize)] (one or two K segments); out (N, Ho, Wo, Cout)."""
     N, Ho, Wo, Cout = out.shape
     dev = out.device
+    bn = gemm_layout.tile_n(Cout)
+    gemm_layout.check_k_steps([ksize * ksize * act.shape[-1]
+                               for act, _w, _s, ksize in segs])
     args = []
     for act, w, stride, ksize in segs + [(None, None, 1, 1)] * (2 - len(segs)):
         if act is None:
@@ -191,7 +193,7 @@ def _gemm(out, segs, bias, mode, bias2=None, res=None, r=0.0):
         if tuple(res.shape) != tuple(out.shape):
             raise ValueError('identity residual must match the output shape')
     rc = _build.library().io_conv_gemm(
-        *args, N, Ho, Wo, Cout, bias.data_ptr(),
+        *args, N, Ho, Wo, Cout, bn, bias.data_ptr(),
         None if bias2 is None else bias2.data_ptr(),
         None if res is None else res.data_ptr(),
         int(res is not None and res.dtype == torch.int8), float(r),

@@ -36,7 +36,11 @@ would be exact only while K * 127^2 < 2^24: true for the 7x7 stem, K =
 245, not for a 3x3 at Cm = 512, K = 4,608.) The plain versions split the
 batch so that their float64 temporaries stay near 4 GB.
 
-Bound on the H100: int8 tensor-core operations (see the .cu file). On CPU
+Bound on the H100: int8 tensor-core operations (see the .cu file). The
+kernel reads its weights K-major, (Cout, K): `gemm_layout.kmajor` lays
+a block's weights out so, once, when the model is built on the card
+(models/quantize.add_kernel_weights), and every wrapper takes them as
+`wk=`; the JAX-layout weights stay for the plain versions. On CPU
 tensors each wrapper runs its `_plain` version; on CUDA tensors it
 launches the kernel or raises, and adds one to its `launches` count per
 call.
@@ -47,7 +51,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, gemm_layout
 
 # epilogue modes of csrc/bottleneck_int8.cu
 _RQ8, _RESIDUAL, _PROJECTION = 0, 1, 2
@@ -134,14 +138,13 @@ def _check_x(x, what):
 
 
 def _check_conv(w, m, b, k, cout, dev, what):
-    if (w.dtype != torch.int8 or w.device != dev or w.numel() != k * cout
-            or w.shape[-1] != cout or not w.is_contiguous()
+    if (w.dtype != torch.int8 or w.device != dev
+            or tuple(w.shape) != (cout, k) or not w.is_contiguous()
             or w.data_ptr() % 16):
-        raise ValueError(f'{what}: weight must be a contiguous int8 tensor '
-                         f'of {k} x {cout} on {dev}, got {tuple(w.shape)} '
-                         f'{w.dtype} {w.device}')
-    if cout % 64:
-        raise ValueError(f'{what}: output channels must be a multiple of 64')
+        raise ValueError(f'{what}: weight must be the contiguous K-major '
+                         f'({cout}, {k}) int8 tensor of gemm_layout.kmajor '
+                         f'on {dev}, got {tuple(w.shape)} {w.dtype} '
+                         f'{w.device}')
     for t, name in ((m, 'multiplier'), (b, 'bias')):
         if (t.dtype != torch.float32 or t.device != dev
                 or tuple(t.shape) != (cout,) or not t.is_contiguous()):
@@ -151,10 +154,11 @@ def _check_conv(w, m, b, k, cout, dev, what):
 
 def _gemm(out, segs, mode, res=None, sxr=0.0):
     """One launch of the implicit-GEMM kernel into `out` (N, Ho, Wo,
-    Cout) int8. segs: [(x, w, m, b, stride, ksize)], one segment, or two
-    in the projection mode."""
+    Cout) int8. segs: [(x, w, m, b, stride, ksize)] with w the K-major
+    (Cout, K) weights, one segment, or two in the projection mode."""
     N, Ho, Wo, Cout = out.shape
     dev = out.device
+    bn = gemm_layout.tile_n(Cout, two_sums=mode == _PROJECTION)
     args = []
     for x, w, m, b, stride, ksize in segs:
         _check_x(x, 'int8 bottleneck')
@@ -169,39 +173,41 @@ def _gemm(out, segs, mode, res=None, sxr=0.0):
         if tuple(res.shape) != tuple(out.shape):
             raise ValueError('identity residual must match the output shape')
     rc = _build.library().io_conv_gemm_s8(
-        *args, N, Ho, Wo, Cout, None if res is None else res.data_ptr(),
+        *args, N, Ho, Wo, Cout, bn, None if res is None else res.data_ptr(),
         float(sxr), out.data_ptr(), mode,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, 'int8 bottleneck gemm')
     return out
 
 
-def _block_cuda(x, w1, m1, b1, w2, m2, b2, w3, m3, b3, stride=1, sxr=None,
-                wd=None, md=None, bd=None):
+def _block_cuda(x, wk, m1, b1, m2, b2, m3, b3, stride=1, sxr=None, md=None,
+                bd=None):
     """The three launches of one int8c bottleneck: conv1 and the 3x3 into
     int8 scratch, then conv3 with the identity residual or the
-    projection's own accumulator."""
+    projection's own accumulator. wk: the block's K-major weights [w1,
+    w2, w3(, wd)] (gemm_layout.kmajor of each)."""
     _check_x(x, 'int8 bottleneck')
     if stride not in (1, 2):
         raise ValueError(f'stride must be 1 or 2, got {stride}')
+    if wk is None or len(wk) != (3 if md is None else 4):
+        raise ValueError('int8 bottleneck: the card takes the K-major '
+                         'weights (wk=, gemm_layout.kmajor of each), laid '
+                         'out once when the model is built on the card')
     N, H, W, _ = x.shape
-    Cm = w1.shape[-1]
+    Cm, Cout = wk[0].shape[0], wk[2].shape[0]
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     dev = x.device
-    if w2.dim() != 4 or not w2.is_contiguous():
-        raise ValueError('int8 bottleneck: w2 must be a contiguous '
-                         '(3, 3, Cm, Cm) tensor')
     h1 = _gemm(torch.empty((N, H, W, Cm), dtype=torch.int8, device=dev),
-               [(x, w1, m1, b1, 1, 1)], _RQ8)
+               [(x, wk[0], m1, b1, 1, 1)], _RQ8)
     h2 = _gemm(torch.empty((N, Ho, Wo, Cm), dtype=torch.int8, device=dev),
-               [(h1, w2.reshape(9 * Cm, Cm), m2, b2, stride, 3)], _RQ8)
-    out = torch.empty((N, Ho, Wo, w3.shape[-1]), dtype=torch.int8,
-                      device=dev)
-    if wd is not None:
-        return _gemm(out, [(h2, w3, m3, b3, 1, 1), (x, wd, md, bd, stride, 1)],
-                     _PROJECTION)
-    return _gemm(out, [(h2, w3, m3, b3, 1, 1)], _RESIDUAL, res=x,
+               [(h1, wk[1], m2, b2, stride, 3)], _RQ8)
+    out = torch.empty((N, Ho, Wo, Cout), dtype=torch.int8, device=dev)
+    if md is not None:
+        return _gemm(out, [(h2, wk[2], m3, b3, 1, 1),
+                           (x, wk[3], md, bd, stride, 1)], _PROJECTION)
+    return _gemm(out, [(h2, wk[2], m3, b3, 1, 1)], _RESIDUAL, res=x,
                  sxr=float(sxr))
+
 
 
 # ---------------------------------------------------------------------------
@@ -209,60 +215,67 @@ def _block_cuda(x, w1, m1, b1, w2, m2, b2, w3, m3, b3, stride=1, sxr=None,
 # ---------------------------------------------------------------------------
 
 
-def _identity(wrapper, x, *args):
+def _identity(wrapper, x, args, wk):
     if x.device.type == 'cpu':
         return fused_bottleneck_int8_plain(x, *args)
-    *conv, sxr = args
-    out = _block_cuda(x, *conv, sxr=sxr)
+    _w1, m1, b1, _w2, m2, b2, _w3, m3, b3, sxr = args
+    out = _block_cuda(x, wk, m1, b1, m2, b2, m3, b3, sxr=sxr)
     wrapper.launches += 1
     return out
 
 
-def _projection(wrapper, x, args, stride):
+def _projection(wrapper, x, args, stride, wk):
     if x.device.type == 'cpu':
         return fused_bottleneck_down_int8_plain(x, *args, stride=stride)
-    *conv, wd, md, bd = args
-    out = _block_cuda(x, *conv, stride=stride, wd=wd, md=md, bd=bd)
+    _w1, m1, b1, _w2, m2, b2, _w3, m3, b3, _wd, md, bd = args
+    out = _block_cuda(x, wk, m1, b1, m2, b2, m3, b3, stride=stride, md=md,
+                      bd=bd)
     wrapper.launches += 1
     return out
 
 
-def fused_bottleneck_int8(x, w1, m1, b1, w2, m2, b2, w3, m3, b3, sxr):
+def fused_bottleneck_int8(x, w1, m1, b1, w2, m2, b2, w3, m3, b3, sxr,
+                          wk=None):
     """Stride-1 identity bottleneck. x (N, H, W, C) int8; w1 (C, Cm), w2
-    (3, 3, Cm, Cm) HWIO, w3 (Cm, C) int8; m*, b* (Cout,) f32; sxr float.
-    -> (N, H, W, C) int8."""
-    return _identity(fused_bottleneck_int8, x, w1, m1, b1, w2, m2, b2, w3,
-                     m3, b3, sxr)
+    (3, 3, Cm, Cm) HWIO, w3 (Cm, C) int8; m*, b* (Cout,) f32; sxr float;
+    wk: the K-major [w1, w2, w3], which a CUDA x needs. -> (N, H, W, C)
+    int8."""
+    return _identity(fused_bottleneck_int8, x,
+                     (w1, m1, b1, w2, m2, b2, w3, m3, b3, sxr), wk)
 
 
 def fused_bottleneck_down_int8(x, w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md,
-                               bd, stride=1):
+                               bd, stride=1, wk=None):
     """Projection bottleneck at stride 1 or 2. x (N, H, W, Cin) int8; w3
-    (Cm, Cout); wd (Cin, Cout) int8; md, bd (Cout,) f32 -> (N,
+    (Cm, Cout); wd (Cin, Cout) int8; md, bd (Cout,) f32; wk: the
+    K-major [w1, w2, w3, wd], which a CUDA x needs -> (N,
     ceil(H/s), ceil(W/s), Cout) int8."""
     return _projection(fused_bottleneck_down_int8, x,
                        (w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md, bd),
-                       stride)
+                       stride, wk)
 
 
-def fused_bottleneck_int8_hwnc(x, w1, m1, b1, w2, m2, b2, w3, m3, b3, sxr):
+def fused_bottleneck_int8_hwnc(x, w1, m1, b1, w2, m2, b2, w3, m3, b3, sxr,
+                               wk=None):
     """The `hwnc` route's identity block: fused_bottleneck_int8 on NHWC."""
-    return _identity(fused_bottleneck_int8_hwnc, x, w1, m1, b1, w2, m2, b2,
-                     w3, m3, b3, sxr)
+    return _identity(fused_bottleneck_int8_hwnc, x,
+                     (w1, m1, b1, w2, m2, b2, w3, m3, b3, sxr), wk)
 
 
 def fused_bottleneck_down_int8_hwnc(x, w1, m1, b1, w2, m2, b2, w3, m3, b3,
-                                    wd, md, bd):
+                                    wd, md, bd, wk=None):
     """The `hwnc` route's stride-1 projection on NHWC."""
     return _projection(fused_bottleneck_down_int8_hwnc, x,
-                       (w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md, bd), 1)
+                       (w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md, bd), 1,
+                       wk)
 
 
 def fused_bottleneck_down_s2_int8_hwnc(x, w1, m1, b1, w2, m2, b2, w3, m3,
-                                       b3, wd, md, bd):
+                                       b3, wd, md, bd, wk=None):
     """The `hwnc` route's stride-2 projection on NHWC."""
     return _projection(fused_bottleneck_down_s2_int8_hwnc, x,
-                       (w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md, bd), 2)
+                       (w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md, bd), 2,
+                       wk)
 
 
 for _w in (fused_bottleneck_int8, fused_bottleneck_down_int8,

@@ -144,9 +144,13 @@ def build_int8c_model(seed, calib_x, device=None, weight_init='xavier'):
     """The fully quantized (int8c) model: the same network from `seed`,
     BN-folded, calibrated in f32 on `calib_x`, then quantized with int8
     weights and per-channel f32 requant scales (quantize_folded_resnet).
-    Returns (qparams, cfg)."""
+    On the card each block also gets the K-major weights its kernel reads
+    (Q.add_kernel_weights). Returns (qparams, cfg)."""
     folded, cfg, scales = _calibrated(seed, calib_x, device, weight_init)
-    return Q.quantize_folded_resnet(folded, cfg, scales), cfg
+    q = Q.quantize_folded_resnet(folded, cfg, scales)
+    if resolve_device(device).type == 'cuda':
+        Q.add_kernel_weights(q)
+    return q, cfg
 
 
 def build_parity_model(seed, device=None, weight_init='xavier'):

@@ -279,6 +279,13 @@ def _i8_blk(rng, dev, cin, cm, cout, down):
     return p
 
 
+def _wk(p):
+    """The K-major weights the card's int8 kernel reads, from an _i8_blk
+    parameter list (w1, w2, w3 and wd are every third entry)."""
+    from instaorder_tpu_torch.ops import gemm_layout as GL
+    return [GL.kmajor(w) for w in p[::3]]
+
+
 def _exact(got, want):
     assert got.dtype == want.dtype == torch.int8
     assert got.shape == want.shape
@@ -295,10 +302,11 @@ def test_int8_identity_kernel_exact(dev, n, hw, c, cm):
     x = torch.as_tensor(rng.randint(0, 128, (n, hw, hw, c)), device=dev,
                         dtype=torch.int8)
     p = _i8_blk(rng, dev, c, cm, c, False)
+    wk = _wk(p)
     want = IK.fused_bottleneck_int8_plain(x, *p, 0.55)
     for fn in (IK.fused_bottleneck_int8, IK.fused_bottleneck_int8_hwnc):
         before = fn.launches
-        _exact(fn(x, *p, 0.55), want)
+        _exact(fn(x, *p, 0.55, wk=wk), want)
         assert fn.launches == before + 1
 
 
@@ -312,13 +320,14 @@ def test_int8_projection_kernel_exact(dev, stride, n, hw, cin, cm, cout):
     x = torch.as_tensor(rng.randint(0, 128, (n, hw, hw, cin)), device=dev,
                         dtype=torch.int8)
     p = _i8_blk(rng, dev, cin, cm, cout, True)
+    wk = _wk(p)
     want = IK.fused_bottleneck_down_int8_plain(x, *p, stride=stride)
     assert want.shape[1] == (hw - 1) // stride + 1
     hwnc = (IK.fused_bottleneck_down_s2_int8_hwnc if stride == 2
             else IK.fused_bottleneck_down_int8_hwnc)
     before = (IK.fused_bottleneck_down_int8.launches, hwnc.launches)
-    _exact(IK.fused_bottleneck_down_int8(x, *p, stride=stride), want)
-    _exact(hwnc(x, *p), want)
+    _exact(IK.fused_bottleneck_down_int8(x, *p, stride=stride, wk=wk), want)
+    _exact(hwnc(x, *p, wk=wk), want)
     assert (IK.fused_bottleneck_down_int8.launches,
             hwnc.launches) == (before[0] + 1, before[1] + 1)
 
@@ -340,21 +349,29 @@ def test_int8_stem_kernel_exact(dev, n, hw, cout):
 
 
 def test_int8_kernel_wrappers_refuse_bad_inputs(dev):
-    """bf16 or f32 activations, a non-contiguous activation and weights
-    on the CPU beside a CUDA activation raise."""
+    """bf16 or f32 activations, a non-contiguous activation, weights on
+    the CPU beside a CUDA activation, and missing or JAX-layout kernel
+    weights raise."""
     from instaorder_tpu_torch.ops import int8_kernels as IK
     from instaorder_tpu_torch.ops import stem_kernels as SK
     rng = np.random.RandomState(1)
     p = _i8_blk(rng, dev, 64, 64, 64, False)
+    wk = _wk(p)
     x = torch.zeros((1, 8, 8, 64), dtype=torch.int8, device=dev)
     for bad in (x.bfloat16(), x.float(), x.transpose(1, 2)):
         with pytest.raises(ValueError):
-            IK.fused_bottleneck_int8(bad, *p, 0.5)
+            IK.fused_bottleneck_int8(bad, *p, 0.5, wk=wk)
     with pytest.raises(ValueError):
-        IK.fused_bottleneck_int8(x, *[a.cpu() for a in p], 0.5)
+        IK.fused_bottleneck_int8(x, *[a.cpu() for a in p], 0.5,
+                                 wk=[w.cpu() for w in wk])
+    with pytest.raises(ValueError, match='K-major'):
+        IK.fused_bottleneck_int8(x, *p, 0.5)
+    with pytest.raises(ValueError, match='K-major'):
+        IK.fused_bottleneck_int8(x, *p, 0.5, wk=[wk[0], p[3], wk[2]])
     pd = _i8_blk(rng, dev, 64, 64, 128, True)
     with pytest.raises(ValueError):
-        IK.fused_bottleneck_down_int8(x.float(), *pd, stride=2)
+        IK.fused_bottleneck_down_int8(x.float(), *pd, stride=2,
+                                      wk=_wk(pd))
     xs = torch.zeros((1, 32, 32, 5), dtype=torch.int8, device=dev)
     w, m, b = _i8_conv(rng, dev, 245, 64, (7, 7, 5, 64))
     for bad in (xs.bfloat16(), xs.float()):
@@ -508,3 +525,140 @@ def test_variant_wrappers_refuse_bad_inputs(dev):
             fn(xf.bfloat16(), [])
     with pytest.raises(ValueError, match='f32 on the card'):
         B16.fused_bottleneck_hwnc(xf, *pb)
+
+
+# ---------------------------------------------------------------------------
+# the tiling of the implicit-GEMM kernels, one launch at a time: the
+# 128 x 64 tile (Cout = 64) and the widest layer (Cout = 2048), rows that
+# do not fill the last 128-row tile, a single K step, the stride-2 3x3 at
+# the image's edges, the K-packed bf16 projection with an int8 A segment
+# and the int8 two-segment projection
+# ---------------------------------------------------------------------------
+
+
+def _bf16(rng, dev, *shape, scale=1.0):
+    return torch.as_tensor(rng.randn(*shape) * scale, dtype=torch.bfloat16,
+                           device=dev)
+
+
+@pytest.mark.parametrize('n,hw,cin,cout', [
+    (1, 7, 64, 64),        # one K step, M = 49, the 128 x 64 tile
+    (2, 9, 96, 128),       # K = 96: a ragged second step, M = 162
+    (2, 5, 512, 2048)])    # Cout = 2048, M = 50
+def test_gemm_1x1_tiles(dev, n, hw, cin, cout):
+    from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    rng = np.random.RandomState(100 + cin)
+    x = _bf16(rng, dev, n, hw, hw, cin)
+    w = _bf16(rng, dev, cin, cout, scale=1 / np.sqrt(cin))
+    b = torch.as_tensor(rng.randn(cout) * 0.1, dtype=torch.float32,
+                        device=dev)
+    out = torch.empty((n, hw, hw, cout), dtype=torch.bfloat16, device=dev)
+    got = BK._gemm(out, [(x, w, 1, 1)], b, BK._RELU_BF16)
+    _bf16_close(got, torch.relu(x.float() @ w.float() + b).bfloat16())
+
+
+@pytest.mark.parametrize('n,hw,c,cout,stride', [
+    (2, 9, 64, 64, 2), (1, 14, 128, 128, 2), (3, 6, 64, 128, 1)])
+def test_gemm_3x3_edges(dev, n, hw, c, cout, stride):
+    """The 3x3 halo at every edge; at stride 2 an odd plane puts the last
+    output's window on the bottom and right edges."""
+    from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    rng = np.random.RandomState(110 + hw)
+    x = _bf16(rng, dev, n, hw, hw, c)
+    w = _bf16(rng, dev, 3, 3, c, cout, scale=1 / np.sqrt(9 * c))
+    b = torch.as_tensor(rng.randn(cout) * 0.1, dtype=torch.float32,
+                        device=dev)
+    ho = (hw - 1) // stride + 1
+    out = torch.empty((n, ho, ho, cout), dtype=torch.bfloat16, device=dev)
+    got = BK._gemm(out, [(x, w.reshape(9 * c, cout), stride, 3)], b,
+                   BK._RELU_BF16)
+    want = torch.relu(BK._conv3x3(x.float(), w.float(), stride) + b)
+    _bf16_close(got, want.bfloat16())
+
+
+@pytest.mark.parametrize('n,hw,cm,cin,cout,stride,x_i8', [
+    (2, 9, 64, 64, 256, 2, True), (1, 7, 128, 256, 512, 1, True),
+    (3, 5, 64, 96, 128, 1, False)])
+def test_gemm_kpacked_projection(dev, n, hw, cm, cin, cout, stride, x_i8):
+    """[h2 | x_s] . [[w3], [wd]] + b3 + bd in one f32 sum, x int8 (widened
+    in shared memory) or bf16; the v2 epilogue, within one int8 LSB."""
+    from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    rng = np.random.RandomState(120 + cin)
+    ho = (hw - 1) // stride + 1
+    h2 = torch.as_tensor(rng.randint(0, 9, (n, ho, ho, cm)), device=dev,
+                         dtype=torch.bfloat16)
+    x = torch.as_tensor(rng.randint(0, 128, (n, hw, hw, cin)), device=dev)
+    x = x.to(torch.int8 if x_i8 else torch.bfloat16)
+    w3 = _bf16(rng, dev, cm, cout, scale=8 / np.sqrt(cm))
+    wd = _bf16(rng, dev, cin, cout, scale=1 / np.sqrt(cin))
+    b3, bd = (torch.as_tensor(rng.randn(cout) * 5, dtype=torch.float32,
+                              device=dev) for _ in range(2))
+    out = torch.empty((n, ho, ho, cout), dtype=torch.int8, device=dev)
+    got = BK._gemm(out, [(h2, w3, 1, 1), (x, wd, stride, 1)], b3,
+                   BK._Q8_INT8, bias2=bd)
+    xs = x.float()[:, ::stride, ::stride]
+    y = torch.cat([h2.float(), xs], -1) @ torch.cat([w3.float(), wd.float()])
+    want = torch.clamp(torch.round(y + b3 + bd), 0, 127).to(torch.int8)
+    _close(got, want)
+    assert float(((want > 0) & (want < 127)).float().mean()) > 0.05
+
+
+def test_gemm_kpacked_projection_refuses_straddle(dev):
+    """A K-packed first segment that is not a whole number of K steps
+    (K = 96) is refused before the launch."""
+    from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    rng = np.random.RandomState(130)
+    h2 = _bf16(rng, dev, 1, 4, 4, 96)
+    x = _bf16(rng, dev, 1, 4, 4, 64)
+    b = torch.zeros(128, dtype=torch.float32, device=dev)
+    out = torch.empty((1, 4, 4, 128), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match='straddle'):
+        BK._gemm(out, [(h2, _bf16(rng, dev, 96, 128), 1, 1),
+                       (x, _bf16(rng, dev, 64, 128), 1, 1)], b, BK._Q8_INT8,
+                 bias2=b)
+
+
+@pytest.mark.parametrize('n,hw,c,cout,ksize,stride', [
+    (1, 7, 64, 64, 1, 1),      # K = 64: half of one 128-deep step
+    (2, 9, 64, 64, 3, 2),      # stride-2 3x3 at the edges, 128 x 64
+    (3, 10, 128, 256, 3, 1),
+    (2, 5, 512, 2048, 1, 1)])  # Cout = 2048
+def test_gemm_s8_tiles(dev, n, hw, c, cout, ksize, stride):
+    from instaorder_tpu_torch.ops import gemm_layout as GL
+    from instaorder_tpu_torch.ops import int8_kernels as IK
+    rng = np.random.RandomState(140 + c + ksize)
+    x = torch.as_tensor(rng.randint(0, 128, (n, hw, hw, c)), device=dev,
+                        dtype=torch.int8)
+    shape = (ksize, ksize, c, cout)
+    w, m, b = _i8_conv(rng, dev, ksize * ksize * c, cout, shape)
+    ho = (hw - 1) // stride + 1
+    out = torch.empty((n, ho, ho, cout), dtype=torch.int8, device=dev)
+    got = IK._gemm(out, [(x, GL.kmajor(w), m, b, stride, ksize)],
+                   IK._RQ8)
+    want = IK.requant(IK.conv_int8(x, w, stride, ksize // 2), m, b)
+    _exact(got, want)
+
+
+@pytest.mark.parametrize('n,hw,cm,cin,cout,stride', [
+    (2, 9, 64, 64, 256, 2), (1, 6, 512, 1024, 2048, 2),
+    (3, 5, 128, 256, 512, 1)])
+def test_gemm_s8_two_segment_projection(dev, n, hw, cm, cin, cout, stride):
+    """The projection segment finished into f32 first, then h2 . w3: the
+    sum (acc3 m3 + b3) + (accd md + bd), equal on every value."""
+    from instaorder_tpu_torch.ops import gemm_layout as GL
+    from instaorder_tpu_torch.ops import int8_kernels as IK
+    rng = np.random.RandomState(150 + cin)
+    ho = (hw - 1) // stride + 1
+    h2 = torch.as_tensor(rng.randint(0, 128, (n, ho, ho, cm)), device=dev,
+                         dtype=torch.int8)
+    x = torch.as_tensor(rng.randint(0, 128, (n, hw, hw, cin)), device=dev,
+                        dtype=torch.int8)
+    w3, m3, b3 = _i8_conv(rng, dev, cm, cout, (cm, cout))
+    wd, md, bd = _i8_conv(rng, dev, cin, cout, (cin, cout))
+    w3k, wdk = GL.kmajor(w3), GL.kmajor(wd)
+    out = torch.empty((n, ho, ho, cout), dtype=torch.int8, device=dev)
+    got = IK._gemm(out, [(h2, w3k, m3, b3, 1, 1),
+                         (x, wdk, md, bd, stride, 1)], IK._PROJECTION)
+    y = IK.conv_int8(h2, w3[None, None]).float().mul_(m3).add_(b3)
+    yd = IK.conv_int8(x, wd[None, None], stride).float().mul_(md).add_(bd)
+    _exact(got, y.add_(yd).round_().clamp_(0, 127).to(torch.int8))
