@@ -12,8 +12,9 @@ Phases (any failed check raises and the script exits nonzero):
      the build time and the card's name and power limit;
   2. each kernel vs its plain version on the card, at the serving
      batch: the preps (5-channel and RGB) on 4 synthetic 480x640 scenes
-     of 10 instances (180 pairs), the v2 bottleneck kernels and the q8
-     stem on the activations the serving trunk hands them, the bf16
+     of 10 instances (180 pairs), the v2 bottleneck kernels on the
+     activations the serving trunk hands them, the serving-d2 q8 stem
+     (kernel 15's q8 mode, its own row) on its prepped batch, the bf16
      blocks and the bf16 stem on those of the parity trunk (the plain
      trunk's, call by call; 360 images, both directions); the int8c
      blocks and stems on the plain int8c trunks' activations (the d1
@@ -27,14 +28,17 @@ Phases (any failed check raises and the script exits nonzero):
   3. the megasteps (v2 and int8c models calibrated from seed 0 on their
      own prep; bf16 parity model from seed 0): serving-d1, parity with
      its default kernels, parity with identity,down,stem and the RGB
-     prep kernel, serving-d2, serving-d1 --dtype int8c, serving-d2
-     --dtype int8c with hwnc,down,stem. For each: launch counts per
-     megastep, pairs/s, and the logits of a few pairs (both directions)
-     against the plain path run on the CPU (the v2 error also over 12
+     prep kernel, serving-d2, serving-d2 with its default set and
+     stem, serving-d1 --dtype int8c, serving-d2 --dtype int8c with
+     hwnc,down,stem, and the other feature sets. For each: launch
+     counts per megastep, pairs/s, and the logits of a few pairs (both
+     directions) against the plain path run on the CPU (the v2 error
+     also over 12
      pairs and over all pairs); for int8c also the trunk's int8 output
      equal to the plain int8c forward's on the same prepped tensor on
      the card, logits within 1e-5 of max |logit|;
-  4. the `kernels` JSON line, then {"ok": true, "device": {...}}.
+  4. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, the
+     `kernels` JSON line, then {"ok": true, "device": {...}}.
 Exits nonzero without a result when no CUDA device is present.
 """
 
@@ -61,6 +65,9 @@ RGB = 'fused_prep_rgb'
 IDEN16 = 'fused_bottleneck'
 DOWN16 = 'fused_bottleneck_down'
 STEM = 'fused_stem'
+# kernel 15's q8 mode (Cout 128, the serving-d2 `stem` route): its own
+# entry in the kernels line, counted by STEM's wrapper
+STEMQ8 = STEM + '[q8]'
 I8 = 'fused_bottleneck_int8'
 D8 = 'fused_bottleneck_down_int8'
 STEM8 = 'fused_stem_int8'
@@ -84,6 +91,7 @@ SOURCES = {PREP: _CSRC + 'prep.cu', STAGE: _CSRC + 'bottleneck_v2.cu',
            DOWN: _CSRC + 'bottleneck_v2.cu', IDEN: _CSRC + 'bottleneck_v2.cu',
            RGB: _CSRC + 'prep.cu', IDEN16: _CSRC + 'bottleneck_v2.cu',
            DOWN16: _CSRC + 'bottleneck_v2.cu', STEM: _CSRC + 'stem.cu',
+           STEMQ8: _CSRC + 'stem.cu',
            I8: _CSRC + 'bottleneck_int8.cu', D8: _CSRC + 'bottleneck_int8.cu',
            STEM8: _CSRC + 'stem.cu', I8H: _CSRC + 'bottleneck_int8.cu',
            D8H1: _CSRC + 'bottleneck_int8.cu',
@@ -99,6 +107,7 @@ REPLACES = {PREP: 'instaorder_tpu/ops/prep_pallas.py:315',
             IDEN16: 'instaorder_tpu/ops/pallas_blocks.py:86',
             DOWN16: 'instaorder_tpu/ops/pallas_blocks.py:1974',
             STEM: 'instaorder_tpu/ops/pallas_blocks.py:2271',
+            STEMQ8: 'instaorder_tpu/ops/pallas_blocks.py:2271',
             I8: 'instaorder_tpu/ops/pallas_blocks.py:460',
             D8: 'instaorder_tpu/ops/pallas_blocks.py:2122',
             STEM8: 'instaorder_tpu/ops/pallas_blocks.py:2354',
@@ -122,6 +131,8 @@ MARGIN_PAIRS = 12
 KFEATS = ('identity', 'down', 'stem')
 # the megastep whose stage launches are all kernel 2's down=False mode
 HWNCS_STEP = 'serving-d1 +hwnc,down1,down2,hwncs,hwncs1'
+# the megastep whose stem launch is kernel 15's q8 mode
+STEMQ8_STEP = 'serving-d2 +hwnc,down2,hwncs1d,dirpack,stem'
 MEGASTEPS = [
     ('serving-d1', 'serving-d1', {}, V2_LAUNCHES),
     ('parity', 'parity', {}, {IDEN16: 5}),
@@ -129,6 +140,9 @@ MEGASTEPS = [
      {'prep_rgb': 'pallas', 'use_pallas': KFEATS},
      {IDEN16: 5, DOWN16: 3, STEM: 1, RGB: 1}),
     ('serving-d2', 'serving-d2', {}, V2_LAUNCHES),
+    (STEMQ8_STEP, 'serving-d2',
+     {'use_pallas': ('hwnc', 'down2', 'hwncs1d', 'dirpack', 'stem')},
+     dict(V2_LAUNCHES, **{STEM: 1})),
     ('serving-d1 --dtype int8c', 'serving-d1', {'dtype': 'int8c'},
      {PREP: 1, I8: 12, D8: 4}),
     ('serving-d2 --dtype int8c +hwnc,down,stem', 'serving-d2',
@@ -354,21 +368,29 @@ def rgb_einsum(torch, images, rois):
         -1, OUT, OUT, 3)
 
 
-def phase_stem_q8(torch, SK, FO, q, x):
-    """The v2 path's q8 stem (double width, Cout 128) vs its plain."""
+def stem_ops(x, w):
+    """Operations of a stem conv at its real K = 7 * 7 * C (not the
+    kernel's padded K): 2 * N * Hc * Wc * K * Cout."""
+    n, hc, wc = x.shape[0], (x.shape[1] + 1) // 2, (x.shape[2] + 1) // 2
+    return 2 * n * hc * wc * w[..., 0].numel() * w.shape[-1]
+
+
+def phase_stem_q8(torch, SK, FO, q, x, results):
+    """Row 15': the serving-d2 route's q8 stem (double width, Cout 128)
+    vs its plain version, both timed."""
     c1 = FO.siamese_conv1(q['conv1'])
     x = x.contiguous()
+    kern = lambda: SK.fused_stem(x, c1['w'], c1['b'], q8=True, wk=c1['wk'])
     want = SK.fused_stem_plain(x, c1['w'], c1['b'], q8=True)
-    err, frac = diff(torch, f'{STEM} q8 {tuple(x.shape)}->'
-                     f'{tuple(want.shape)}', SK.fused_stem(
-                         x, c1['w'], c1['b'], q8=True), want)
-    check(err <= 1 and frac < 0.01, f'{STEM} q8: <=1 LSB on <1%')
+    err, frac = diff(torch, f'{STEMQ8} {tuple(x.shape)}->'
+                     f'{tuple(want.shape)}', kern(), want)
+    check(err <= 1 and frac < 0.01, f'{STEMQ8}: <=1 LSB on <1%')
     live = float(((want > 0) & (want < 127)).float().mean())
-    check(live > 0.05, f'{STEM} q8: {live:.3f} of outputs unclipped')
-    ms = cuda_ms(torch, lambda: SK.fused_stem(x, c1['w'], c1['b'], q8=True))
-    plain_ms = cuda_ms(torch, lambda: SK.fused_stem_plain(
-        x, c1['w'], c1['b'], q8=True), reps=2)
-    print(f'  {STEM} q8: {ms:.4f} ms, plain {plain_ms:.4f} ms')
+    check(live > 0.05, f'{STEMQ8}: {live:.3f} of outputs unclipped')
+    add_row(results, STEMQ8, err, cuda_ms(torch, kern),
+            cuda_ms(torch, lambda: SK.fused_stem_plain(
+                x, c1['w'], c1['b'], q8=True), reps=2), None,
+            nbytes(x, want, c1['w'], c1['b']), stem_ops(x, c1['w']))
 
 
 def add_row(results, name, err, kern, plain, chain, nbytes_, ops,
@@ -398,17 +420,14 @@ def phase_trunk_bf16(torch, B16, SK, FO, params, x, results):
     b32 = c1['b'].float()
     x = x.contiguous()
     want = SK.fused_stem_plain(x, c1['w'], b32)
+    kern = lambda: SK.fused_stem(x, c1['w'], b32, wk=c1['wk'])
     err = bf16_diff(torch, f'{STEM} bf16 {tuple(x.shape)}->'
-                    f'{tuple(want.shape)}', SK.fused_stem(x, c1['w'], b32),
-                    want)
-    n, hc, wc = x.shape[0], (x.shape[1] + 1) // 2, (x.shape[2] + 1) // 2
-    add_row(results, STEM, err,
-            cuda_ms(torch, lambda: SK.fused_stem(x, c1['w'], b32)),
+                    f'{tuple(want.shape)}', kern(), want)
+    add_row(results, STEM, err, cuda_ms(torch, kern),
             cuda_ms(torch, lambda: SK.fused_stem_plain(x, c1['w'], b32),
                     reps=2),
             cuda_ms(torch, lambda: FO._plain_stem(c1, x), reps=2),
-            nbytes(x, want, c1['w'], b32),
-            2 * n * hc * wc * c1['w'][..., 0].numel() * c1['w'].shape[-1])
+            nbytes(x, want, c1['w'], b32), stem_ops(x, c1['w']))
     h = FO.directions_to_batch(want)
     for li in range(4):
         for bi, bp in enumerate(params[f'layer{li + 1}']):
@@ -528,18 +547,17 @@ def phase_trunk_int8(torch, IK, SK, Q, FO, q, x, results, wide):
     args = (c1['w'], c1['m'], c1['b'])
     want = SK.fused_stem_int8_plain(x8, *args)
     err = exact(torch, f'{STEM8} {tuple(x8.shape)}->{tuple(want.shape)}',
-                SK.fused_stem_int8(x8, *args), want)
-    kern = cuda_ms(torch, lambda: SK.fused_stem_int8(x8, *args))
+                SK.fused_stem_int8(x8, *args, wk=c1['wk']), want)
+    kern = cuda_ms(torch, lambda: SK.fused_stem_int8(x8, *args, wk=c1['wk']))
     plain = cuda_ms(torch, lambda: SK.fused_stem_int8_plain(x8, *args),
                     reps=2)
-    n, hc, wc = x8.shape[0], (x8.shape[1] + 1) // 2, (x8.shape[2] + 1) // 2
     if wide:
         add_row(results, STEM8, err, kern, plain, None,
-                nbytes(x8, want, *args),
-                2 * n * hc * wc * c1['w'][..., 0].numel() * c1['w'].shape[-1],
+                nbytes(x8, want, *args), stem_ops(x8, c1['w']),
                 rate=H100_INT8_PER_S)
     else:
-        print(f'  {STEM8} Cout 64: {kern:.4f} ms, plain {plain:.4f} ms')
+        print(f'  {STEM8} Cout 64: {kern:.4f} ms, plain {plain:.4f} ms, '
+              f'{stem_ops(x8, c1["w"]) / kern / 1e9:.2f} TOP/s at K = 245')
     h = FO.directions_to_batch(want) if wide else want
     for li in range(4):
         for bi, qb in enumerate(q[f'layer{li + 1}']):
@@ -827,7 +845,7 @@ def main():
         phase_trunk(torch, BK, Q, FO, q, x, results)
         phase_trunk_v2_variants(torch, BK, Q, FO, q, x, results)
         # x3 is also the parity path's input at the kernels' shapes
-        phase_stem_q8(torch, SK, FO, q2, x3)
+        phase_stem_q8(torch, SK, FO, q2, x3, results)
         phase_trunk_bf16(torch, B16, SK, FO, params16, x3, results)
         t0 = time.perf_counter()
         phase_trunk_int8(torch, IK, SK, Q, FO, q8c, x, results, wide=False)
@@ -908,7 +926,9 @@ def main():
                 launches[k] = n
         if name == HWNCS_STEP:
             launches[RUN] = got[STAGE]
-    check(set(launches) == set(wrappers) | {RUN},
+        if name == STEMQ8_STEP:
+            launches[STEMQ8] = got[STEM]
+    check(set(launches) == set(wrappers) | {RUN, STEMQ8},
           f'every kernel launched on a main path: {sorted(launches)}')
 
     # ---- 4. report ----------------------------------------------------------
@@ -920,6 +940,11 @@ def main():
             print(f'{name}: kernel {r["ms"]:.4f} ms, plain cuDNN chain of '
                   f'the JAX default route (several calls) '
                   f'{r["chain_ms"]:.4f} ms')
+        if name.startswith(STEM):
+            unit = 'TOP/s' if r['ops_rate'] == H100_INT8_PER_S else 'TFLOP/s'
+            print(f'{name}: kernel {r["ms"]:.4f} ms, '
+                  f'{r["ops"] / r["ms"] / 1e9:.2f} {unit} at K = 245 '
+                  f'({100 * t_ops / r["ms"]:.1f}% of the {unit} peak)')
         if 'conv_only_ms' in r:
             print(f'{name}: kernel {r["ms"]:.4f} ms, its convolutions alone '
                   f'(bf16 conv2d, channels_last) {r["conv_only_ms"]:.4f} ms')

@@ -1,6 +1,7 @@
 // Building blocks shared by the two implicit-GEMM block kernels for
 // Hopper (sm_90a): csrc/bottleneck_v2.cu (bf16 operands, f32 sums) and
-// csrc/bottleneck_int8.cu (int8 operands, s32 sums).
+// csrc/bottleneck_int8.cu (int8 operands, s32 sums). The stem kernels
+// (csrc/stem.cu) use its copy, descriptor, wgmma and fragment helpers.
 //
 // The design both kernels follow:
 //   - a CTA computes a 128 x BN output tile (BN = 64 or 128, chosen by
@@ -104,6 +105,15 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
 // apart), starting `koff` bytes into the K step
 __device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int koff) {
   return smem_desc(tile + koff, 16, 1024);
+}
+
+// K-major operand without swizzle: each 8-row core matrix is 8 rows of
+// 16 bytes stored as 128 contiguous bytes; `lbo` bytes between the core
+// matrices of a K step, `sbo` between 8-row groups (csrc/stem.cu)
+__device__ __forceinline__ uint64_t desc_kmajor_noswz(uint32_t addr,
+                                                      uint32_t lbo,
+                                                      uint32_t sbo) {
+  return smem_desc(addr, lbo, sbo) & ~(3ull << 62);
 }
 
 // MN-major bf16 operand: 64-column atoms of `atom` bytes (K rows of 128

@@ -26,7 +26,8 @@ import torch
 
 from ..core import nn as cnn
 from ..ops import bottleneck_bf16_kernels as bk16
-from ..ops.stem_kernels import fused_stem
+from ..ops.stem_kernels import (fused_stem, s2d_conv1_w, s2d_stem_input,
+                                stem_kernel_weights)
 
 # conv1 input channels up to which blocks go to the fused kernels
 # (instaorder_tpu/ops/pallas_blocks.IDEN_CIN_CAP: layers 1-2 and the
@@ -97,28 +98,6 @@ def _pallas_features(use_pallas, default=PALLAS_DEFAULT):
     return feats
 
 
-def s2d_conv1_w(w):
-    """The 7x7/stride-2 stem conv as a 4x4 stride-1 conv over the 2x2
-    space-to-depth input ('stem2'; the same taps): w2[du, dxu, (sy, sx,
-    c)] = w[2du+sy-1, 2dxu+sx-1, c], zero where the index leaves 0..6."""
-    C, Co = w.shape[2], w.shape[3]
-    wp = torch.nn.functional.pad(w, (0, 0, 0, 0, 1, 0, 1, 0))
-    w2 = wp.reshape(4, 2, 4, 2, C, Co).permute(0, 2, 1, 3, 4, 5)
-    return w2.reshape(4, 4, 4 * C, Co).contiguous()
-
-
-def s2d_stem_input(x):
-    """Pad (4, 2) x (4, 2) and 2x2 space-to-depth: (N, H, W, C) ->
-    (N, H/2 + 3, W/2 + 3, 4C), channel order (sy, sx, c) to match
-    s2d_conv1_w. Requires even H, W."""
-    n, H, W, C = x.shape
-    assert H % 2 == 0 and W % 2 == 0, (H, W)
-    xp = torch.nn.functional.pad(x, (0, 0, 4, 2, 4, 2))
-    x2 = xp.reshape(n, (H + 6) // 2, 2, (W + 6) // 2, 2, C)
-    return x2.permute(0, 1, 3, 2, 4, 5).reshape(
-        n, (H + 6) // 2, (W + 6) // 2, 4 * C)
-
-
 def _stem_fusable(w, x):
     """The fused stem covers the standard ResNet stem: 7x7, stride 2 +
     3x3/2 max-pool, spatial dims divisible by 4 (the JAX routing)."""
@@ -135,8 +114,20 @@ def _plain_stem(conv1, x):
 def _stem(conv1, x, feats):
     if 'stem' in feats and _stem_fusable(conv1['w'], x):
         return fused_stem(x.contiguous(), conv1['w'].contiguous(),
-                          conv1['b'].float())
+                          conv1['b'].float(), wk=conv1.get('wk'))
     return _plain_stem(conv1, x)
+
+
+def add_stem_kernel_weights(conv1):
+    """Give a stem's conv1 the weights the card's stem kernel reads
+    (ops/stem_kernels `stem_kernel_weights`), once, when the model is
+    built on the card: `wk` for the one-direction stem and `wk_siamese`
+    for the double-width one (`siamese_conv1`). The JAX-layout `w` stays
+    beside them for the plain versions. Returns conv1."""
+    conv1['wk'] = stem_kernel_weights(conv1['w'])
+    conv1['wk_siamese'] = stem_kernel_weights(
+        siamese_conv1(conv1)['w'])
+    return conv1
 
 
 def _plain_block(bp, out, stride, block='bottleneck', groups=1):
@@ -238,10 +229,15 @@ def apply_folded(params, cfg, x, dtype=None, use_pallas=False):
 def siamese_conv1(conv1):
     """The double-width stem's conv1: both directions' weights on the
     output axis, [conv1 | swap_conv1_w(conv1)], and every per-channel
-    leaf beside them (the bias; the int8c requant multiplier `m`) twice."""
-    out = {k: torch.cat([v, v]) for k, v in conv1.items() if k != 'w'}
+    leaf beside them (the bias; the int8c requant multiplier `m`) twice.
+    The stem kernel's weights of the double-width stem, where the model
+    has them (`add_stem_kernel_weights`), become its `wk`."""
+    out = {k: torch.cat([v, v]) for k, v in conv1.items()
+           if k not in ('w', 'wk', 'wk_siamese')}
     out['w'] = torch.cat([conv1['w'], swap_conv1_w(conv1['w'])],
                          dim=3).contiguous()
+    if 'wk_siamese' in conv1:
+        out['wk'] = conv1['wk_siamese']
     return out
 
 

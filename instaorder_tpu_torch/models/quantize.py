@@ -41,8 +41,8 @@ from ..ops.gemm_layout import kmajor
 from ..ops.stem_kernels import (fused_stem, fused_stem_int8,
                                 fused_stem_int8_plain)
 from .folding import (IDEN_CIN_CAP, _kernel_args, _pallas_features,
-                      _stem_fusable, s2d_conv1_w, s2d_stem_input,
-                      siamese_forward)
+                      _stem_fusable, add_stem_kernel_weights, s2d_conv1_w,
+                      s2d_stem_input, siamese_forward)
 
 # the v2 default feature set, the JAX default: all of the trunk on the
 # kernels, the cuDNN stem. 'dirpack' changes nothing here (see
@@ -199,7 +199,7 @@ def _stem_v2(q, x, use_pallas=True):
     w = q['conv1']['w']
     if 'stem' in feats and _stem_fusable(w, x):
         return fused_stem(x.to(cdt).contiguous(), w.contiguous(),
-                          q['conv1']['b'], q8=True)
+                          q['conv1']['b'], q8=True, wk=q['conv1'].get('wk'))
     if ('stem2' in feats and w.shape[:2] == (7, 7)
             and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
         h = cnn.conv2d({'w': s2d_conv1_w(w), 'b': q['conv1']['b']},
@@ -431,7 +431,8 @@ def _stem_int8(q, x8, use_pallas=False):
     c1 = q['conv1']
     if ('stem' in _int8_features(use_pallas)
             and _stem_fusable(c1['w'], x8)):
-        return fused_stem_int8(x8.contiguous(), c1['w'], c1['m'], c1['b'])
+        return fused_stem_int8(x8.contiguous(), c1['w'], c1['m'], c1['b'],
+                               wk=c1.get('wk'))
     return fused_stem_int8_plain(x8, c1['w'], c1['m'], c1['b'])
 
 
@@ -450,9 +451,11 @@ def _int8_args(qb):
 def add_kernel_weights(q):
     """Give every block of the int8c tree `q` its K-major weights
     (`wk`: the (Cout, K) copies of w1, w2, w3 and wd that the card's
-    int8 kernel reads, ops/gemm_layout.kmajor), once, when the model is
-    built on the card. The JAX-layout weights stay beside them for the
-    plain versions. Returns q."""
+    int8 kernel reads, ops/gemm_layout.kmajor) and its conv1 the stem
+    kernel's weights (models/folding `add_stem_kernel_weights`), once,
+    when the model is built on the card. The JAX-layout weights stay
+    beside them for the plain versions. Returns q."""
+    add_stem_kernel_weights(q['conv1'])
     for li in range(4):
         for qb in q[f'layer{li + 1}']:
             qb['wk'] = [kmajor(qb[c]['w'])

@@ -110,8 +110,9 @@ def library() -> ctypes.CDLL:
     # images, rois, out, S, P, H, W, out_size, passes, normalize, stream
     lib.io_prep_rgb.argtypes = [P, P, P, I, I, I, I, I, I, I, P]
     lib.io_prep_rgb.restype = I
-    # x, w, bias, out, N, H, W, C, cout, q8, stream
-    lib.io_fused_stem.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
+    # x, pack scratch, kernel weights, bias, out, N, H, W, C, cout, q8,
+    # stream
+    lib.io_fused_stem.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
     lib.io_fused_stem.restype = I
     lib.io_conv_gemm.argtypes = (
         # two K segments: activation, its (K, Cout) bf16 weight rows,
@@ -122,8 +123,8 @@ def library() -> ctypes.CDLL:
            P, I, F,                     # identity residual, its dtype, r
            P, I, P])                    # out, epilogue mode, stream
     lib.io_conv_gemm.restype = I
-    # x, w, m, b (int8 / f32), out, N, H, W, C, cout, stream
-    lib.io_fused_stem_s8.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+    # x, pack scratch, kernel weights, m, b, out, N, H, W, C, cout, stream
+    lib.io_fused_stem_s8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P]
     lib.io_fused_stem_s8.restype = I
     lib.io_conv_gemm_s8.argtypes = (
         # two K segments: int8 activation, its (Cout, K) int8 weight

@@ -13,16 +13,18 @@ stem of the v2 path (models/quantize._stem_v2) rounds the conv to bf16
 BEFORE its f32 bias add, the fused stem after it.
 
 Bound on the H100: tensor-core operations at the double-width siamese
-stem (Cout 128; see csrc/stem.cu). Design: one CTA per (image, 8x8 tile
-of pooled outputs), the input window and the weights staged in shared
-memory, the conv as an implicit GEMM on the tensor cores (K = 7*7*C
-padded to 256, so C <= 5), bias + relu + bf16 into a shared conv tile,
-then the pool.
+stem (Cout 128; see csrc/stem.cu). Design: the 7x7/2 conv as a 4x4
+stride-1 conv over the 2x2 space-to-depth input, which a pack pass
+writes chunk-planar with its 4C channels padded to 16-byte chunks
+(`stem_pack_plain`); the kernel copies s2d rows into shared memory with
+16-byte cp.async and runs wgmma on them in place, with the weights in
+the matching order (`stem_kernel_weights`, laid out once when the model
+is built on the card), and pools in its epilogue.
 
-On CPU tensors the wrapper runs `fused_stem_plain`; on CUDA tensors it
-launches the kernel or raises, and adds one to `fused_stem.launches`
-per call. The card takes bf16 x and w and an f32 bias (f32 compute on
-the card is not ported: ROADMAP.md queue 2, "f32 on the card").
+On CPU tensors the wrappers run the plain versions; on CUDA tensors they
+launch the pack and the kernel or raise, and add one to `launches` per
+call. The card takes bf16 x and w and an f32 bias (f32 compute on the
+card is not ported: ROADMAP.md queue 2, "f32 on the card").
 """
 
 from __future__ import annotations
@@ -32,6 +34,96 @@ import torch.nn.functional as F
 
 from . import _build
 from .int8_kernels import batch_chunks, conv_int8, requant
+
+
+def s2d_conv1_w(w):
+    """The 7x7/stride-2 stem conv as a 4x4 stride-1 conv over the 2x2
+    space-to-depth input ('stem2'; the same taps): w2[du, dxu, (sy, sx,
+    c)] = w[2du+sy-1, 2dxu+sx-1, c], zero where the index leaves 0..6."""
+    C, Co = w.shape[2], w.shape[3]
+    wp = torch.nn.functional.pad(w, (0, 0, 0, 0, 1, 0, 1, 0))
+    w2 = wp.reshape(4, 2, 4, 2, C, Co).permute(0, 2, 1, 3, 4, 5)
+    return w2.reshape(4, 4, 4 * C, Co).contiguous()
+
+
+def s2d_stem_input(x):
+    """Pad (4, 2) x (4, 2) and 2x2 space-to-depth: (N, H, W, C) ->
+    (N, H/2 + 3, W/2 + 3, 4C), channel order (sy, sx, c) to match
+    s2d_conv1_w. Requires even H, W."""
+    n, H, W, C = x.shape
+    assert H % 2 == 0 and W % 2 == 0, (H, W)
+    xp = torch.nn.functional.pad(x, (0, 0, 4, 2, 4, 2))
+    x2 = xp.reshape(n, (H + 6) // 2, 2, (W + 6) // 2, 2, C)
+    return x2.permute(0, 1, 3, 2, 4, 5).reshape(
+        n, (H + 6) // 2, (W + 6) // 2, 4 * C)
+
+
+def stem_chunks(dtype):
+    """(J, CW): the 16-byte chunks of a padded s2d pixel and the elements
+    of a chunk, (3, 8) for bf16 (24 channels), (2, 16) for int8 (32)."""
+    return (2, 16) if dtype == torch.int8 else (3, 8)
+
+
+def stem_pack_plain(x):
+    """The input the stem kernel reads (csrc/stem.cu `stem_pack_kernel`):
+    s2d_stem_input with its 4C channels zero-padded to J * CW, chunk-
+    planar: (N, H/2 + 3, J, W/2 + 3, CW)."""
+    J, cw = stem_chunks(x.dtype)
+    xs = s2d_stem_input(x)
+    n, hs, ws, c4 = xs.shape
+    xs = F.pad(xs, (0, J * cw - c4))
+    return xs.reshape(n, hs, ws, J, cw).permute(0, 1, 3, 2, 4).contiguous()
+
+
+def stem_kernel_weights(w):
+    """HWIO stem weights (7, 7, C <= 5, Cout) -> the layout the card's
+    stem kernel reads: the s2d weights (s2d_conv1_w) with their channels
+    zero-padded to J * CW, rows in the kernel's K order k = (((du * 2 +
+    dxp) * J + j) * 2 + e) * CW + i for tap (du, 2 dxp + e) and padded
+    channel j * CW + i. bf16: (K, Cout), K = 384, read MN-major; int8:
+    (Cout, K), K = 512, since int8 wgmma reads B only K-major. Built once,
+    when the model is built on the card (models/folding
+    `add_stem_kernel_weights`)."""
+    J, cw = stem_chunks(w.dtype)
+    co = w.shape[-1]
+    w2 = s2d_conv1_w(w)
+    w2 = F.pad(w2, (0, 0, 0, J * cw - w2.shape[2]))
+    w2 = w2.reshape(4, 2, 2, J, cw, co).permute(0, 1, 3, 2, 4, 5)
+    w2 = w2.reshape(16 * J * cw, co)
+    return (w2.t() if w.dtype == torch.int8 else w2).contiguous()
+
+
+def _check_wk(wk, w, dev, what):
+    J, cw = stem_chunks(w.dtype)
+    k, cout = 16 * J * cw, w.shape[-1]
+    shape = (cout, k) if w.dtype == torch.int8 else (k, cout)
+    if wk is None:
+        raise ValueError(f'{what}: the card needs the stem\'s kernel weights '
+                         '(wk=, stem_kernel_weights(w)), laid out once when '
+                         'the model is built on the card')
+    if (tuple(wk.shape) != shape or wk.dtype != w.dtype or wk.device != dev
+            or not wk.is_contiguous() or wk.data_ptr() % 16):
+        raise ValueError(f'{what}: wk must be the contiguous {shape} '
+                         f'{w.dtype} tensor of stem_kernel_weights on {dev}, '
+                         f'got {tuple(wk.shape)} {wk.dtype} on {wk.device}')
+
+
+def _check_hw(x, what):
+    _, H, W, _ = x.shape
+    if H < 2 or W < 2 or H % 2 or W % 2:
+        raise ValueError(f'{what}: the card takes even H, W >= 2, got '
+                         f'{tuple(x.shape)}')
+    # the pack reads two elements at a time
+    if x.data_ptr() % (2 * x.element_size()):
+        raise ValueError(f'{what}: x must be {2 * x.element_size()}-byte '
+                         'aligned')
+
+
+def _pack_scratch(x):
+    n, H, W, _ = x.shape
+    J, _ = stem_chunks(x.dtype)
+    return torch.empty((n, H // 2 + 3, J, W // 2 + 3, 16), dtype=torch.uint8,
+                       device=x.device)
 
 
 def fused_stem_plain(x, w, b, q8=False):
@@ -49,10 +141,12 @@ def fused_stem_plain(x, w, b, q8=False):
     return pooled.to(cdt)
 
 
-def fused_stem(x, w, b, q8=False):
+def fused_stem(x, w, b, q8=False, wk=None):
     """Fused stem. x (N, H, W, C) with C <= 5; w (7, 7, C, Cout), Cout 64
-    or 128 (the double-width siamese stem); b (Cout,) f32 on the card.
-    -> (N, ceil(H/4), ceil(W/4), Cout) in x.dtype, or int8 with q8."""
+    or 128 (the double-width siamese stem); b (Cout,) f32 on the card;
+    wk: stem_kernel_weights(w), which the card needs (the CPU ignores it).
+    -> (N, ceil(H/4), ceil(W/4), Cout) in x.dtype, or int8 with q8. The
+    card takes even H, W."""
     if x.device.type == 'cpu':
         return fused_stem_plain(x, w, b, q8=q8)
     dev = x.device
@@ -66,22 +160,24 @@ def fused_stem(x, w, b, q8=False):
     if tuple(w.shape) != (7, 7, C, cout) or C > 5 or cout not in (64, 128):
         raise ValueError(f'fused_stem: w must be (7, 7, C<=5, 64|128) for x '
                          f'{tuple(x.shape)}, got {tuple(w.shape)}')
-    if (w.dtype != torch.bfloat16 or w.device != dev
-            or not w.is_contiguous() or w.data_ptr() % 16):
-        raise ValueError(f'fused_stem: w must be contiguous bf16 on {dev}')
+    if w.dtype != torch.bfloat16 or w.device != dev:
+        raise ValueError(f'fused_stem: w must be bf16 on {dev}')
     if (b.dtype != torch.float32 or b.device != dev
             or tuple(b.shape) != (cout,) or not b.is_contiguous()):
         raise ValueError(f'fused_stem: bias must be a contiguous ({cout},) '
                          f'f32 tensor on {dev}')
     if not x.is_contiguous():
         raise ValueError('fused_stem: x must be contiguous')
-    Hc, Wc = (H - 1) // 2 + 1, (W - 1) // 2 + 1
+    _check_hw(x, 'fused_stem')
+    _check_wk(wk, w, dev, 'fused_stem')
+    Hc, Wc = H // 2, W // 2
     out = torch.empty((N, (Hc - 1) // 2 + 1, (Wc - 1) // 2 + 1, cout),
                       dtype=torch.int8 if q8 else torch.bfloat16,
                       device=dev)
     rc = _build.library().io_fused_stem(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), N, H, W,
-        C, cout, int(bool(q8)), torch.cuda.current_stream(dev).cuda_stream)
+        x.data_ptr(), _pack_scratch(x).data_ptr(), wk.data_ptr(),
+        b.data_ptr(), out.data_ptr(), N, H, W, C, cout, int(bool(q8)),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, 'fused_stem')
     fused_stem.launches += 1
     return out
@@ -96,8 +192,8 @@ fused_stem.launches = 0
 # s8 conv 7x7 / stride 2 / pad 3 with s32 accumulation, the requant
 # rq8(acc) = clip(round(f32(acc) * m + b), 0, 127), max-pool 3x3 / stride
 # 2 / pad 1 on int8. Bound on the H100: int8 tensor-core operations at the
-# double-width stem; the design is the bf16 kernel's with s8 WMMA and an
-# int8 conv tile (the weight tile is 32 KB at Cout 128).
+# double-width stem; the design is the bf16 kernel's on int8 wgmma, with
+# (Cout, 512) K-major weights (64 KB at Cout 128).
 # ---------------------------------------------------------------------------
 
 
@@ -118,10 +214,11 @@ def fused_stem_int8_plain(x8, w8, m, b):
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
-def fused_stem_int8(x8, w8, m, b):
+def fused_stem_int8(x8, w8, m, b, wk=None):
     """Fused int8c stem. x8 (N, H, W, C) int8 with C <= 5; w8 (7, 7, C,
-    Cout) int8, Cout 64 or 128; m, b (Cout,) f32. -> (N, ceil(H/4),
-    ceil(W/4), Cout) int8."""
+    Cout) int8, Cout 64 or 128; m, b (Cout,) f32; wk:
+    stem_kernel_weights(w8), which the card needs (the CPU ignores it).
+    -> (N, ceil(H/4), ceil(W/4), Cout) int8. The card takes even H, W."""
     if x8.device.type == 'cpu':
         return fused_stem_int8_plain(x8, w8, m, b)
     dev = x8.device
@@ -133,21 +230,21 @@ def fused_stem_int8(x8, w8, m, b):
     if tuple(w8.shape) != (7, 7, C, cout) or C > 5 or cout not in (64, 128):
         raise ValueError(f'fused_stem_int8: w must be (7, 7, C<=5, 64|128) '
                          f'for x {tuple(x8.shape)}, got {tuple(w8.shape)}')
-    if (w8.dtype != torch.int8 or w8.device != dev
-            or not w8.is_contiguous() or w8.data_ptr() % 16):
-        raise ValueError(f'fused_stem_int8: w must be contiguous int8 on '
-                         f'{dev}')
+    if w8.dtype != torch.int8 or w8.device != dev:
+        raise ValueError(f'fused_stem_int8: w must be int8 on {dev}')
     for t, name in ((m, 'multiplier'), (b, 'bias')):
         if (t.dtype != torch.float32 or t.device != dev
                 or tuple(t.shape) != (cout,) or not t.is_contiguous()):
             raise ValueError(f'fused_stem_int8: {name} must be a contiguous '
                              f'({cout},) f32 tensor on {dev}')
-    Hc, Wc = (H - 1) // 2 + 1, (W - 1) // 2 + 1
+    _check_hw(x8, 'fused_stem_int8')
+    _check_wk(wk, w8, dev, 'fused_stem_int8')
+    Hc, Wc = H // 2, W // 2
     out = torch.empty((N, (Hc - 1) // 2 + 1, (Wc - 1) // 2 + 1, cout),
                       dtype=torch.int8, device=dev)
     rc = _build.library().io_fused_stem_s8(
-        x8.data_ptr(), w8.data_ptr(), m.data_ptr(), b.data_ptr(),
-        out.data_ptr(), N, H, W, C, cout,
+        x8.data_ptr(), _pack_scratch(x8).data_ptr(), wk.data_ptr(),
+        m.data_ptr(), b.data_ptr(), out.data_ptr(), N, H, W, C, cout,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, 'fused_stem_int8')
     fused_stem_int8.launches += 1

@@ -28,7 +28,8 @@ from .device import resolve_device
 from .eval.decode import decode_occ
 from .models import quantize as Q
 from .models import resnet
-from .models.folding import apply_folded, apply_folded_siamese, fold_resnet
+from .models.folding import (add_stem_kernel_weights, apply_folded,
+                             apply_folded_siamese, fold_resnet)
 from .ops.pairs import (build_pair_batches_fused, build_pair_batches_matmul,
                         pair_rois)
 
@@ -135,9 +136,13 @@ def build_serving_model(seed, calib_x, device=None, weight_init='xavier'):
     signal shrinks ~1e-12 through the trunk, below the 1e-8 scale floor,
     so every logit quantizes to 0. 'kaiming_out' (the torchvision
     constructor default) keeps the activations alive, which a check of
-    the logits needs."""
+    the logits needs. On the card its conv1 also gets the stem kernel's
+    weights (add_stem_kernel_weights)."""
     folded, cfg, scales = _calibrated(seed, calib_x, device, weight_init)
-    return Q.quantize_folded_v2(folded, cfg, scales), cfg
+    q = Q.quantize_folded_v2(folded, cfg, scales)
+    if resolve_device(device).type == 'cuda':
+        add_stem_kernel_weights(q['conv1'])
+    return q, cfg
 
 
 def build_int8c_model(seed, calib_x, device=None, weight_init='xavier'):
@@ -156,10 +161,15 @@ def build_int8c_model(seed, calib_x, device=None, weight_init='xavier'):
 def build_parity_model(seed, device=None, weight_init='xavier'):
     """The `parity` profile's model: the same network from `seed`,
     BN-folded, every leaf cast to bf16 (the fc head too, as the root
-    bench's tree_cast; the forward widens it back to f32). Returns
-    (params, cfg)."""
-    folded, cfg = _init_folded(seed, resolve_device(device), weight_init)
-    return tree_cast(folded, torch.bfloat16), cfg
+    bench's tree_cast; the forward widens it back to f32). On the card
+    its conv1 also gets the stem kernel's weights
+    (add_stem_kernel_weights). Returns (params, cfg)."""
+    dev = resolve_device(device)
+    folded, cfg = _init_folded(seed, dev, weight_init)
+    params = tree_cast(folded, torch.bfloat16)
+    if dev.type == 'cuda':
+        add_stem_kernel_weights(params['conv1'])
+    return params, cfg
 
 
 def build_model(profile, seed, calib_x, device=None, weight_init='xavier',

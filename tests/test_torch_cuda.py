@@ -193,7 +193,7 @@ def test_stem_kernel_ragged(dev, n, hw, cout, q8):
     b = torch.as_tensor(rng.randn(cout) * 0.1 * scale, dtype=torch.float32,
                         device=dev)
     before = SK.fused_stem.launches
-    got = SK.fused_stem(x, w, b, q8=q8)
+    got = SK.fused_stem(x, w, b, q8=q8, wk=SK.stem_kernel_weights(w))
     assert SK.fused_stem.launches == before + 1
     want = SK.fused_stem_plain(x, w, b, q8=q8)
     ho = ((hw - 1) // 2) // 2 + 1
@@ -203,6 +203,53 @@ def test_stem_kernel_ragged(dev, n, hw, cout, q8):
         assert float(((want > 0) & (want < 127)).float().mean()) > 0.2
     else:
         _bf16_close(got, want)
+
+
+@pytest.mark.parametrize('cout', [64, 128])
+@pytest.mark.parametrize('kind', ['q8', 'int8c'])
+def test_stem_kernels_serving_shape(dev, kind, cout):
+    """The serving stems at 256^2 and a batch of 9 (persistent CTAs
+    walking several work items each): q8 within one LSB on under 1% of
+    outputs, the int8c stem equal on every value."""
+    from instaorder_tpu_torch.ops import stem_kernels as SK
+    rng = np.random.RandomState(cout + len(kind))
+    n = 9
+    if kind == 'q8':
+        x = torch.as_tensor(rng.randn(n, 256, 256, 5), dtype=torch.bfloat16,
+                            device=dev)
+        w = torch.as_tensor(rng.randn(7, 7, 5, cout) * 30 / np.sqrt(245),
+                            dtype=torch.bfloat16, device=dev)
+        b = torch.as_tensor(rng.randn(cout) * 3, dtype=torch.float32,
+                            device=dev)
+        got = SK.fused_stem(x, w, b, q8=True, wk=SK.stem_kernel_weights(w))
+        want = SK.fused_stem_plain(x, w, b, q8=True)
+        _close(got, want)
+        assert float(((want > 0) & (want < 127)).float().mean()) > 0.05
+    else:
+        x = torch.as_tensor(rng.randint(-127, 128, (n, 256, 256, 5)),
+                            device=dev, dtype=torch.int8)
+        w, m, b = _i8_conv(rng, dev, 245, cout, (7, 7, 5, cout))
+        got = SK.fused_stem_int8(x, w, m, b, wk=SK.stem_kernel_weights(w))
+        _exact(got, SK.fused_stem_int8_plain(x, w, m, b))
+    assert tuple(got.shape) == (n, 64, 64, cout)
+
+
+def test_stem_wrappers_need_kernel_weights(dev):
+    """On the card both stems raise without the relaid weights, or with
+    the JAX-layout ones in their place."""
+    from instaorder_tpu_torch.ops import stem_kernels as SK
+    rng = np.random.RandomState(2)
+    x = torch.zeros((1, 32, 32, 5), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((7, 7, 5, 64), dtype=torch.bfloat16, device=dev)
+    b = torch.zeros((64,), dtype=torch.float32, device=dev)
+    for wk in (None, w, SK.stem_kernel_weights(w).t()):
+        with pytest.raises(ValueError, match='stem_kernel_weights'):
+            SK.fused_stem(x, w, b, wk=wk)
+    x8 = torch.zeros((1, 32, 32, 5), dtype=torch.int8, device=dev)
+    w8, m, b8 = _i8_conv(rng, dev, 245, 64, (7, 7, 5, 64))
+    for wk in (None, w8, SK.stem_kernel_weights(w8).t()):
+        with pytest.raises(ValueError, match='stem_kernel_weights'):
+            SK.fused_stem_int8(x8, w8, m, b8, wk=wk)
 
 
 @pytest.mark.parametrize('passes,normalize', [(1, True), (3, True),
@@ -341,7 +388,7 @@ def test_int8_stem_kernel_exact(dev, n, hw, cout):
                         dtype=torch.int8)
     w, m, b = _i8_conv(rng, dev, 245, cout, (7, 7, 5, cout))
     before = SK.fused_stem_int8.launches
-    got = SK.fused_stem_int8(x, w, m, b)
+    got = SK.fused_stem_int8(x, w, m, b, wk=SK.stem_kernel_weights(w))
     assert SK.fused_stem_int8.launches == before + 1
     ho = ((hw - 1) // 2) // 2 + 1
     assert tuple(got.shape) == (n, ho, ho, cout)
