@@ -316,14 +316,27 @@ def check_stage_blocks(torch, BK, FO, blocks, h):
     return len(blocks)
 
 
+def n_differing(got, want):
+    return int((got.float() != want.float()).sum())
+
+
 def phase_prep(torch, PK, prep_args, n_pairs):
-    x_k = PK.fused_prep_pairs(*prep_args, out_size=OUT, passes=PASSES)
-    x_p = PK.fused_prep_pairs_plain(*prep_args, out_size=OUT, passes=PASSES)
-    torch.cuda.synchronize()
-    check(bool((x_k[..., :2] == x_p[..., :2]).all()), 'prep masks exact')
-    err, frac = diff(torch, PREP + ' (RGB)', x_k[..., 2:], x_p[..., 2:])
-    check(err <= 0.03125 + 1e-6 and frac < 0.01,
-          'prep RGB within one uint8 LSB on <1% of pixels')
+    """The 5-channel prep kernel at passes 1 (serving-d1, the row) and 3
+    (serving-d2); each prints its number of differing values."""
+    for passes in (3, PASSES):
+        x_k = PK.fused_prep_pairs(*prep_args, out_size=OUT, passes=passes)
+        x_p = PK.fused_prep_pairs_plain(*prep_args, out_size=OUT,
+                                        passes=passes)
+        torch.cuda.synchronize()
+        check(bool((x_k[..., :2] == x_p[..., :2]).all()), 'prep masks exact')
+        err, frac = diff(torch, f'{PREP} passes={passes} (RGB)',
+                         x_k[..., 2:], x_p[..., 2:])
+        n_mask = n_differing(x_k[..., :2], x_p[..., :2])
+        n_rgb = n_differing(x_k[..., 2:], x_p[..., 2:])
+        print(f'{PREP} passes={passes}: {n_mask} differing mask values, '
+              f'{n_rgb} differing RGB values')
+        check(err <= 0.03125 + 1e-6 and frac < 0.01,
+              'prep RGB within one uint8 LSB on <1% of pixels')
     result = dict(
         max_abs_err=err,
         ms=cuda_ms(torch, lambda: PK.fused_prep_pairs(
@@ -337,15 +350,22 @@ def phase_prep(torch, PK, prep_args, n_pairs):
 
 
 def phase_prep_rgb(torch, PK, images, rois, n_pairs):
-    """The RGB prep kernel at passes 3 (the parity path's --prep-rgb
-    pallas) and 1; the row reports passes 3."""
-    for passes in (1, 3):
-        x_k = PK.fused_prep_rgb(images, rois, out_size=OUT, passes=passes)
-        x_p = PK.fused_prep_rgb_plain(images, rois, out_size=OUT,
-                                      passes=passes)
-        err, frac = diff(torch, f'{RGB} passes={passes}', x_k, x_p)
-        check(err <= 0.03125 + 1e-6 and frac < 0.01,
-              'prep RGB within one uint8 LSB on <1% of pixels')
+    """The RGB prep kernel at passes 1 and 3 (the parity path's --prep-rgb
+    pallas), normalised and raw; the row reports passes 3 normalised.
+    Each setting prints its number of differing values."""
+    for normalize in (False, True):
+        for passes in (1, 3):
+            x_k = PK.fused_prep_rgb(images, rois, out_size=OUT,
+                                    normalize=normalize, passes=passes)
+            x_p = PK.fused_prep_rgb_plain(images, rois, out_size=OUT,
+                                          normalize=normalize, passes=passes)
+            err, frac = diff(torch, f'{RGB} passes={passes} '
+                             f'normalize={normalize}', x_k, x_p)
+            print(f'{RGB} passes={passes} normalize={normalize}: '
+                  f'{n_differing(x_k, x_p)} differing values')
+            lsb = 0.03125 if normalize else 1.0
+            check(err <= lsb + 1e-6 and frac < 0.01,
+                  'prep RGB within one uint8 LSB on <1% of pixels')
     return dict(
         max_abs_err=err,
         ms=cuda_ms(torch, lambda: PK.fused_prep_rgb(images, rois,

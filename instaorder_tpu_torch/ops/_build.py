@@ -105,10 +105,13 @@ def library() -> ctypes.CDLL:
     declared (pointers and the stream as c_void_p)."""
     lib = ctypes.CDLL(str(build()))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.io_prep_pairs.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P]
+    # images, masks, pair_idx, rois, out, S, P, N, H, W, out_size, passes,
+    # band rows, stream
+    lib.io_prep_pairs.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, P]
     lib.io_prep_pairs.restype = I
-    # images, rois, out, S, P, H, W, out_size, passes, normalize, stream
-    lib.io_prep_rgb.argtypes = [P, P, P, I, I, I, I, I, I, I, P]
+    # images, rois, out, S, P, H, W, out_size, passes, normalize, band
+    # rows, stream
+    lib.io_prep_rgb.argtypes = [P, P, P, I, I, I, I, I, I, I, I, P]
     lib.io_prep_rgb.restype = I
     # x, pack scratch, kernel weights, bias, out, N, H, W, C, cout, q8,
     # stream

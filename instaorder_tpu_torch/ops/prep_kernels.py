@@ -12,15 +12,26 @@ Replaces two TPU kernels of instaorder_tpu/ops/prep_pallas.py:
 Bound on the H100: memory (the 5 or 3 * out*out bf16 output per pair
 plus each scene's image and masks read once, over 3.35 TB/s). The TPU
 kernels' MXU trick — contracting dense interpolation windows as
-matmuls — does not carry over: the CUDA kernel reads each output pixel's
-4x4 taps directly, one block per (pair, tile of 8 output rows), x taps
-kept in registers, and writes the output once with no transpose pass.
+matmuls — does not carry over. The CUDA kernel runs the two separable
+tap passes: a block owns one pair's band of BAND_ROWS output rows (and
+up to TILE_COLS columns, one a thread), computes the band's y taps once
+into shared memory and each column's x taps once in registers, and
+keeps a ring of the last four stage-1 row values per column, keyed by
+the unclamped tap index, so a stage-1 value is computed once per band
+and not once per output row that reads it. Adjacent x taps are read
+with 16-byte loads; each group of output rows is staged in shared
+memory and written as one contiguous range of `out` with 16-byte
+stores. tests/test_torch_prep_reuse.py holds a model of that schedule
+against the plain versions.
 
 The `_plain` versions are the same functions in PyTorch: the same
 merged tap weights (bit-identical to the dense matrix of
-ops/pairs._interp_matrix), the same separable order (sum over x first)
-and the same `passes` contract, so kernel and plain version agree
-bit for bit up to the order of f32 sums.
+ops/pairs._interp_matrix), the same separable order (sum over x first,
+each sum in tap order) and the same `passes` contract, so kernel and
+plain version agree on every value. (Run on the card, the plain
+version's `/ out_size` becomes a multiply by the reciprocal in
+PyTorch, which can move a tap by one ulp where out_size is not a power
+of two; the kernel divides, as the plain version does on the CPU.)
 """
 
 from __future__ import annotations
@@ -31,6 +42,11 @@ import torch
 from . import _build
 from .pairs import IMAGENET_MEAN, IMAGENET_STD, _nearest_taps, _seq_sum4
 from .resize import _cubic_kernel
+
+# The CUDA kernel's block: a band of BAND_ROWS output rows (at most 64)
+# and up to TILE_COLS output columns (csrc/prep.cu kTileCols).
+BAND_ROWS = 32
+TILE_COLS = 256
 
 
 def _merged_cubic_taps(off, size, out_size, src_size, passes):
@@ -177,7 +193,8 @@ def fused_prep_pairs(images, masks, pair_idx, rois, out_size=256,
     rc = lib.io_prep_pairs(
         images.data_ptr(), masks.data_ptr(), pair_idx.data_ptr(),
         rois.data_ptr(), out.data_ptr(), S, P, masks.shape[1], H, W,
-        out_size, passes, torch.cuda.current_stream(dev).cuda_stream)
+        out_size, passes, BAND_ROWS,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, 'fused_prep_pairs')
     fused_prep_pairs.launches += 1
     return out
@@ -210,7 +227,7 @@ def fused_prep_rgb(images, rois, out_size=256, normalize=True, passes=3):
                       device=dev)
     rc = _build.library().io_prep_rgb(
         images.data_ptr(), rois.data_ptr(), out.data_ptr(), S, P, H, W,
-        out_size, passes, int(bool(normalize)),
+        out_size, passes, int(bool(normalize)), BAND_ROWS,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, 'fused_prep_rgb')
     fused_prep_rgb.launches += 1

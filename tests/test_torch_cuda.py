@@ -125,6 +125,59 @@ def test_prep_kernel_odd_sizes(dev, passes):
     assert float((d > 0).float().mean()) < 0.01
 
 
+def _adversarial_rois(out_size, w):
+    """(2, 9, 4) xywh crops of 1, 2, 3, out/2, out, 3*out and 5*out
+    pixels, negative offsets, one wholly outside the image, one not
+    square (the same sizes at other offsets on scene 1)."""
+    o = out_size
+    r0 = [[3, 4, 1, 1], [-1, 7, 2, 2], [w - 2, -2, 3, 3],
+          [5, 9, o // 2, o // 2], [-6, -5, o, o], [-20, -11, 3 * o, 3 * o],
+          [-30, -40, 5 * o, 5 * o], [w + 5, -300, o, o], [3, 2, 7, 45]]
+    r1 = [[x + 2 * i - 5, y - i, sx, sy]
+          for i, (x, y, sx, sy) in enumerate(r0)]
+    return torch.tensor([r0, r1], dtype=torch.float32)
+
+
+@pytest.mark.parametrize('passes', [1, 3])
+@pytest.mark.parametrize('out_size', [72, 256, 300])
+def test_prep_kernels_adversarial_rois_exact(dev, out_size, passes):
+    """Both prep kernels equal their plain versions on every value, one
+    launch a call, on odd image sizes and adversarial crops (300: the
+    columns split into two tiles). The plain versions run on the CPU:
+    on the card PyTorch divides by a Python scalar as a multiply by its
+    reciprocal, which moves a tap position by one ulp where out_size is
+    not a power of two; the kernel and the CPU divide."""
+    from instaorder_tpu_torch import serving
+    from instaorder_tpu_torch.ops import prep_kernels as PK
+    images, masks, _ = serving.synthetic_scenes(2, 131, 203, 4, seed=11)
+    sc = serving.upload_scenes(images, masks, np.zeros((2, 4, 4)),
+                               device=dev)
+    rng = np.random.RandomState(out_size + passes)
+    pidx = torch.as_tensor(rng.randint(0, 4, (9, 2)), dtype=torch.int32,
+                           device=dev)
+    rois = _adversarial_rois(out_size, 203).to(dev)
+    host = [t.cpu() for t in (sc[0], sc[1], pidx, rois)]
+    before = PK.fused_prep_pairs.launches
+    got = PK.fused_prep_pairs(sc[0], sc[1], pidx, rois, out_size=out_size,
+                              passes=passes)
+    assert PK.fused_prep_pairs.launches == before + 1
+    want = PK.fused_prep_pairs_plain(*host, out_size=out_size,
+                                     passes=passes)
+    assert got.shape == want.shape == (18, out_size, out_size, 5)
+    n = int((got.cpu().float() != want.float()).sum())
+    assert n == 0, f'{n} differing values'
+    for normalize in (True, False):
+        before = PK.fused_prep_rgb.launches
+        got = PK.fused_prep_rgb(sc[0], rois, out_size=out_size,
+                                normalize=normalize, passes=passes)
+        assert PK.fused_prep_rgb.launches == before + 1
+        want = PK.fused_prep_rgb_plain(host[0], host[3], out_size=out_size,
+                                       normalize=normalize, passes=passes)
+        assert got.shape == want.shape == (18, out_size, out_size, 3)
+        n = int((got.cpu().float() != want.float()).sum())
+        assert n == 0, f'{n} differing values (normalize={normalize})'
+
+
 def _bf16_close(got, want):
     """max |got - want| <= 1e-2 max |want|; under 1% of values more than
     one bf16 ulp (of the plain value) apart."""
