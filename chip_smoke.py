@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch / CUDA port on one GPU: builds the kernels,
 holds each against its plain PyTorch version at the serving paths'
 shapes, drives the serving-d1, parity and serving-d2 megasteps (v2 and
-int8c) at full ResNet-50 width, and prints one JSON line for the kernels
-plus a final status line.
+int8c) and the per-image order predictors (eval/pipeline) at full
+ResNet-50 width, and prints one JSON line for the kernels plus a final
+status line.
 
     python3 chip_smoke.py
 
@@ -11,8 +12,10 @@ Phases (any failed check raises and the script exits nonzero):
   1. build the CUDA sources (instaorder_tpu_torch/csrc) with nvcc; print
      the build time and the card's name and power limit;
   2. each kernel vs its plain version on the card, at the serving
-     batch: the preps (5-channel and RGB) on 4 synthetic 480x640 scenes
-     of 10 instances (180 pairs), the v2 bottleneck kernels on the
+     batch: the preps (5-channel with bf16 and with f32 output, RGB) on
+     4 synthetic 480x640 scenes of 10 instances (180 pairs; the f32
+     mode also on adversarial crops at out 72, 256 and 300 against the
+     plain version on the CPU), the v2 bottleneck kernels on the
      activations the serving trunk hands them, the serving-d2 q8 stem
      (kernel 15's q8 mode, its own row) on its prepped batch, the bf16
      blocks and the bf16 stem on those of the parity trunk (the plain
@@ -33,11 +36,19 @@ Phases (any failed check raises and the script exits nonzero):
      hwnc,down,stem, and the other feature sets. For each: launch
      counts per megastep, pairs/s, and the logits of a few pairs (both
      directions) against the plain path run on the CPU (the v2 error
-     also over 12
-     pairs and over all pairs); for int8c also the trunk's int8 output
+     also over 12 pairs); for int8c also the trunk's int8 output
      equal to the plain int8c forward's on the same prepped tensor on
      the card, logits within 1e-5 of max |logit|;
-  4. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, the
+  4. the order predictors (eval/pipeline.py) on 4 synthetic 480x640
+     scenes of 3, 7, 10 and 16 instances (pair buckets 8, 32, 64, 128):
+     make_v2_predictor (a dual-head net; directions 1 and 2),
+     make_int8_predictor, make_folded_predictor(bf16, identity,down,stem)
+     and make_folded_predictor(f32; also the image, resize and orig
+     modes). For each: the launches of every infer call, the matrices
+     (and logits) on the card against the same predictor moved to the
+     CPU on the two smallest scenes, and the per-image ms of
+     infer_occ_order at each bucket with images/s over the four scenes;
+  5. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, the
      `kernels` JSON line, then {"ok": true, "device": {...}}.
 Exits nonzero without a result when no CUDA device is present.
 """
@@ -58,6 +69,9 @@ H100_INT8_PER_S = 1979e12       # dense int8 tensor-core peak
 H100_F32_PER_S = 67e12          # f32 outside the tensor cores
 PREP_FLOPS_PER_PIXEL = 3 * (4 * 4 + 4) * 2 + 12   # taps + epilogue
 PREP = 'fused_prep_pairs'
+# the 5-channel prep's f32-output mode (row 1''): its own entry in the
+# kernels line, counted by PREP's wrapper
+PREP_F32 = PREP + '[f32]'
 STAGE = 'fused_bottleneck_i8v2_hwnc_stage'
 DOWN = 'fused_bottleneck_down_s2_i8v2_hwnc'
 IDEN = 'fused_bottleneck_i8v2_hwnc'
@@ -87,7 +101,8 @@ RUN = STAGE + '[down=False]'
 # not a kernel: the v2 plain-chain blocks of a megastep, counted too
 PLAIN_V2 = 'plain v2 blocks'
 _CSRC = 'instaorder_tpu_torch/csrc/'
-SOURCES = {PREP: _CSRC + 'prep.cu', STAGE: _CSRC + 'bottleneck_v2.cu',
+SOURCES = {PREP: _CSRC + 'prep.cu', PREP_F32: _CSRC + 'prep.cu',
+           STAGE: _CSRC + 'bottleneck_v2.cu',
            DOWN: _CSRC + 'bottleneck_v2.cu', IDEN: _CSRC + 'bottleneck_v2.cu',
            RGB: _CSRC + 'prep.cu', IDEN16: _CSRC + 'bottleneck_v2.cu',
            DOWN16: _CSRC + 'bottleneck_v2.cu', STEM: _CSRC + 'stem.cu',
@@ -100,6 +115,7 @@ SOURCES = {PREP: _CSRC + 'prep.cu', STAGE: _CSRC + 'bottleneck_v2.cu',
                HWNCP, DOWN1H, IDENN, DOWN1N, STAGE16, SSTAGE16, HWNC16,
                RUN)}}
 REPLACES = {PREP: 'instaorder_tpu/ops/prep_pallas.py:315',
+            PREP_F32: 'instaorder_tpu/ops/prep_pallas.py:316',
             STAGE: 'instaorder_tpu/ops/pallas_blocks.py:1526',
             DOWN: 'instaorder_tpu/ops/pallas_blocks.py:1010',
             IDEN: 'instaorder_tpu/ops/pallas_blocks.py:739',
@@ -347,6 +363,76 @@ def phase_prep(torch, PK, prep_args, n_pairs):
         ops=n_pairs * OUT * OUT * PREP_FLOPS_PER_PIXEL,
         ops_rate=H100_F32_PER_S)
     return x_k, result
+
+
+def adversarial_rois(torch, out_size, w):
+    """(2, 9, 4) xywh crops of 1, 2, 3, out/2, out, 3*out and 5*out
+    pixels, negative offsets, one wholly outside the image, one not
+    square (the same sizes at other offsets on scene 1)."""
+    o = out_size
+    r0 = [[3, 4, 1, 1], [-1, 7, 2, 2], [w - 2, -2, 3, 3],
+          [5, 9, o // 2, o // 2], [-6, -5, o, o], [-20, -11, 3 * o, 3 * o],
+          [-30, -40, 5 * o, 5 * o], [w + 5, -300, o, o], [3, 2, 7, 45]]
+    r1 = [[x + 2 * i - 5, y - i, sx, sy]
+          for i, (x, y, sx, sy) in enumerate(r0)]
+    return torch.tensor([r0, r1], dtype=torch.float32)
+
+
+def phase_prep_f32(torch, PK, serving, prep_args, x_bf16_1, n_pairs):
+    """Row 1'': the 5-channel prep with f32 output (OrderPredictor's
+    default prep dtype) at passes 3 and 1, against its plain version on
+    the card (0 differing values) and against the bf16 mode (the same
+    values, rounded); then on odd image sizes and adversarial crops at
+    out 72, 256 and 300 against the plain version run on the CPU (the
+    card's PyTorch divides by a Python scalar as a multiply by the
+    reciprocal, which moves rare taps where out is not a power of
+    two). The row reports passes 3, the predictor's default."""
+    f32 = torch.float32
+    for passes in (1, 3):
+        x_k = PK.fused_prep_pairs(*prep_args, out_size=OUT, passes=passes,
+                                  out_dtype=f32)
+        x_p = PK.fused_prep_pairs_plain(*prep_args, out_size=OUT,
+                                        passes=passes, out_dtype=f32)
+        err, _ = diff(torch, f'{PREP_F32} passes={passes}', x_k, x_p)
+        n = n_differing(x_k, x_p)
+        print(f'{PREP_F32} passes={passes}: {n} differing values')
+        check(n == 0, f'{PREP_F32}: 0 differing values')
+        check(bool(((x_k[..., :2] == 0) | (x_k[..., :2] == 1)).all()),
+              f'{PREP_F32}: masks exactly 0 or 1')
+        if passes == PASSES:
+            check(torch.equal(x_k.bfloat16(), x_bf16_1),
+                  f'{PREP_F32}: rounded to bf16, the bf16 mode')
+    dev = prep_args[0].device
+    images, masks, _ = serving.synthetic_scenes(2, 131, 203, 4, seed=11)
+    sc = (torch.as_tensor(images, device=dev),
+          torch.as_tensor(masks, device=dev).to(torch.uint8))
+    pidx = torch.tensor([[0, 1], [2, 3], [1, 0], [3, 3], [0, 2], [1, 3],
+                         [2, 1], [3, 0], [0, 0]], dtype=torch.int32,
+                        device=dev)
+    for out_size in (72, 256, 300):
+        rois = adversarial_rois(torch, out_size, 203).to(sc[0].device)
+        host = [t.cpu() for t in (sc[0], sc[1], pidx, rois)]
+        for passes in (1, 3):
+            got = PK.fused_prep_pairs(sc[0], sc[1], pidx, rois,
+                                      out_size=out_size, passes=passes,
+                                      out_dtype=f32)
+            want = PK.fused_prep_pairs_plain(*host, out_size=out_size,
+                                             passes=passes, out_dtype=f32)
+            n = n_differing(got.cpu(), want)
+            print(f'{PREP_F32} adversarial out={out_size} passes={passes}: '
+                  f'{n} differing values (plain on the CPU)')
+            check(n == 0, f'{PREP_F32} adversarial: 0 differing values')
+    x_k = PK.fused_prep_pairs(*prep_args, out_size=OUT, passes=3,
+                              out_dtype=f32)
+    return dict(
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: PK.fused_prep_pairs(
+            *prep_args, out_size=OUT, passes=3, out_dtype=f32)),
+        plain_ms=cuda_ms(torch, lambda: PK.fused_prep_pairs_plain(
+            *prep_args, out_size=OUT, passes=3, out_dtype=f32), reps=2),
+        bytes=nbytes(x_k, *prep_args),
+        ops=n_pairs * OUT * OUT * PREP_FLOPS_PER_PIXEL,
+        ops_rate=H100_F32_PER_S)
 
 
 def phase_prep_rgb(torch, PK, images, rois, n_pairs):
@@ -763,6 +849,211 @@ def phase_megastep(torch, name, step, reference, wrappers, expected,
     return launches, logits
 
 
+# the predictor phase: instance counts of its four scenes (pair buckets
+# 8, 32, 64, 128), the two whose matrices are also computed on the CPU,
+# the head gain (at the kaiming init the 2-logit head gives |logits| ~
+# 1e-2, every probability within 1e-2 of 0.5, so no decision would be
+# sure) and the timing repeats (median of 5 after a warm-up)
+PRED_INSTANCES = (3, 7, 10, 16)
+PRED_CPU_SCENES = 2
+HEAD_GAIN = 100.0
+PRED_REPS = 5
+
+
+def predictor_nets(torch, resnet, dev):
+    """Full ResNet-50 width, 5-channel stem, from seed 0 (kaiming): the
+    2-logit InstaOrderNet_o net and a dual-head (2, 3) InstaOrderNet_od
+    net, their heads scaled by HEAD_GAIN."""
+    nets = {}
+    for method, classes in (('InstaOrderNet_o', 2),
+                            ('InstaOrderNet_od', [2, 3])):
+        gen = torch.Generator().manual_seed(0)
+        params, stats, cfg = resnet.init(
+            gen, arch='resnet50', in_channels=5, num_classes=classes,
+            weight_init='kaiming_out', device=dev)
+        for fc in ('fc', 'fc_occ', 'fc_depth'):
+            if fc in params:
+                params[fc] = {k: v * HEAD_GAIN for k, v in params[fc].items()}
+        nets[method] = (params, stats, cfg)
+    return nets
+
+
+def pred_scenes(serving):
+    """One synthetic 480x640 scene per instance count (numpy)."""
+    out = []
+    for n in PRED_INSTANCES:
+        images, masks, bboxes = serving.synthetic_scenes(
+            1, HEIGHT, WIDTH, n, seed=n)
+        out.append((images[0], masks[0], bboxes[0]))
+    return out
+
+
+def pred_launches(torch, wrappers, fn):
+    """Run fn() with every launch count set to 0 just before; returns
+    (fn's result, the nonzero counts)."""
+    for w in wrappers.values():
+        w.launches = 0
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {n: w.launches for n, w in wrappers.items() if w.launches}
+
+
+def sure_matrix_check(name, got, want, p_ij, p_ji, pidx, valid, exact):
+    """Matrices equal (exact), or equal at the cells whose reference
+    probability is more than 1e-2 from 0.5."""
+    if exact:
+        check((got == want).all(), f'{name}: matrices equal')
+        return int(got.size)
+    n = 0
+    for k in range(len(pidx)):
+        if not valid[k]:
+            continue
+        i, j = (int(v) for v in pidx[k])
+        for (a, b), p in (((i, j), p_ij[k]), ((j, i), p_ji[k])):
+            if abs(float(p) - 0.5) > 1e-2:
+                check(got[a, b] == want[a, b],
+                      f'{name}: sure cell ({a}, {b}) equal')
+                n += 1
+    check(n > 0, f'{name}: some decision is sure')
+    return n
+
+
+def compare_on_cpu(torch, name, pred, scene, bar, exact, dual):
+    """The matrices and logits of `pred` on the card against the same
+    predictor on the CPU (the plain versions). exact routes (f32, int8c)
+    hold every pair's logits to `bar`; the bf16 and v2 routes hold the
+    first 4 pairs' to `bar` and print all pairs' (the megasteps' rule:
+    over many pairs the v2 route spreads ~2e-2 even between JAX's own
+    two routes, ROADMAP.md queue 3), and the matrices where the CPU's
+    probability is more than 1e-2 from 0.5."""
+    cpu = pred.to('cpu')
+    pidx, valid, g1, g2, n = pred.pair_outputs(*scene)
+    _, _, w1, w2, _ = cpu.pair_outputs(*scene)
+    flat = lambda o: [] if o is None else (list(o) if isinstance(o, tuple)
+                                           else [o])
+    few = len(pidx) if exact else 4
+    worst = worst_few = 0.0
+    for g, w in zip(flat(g1) + flat(g2), flat(w1) + flat(w2)):
+        scale = max(float(w.abs().max()), 1e-6)
+        d = (g.cpu() - w).abs()
+        worst = max(worst, float(d.max()) / scale)
+        worst_few = max(worst_few, float(d[:few].max()) / scale)
+    check(worst_few <= bar, f'{name}: logits of {few} pairs within {bar} '
+          f'of max |logit| of the CPU ({worst_few:.3e})')
+    o1 = w1[0] if dual else w1
+    o2 = None if w2 is None else (w2[0] if dual else w2)
+    s1 = torch.sigmoid(o1)
+    if o2 is None:
+        p_ij, p_ji = s1[:, 1], s1[:, 0]
+    else:
+        s2 = torch.sigmoid(o2)
+        p_ij, p_ji = (s1[:, 1] + s2[:, 0]) / 2, (s1[:, 0] + s2[:, 1]) / 2
+    valid = valid.cpu().numpy()
+    cells = sure_matrix_check(name, pred.infer_occ_order(*scene),
+                              cpu.infer_occ_order(*scene), p_ij, p_ji,
+                              pidx, valid, exact)
+    if dual:
+        for g, w in zip(pred.infer_occ_depth_order(*scene),
+                        cpu.infer_occ_depth_order(*scene)):
+            if exact:
+                check((g == w).all(), f'{name}: occ/depth matrices equal')
+        check((pred.infer_depth_order(*scene)
+               == pred.infer_occ_depth_order(*scene)[1]).all(),
+              f'{name}: infer_depth_order is the dual call\'s depth')
+    print(f'  {name} N={n}: card vs CPU logits max rel err {worst_few:.3e} '
+          f'over {few} pairs, {worst:.3e} over all {len(pidx)}; {cells} '
+          f'matrix cells compared')
+
+
+def phase_predictors(torch, serving, resnet, TPL, wrappers, calib_x, dev,
+                     card):
+    """Phase 4. Returns {row name: launches} for rows counted here."""
+    nets = predictor_nets(torch, resnet, dev)
+    scenes = pred_scenes(serving)
+    b16 = torch.bfloat16
+    kw = dict(patch_or_image='patch', input_size=OUT, prep_impl='pallas5',
+              device=dev)
+    t0 = time.perf_counter()
+    preds = [
+        ('v2 d2', 'InstaOrderNet_od', lambda n: TPL.make_v2_predictor(
+            *n, 'InstaOrderNet_od', [calib_x], prep_dtype=b16,
+            prep_passes=1, **kw), 0.02, False,
+         {PREP: 1, STAGE: 1, DOWN: 3, IDEN: 10}),
+        ('v2 d1', 'InstaOrderNet_od', lambda n: TPL.make_v2_predictor(
+            *n, 'InstaOrderNet_od', [calib_x], prep_dtype=b16,
+            prep_passes=1, directions=1, **kw), 0.02, False,
+         {PREP: 1, STAGE: 1, DOWN: 3, IDEN: 10}),
+        ('int8c d2', 'InstaOrderNet_o', lambda n: TPL.make_int8_predictor(
+            *n, 'InstaOrderNet_o', [calib_x], prep_dtype=b16, **kw), 1e-5,
+         True, {PREP: 1, I8: 12, D8: 4}),
+        ('bf16 d2 identity,down,stem', 'InstaOrderNet_o',
+         lambda n: TPL.make_folded_predictor(
+             *n, 'InstaOrderNet_o', dtype=b16, use_pallas=KFEATS,
+             prep_dtype=b16, **kw), 0.02, False,
+         {PREP: 1, IDEN16: 5, DOWN16: 3, STEM: 1}),
+        ('f32 d2', 'InstaOrderNet_o', lambda n: TPL.make_folded_predictor(
+            *n, 'InstaOrderNet_o', **kw), 1e-5, True, {PREP: 1}),
+    ]
+    timing = {}
+    counted = {}
+    for name, method, make, bar, exact, expected in preds:
+        print(f'--- predictor {name} ({method})')
+        pred = make(nets[method])
+        dual = method == 'InstaOrderNet_od'
+        for k, scene in enumerate(scenes):
+            calls = [('infer_occ_order', pred.infer_occ_order)]
+            if dual and pred.directions == 2:
+                calls.append(('infer_occ_depth_order',
+                              pred.infer_occ_depth_order))
+            for cname, fn in calls:
+                out, got = pred_launches(torch, wrappers,
+                                         lambda: fn(*scene))
+                n = PRED_INSTANCES[k]
+                print(f'  {cname} N={n}: launches {got}')
+                check(got == expected, f'predictor {name} {cname}: launches '
+                      f'{got}, expected {expected}')
+                mats = out if isinstance(out, tuple) else (out,)
+                check(all(m.shape == (n, n) for m in mats),
+                      f'predictor {name}: (N, N) matrices')
+            if name == 'f32 d2' and k == len(scenes) - 1:
+                counted[PREP_F32] = got[PREP]
+            ms = []
+            for _ in range(PRED_REPS + 1):
+                t1 = time.perf_counter()
+                pred.infer_occ_order(*scene)
+                ms.append((time.perf_counter() - t1) * 1e3)
+            ms = sorted(ms[1:])[PRED_REPS // 2]
+            timing[name, PRED_INSTANCES[k]] = ms
+        with torch.no_grad():
+            for scene in scenes[:PRED_CPU_SCENES]:
+                compare_on_cpu(torch, f'predictor {name}', pred, scene, bar,
+                               exact, dual)
+        if name == 'f32 d2':
+            for mode in ('image', 'resize', 'orig'):
+                other = TPL.OrderPredictor(
+                    pred.apply_fn, pred.cfg, pred.params, pred.stats,
+                    'InstaOrderNet_o', mode,
+                    input_size=None if mode == 'orig' else OUT,
+                    siamese_fn=pred.siamese_fn, device=dev)
+                _, got = pred_launches(
+                    torch, wrappers, lambda: other.infer_occ_order(*scenes[0]))
+                check(got == {}, f'f32 {mode} mode runs no kernel: {got}')
+                with torch.no_grad():
+                    compare_on_cpu(torch, f'predictor f32 {mode}', other,
+                                   scenes[0], 1e-5, True, False)
+        del pred
+        torch.cuda.empty_cache()
+    print(f'predictor phase: {time.perf_counter() - t0:.1f} s')
+    for name, *_ in preds:
+        row = [timing[name, n] for n in PRED_INSTANCES]
+        per = ', '.join(f'N={n} (pairs {n * (n - 1) // 2}): {ms:.3f} ms'
+                        for n, ms in zip(PRED_INSTANCES, row))
+        print(f'predictor {name}: infer_occ_order per image {per}; '
+              f'{len(row) / (sum(row) / 1e3):.2f} images/s over the '
+              f'{len(row)} scenes ({card})')
+    return counted
+
+
 def check_int8c_same_input(torch, Q, FO, q, cfg, x, directions, feats,
                            logits):
     """The int8c kernel route against the plain int8c forward on the same
@@ -801,7 +1092,9 @@ def main():
     from instaorder_tpu_torch import serving
     from instaorder_tpu_torch.convert import tree_to
     from instaorder_tpu_torch.device import resolve_device
+    from instaorder_tpu_torch.eval import pipeline as TPL
     from instaorder_tpu_torch.models import folding as FO
+    from instaorder_tpu_torch.models import resnet
     from instaorder_tpu_torch.models import quantize as Q
     from instaorder_tpu_torch.ops import _build
     from instaorder_tpu_torch.ops import bottleneck_bf16_kernels as B16
@@ -835,6 +1128,8 @@ def main():
     results = {}
     x, results[PREP] = phase_prep(torch, PK, (sc[0], sc[1], pidx, rois),
                                   n_pairs)
+    results[PREP_F32] = phase_prep_f32(torch, PK, serving,
+                                       (sc[0], sc[1], pidx, rois), x, n_pairs)
     results[RGB] = phase_prep_rgb(torch, PK, sc[0], rois, n_pairs)
     # the serving model, calibrated on this prepped batch (as bench.py).
     # kaiming init: bench.py's xavier(0.02) trunk quantizes every
@@ -908,13 +1203,16 @@ def main():
                                        dtype=extra.get('dtype'))
         kw = dict(out_size=OUT, passes=prof['passes'],
                   directions=prof['directions'], prep_rgb=prof['prep_rgb'],
+                  prep_precision=serving.prep_precision_of(profile),
                   use_pallas=extra.get('use_pallas', True))
         model = models[profile, prof['dtype']]
 
         def reference(few, model=model, kw=kw):
             xp = serving.prep_pairs(*sc, pidx, out_size=OUT,
                                     passes=kw['passes'],
-                                    prep_rgb=kw['prep_rgb'])[:few].cpu()
+                                    prep_rgb=kw['prep_rgb'],
+                                    prep_precision=kw['prep_precision']
+                                    )[:few].cpu()
             m = tree_to(model, 'cpu')
             if 'cfg_scales' in m:
                 fwd = (Q.apply_folded_int8_siamese if kw['directions'] == 2
@@ -932,12 +1230,13 @@ def main():
         got, logits = phase_megastep(
             torch, name, step, reference, counters, expected, n_pairs, card,
             prof['directions'],
-            (MARGIN_PAIRS, n_pairs) if prof['dtype'] == 'int8' else ())
+            (MARGIN_PAIRS,) if prof['dtype'] == 'int8' else ())
         if prof['dtype'] == 'int8c':
             with torch.no_grad():
                 xp = serving.prep_pairs(*sc, pidx, out_size=OUT,
                                         passes=kw['passes'],
-                                        prep_rgb=kw['prep_rgb'])
+                                        prep_rgb=kw['prep_rgb'],
+                                        prep_precision=kw['prep_precision'])
                 check_int8c_same_input(torch, Q, FO, model, cfg, xp,
                                        prof['directions'], kw['use_pallas'],
                                        logits)
@@ -948,10 +1247,14 @@ def main():
             launches[RUN] = got[STAGE]
         if name == STEMQ8_STEP:
             launches[STEMQ8] = got[STEM]
-    check(set(launches) == set(wrappers) | {RUN, STEMQ8},
+
+    # ---- 4. the order predictors -------------------------------------------
+    launches.update(phase_predictors(torch, serving, resnet, TPL, wrappers,
+                                     x, dev, card))
+    check(set(launches) == set(wrappers) | {RUN, STEMQ8, PREP_F32},
           f'every kernel launched on a main path: {sorted(launches)}')
 
-    # ---- 4. report ----------------------------------------------------------
+    # ---- 5. report ----------------------------------------------------------
     kernels = []
     for name, r in results.items():
         t_bytes = r['bytes'] / H100_BYTES_PER_S * 1e3

@@ -7,6 +7,9 @@ serving-d1 occlusion path: fused 5-channel pair prep, the boundary-int8
 hand-written CUDA C++ under `csrc/`, built with nvcc at first use
 (`ops/_build.py`) and bound through ctypes.
 
+The per-image entry point, one image and its instance masks in and the
+order matrices out, is `eval/pipeline.OrderPredictor` and its factories.
+
 Layouts follow the JAX package at every public function: activations
 NHWC, conv weights HWIO, parameter trees nested dicts/lists with the JAX
 keys. Entry points run on `cuda` unless the caller passes

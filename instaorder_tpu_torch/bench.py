@@ -13,7 +13,8 @@ torch.cuda.synchronize(); the best window is reported.
 
     python -m instaorder_tpu_torch.bench [--profile serving-d1]
         [--dtype int8c|int8|bf16] [--prep-rgb einsum|pallas|pallas5]
-        [--pallas-features a,b,...]
+        [--pallas-features a,b,...] [--no-pallas] [--directions 1|2]
+        [--prep-precision default|high|highest] [--prep-stage1 f32|bf16]
         [--pairs-per-step 1620]
 
 Prints ONE JSON line:
@@ -52,6 +53,22 @@ def add_profile_args(ap):
                     help='model: int8 (boundary-int8 v2, bf16 compute), '
                          'int8c (fully quantized int8 compute) or bf16 '
                          '(the folded model); default from the profile')
+    ap.add_argument('--directions', type=int, default=None, choices=[1, 2],
+                    help='2 = the swap ensemble, 1 = one forward per pair; '
+                         'default from the profile')
+    ap.add_argument('--prep-precision', default=None,
+                    choices=['default', 'high', 'highest'],
+                    help='precision of the einsum prep\'s RGB matmuls '
+                         '(highest f32, high the 3-pass bf16 split, '
+                         'default 1-pass bf16); the kernel preps run '
+                         '1-pass at default, else 3-pass; default from '
+                         'the profile')
+    ap.add_argument('--prep-stage1', default='f32', choices=['f32', 'bf16'],
+                    help='storage dtype of the einsum prep\'s row-interp '
+                         'intermediate (bf16 rounds it)')
+    ap.add_argument('--no-pallas', action='store_true',
+                    help='no kernel in the model (the prep route is set by '
+                         '--prep-rgb alone)')
     ap.add_argument('--pallas-features', default=None,
                     help='comma list of kernel features, replacing the '
                          'default set of the model\'s dtype; every dtype '
@@ -77,21 +94,42 @@ def build_parser():
     return ap
 
 
+def resolve(args):
+    """serving.resolve_profile of the profile flags in `args`, with the
+    prep precision beside it ('prep_precision')."""
+    prof = serving.resolve_profile(
+        args.profile, prep_rgb=args.prep_rgb, dtype=args.dtype,
+        directions=args.directions, prep_precision=args.prep_precision)
+    return dict(prof, prep_precision=serving.prep_precision_of(
+        args.profile, args.prep_precision))
+
+
+def use_pallas_of(args):
+    """The model's kernel features: False with --no-pallas (the root
+    bench.py's pure-XLA route; the prep route stays --prep-rgb's), else
+    the --pallas-features names or True (the dtype's default set)."""
+    if args.no_pallas:
+        return False
+    if args.pallas_features:
+        return tuple(args.pallas_features.split(','))
+    return True
+
+
 def build_step(args, sc, pidx, out_size, dev):
     """The megastep of the profile flags in `args` over the uploaded
     scenes `sc`, as a no-argument function. int8 and int8c: the scales
     are calibrated on one prepped batch (f32 forward), then quantized
     (root bench.py --dtype int8: bf16 compute; --dtype int8c: int8
     compute); bf16: the folded model cast to bf16."""
-    prof = serving.resolve_profile(args.profile, prep_rgb=args.prep_rgb,
-                                   dtype=args.dtype)
-    kw = dict(out_size=out_size, passes=prof['passes'],
-              directions=prof['directions'], prep_rgb=prof['prep_rgb'],
-              use_pallas=tuple(args.pallas_features.split(','))
-              if args.pallas_features else True)
-    calib_x = serving.prep_pairs(*sc, pidx, out_size=out_size,
-                                 passes=prof['passes'],
-                                 prep_rgb=prof['prep_rgb'])
+    prof = resolve(args)
+    prep = dict(out_size=out_size, passes=prof['passes'],
+                prep_rgb=prof['prep_rgb'],
+                prep_precision=prof['prep_precision'],
+                stage1_dtype=torch.bfloat16 if args.prep_stage1 == 'bf16'
+                else None)
+    kw = dict(prep, directions=prof['directions'],
+              use_pallas=use_pallas_of(args))
+    calib_x = serving.prep_pairs(*sc, pidx, **prep)
     q, cfg = serving.build_model(args.profile, 0, calib_x, device=dev,
                                  dtype=prof['dtype'])
     del calib_x
@@ -128,8 +166,7 @@ def main(argv=None):
         'vs_baseline': round(value / 10000.0, 3),
         'device': torch.cuda.get_device_name(dev),
         'profile': args.profile,
-        'dtype': serving.resolve_profile(args.profile,
-                                         dtype=args.dtype)['dtype'],
+        'dtype': resolve(args)['dtype'],
     }))
 
 

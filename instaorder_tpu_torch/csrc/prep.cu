@@ -1,8 +1,8 @@
 // Fused pair prep: per (scene, pair) union-bbox crop, cv2 INTER_CUBIC
 // RGB resize, uint8 round/clip, ImageNet normalisation, and (5-channel
 // mode) INTER_NEAREST resize of both instance masks, written as NHWC
-// bf16: (S*P, out, out, 5) with channels [mask_i, mask_j, R, G, B], or
-// (S*P, out, out, 3) RGB only.
+// bf16 or (5-channel mode, `out_f32`) f32: (S*P, out, out, 5) with
+// channels [mask_i, mask_j, R, G, B], or (S*P, out, out, 3) RGB only.
 //
 // Replaces two TPU kernels of instaorder_tpu/ops/prep_pallas.py:
 // `fused_prep_pairs` (kernel body `_prep5_kernel`, 5 channels) and
@@ -15,12 +15,12 @@
 // read as zero).
 //
 // Bound on the H100: memory. Per pair it writes 5 (or 3) * out*out bf16
-// (640 KB at out=256) and does ~100 flops per output pixel, far below
-// the 295 flop/byte ridge; the scene's image and masks are read from L2
-// (each scene is shared by its P pairs, and the blocks of one scene run
-// together: the block index is pair-major). What costs on the card is
-// the L1 traffic of the tap reads, the instructions of the two passes
-// and the stores; the design:
+// (640 KB at out=256; 1.25 MB in f32) and does ~100 flops per output
+// pixel, far below the 295 flop/byte ridge; the scene's image and masks
+// are read from L2 (each scene is shared by its P pairs, and the blocks
+// of one scene run together: the block index is pair-major). What costs
+// on the card is the L1 traffic of the tap reads, the instructions of
+// the two passes and the stores; the design:
 //
 //   block      one (pair, band of `band` output rows, tile of up to 256
 //              output columns), one thread an output column, 4 blocks
@@ -56,7 +56,11 @@
 //              as `out` is, placed at the destination's offset mod 16
 //              bytes; every `group` rows the block writes the stage's
 //              contiguous range of `out` with 16-byte stores (one range
-//              per row when the columns are split into tiles).
+//              per row when the columns are split into tiles). The
+//              stage's byte budget is the same for both output types,
+//              so an f32 group holds half the rows of a bf16 one and
+//              the shared memory a block takes (and so the 4 blocks an
+//              SM) does not change with the type.
 //
 // Numerics (build with -fmad=false: a contracted FMA would move a
 // weight by one ulp and can flip a bf16 rounding at passes=1):
@@ -67,8 +71,10 @@
 // Both sums run in tap order from 0, each product rounded before it is
 // added. Output: round half to even, clip to 0..255, then (v/255 -
 // mean)/std (or the integer itself with normalisation off), bf16, the
-// same expressions evaluated once per value 0..255. The ring changes
-// how often a stage-1 value is computed, not its arithmetic.
+// same expressions evaluated once per value 0..255, stored as bf16 (round
+// to nearest even) or as the f32 value itself. The masks are exactly 0
+// or 1 in either type. The ring changes how often a stage-1 value is
+// computed, not its arithmetic.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -93,6 +99,23 @@ __device__ __forceinline__ float cubic(float t) {
 __device__ __forceinline__ float to_bf16_f(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
+
+// An output value in the output type T (bf16 rounded to nearest even, or
+// f32 unchanged), and the elements of T in 16 bytes.
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <typename T>
+struct Vec {
+  static constexpr int n = 16 / (int)sizeof(T);
+};
 
 // Four merged cubic taps of output index d along one axis: the tap
 // start x0 (the unclamped index of tap 1), source indices (clamped into
@@ -213,40 +236,45 @@ __device__ __forceinline__ void stage1(const float* __restrict__ images,
   }
 }
 
-// Copy n bf16 from the stage to `out`; src sits at dst's offset mod 16
-// bytes, so after a short head both are 16-byte aligned.
-__device__ __forceinline__ void flush(const __nv_bfloat16* src,
-                                      __nv_bfloat16* dst, int n) {
-  int head = (int)((8 - ((reinterpret_cast<uintptr_t>(dst) >> 1) & 7)) & 7);
-  head = min(head, n);
-  const int nv = (n - head) >> 3;
+// dst's offset mod 16 bytes, in elements of T (0..Vec<T>::n - 1).
+template <typename T>
+__device__ __forceinline__ int pad_of(const T* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) / sizeof(T)) &
+               (Vec<T>::n - 1));
+}
+
+// Copy n values of T from the stage to `out`; src sits at dst's offset
+// mod 16 bytes, so after a short head (at most Vec<T>::n - 1 values: 7 in
+// bf16, 3 in f32) both are 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void flush(const T* src, T* dst, int n) {
+  constexpr int kV = Vec<T>::n;
+  const int head = min((kV - pad_of(dst)) & (kV - 1), n);
+  const int nv = (n - head) / kV;
   for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
   const uint4* s4 = reinterpret_cast<const uint4*>(src + head);
   uint4* d4 = reinterpret_cast<uint4*>(dst + head);
   for (int i = threadIdx.x; i < nv; i += blockDim.x) d4[i] = s4[i];
-  for (int i = head + nv * 8 + threadIdx.x; i < n; i += blockDim.x)
+  for (int i = head + nv * kV + threadIdx.x; i < n; i += blockDim.x)
     dst[i] = src[i];
 }
 
-__device__ __forceinline__ int pad_of(const __nv_bfloat16* p) {
-  return (int)((reinterpret_cast<uintptr_t>(p) >> 1) & 7);
-}
-
-template <bool kMasks>
+template <bool kMasks, typename T>
 __global__ void __launch_bounds__(kTileCols, kMinBlocks)
 prep_pairs_kernel(const float* __restrict__ images,     // (S, H, W, 3)
                   const uint8_t* __restrict__ masks,    // (S, N, H, W)
                   const int* __restrict__ pair_idx,     // (P, 2)
                   const float* __restrict__ rois,       // (S*P, 4)
-                  __nv_bfloat16* __restrict__ out,      // (S*P, O, O, C)
+                  T* __restrict__ out,                  // (S*P, O, O, C)
                   int S, int P, int N, int H, int W, int O, int passes,
                   int normalize, int band, int nbands, int ntiles,
                   int group, int row_elems) {
   constexpr int kC = kMasks ? 5 : 3;    // output channels
   constexpr int kRgb = kMasks ? 2 : 0;  // first RGB channel
-  extern __shared__ __align__(16) __nv_bfloat16 stage[];
+  extern __shared__ __align__(16) unsigned char stage_raw[];
+  T* stage = reinterpret_cast<T*>(stage_raw);
   __shared__ RowTaps rows[kMaxBand];
-  __shared__ __nv_bfloat16 lut[3][256]; // uint8 value -> output channel
+  __shared__ T lut[3][256];             // uint8 value -> output channel
 
   // pair-major block order: the blocks of one scene run together
   int b = blockIdx.x;
@@ -283,7 +311,7 @@ prep_pairs_kernel(const float* __restrict__ images,     // (S, H, W, 3)
     const float stdv[3] = {0.229f, 0.224f, 0.225f};
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      lut[c][q] = __float2bfloat16_rn(
+      lut[c][q] = from_f32<T>(
           normalize ? ((float)q / 255.0f - mean[c]) / stdv[c] : (float)q);
   }
   const int jl = threadIdx.x;
@@ -320,7 +348,7 @@ prep_pairs_kernel(const float* __restrict__ images,     // (S, H, W, 3)
   }
   for (int r0 = 0; r0 < nrows; r0 += group) {
     const int gn = min(group, nrows - r0);
-    __nv_bfloat16* dst0 = out + (((int64_t)pp * O + i0 + r0) * O + j0) * kC;
+    T* dst0 = out + (((int64_t)pp * O + i0 + r0) * O + j0) * kC;
     if (live) {
       for (int rr = 0; rr < gn; ++rr) {
         const RowTaps t = rows[r0 + rr];
@@ -355,13 +383,12 @@ prep_pairs_kernel(const float* __restrict__ images,     // (S, H, W, 3)
         for (int a = 0; a < 4; ++a)
 #pragma unroll
           for (int c = 0; c < 3; ++c) acc[c] = acc[c] + t.wy[a] * ring[a][c];
-        __nv_bfloat16* o =
-            whole ? stage + pad_of(dst0) + (rr * O + jl) * kC
-                  : stage + rr * row_elems +
-                        pad_of(dst0 + (int64_t)rr * O * kC) + jl * kC;
+        T* o = whole ? stage + pad_of(dst0) + (rr * O + jl) * kC
+                     : stage + rr * row_elems +
+                           pad_of(dst0 + (int64_t)rr * O * kC) + jl * kC;
         if (kMasks) {
-          o[0] = __float2bfloat16_rn((float)m0);
-          o[1] = __float2bfloat16_rn((float)m1);
+          o[0] = from_f32<T>((float)m0);
+          o[1] = from_f32<T>((float)m1);
         }
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
@@ -376,7 +403,7 @@ prep_pairs_kernel(const float* __restrict__ images,     // (S, H, W, 3)
       flush(stage + pad_of(dst0), dst0, gn * O * kC);
     } else {
       for (int rr = 0; rr < gn; ++rr) {
-        __nv_bfloat16* d = dst0 + (int64_t)rr * O * kC;
+        T* d = dst0 + (int64_t)rr * O * kC;
         flush(stage + rr * row_elems + pad_of(d), d, ncols * kC);
       }
     }
@@ -386,26 +413,30 @@ prep_pairs_kernel(const float* __restrict__ images,     // (S, H, W, 3)
 #undef PREP_MOVE
 }
 
-// Launch geometry shared by both modes; returns a CUDA error code.
-template <bool kMasks>
+// Launch geometry shared by every mode; returns a CUDA error code.
+template <bool kMasks, typename T>
 int launch(const float* images, const uint8_t* masks, const int* pair_idx,
-           const float* rois, __nv_bfloat16* out, int S, int P, int N,
-           int H, int W, int O, int passes, int normalize, int band,
-           cudaStream_t stream) {
+           const float* rois, T* out, int S, int P, int N, int H, int W,
+           int O, int passes, int normalize, int band, cudaStream_t stream) {
   constexpr int kC = kMasks ? 5 : 3;
+  constexpr int kV = Vec<T>::n;
   if (band < 1 || band > kMaxBand || O < 1) return (int)cudaErrorInvalidValue;
   const int threads = min(kTileCols, (O + 31) / 32 * 32);
   const int ntiles = (O + kTileCols - 1) / kTileCols;
   const int nbands = (O + band - 1) / band;
   // a stage row: the whole output row (+ room for the 16-byte offset of
-  // the group's range), or one tile's row with its own offset room
+  // the group's range), or one tile's row with its own offset room; a
+  // tile row is a whole number of 16-byte words, so each row's offset
+  // room starts 16-byte aligned
   const int row_elems = ntiles == 1 ? O * kC
-                                    : (kTileCols * kC + 7) / 8 * 8 + 8;
-  const int group = max(1, min(band, kStageBytes / (row_elems * 2)));
-  const size_t smem = ((size_t)group * row_elems + 8) * 2;
+                                    : (kTileCols * kC + kV - 1) / kV * kV +
+                                          kV;
+  const int group =
+      max(1, min(band, kStageBytes / (row_elems * (int)sizeof(T))));
+  const size_t smem = ((size_t)group * row_elems + kV) * sizeof(T);
   const int64_t blocks = (int64_t)S * P * nbands * ntiles;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  prep_pairs_kernel<kMasks><<<(unsigned)blocks, threads, smem, stream>>>(
+  prep_pairs_kernel<kMasks, T><<<(unsigned)blocks, threads, smem, stream>>>(
       images, masks, pair_idx, rois, out, S, P, N, H, W, O, passes,
       normalize, band, nbands, ntiles, group, row_elems);
   return (int)cudaGetLastError();
@@ -413,15 +444,21 @@ int launch(const float* images, const uint8_t* masks, const int* pair_idx,
 
 }  // namespace
 
+// 5 channels: (S*P, out, out, 5) bf16, or f32 with out_f32.
 extern "C" int io_prep_pairs(const void* images, const void* masks,
                              const void* pair_idx, const void* rois,
                              void* out, int S, int P, int N, int H, int W,
                              int out_size, int passes, int band,
-                             void* stream) {
-  return launch<true>((const float*)images, (const uint8_t*)masks,
-                      (const int*)pair_idx, (const float*)rois,
-                      (__nv_bfloat16*)out, S, P, N, H, W, out_size, passes,
-                      1, band, (cudaStream_t)stream);
+                             int out_f32, void* stream) {
+  if (out_f32)
+    return launch<true, float>((const float*)images, (const uint8_t*)masks,
+                               (const int*)pair_idx, (const float*)rois,
+                               (float*)out, S, P, N, H, W, out_size, passes,
+                               1, band, (cudaStream_t)stream);
+  return launch<true, __nv_bfloat16>(
+      (const float*)images, (const uint8_t*)masks, (const int*)pair_idx,
+      (const float*)rois, (__nv_bfloat16*)out, S, P, N, H, W, out_size,
+      passes, 1, band, (cudaStream_t)stream);
 }
 
 // RGB only: (S*P, out, out, 3) bf16, normalised or raw 0..255.
@@ -429,8 +466,8 @@ extern "C" int io_prep_rgb(const void* images, const void* rois, void* out,
                            int S, int P, int H, int W, int out_size,
                            int passes, int normalize, int band,
                            void* stream) {
-  return launch<false>((const float*)images, nullptr, nullptr,
-                       (const float*)rois, (__nv_bfloat16*)out, S, P, 0, H,
-                       W, out_size, passes, normalize, band,
-                       (cudaStream_t)stream);
+  return launch<false, __nv_bfloat16>(
+      (const float*)images, nullptr, nullptr, (const float*)rois,
+      (__nv_bfloat16*)out, S, P, 0, H, W, out_size, passes, normalize, band,
+      (cudaStream_t)stream);
 }

@@ -92,35 +92,77 @@ def init(gen, arch='resnet50', in_channels=3, num_classes=1000,
     return tree_to(p, device), tree_to(s, device), cfg
 
 
-def _block_apply(p, s, x, stride, groups):
+def _vmask(x, valid_hw):
+    """Zero everything of NHWC x beyond the (vh, vw) valid region."""
+    if valid_hw is None:
+        return x
+    vh, vw = valid_hw
+    h, w = x.shape[1], x.shape[2]
+    if vh >= h and vw >= w:
+        return x
+    rows = torch.arange(h, device=x.device)[None, :, None, None] < vh
+    cols = torch.arange(w, device=x.device)[None, None, :, None] < vw
+    return torch.where(rows & cols, x, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def _block_apply(p, s, x, stride, groups, valid_hw=None):
+    """valid_hw: the (vh, vw) valid region of x for padded-bucket eval
+    (see `apply`); x is zero beyond it. The input of the 3x3 conv and the
+    block output are masked, as in the JAX package."""
     relu = torch.relu
     identity = x
+    out_hw = (None if valid_hw is None
+              else (valid_hw[0] // stride, valid_hw[1] // stride))
     out = relu(cnn.batch_norm_eval(p['bn1'], s['bn1'],
                                    cnn.conv2d(p['conv1'], x)))
     out = relu(cnn.batch_norm_eval(
         p['bn2'], s['bn2'],
-        cnn.conv2d(p['conv2'], out, stride=stride, padding=1,
-                   groups=groups)))
+        cnn.conv2d(p['conv2'], _vmask(out, valid_hw), stride=stride,
+                   padding=1, groups=groups)))
     out = cnn.batch_norm_eval(p['bn3'], s['bn3'], cnn.conv2d(p['conv3'], out))
     if 'down_conv' in p:
         identity = cnn.batch_norm_eval(
             p['down_bn'], s['down_bn'],
             cnn.conv2d(p['down_conv'], x, stride=stride))
-    return relu(out + identity)
+    return _vmask(relu(out + identity), out_hw)
 
 
-def apply(params, stats, cfg, x):
+def apply(params, stats, cfg, x, valid_hw=None):
     """Eval-mode forward. x: (N, H, W, C) -> logits (or an (occ, depth)
-    tuple for dual heads)."""
+    tuple for dual heads).
+
+    valid_hw: (vh, vw), Python ints, multiples of 32, for padded-bucket
+    eval (eval/pipeline.py 'orig' mode): x is zero beyond [:vh, :vw] and
+    the logits equal an exact-size (vh, vw) run. The valid region is
+    re-zeroed after the stem relu, after the max-pool (whose pad row taps
+    the last valid row), before every 3x3 conv and on every block
+    output, and the global pool averages the valid region only."""
+    vhw = None
+    if valid_hw is not None:
+        vh, vw = int(valid_hw[0]), int(valid_hw[1])
+        assert vh % 32 == 0 and vw % 32 == 0, valid_hw
     out = cnn.conv2d(params['conv1'], x, stride=2, padding=3)
     out = torch.relu(cnn.batch_norm_eval(params['bn1'], stats['bn1'], out))
-    out = cnn.max_pool(out, 3, 2, 1)
+    if valid_hw is not None:
+        # post-relu values are >= 0, so zeroed pad rows cannot win the
+        # max-pool over a valid window
+        out = _vmask(out, (vh // 2, vw // 2))
+        vhw = (vh // 4, vw // 4)
+    out = _vmask(cnn.max_pool(out, 3, 2, 1), vhw)
     for li in range(4):
         name = f'layer{li + 1}'
         for bi, (bp, bs) in enumerate(zip(params[name], stats[name])):
             stride = 2 if (li > 0 and bi == 0) else 1
-            out = _block_apply(bp, bs, out, stride, cfg['groups'])
-    pooled = cnn.avg_pool_global(out)
+            out = _block_apply(bp, bs, out, stride, cfg['groups'],
+                               valid_hw=vhw)
+            if vhw is not None:
+                vhw = (vhw[0] // stride, vhw[1] // stride)
+    if vhw is None:
+        pooled = cnn.avg_pool_global(out)
+    else:
+        pooled = (out.float().sum(dim=(1, 2)) / float(vhw[0] * vhw[1])
+                  ).to(out.dtype)
     if cfg['dual_head']:
         return (cnn.linear(params['fc_occ'], pooled),
                 cnn.linear(params['fc_depth'], pooled))

@@ -106,8 +106,9 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # images, masks, pair_idx, rois, out, S, P, N, H, W, out_size, passes,
-    # band rows, stream
-    lib.io_prep_pairs.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+    # band rows, f32 out, stream
+    lib.io_prep_pairs.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                                  P]
     lib.io_prep_pairs.restype = I
     # images, rois, out, S, P, H, W, out_size, passes, normalize, band
     # rows, stream

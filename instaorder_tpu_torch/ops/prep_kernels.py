@@ -4,13 +4,15 @@ Replaces two TPU kernels of instaorder_tpu/ops/prep_pallas.py:
   fused_prep_pairs <- `fused_prep_pairs` (kernel body `_prep5_kernel`):
       per (scene, pair) union-bbox crop, cv2 cubic RGB resize, uint8
       round/clip, ImageNet normalisation and nearest resize of both
-      instance masks, written straight to NHWC (S*P, out, out, 5) bf16;
+      instance masks, written straight to NHWC (S*P, out, out, 5) bf16,
+      or f32 with out_dtype=torch.float32 (the TPU kernel's `out_dtype`;
+      eval/pipeline.OrderPredictor's default `prep_dtype`);
   fused_prep_rgb   <- `fused_prep_rgb` (`_prep_rgb_kernel`): the RGB
       channels only, (S*P, out, out, 3) bf16 NHWC (the TPU kernel writes
       channel-major), normalised or the raw integers 0..255.
 
-Bound on the H100: memory (the 5 or 3 * out*out bf16 output per pair
-plus each scene's image and masks read once, over 3.35 TB/s). The TPU
+Bound on the H100: memory (the 5 or 3 * out*out bf16 or f32 output per
+pair plus each scene's image and masks read once, over 3.35 TB/s). The TPU
 kernels' MXU trick — contracting dense interpolation windows as
 matmuls — does not carry over. The CUDA kernel runs the two separable
 tap passes: a block owns one pair's band of BAND_ROWS output rows (and
@@ -31,7 +33,10 @@ each sum in tap order) and the same `passes` contract, so kernel and
 plain version agree on every value. (Run on the card, the plain
 version's `/ out_size` becomes a multiply by the reciprocal in
 PyTorch, which can move a tap by one ulp where out_size is not a power
-of two; the kernel divides, as the plain version does on the CPU.)
+of two; the kernel divides, as the plain version does on the CPU. The
+normalisation does not have that fault: the plain versions map the
+uint8 result through a table of the 256 output values computed on the
+CPU, as the kernel maps it through its own table.)
 """
 
 from __future__ import annotations
@@ -86,6 +91,23 @@ def _check_passes(passes):
         raise ValueError(f'passes must be 1 or 3, got {passes}')
 
 
+def _check_out_dtype(out_dtype):
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f'out_dtype must be torch.bfloat16 or '
+                         f'torch.float32, got {out_dtype}')
+
+
+def _normalize_u8(rgb):
+    """ImageNet normalisation of the integers 0..255 in `rgb` (..., 3)
+    through a table of the 256 values per channel, (v / 255 - mean) /
+    std computed in f32 on the CPU (so the values do not depend on the
+    device; csrc/prep.cu's `lut`)."""
+    v = torch.arange(256, dtype=torch.float32)[:, None]
+    lut = ((v / 255.0 - torch.as_tensor(IMAGENET_MEAN))
+           / torch.as_tensor(IMAGENET_STD)).to(rgb.device)
+    return torch.gather(lut, 0, rgb.long().reshape(-1, 3)).reshape(rgb.shape)
+
+
 def _rgb_plain(img, r, out_size, passes, normalize):
     """One scene's RGB: img (H, W, 3) f32, rois r (P, 4) -> (P, out, out,
     3) f32 (normalised, or the integers 0..255)."""
@@ -102,11 +124,7 @@ def _rgb_plain(img, r, out_size, passes, normalize):
     g2 = s1[ar[:, None, None], iy].permute(0, 1, 3, 4, 2)
     rgb = torch.clamp(torch.round(_seq_sum4(g2 * wy[:, :, None, None, :])),
                       0.0, 255.0)
-    if normalize:
-        mean = torch.as_tensor(IMAGENET_MEAN, device=img.device)
-        std = torch.as_tensor(IMAGENET_STD, device=img.device)
-        rgb = (rgb / 255.0 - mean) / std
-    return rgb
+    return _normalize_u8(rgb) if normalize else rgb
 
 
 def fused_prep_rgb_plain(images, rois, out_size=256, normalize=True,
@@ -121,15 +139,17 @@ def fused_prep_rgb_plain(images, rois, out_size=256, normalize=True,
 
 
 def fused_prep_pairs_plain(images, masks, pair_idx, rois, out_size=256,
-                           passes=3):
+                           passes=3, out_dtype=torch.bfloat16):
     """The prep kernel's function in PyTorch (any device). images
     (S, H, W, 3) f32 raw [0, 255]; masks (S, N, H, W) {0,1}; pair_idx
-    (P, 2); rois (S, P, 4) f32 xywh -> (S*P, out, out, 5) bf16."""
+    (P, 2); rois (S, P, 4) f32 xywh -> (S*P, out, out, 5) in out_dtype
+    (bf16 or f32: the same f32 values, rounded to bf16 or not)."""
     _check_passes(passes)
+    _check_out_dtype(out_dtype)
     S, H, W, _ = images.shape
     pidx = torch.as_tensor(pair_idx, dtype=torch.long, device=images.device)
     P = pidx.shape[0]
-    out = torch.empty((S * P, out_size, out_size, 5), dtype=torch.bfloat16,
+    out = torch.empty((S * P, out_size, out_size, 5), dtype=out_dtype,
                       device=images.device)
     ar = torch.arange(P, device=images.device)
     for s in range(S):
@@ -141,17 +161,18 @@ def fused_prep_pairs_plain(images, masks, pair_idx, rois, out_size=256,
         for ch in range(2):
             mk = masks[s][pidx[:, ch]].float()              # (P, H, W)
             mv = mk[ar[:, None, None], ny[:, :, None], nx[:, None, :]]
-            out[sl, :, :, ch] = (mv * valid).bfloat16()
+            out[sl, :, :, ch] = (mv * valid).to(out_dtype)
         out[sl, :, :, 2:] = _rgb_plain(images[s].float(), r, out_size,
-                                       passes, True).bfloat16()
+                                       passes, True).to(out_dtype)
     return out
 
 
 def fused_prep_pairs(images, masks, pair_idx, rois, out_size=256,
-                     passes=3):
-    """5-channel pair prep. On CUDA tensors it launches the CUDA kernel
-    (one launch, counted in `fused_prep_pairs.launches`); on CPU tensors
-    it runs `fused_prep_pairs_plain`.
+                     passes=3, out_dtype=torch.bfloat16):
+    """5-channel pair prep -> (S*P, out, out, 5) in out_dtype (bf16 or
+    f32). On CUDA tensors it launches the CUDA kernel (one launch,
+    counted in `fused_prep_pairs.launches`); on CPU tensors it runs
+    `fused_prep_pairs_plain`.
 
     CUDA inputs: images (S, H, W, 3) f32, masks (S, N, H, W) uint8,
     pair_idx (P, 2) int32, rois (S, P, 4) f32, all contiguous on one
@@ -159,8 +180,10 @@ def fused_prep_pairs(images, masks, pair_idx, rois, out_size=256,
     range-checked before upload)."""
     if images.device.type == 'cpu':
         return fused_prep_pairs_plain(images, masks, pair_idx, rois,
-                                      out_size=out_size, passes=passes)
+                                      out_size=out_size, passes=passes,
+                                      out_dtype=out_dtype)
     _check_passes(passes)
+    _check_out_dtype(out_dtype)
     dev = images.device
     if not isinstance(pair_idx, torch.Tensor) or pair_idx.device != dev:
         host = np.asarray(pair_idx if not isinstance(pair_idx, torch.Tensor)
@@ -187,13 +210,13 @@ def fused_prep_pairs(images, masks, pair_idx, rois, out_size=256,
         if t.device != dev or not t.is_contiguous():
             raise ValueError('fused_prep_pairs inputs must be contiguous '
                              f'and on {dev}')
-    out = torch.empty((S * P, out_size, out_size, 5), dtype=torch.bfloat16,
+    out = torch.empty((S * P, out_size, out_size, 5), dtype=out_dtype,
                       device=dev)
     lib = _build.library()
     rc = lib.io_prep_pairs(
         images.data_ptr(), masks.data_ptr(), pair_idx.data_ptr(),
         rois.data_ptr(), out.data_ptr(), S, P, masks.shape[1], H, W,
-        out_size, passes, BAND_ROWS,
+        out_size, passes, BAND_ROWS, int(out_dtype == torch.float32),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, 'fused_prep_pairs')
     fused_prep_pairs.launches += 1

@@ -13,9 +13,11 @@ profiles (`PROFILES`, `resolve_profile`):
        directions at directions=2)
 
 Prep routes (`prep_rgb`, as the root bench's --prep-rgb): 'einsum' the
-cv2-exact dense matmuls (ops/pairs.build_pair_batches_matmul), 'pallas'
-the RGB kernel plus the exact mask matmuls, 'pallas5' the 5-channel
-kernel.
+cv2-exact dense matmuls (ops/pairs.build_pair_batches_matmul) at the
+`prep_precision` ('default' | 'high' | 'highest', the root bench's
+--prep-precision) and stage-1 dtype (--prep-stage1), 'pallas' the RGB
+kernel plus the exact mask matmuls, 'pallas5' the 5-channel kernel; the
+kernel routes take passes = 1 at 'default', else 3.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ from .models import quantize as Q
 from .models import resnet
 from .models.folding import (add_stem_kernel_weights, apply_folded,
                              apply_folded_siamese, fold_resnet)
-from .ops.pairs import (build_pair_batches_fused, build_pair_batches_matmul,
-                        pair_rois)
+from .ops.pairs import (PRECISIONS, build_pair_batches_fused,
+                        build_pair_batches_matmul, pair_rois)
 
 # the root bench.py profiles (its PROFILES): dtype 'bf16' is the folded
 # bf16 model, 'int8' the boundary-int8 v2 model ('int8c', the fully
@@ -52,18 +54,34 @@ PROFILES = {
 DTYPES = ('int8c', 'int8', 'bf16')
 
 
-def resolve_profile(profile, prep_rgb=None, dtype=None):
-    """A profile's settings, an explicit prep_rgb or dtype winning (as the
-    root bench's resolve_profile): {'dtype', 'directions', 'prep_rgb',
-    'passes'}. prep_rgb defaults to 'pallas5' where the profile does not
-    pin it, as in the root bench."""
+def prep_precision_of(profile, prep_precision=None):
+    """The prep precision of `profile`, an explicit value winning (the
+    root bench's --prep-precision): 'default', 'high' or 'highest'."""
+    if prep_precision is not None and prep_precision not in PRECISIONS:
+        raise ValueError(f'prep_precision must be one of {PRECISIONS}, '
+                         f'got {prep_precision!r}')
+    return prep_precision or PROFILES[profile]['prep_precision']
+
+
+def resolve_profile(profile, prep_rgb=None, dtype=None, directions=None,
+                    prep_precision=None):
+    """A profile's settings, an explicit prep_rgb, dtype, directions or
+    prep_precision winning (as the root bench's resolve_profile):
+    {'dtype', 'directions', 'prep_rgb', 'passes'}. prep_rgb defaults to
+    'pallas5' where the profile does not pin it, as in the root bench;
+    passes (the kernel preps' mode) is 1 at the prep precision
+    'default', else 3 (root bench.py prep_all). The precision itself is
+    `prep_precision_of`."""
     preset = PROFILES[profile]
     if dtype is not None and dtype not in DTYPES:
         raise ValueError(f'dtype must be one of {DTYPES}, got {dtype!r}')
+    if directions is not None and directions not in (1, 2):
+        raise ValueError(f'directions must be 1 or 2, got {directions!r}')
+    precision = prep_precision_of(profile, prep_precision)
     return {'dtype': dtype or preset['dtype'],
-            'directions': preset['directions'],
+            'directions': directions or preset['directions'],
             'prep_rgb': prep_rgb or preset.get('prep_rgb', 'pallas5'),
-            'passes': 1 if preset['prep_precision'] == 'default' else 3}
+            'passes': 1 if precision == 'default' else 3}
 
 
 def synthetic_scenes(S, H=480, W=640, N=10, seed=0):
@@ -93,15 +111,18 @@ def upload_scenes(images, masks, bboxes, device=None):
 
 
 def prep_pairs(images, masks, bboxes, pair_idx, out_size=256, passes=1,
-               prep_rgb='pallas5'):
+               prep_rgb='pallas5', prep_precision='high', stage1_dtype=None):
     """(S*P, out, out, 5) bf16 pair batch for every pair of every scene
-    through the `prep_rgb` route ('einsum' is full f32 and ignores
-    `passes`)."""
+    through the `prep_rgb` route: the kernels at `passes`, 'einsum' at
+    `prep_precision` with its stage-1 intermediate in `stage1_dtype`
+    (None: f32)."""
     rois = pair_rois(bboxes, pair_idx)
     if prep_rgb == 'einsum':
         return build_pair_batches_matmul(images, masks, pair_idx, rois,
                                          out_size=out_size,
-                                         dtype=torch.bfloat16)
+                                         dtype=torch.bfloat16,
+                                         precision=prep_precision,
+                                         stage1_dtype=stage1_dtype)
     if prep_rgb not in ('pallas', 'pallas5'):
         raise ValueError(f'unknown prep_rgb {prep_rgb!r}')
     return build_pair_batches_fused(images, masks, pair_idx, rois,
@@ -187,12 +208,15 @@ def build_model(profile, seed, calib_x, device=None, weight_init='xavier',
 
 @torch.no_grad()
 def megastep(q, cfg, images, masks, bboxes, pair_idx, out_size=256,
-             passes=1, directions=1, prep_rgb='pallas5', use_pallas=True):
+             passes=1, directions=1, prep_rgb='pallas5', use_pallas=True,
+             prep_precision='high', stage1_dtype=None):
     """One serving step over S scenes. `q` is an int8c model
     (build_int8c_model, told by its 'cfg_scales' key), a v2 model
     (build_serving_model) or a bf16 folded model (build_parity_model);
     use_pallas is the kernel feature set (models/folding for the bf16
-    model, models/quantize for v2 and int8c).
+    model, models/quantize for v2 and int8c; False runs no kernel in the
+    model, as the root bench's --no-pallas). prep_precision and
+    stage1_dtype steer the einsum prep (`prep_pairs`).
 
     Returns (logits, i_over_j (S*P,) bool, j_over_i (S*P,) bool), logits
     (S*P, 2) f32 at directions=1 and the pair (out1, out2) at
@@ -200,7 +224,8 @@ def megastep(q, cfg, images, masks, bboxes, pair_idx, out_size=256,
     if directions not in (1, 2):
         raise ValueError(f'directions must be 1 or 2, got {directions}')
     x = prep_pairs(images, masks, bboxes, pair_idx, out_size=out_size,
-                   passes=passes, prep_rgb=prep_rgb)
+                   passes=passes, prep_rgb=prep_rgb,
+                   prep_precision=prep_precision, stage1_dtype=stage1_dtype)
     if 'cfg_scales' in q:
         fwd = Q.apply_folded_int8_siamese if directions == 2 \
             else Q.apply_folded_int8

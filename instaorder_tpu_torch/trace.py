@@ -5,6 +5,8 @@ the traced steps, at the bench.py configuration.
 
     python -m instaorder_tpu_torch.trace [--profile serving-d1]
         [--dtype int8c|int8|bf16] [--prep-rgb ...] [--pallas-features ...]
+        [--no-pallas] [--directions 1|2] [--prep-precision ...]
+        [--prep-stage1 f32|bf16]
         [--pairs-per-step 1620]
 
 Prints a table (device ms per step by kernel name) and ONE JSON line:
@@ -23,7 +25,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import serving
-from .bench import add_profile_args, build_step
+from .bench import add_profile_args, build_step, resolve
 from .device import resolve_device
 from .ops.pairs import all_pair_indices
 
@@ -69,8 +71,7 @@ def main(argv=None):
         'step_ms': wall, 'device_busy_ms': busy,
         'idle_share': max(0.0, 1.0 - busy / wall),
         'pairs_per_step': S * 45, 'profile': args.profile,
-        'dtype': serving.resolve_profile(args.profile,
-                                         dtype=args.dtype)['dtype'],
+        'dtype': resolve(args)['dtype'],
         'device': torch.cuda.get_device_name(dev),
         'top': [[name, calls, ms] for name, calls, ms in rows[:top]],
     }))

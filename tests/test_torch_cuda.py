@@ -762,3 +762,157 @@ def test_gemm_s8_two_segment_projection(dev, n, hw, cm, cin, cout, stride):
     y = IK.conv_int8(h2, w3[None, None]).float().mul_(m3).add_(b3)
     yd = IK.conv_int8(x, wd[None, None], stride).float().mul_(md).add_(bd)
     _exact(got, y.add_(yd).round_().clamp_(0, 127).to(torch.int8))
+
+
+@pytest.mark.parametrize('passes', [1, 3])
+@pytest.mark.parametrize('out_size', [72, 256, 300])
+def test_prep_f32_out_adversarial_rois_exact(dev, out_size, passes):
+    """Row 1'', the 5-channel prep's f32-output mode, equal to its plain
+    version run on the CPU on every value (one launch a call; odd image
+    sizes, adversarial crops, 300: two column tiles), and its values
+    rounded to bf16 equal to the bf16 mode's."""
+    from instaorder_tpu_torch import serving
+    from instaorder_tpu_torch.ops import prep_kernels as PK
+    images, masks, _ = serving.synthetic_scenes(2, 131, 203, 4, seed=12)
+    sc = serving.upload_scenes(images, masks, np.zeros((2, 4, 4)),
+                               device=dev)
+    rng = np.random.RandomState(out_size + 10 * passes)
+    pidx = torch.as_tensor(rng.randint(0, 4, (9, 2)), dtype=torch.int32,
+                           device=dev)
+    rois = _adversarial_rois(out_size, 203).to(dev)
+    host = [t.cpu() for t in (sc[0], sc[1], pidx, rois)]
+    before = PK.fused_prep_pairs.launches
+    got = PK.fused_prep_pairs(sc[0], sc[1], pidx, rois, out_size=out_size,
+                              passes=passes, out_dtype=torch.float32)
+    assert PK.fused_prep_pairs.launches == before + 1
+    want = PK.fused_prep_pairs_plain(*host, out_size=out_size, passes=passes,
+                                     out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    assert got.shape == want.shape == (18, out_size, out_size, 5)
+    n = int((got.cpu() != want).sum())
+    assert n == 0, f'{n} differing values'
+    b16 = PK.fused_prep_pairs(sc[0], sc[1], pidx, rois, out_size=out_size,
+                              passes=passes)
+    assert torch.equal(got.bfloat16(), b16)
+
+
+def _pred_scene(seed, n=5, h=96, w=128):
+    rng = np.random.RandomState(seed)
+    image = rng.randint(0, 255, (h, w, 3)).astype(np.float32)
+    masks = np.zeros((n, h, w), np.float32)
+    bboxes = np.zeros((n, 4), np.float32)
+    for k in range(n):
+        y0, x0 = rng.randint(0, h - 40), rng.randint(0, w - 40)
+        hh, ww = rng.randint(15, 40), rng.randint(15, 40)
+        masks[k, y0:y0 + hh, x0:x0 + ww] = 1
+        bboxes[k] = [x0, y0, ww, hh]
+    return image, masks, bboxes
+
+
+@pytest.mark.parametrize('factory', ['v2', 'int8c', 'bf16', 'f32'])
+def test_predictor_factories_card_vs_cpu(dev, factory):
+    """Each factory's infer_occ_order on the card against the same
+    predictor moved to the CPU (the plain versions), on one small scene
+    (ResNet-50 widths, layers (1, 1, 1, 1), input 64, the head scaled so
+    that decisions are sure): f32 and int8c logits within 1e-5 of max
+    |logit| and matrices equal; bf16 and v2 logits within 2% and the
+    matrix cells equal where the CPU's probability is more than 1e-2
+    from 0.5. The kernels of the route launch."""
+    from instaorder_tpu_torch.eval import pipeline as TPL
+    from instaorder_tpu_torch.models import resnet
+    from instaorder_tpu_torch.ops import prep_kernels as PK
+    gen = torch.Generator().manual_seed(0)
+    params, stats, cfg = resnet.init(gen, arch='resnet50', in_channels=5,
+                                     num_classes=2, layers_override=(1,) * 4)
+    params['fc'] = {k: v * 100.0 for k, v in params['fc'].items()}
+    scene = _pred_scene(3)
+    kw = dict(input_size=64, prep_impl='pallas5', device=dev)
+    b16 = dict(kw, prep_dtype=torch.bfloat16)
+    calib = [TPL.OrderPredictor(resnet.apply, cfg, params, stats,
+                                'InstaOrderNet_o', input_size=64,
+                                device='cpu')._build_batch(
+        torch.from_numpy(scene[0]), torch.from_numpy(scene[1]),
+        torch.from_numpy(scene[2]), np.array([[0, 1], [1, 2], [2, 3]],
+                                             np.int32))[0]]
+    make, bar = {
+        'v2': (lambda: TPL.make_v2_predictor(params, stats, cfg,
+                                             'InstaOrderNet_o', calib,
+                                             prep_passes=1, **b16), 0.02),
+        'int8c': (lambda: TPL.make_int8_predictor(
+            params, stats, cfg, 'InstaOrderNet_o', calib, **b16), 1e-5),
+        'bf16': (lambda: TPL.make_folded_predictor(
+            params, stats, cfg, 'InstaOrderNet_o', dtype=torch.bfloat16,
+            use_pallas=('identity', 'down', 'stem'), **b16), 0.02),
+        'f32': (lambda: TPL.make_folded_predictor(
+            params, stats, cfg, 'InstaOrderNet_o', **kw), 1e-5),
+    }[factory]
+    pred = make()
+    cpu = pred.to('cpu')
+    before = PK.fused_prep_pairs.launches
+    pidx, valid, g1, g2, _ = pred.pair_outputs(*scene)
+    assert PK.fused_prep_pairs.launches == before + 1
+    _, _, w1, w2, _ = cpu.pair_outputs(*scene)
+    for g, w in ((g1, w1), (g2, w2)):
+        scale = float(w.abs().max())
+        assert scale > 0.1
+        assert float((g.cpu() - w).abs().max()) <= bar * scale
+    got = pred.infer_occ_order(*scene)
+    want = cpu.infer_occ_order(*scene)
+    if bar == 1e-5:
+        np.testing.assert_array_equal(got, want)
+        return
+    s1, s2 = torch.sigmoid(w1), torch.sigmoid(w2)
+    probs = ((s1[:, 1] + s2[:, 0]) / 2, (s1[:, 0] + s2[:, 1]) / 2)
+    n = 0
+    for k in np.flatnonzero(valid.cpu().numpy()):
+        i, j = pidx[k]
+        for (a, b), p in (((i, j), probs[0][k]), ((j, i), probs[1][k])):
+            if abs(float(p) - 0.5) > 1e-2:
+                assert got[a, b] == want[a, b], (a, b)
+                n += 1
+    assert n > 0
+
+
+def test_f32_predictor_refuses_card_kernels(dev):
+    """The f32 model runs no kernel on the card (f32 kernels are queue 2):
+    asking for one raises; use_pallas=False builds."""
+    from instaorder_tpu_torch.eval import pipeline as TPL
+    from instaorder_tpu_torch.models import resnet
+    gen = torch.Generator().manual_seed(0)
+    params, stats, cfg = resnet.init(gen, arch='resnet50', in_channels=5,
+                                     num_classes=2, layers_override=(1,) * 4)
+    for use_pallas in (True, ('stem',), ('identity', 'down')):
+        with pytest.raises(ValueError, match='queue 2'):
+            TPL.make_folded_predictor(params, stats, cfg, 'InstaOrderNet_o',
+                                      use_pallas=use_pallas, device=dev)
+    pred = TPL.make_folded_predictor(params, stats, cfg, 'InstaOrderNet_o',
+                                     device=dev)
+    assert pred.device.type == 'cuda'
+
+
+@pytest.mark.parametrize('precision', ['default', 'high', 'highest'])
+@pytest.mark.parametrize('stage1', [None, torch.bfloat16])
+def test_einsum_prep_precisions_card_vs_cpu(dev, precision, stage1):
+    """The einsum prep at each --prep-precision (the bf16 passes on the
+    tensor cores, torch.bmm with an f32 output) against the same route
+    on the CPU: masks exact, RGB within one uint8 LSB on under 1% of
+    pixels (sums of exact products in another order)."""
+    from instaorder_tpu_torch import serving
+    from instaorder_tpu_torch.ops import pairs as P
+    images, masks, bboxes = serving.synthetic_scenes(2, 131, 203, 4,
+                                                     seed=13)
+    sc = serving.upload_scenes(images, masks, bboxes, device=dev)
+    pidx = torch.as_tensor(P.all_pair_indices(4)[0], device=dev)
+    rois = P.pair_rois(sc[2], pidx)
+    args = (sc[0], sc[1], pidx, rois)
+    got = P.build_pair_batches_matmul(*args, out_size=72,
+                                      precision=precision,
+                                      stage1_dtype=stage1)
+    want = P.build_pair_batches_matmul(*[t.cpu() for t in args],
+                                       out_size=72, precision=precision,
+                                       stage1_dtype=stage1)
+    got = got.cpu()
+    assert torch.equal(got[..., :2], want[..., :2])
+    d = (got[..., 2:] - want[..., 2:]).abs()
+    assert float(d.max()) <= 1.0 / (255 * 0.224) + 1e-6
+    assert float((d > 1e-5).float().mean()) < 0.01
