@@ -2,7 +2,8 @@
 """Throughput benchmark of the port's serving paths: pairs/sec on one GPU.
 
 Mirrors the root bench.py, its profiles (serving.PROFILES) and its
---dtype (int8c, int8, bf16; f32 is not ported to the card): serving-d1
+--dtype (int8c, int8, bf16, f32; at f32 the folded model runs the f32
+modes of the bf16 kernels and the prep writes f32): serving-d1
 (the default: int8 v2 trunk, directions=1, fused 5-channel prep with
 1-pass RGB), serving-d2 (the same v2 model, both directions, 3-pass
 prep) and parity (the bf16 folded model, both directions, the cv2-exact
@@ -12,14 +13,17 @@ instances, 45 pairs each, np.random.RandomState(0)), the same step size
 torch.cuda.synchronize(); the best window is reported.
 
     python -m instaorder_tpu_torch.bench [--profile serving-d1]
-        [--dtype int8c|int8|bf16] [--prep-rgb einsum|pallas|pallas5]
+        [--dtype int8c|int8|bf16|f32] [--prep-rgb einsum|pallas|pallas5]
         [--pallas-features a,b,...] [--no-pallas] [--directions 1|2]
         [--prep-precision default|high|highest] [--prep-stage1 f32|bf16]
         [--pairs-per-step 1620]
 
 Prints ONE JSON line:
   {"metric": "pairs/sec/chip", "value": N, "unit": "pairs/s",
-   "vs_baseline": N / 10000, "device": "<GPU name>", "profile": "..."}
+   "vs_baseline": N / 10000, "device": "<GPU name>", "profile": "...",
+   "dtype": "...", "peak_mem_gb": G}
+(peak_mem_gb: torch.cuda.max_memory_allocated over the timed steps; an
+f32 step holds twice the bf16 activations).
 """
 
 from __future__ import annotations
@@ -51,8 +55,10 @@ def add_profile_args(ap):
                          '(the 5-channel kernel); default from the profile')
     ap.add_argument('--dtype', default=None, choices=serving.DTYPES,
                     help='model: int8 (boundary-int8 v2, bf16 compute), '
-                         'int8c (fully quantized int8 compute) or bf16 '
-                         '(the folded model); default from the profile')
+                         'int8c (fully quantized int8 compute), bf16 or '
+                         'f32 (the folded model; f32 is the accuracy-'
+                         'parity route, its prep writes f32); default '
+                         'from the profile')
     ap.add_argument('--directions', type=int, default=None, choices=[1, 2],
                     help='2 = the swap ensemble, 1 = one forward per pair; '
                          'default from the profile')
@@ -76,8 +82,8 @@ def add_profile_args(ap):
                          'sstage, down, down1, down2, stem, stem2, qpool, '
                          'hwnc, hwncs, hwncs1, hwncs1d, hwncp, dirpack) '
                          'and ignores those it does not use. Defaults: '
-                         'bf16 identity, int8 hwnc,down2,hwncs1d,dirpack, '
-                         'int8c identity,down')
+                         'bf16 and f32 identity, int8 hwnc,down2,hwncs1d,'
+                         'dirpack, int8c identity,down')
 
 
 def build_parser():
@@ -120,7 +126,8 @@ def build_step(args, sc, pidx, out_size, dev):
     scenes `sc`, as a no-argument function. int8 and int8c: the scales
     are calibrated on one prepped batch (f32 forward), then quantized
     (root bench.py --dtype int8: bf16 compute; --dtype int8c: int8
-    compute); bf16: the folded model cast to bf16."""
+    compute); bf16: the folded model cast to bf16; f32: the folded
+    model as it is."""
     prof = resolve(args)
     prep = dict(out_size=out_size, passes=prof['passes'],
                 prep_rgb=prof['prep_rgb'],
@@ -129,7 +136,9 @@ def build_step(args, sc, pidx, out_size, dev):
                 else None)
     kw = dict(prep, directions=prof['directions'],
               use_pallas=use_pallas_of(args))
-    calib_x = serving.prep_pairs(*sc, pidx, **prep)
+    calib_x = None
+    if prof['dtype'] in ('int8', 'int8c'):
+        calib_x = serving.prep_pairs(*sc, pidx, **prep)
     q, cfg = serving.build_model(args.profile, 0, calib_x, device=dev,
                                  dtype=prof['dtype'])
     del calib_x
@@ -151,6 +160,7 @@ def main(argv=None):
     for _ in range(args.warmup):
         step()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     best = float('inf')
     for _ in range(args.repeats):
         t0 = time.perf_counter()
@@ -167,6 +177,7 @@ def main(argv=None):
         'device': torch.cuda.get_device_name(dev),
         'profile': args.profile,
         'dtype': resolve(args)['dtype'],
+        'peak_mem_gb': torch.cuda.max_memory_allocated(dev) / 1e9,
     }))
 
 

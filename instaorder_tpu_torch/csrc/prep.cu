@@ -1,8 +1,8 @@
 // Fused pair prep: per (scene, pair) union-bbox crop, cv2 INTER_CUBIC
 // RGB resize, uint8 round/clip, ImageNet normalisation, and (5-channel
 // mode) INTER_NEAREST resize of both instance masks, written as NHWC
-// bf16 or (5-channel mode, `out_f32`) f32: (S*P, out, out, 5) with
-// channels [mask_i, mask_j, R, G, B], or (S*P, out, out, 3) RGB only.
+// bf16 or (`out_f32`) f32: (S*P, out, out, 5) with channels [mask_i,
+// mask_j, R, G, B], or (S*P, out, out, 3) RGB only.
 //
 // Replaces two TPU kernels of instaorder_tpu/ops/prep_pallas.py:
 // `fused_prep_pairs` (kernel body `_prep5_kernel`, 5 channels) and
@@ -461,11 +461,17 @@ extern "C" int io_prep_pairs(const void* images, const void* masks,
       passes, 1, band, (cudaStream_t)stream);
 }
 
-// RGB only: (S*P, out, out, 3) bf16, normalised or raw 0..255.
+// RGB only: (S*P, out, out, 3) bf16, or f32 with out_f32, normalised or
+// raw 0..255.
 extern "C" int io_prep_rgb(const void* images, const void* rois, void* out,
                            int S, int P, int H, int W, int out_size,
-                           int passes, int normalize, int band,
+                           int passes, int normalize, int band, int out_f32,
                            void* stream) {
+  if (out_f32)
+    return launch<false, float>(
+        (const float*)images, nullptr, nullptr, (const float*)rois,
+        (float*)out, S, P, 0, H, W, out_size, passes, normalize, band,
+        (cudaStream_t)stream);
   return launch<false, __nv_bfloat16>(
       (const float*)images, nullptr, nullptr, (const float*)rois,
       (__nv_bfloat16*)out, S, P, 0, H, W, out_size, passes, normalize, band,

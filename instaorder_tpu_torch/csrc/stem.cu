@@ -1,6 +1,8 @@
 // Fused ResNet stem, NHWC: conv 7x7 / stride 2 / pad 3, then max-pool
 // 3x3 / stride 2 / pad 1, as one implicit GEMM on Hopper's tensor cores
-// (wgmma) with the pool in its epilogue. Two kernels share the design:
+// (wgmma) with the pool in its epilogue (and, at f32, on the CUDA cores:
+// `stem_f32_kernel`, described at its definition below). Two kernels
+// share the design:
 //   stem_kernel<COUT, Q8>   bf16 operands, f32 sums: + f32 bias, relu,
 //                           one bf16 rounding, the pool, stored as bf16
 //                           or (q8) as the one-sided int8
@@ -480,4 +482,283 @@ extern "C" int io_fused_stem_s8(const void* x, void* xs, const void* wk,
   if (cout == 128)
     return launch<true, 128, false>(x, xs, N, H, W, C, s, wk, m, b, out);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The f32 stem: kernel 15 given f32 activations (the TPU kernel
+// `fused_stem` is dtype-generic), conv 7x7 / stride 2 / pad 3 with f32
+// sums, + f32 bias, relu, max-pool 3x3 / stride 2 / pad 1, stored f32.
+//
+// Bound on the H100: f32 operations at the double-width siamese stem
+// (Cout 128: 128^2 * 245 * 128 MAC, 1.03 GFLOP per 256^2 image, against
+// ~3.4 MB of f32 input and output). Design: the conv runs direct, on the
+// CUDA cores, at its real K = 7 * 7 * C: no pack pass and no padded taps.
+//  - A CTA owns 64 output channels (half of the double-width stem) and
+//    keeps their (K, 64) weights (ops/stem_kernels `stem_kernel_weights`:
+//    at f32 the HWIO weights as (7 * 7 * C, Cout) rows) and bias in
+//    shared memory. CTAs are persistent and walk the bf16 stem's work
+//    items (image, 8 pooled rows, up to 64 pooled columns) within a
+//    channel half, halves outermost, so a CTA reloads its weights only
+//    when its half changes.
+//  - A conv row of kTM = 128 pixels reads 7 input rows of 2 * 128 + 5
+//    pixels. Input rows reach a ring of kSlotsF rows in shared memory by
+//    4-byte cp.async (a tile's first input column is not 16-byte
+//    aligned), zero-filled off the image, one conv row ahead: a conv row
+//    brings in two new input rows.
+//  - Per conv row each thread sums a 4-pixel x 8-channel micro-tile over
+//    the K taps in (dy, dx, c) order with __fmaf_rn: four A values (four
+//    pixels 2C words apart, so a warp's four pixel rows fall in four
+//    banks) and two 16-byte B vectors per tap.
+//  - The epilogue adds the bias and takes the relu into a one-row conv
+//    buffer; the bf16 stem's separable pool then runs on 16-byte chunks
+//    of four channels with the running vertical max in registers.
+
+namespace {
+
+using namespace convgemm;
+
+constexpr int kChF = 64;                // output channels of a CTA
+constexpr int kInCols = 2 * kTM + 5;    // input pixels a conv row reads
+constexpr int kSlotsF = 9;              // input rows in the ring
+constexpr int kLdcF = kChF + 4;         // conv buffer row, f32
+
+template <int C>
+struct StemF {
+  static constexpr int kK = 49 * C;
+  static constexpr int kSlot = (kInCols * C + 3) / 4 * 4;  // f32 a ring row
+  static constexpr int kRing = kK * kChF;                   // offsets in f32
+  static constexpr int kConv = kRing + kSlotsF * kSlot;
+  static constexpr int kBias = kConv + kTM * kLdcF;
+  static constexpr int kSmem = (kBias + kChF) * 4;
+  static constexpr int kQC = kChF / 4;                      // chunks a pixel
+  static constexpr int kNI = kTP * kQC / kThreads;          // pool items
+  static_assert(kNI * kThreads == kTP * kQC, "pool items");
+  static_assert(kSmem <= 232448, "stem tile exceeds shared memory");
+};
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ float4 vmax4(float4 a, float4 b) {
+  return make_float4(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z),
+                     fmaxf(a.w, b.w));
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+stem_f32_kernel(const float* __restrict__ x, const float* __restrict__ wk,
+                const float* __restrict__ bias, float* __restrict__ out,
+                int N, int H, int W, int Cout, int Hc, int Wc, int Ho,
+                int Wo, int nstrips, int ntiles) {
+  using S = StemF<C>;
+  extern __shared__ __align__(16) float smf[];
+  float* ws = smf;
+  float* ring = smf + S::kRing;
+  float* conv = smf + S::kConv;
+  float* sb = smf + S::kBias;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // micro-tile: pixels tm + 32 i (i < 4), channels c0.. and c1.. (4 each)
+  const int tm = (tid >> 5) * 4 + (lane >> 3);
+  const int c0 = (lane & 7) * 4, c1 = kChF / 2 + c0;
+  const int per_half = N * nstrips * ntiles;
+  const int items = per_half * (Cout / kChF);
+  int half = -1;
+
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int hf = item / per_half;
+    const int rest = item - hf * per_half;
+    const int t = rest % ntiles;
+    const int s = (rest / ntiles) % nstrips;
+    const int n = rest / (ntiles * nstrips);
+    if (hf != half) {
+      // the half's weights (in the first cp.async group of the item) and
+      // bias; every reader of the old ones passed the item's last barrier
+      for (int e = tid; e < S::kK * kChF / 4; e += kThreads) {
+        const int k = e / (kChF / 4), cq = e - k * (kChF / 4);
+        cp_async16(smem_addr(ws + k * kChF + cq * 4),
+                   wk + (int64_t)k * Cout + hf * kChF + cq * 4, true);
+      }
+      for (int i = tid; i < kChF; i += kThreads) sb[i] = bias[hf * kChF + i];
+      half = hf;
+    }
+    const int i0 = s * kRP, i1 = min(Ho, i0 + kRP);
+    const int j0 = t == 0 ? 0 : kTP + (t - 1) * (kTP - 1);
+    const int j1 = min(Wo, t == 0 ? kTP : j0 + kTP - 1);
+    const int cs = t == 0 ? 0 : 2 * j0 - 1;      // first conv column
+    const int rlo = max(0, 2 * i0 - 1), rhi = min(Hc - 1, 2 * i1 - 1);
+    const int ic0 = 2 * cs - 3;                  // first input column
+    const float* xn = x + (int64_t)n * H * W * C;
+
+    // input row u (u >= -3; zero off the image) into its ring slot
+    auto load = [&](int u) {
+      const uint32_t dst = smem_addr(ring + ((u + 2 * kSlotsF) % kSlotsF)
+                                            * S::kSlot);
+      const bool rowok = u >= 0 && u < H;
+      const float* row = xn + ((int64_t)(rowok ? u : 0) * W + ic0) * C;
+      for (int e = tid; e < kInCols * C; e += kThreads) {
+        const int col = ic0 + e / C;
+        const bool ok = rowok && col >= 0 && col < W;
+        cp_async4(dst + e * 4, ok ? row + e : x, ok);
+      }
+    };
+
+    // pooled output (image n, row i, column j, chunk q of this half)
+    auto store = [&](int i, int j, int q, float4 v) {
+      *reinterpret_cast<float4*>(
+          out + (((int64_t)n * Ho + i) * Wo + j) * Cout + hf * kChF
+          + q * 4) = v;
+    };
+
+    float4 V[S::kNI];
+#pragma unroll
+    for (int k = 0; k < S::kNI; ++k) V[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+    // the pool's step for conv row r, which the conv buffer holds (as in
+    // stem_body: an even row joins pooled row r / 2, an odd row finishes
+    // it and opens the next)
+    auto pool = [&](int r) {
+#pragma unroll
+      for (int k = 0; k < S::kNI; ++k) {
+        const int it = tid + k * kThreads, jj = it / S::kQC;
+        const int q = it - jj * S::kQC, j = j0 + jj;
+        if (j >= j1) continue;
+        const int clo = max(2 * j - 1, 0) - cs;
+        const int chi = min(2 * j + 1, Wc - 1) - cs;
+        const float* p = conv + q * 4;
+        float4 h = *reinterpret_cast<const float4*>(p + clo * kLdcF);
+        for (int c = clo + 1; c <= chi; ++c)
+          h = vmax4(h, *reinterpret_cast<const float4*>(p + c * kLdcF));
+        if ((r & 1) == 0) {
+          V[k] = vmax4(V[k], h);
+          if (r + 1 == Hc) store(r >> 1, j, q, V[k]);
+        } else {
+          if ((r >> 1) >= i0) store(r >> 1, j, q, vmax4(V[k], h));
+          V[k] = h;
+        }
+      }
+    };
+
+    for (int d = 0; d < 7; ++d) load(2 * rlo - 3 + d);
+    cp_async_commit();
+    for (int r = rlo; r <= rhi; ++r) {
+      // input rows 2r - 3 .. 2r + 3 (and the weights) have landed; the
+      // conv buffer holds conv row r - 1
+      cp_async_wait<0>();
+      __syncthreads();
+      // the two input rows conv row r + 1 adds, into the slots of rows
+      // 2r - 5 and 2r - 4, which conv row r - 1 read last
+      if (r < rhi) {
+        load(2 * r + 4);
+        load(2 * r + 5);
+      }
+      cp_async_commit();
+      if (r > rlo) pool(r - 1);
+      float acc[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+#pragma unroll 1
+      for (int dy = 0; dy < 7; ++dy) {
+        const float* rp = ring + ((2 * r - 3 + dy + 2 * kSlotsF) % kSlotsF)
+                                 * S::kSlot + 2 * tm * C;
+        const float* wp = ws + dy * 7 * C * kChF;
+#pragma unroll
+        for (int dx = 0; dx < 7; ++dx)
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const float* wr = wp + (dx * C + c) * kChF;
+            const float4 u = *reinterpret_cast<const float4*>(wr + c0);
+            const float4 v = *reinterpret_cast<const float4*>(wr + c1);
+            const float b[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float a = rp[(64 * i + dx) * C + c];
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                acc[i][j] = __fmaf_rn(a, b[j], acc[i][j]);
+            }
+          }
+      }
+      // every thread is done with pool(r - 1): conv row r into the buffer
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float* o = conv + (tm + 32 * i) * kLdcF;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = h ? c1 : c0;
+          float y[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            y[e] = fmaxf(acc[i][4 * h + e] + sb[c + e], 0.0f);
+          *reinterpret_cast<float4*>(o + c) = make_float4(y[0], y[1], y[2],
+                                                          y[3]);
+        }
+      }
+    }
+    __syncthreads();
+    pool(rhi);
+  }
+  cp_async_wait<0>();
+}
+
+template <int C>
+int launch_f32(const float* x, const float* wk, const float* bias,
+               float* out, int N, int H, int W, int cout, cudaStream_t st) {
+  using S = StemF<C>;
+  static bool smem_set = false;
+  static int grid_cap = 0;
+  int e = allow_smem(stem_f32_kernel<C>, S::kSmem, smem_set);
+  if (e) return e;
+  if (!grid_cap) {
+    int dev = 0, sms = 0, occ = 0;
+    if ((e = (int)cudaGetDevice(&dev))
+        || (e = (int)cudaDeviceGetAttribute(
+                &sms, cudaDevAttrMultiProcessorCount, dev))
+        || (e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &occ, stem_f32_kernel<C>, kThreads, S::kSmem)))
+      return e;
+    grid_cap = sms * (occ > 0 ? occ : 1);
+  }
+  const int Hc = (H - 1) / 2 + 1, Wc = (W - 1) / 2 + 1;
+  const int Ho = (Hc - 1) / 2 + 1, Wo = (Wc - 1) / 2 + 1;
+  const int nstrips = (Ho + kRP - 1) / kRP;
+  const int ntiles = Wo <= kTP ? 1 : 1 + (Wo - kTP + kTP - 2) / (kTP - 1);
+  const int64_t items = (int64_t)N * nstrips * ntiles * (cout / kChF);
+  if (items >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  if (items == 0) return 0;
+  const int grid = (int)(items < grid_cap ? items : grid_cap);
+  stem_f32_kernel<C><<<grid, kThreads, S::kSmem, st>>>(
+      x, wk, bias, out, N, H, W, cout, Hc, Wc, Ho, Wo, nstrips, ntiles);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// f32 stem. x (N, H, W, C) f32 with C <= 5, H, W >= 1; wk (49 C, cout)
+// f32 (ops/stem_kernels `stem_kernel_weights`); bias (cout,) f32; out (N,
+// Ho, Wo, cout) f32, Ho = ceil(ceil(H / 2) / 2). cout is 64 or 128;
+// pointers 16-byte aligned (checked by the Python wrapper).
+extern "C" int io_fused_stem_f32(const void* x, const void* wk,
+                                 const void* bias, void* out, int N, int H,
+                                 int W, int C, int cout, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* xf = (const float*)x;
+  const float* w = (const float*)wk;
+  const float* b = (const float*)bias;
+  float* o = (float*)out;
+  if (H < 1 || W < 1 || (cout != 64 && cout != 128))
+    return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 1: return launch_f32<1>(xf, w, b, o, N, H, W, cout, s);
+    case 2: return launch_f32<2>(xf, w, b, o, N, H, W, cout, s);
+    case 3: return launch_f32<3>(xf, w, b, o, N, H, W, cout, s);
+    case 4: return launch_f32<4>(xf, w, b, o, N, H, W, cout, s);
+    case 5: return launch_f32<5>(xf, w, b, o, N, H, W, cout, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -32,9 +32,8 @@ from ..convert import tree_to
 from ..core.nn import tree_cast
 from ..device import resolve_device
 from ..models import quantize as Q
-from ..models.folding import (_pallas_features, add_stem_kernel_weights,
-                              apply_folded, apply_folded_siamese,
-                              fold_resnet)
+from ..models.folding import (add_stem_kernel_weights, apply_folded,
+                              apply_folded_siamese, fold_resnet)
 from ..ops.morphology import bordering_matrix
 from ..ops.pairs import (_normalize, all_pair_indices, build_pair_batch,
                          build_pair_batch_rois, build_pair_batch_shared_rgb,
@@ -298,28 +297,21 @@ def _calib(calib_batches, dev):
 def make_folded_predictor(params, stats, cfg, method, dtype=None,
                           use_pallas=False, device=None, **kw):
     """OrderPredictor over a BN-folded ResNet (models/folding): dtype None
-    is the f32 strict-parity predictor (the cuDNN f32 route on the card,
-    TF32 off), torch.bfloat16 the serving one. use_pallas: the bf16
-    kernel feature set (False, True = the default `identity`, or names
-    of models/folding.PALLAS_VOCAB).
+    is the f32 strict-parity predictor, torch.bfloat16 the serving one.
+    use_pallas: the kernel feature set (False, True = the default
+    `identity`, or names of models/folding.PALLAS_VOCAB); the f32 model
+    runs the kernels' f32 modes, and without kernels the plain chain
+    (the cuDNN f32 route on the card, TF32 off).
 
-    On the card the kernels take bf16 only: dtype None with any kernel
-    feature raises (f32 kernels are ROADMAP.md queue 2, "f32 on the
-    card"), and a bf16 model gets the stem kernel's weights
-    (add_stem_kernel_weights), as serving.build_parity_model does."""
+    On the card the model gets the stem kernel's weights in its dtype
+    (add_stem_kernel_weights), as serving.build_parity_model and
+    build_f32_model do."""
     dev = resolve_device(device)
     folded = fold_resnet(tree_to(params, dev), tree_to(stats, dev), cfg)
     if dtype is not None:
         folded = tree_cast(folded, dtype)
     if dev.type == 'cuda':
-        if dtype is None and _pallas_features(use_pallas):
-            raise ValueError(
-                'make_folded_predictor: the f32 model (dtype=None) runs no '
-                'kernel on the card (f32 kernels are ROADMAP.md queue 2, '
-                '"f32 on the card"); pass use_pallas=False, or '
-                'dtype=torch.bfloat16 for the bf16 kernels')
-        if dtype == torch.bfloat16:
-            add_stem_kernel_weights(folded['conv1'])
+        add_stem_kernel_weights(folded['conv1'])
 
     def apply_fn(p, s, c, x):
         return apply_folded(p, c, x, dtype=dtype, use_pallas=use_pallas)

@@ -6,8 +6,9 @@ Eval-mode BN is an affine map, so it folds into the preceding conv:
   w' = w * gamma / sqrt(var + eps)      (per output channel)
   b' = beta - mean * gamma / sqrt(var + eps)
 
-The folded forward routes blocks to the bf16 kernels by `use_pallas`
-features, as the JAX package does (`_apply_trunk`), among the stride-1
+The folded forward routes blocks to the bf16 kernels (their f32 modes
+for an f32 model) by `use_pallas` features, as the JAX package does
+(`_apply_trunk`), among the stride-1
 identity blocks with conv1 Cin <= IDEN_CIN_CAP first 'hwnc' (each block
 -> ops/bottleneck_bf16_kernels `fused_bottleneck_hwnc`), then 'stage' /
 'sstage' (each run of such blocks -> `fused_bottleneck_stage` /
@@ -120,10 +121,11 @@ def _stem(conv1, x, feats):
 
 def add_stem_kernel_weights(conv1):
     """Give a stem's conv1 the weights the card's stem kernel reads
-    (ops/stem_kernels `stem_kernel_weights`), once, when the model is
-    built on the card: `wk` for the one-direction stem and `wk_siamese`
-    for the double-width one (`siamese_conv1`). The JAX-layout `w` stays
-    beside them for the plain versions. Returns conv1."""
+    (ops/stem_kernels `stem_kernel_weights`, in the layout of w's dtype:
+    bf16, f32 or int8), once, when the model is built on the card: `wk`
+    for the one-direction stem and `wk_siamese` for the double-width one
+    (`siamese_conv1`). The JAX-layout `w` stays beside them for the plain
+    versions. Returns conv1."""
     conv1['wk'] = stem_kernel_weights(conv1['w'])
     conv1['wk_siamese'] = stem_kernel_weights(
         siamese_conv1(conv1)['w'])

@@ -27,7 +27,9 @@ BUILD_DIR = _PKG / '_build'
 
 # -fmad=false: the prep weights must equal numpy's f32 values bit for bit
 # (a contracted FMA can flip a bf16 rounding); the bottleneck and stem
-# epilogues follow the unfused f32 order of the reference kernels.
+# epilogues follow the unfused f32 order of the reference kernels. The
+# f32 kernels' products are written as __fmaf_rn, which the flag leaves
+# fused.
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-std=c++17', '-Xcompiler', '-fPIC', '-fmad=false',
               '-Xptxas', '-v']
@@ -111,8 +113,8 @@ def library() -> ctypes.CDLL:
                                   P]
     lib.io_prep_pairs.restype = I
     # images, rois, out, S, P, H, W, out_size, passes, normalize, band
-    # rows, stream
-    lib.io_prep_rgb.argtypes = [P, P, P, I, I, I, I, I, I, I, I, P]
+    # rows, f32 out, stream
+    lib.io_prep_rgb.argtypes = [P, P, P, I, I, I, I, I, I, I, I, I, P]
     lib.io_prep_rgb.restype = I
     # x, pack scratch, kernel weights, bias, out, N, H, W, C, cout, q8,
     # stream
@@ -127,6 +129,18 @@ def library() -> ctypes.CDLL:
            P, I, F,                     # identity residual, its dtype, r
            P, I, P])                    # out, epilogue mode, stream
     lib.io_conv_gemm.restype = I
+    lib.io_conv_gemm_f32.argtypes = (
+        # two K segments: f32 activation, its (K, Cout) f32 weight rows,
+        # C, H, W, stride, ksize
+        [P, P, I, I, I, I, I] * 2
+        + [I, I, I, I, I,               # N, Ho, Wo, Cout, tile width
+           P, P,                        # bias, second bias (or null)
+           P, F,                        # identity residual (or null), r
+           P, I, P])                    # out, epilogue mode, stream
+    lib.io_conv_gemm_f32.restype = I
+    # x, kernel weights, bias, out, N, H, W, C, cout, stream
+    lib.io_fused_stem_f32.argtypes = [P, P, P, P, I, I, I, I, I, P]
+    lib.io_fused_stem_f32.restype = I
     # x, pack scratch, kernel weights, m, b, out, N, H, W, C, cout, stream
     lib.io_fused_stem_s8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P]
     lib.io_fused_stem_s8.restype = I

@@ -1,4 +1,5 @@
-"""Kernels 10-14: the bf16 ResNet bottleneck (csrc/bottleneck_v2.cu).
+"""Kernels 10-14: the bf16 ResNet bottleneck (csrc/bottleneck_v2.cu) and
+its f32 mode (csrc/bottleneck_f32.cu).
 
 Each wrapper replaces one TPU kernel of instaorder_tpu/ops/pallas_blocks.py
 and takes NHWC (N, H, W, C) activations:
@@ -17,9 +18,9 @@ and takes NHWC (N, H, W, C) activations:
 The TPU devices that set the last three apart (VMEM-resident or streamed
 weight stacks, the activation kept in VMEM across a stage, the (H, W, N,
 C) view) do not carry over: the stage wrappers run the identity block's
-launches once per block, with the bf16 activation between blocks in
-device memory, and the hwnc wrapper launches the NHWC block. Each counts
-its own launches.
+launches once per block, with the activation (bf16 or f32) between
+blocks in device memory, and the hwnc wrapper launches the NHWC block.
+Each counts its own launches.
 
 Math contract (the Pallas kernel bodies `_bottleneck_kernel`,
 `_bottleneck_down_kernel`, `_bottleneck_down_s2_kernel`), cdt = x.dtype:
@@ -39,19 +40,25 @@ and the residual (or the second bias) in f32 and rounds relu(y) to bf16
 once. The TPU kernel's space-to-depth parity planes for stride 2 do not
 carry over: the GEMM's im2col view reads strided taps directly.
 
+The f32 mode (the TPU kernels run in f32 when given f32 activations;
+h1 and h2 stay f32, never rounded): the same three launches of the f32
+implicit-GEMM kernel, f32 FMA on the CUDA cores (bound at 67 TFLOP/s;
+TF32 would miss the f32 bar), h1/h2 in f32 scratch, the epilogue's adds
+in the same order with no rounding.
+
 On CPU tensors each wrapper runs its `_plain` version (PyTorch, f32 sums
 on operands in the compute dtype; f32 or bf16). On CUDA tensors it
 launches the kernel or raises, and adds one to its `launches` count per
-call. The card takes bf16 activations and weights and f32 biases only;
-f32 compute on the card is not ported (ROADMAP.md queue 2, "f32 on the
-card").
+call (a bf16 and an f32 launch alike). The card takes bf16 activations
+and weights, or f32 ones, and f32 biases.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .bottleneck_kernels import _RES_RELU_BF16, _block_gemms, _conv3x3
+from .bottleneck_kernels import (_RES_RELU_BF16, _RES_RELU_F32,
+                                 _block_gemms, _conv3x3)
 
 
 # ---------------------------------------------------------------------------
@@ -88,16 +95,15 @@ def fused_bottleneck_down_plain(x, w1, b1, w2, b2, w3, b3, wd, bd,
 
 
 def _cuda_block(x, w1, b1, w2, b2, w3, b3, stride=1, wd=None, bd=None):
-    if x.dtype != torch.bfloat16:
-        raise ValueError(
-            f'bf16 bottleneck kernel: x is {x.dtype}; the card takes bf16 '
-            'activations (f32 compute on the card is not ported: '
-            'ROADMAP.md queue 2, "f32 on the card")')
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f'bottleneck kernel: x is {x.dtype}; the card '
+                         'takes bf16 or f32 activations')
     N, H, W, _ = x.shape
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-    out = torch.empty((N, Ho, Wo, w3.shape[-1]), dtype=torch.bfloat16,
+    out = torch.empty((N, Ho, Wo, w3.shape[-1]), dtype=x.dtype,
                       device=x.device)
-    return _block_gemms(x, w1, b1, w2, b2, w3, b3, out, _RES_RELU_BF16,
+    mode = _RES_RELU_F32 if x.dtype == torch.float32 else _RES_RELU_BF16
+    return _block_gemms(x, w1, b1, w2, b2, w3, b3, out, mode,
                         stride=stride, r=1.0 if wd is None else None,
                         wd=wd, bd=bd)
 

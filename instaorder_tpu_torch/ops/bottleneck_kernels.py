@@ -59,6 +59,9 @@ from . import _build, gemm_layout
 
 # epilogue modes of csrc/bottleneck_v2.cu
 _RELU_BF16, _Q8_INT8, _Q8_BF16, _RES_RELU_BF16 = 0, 1, 2, 3
+# and of its f32 mode, csrc/bottleneck_f32.cu: relu(acc + b), and
+# relu(acc + b (+ b2) (+ r * x))
+_RELU_F32, _RES_RELU_F32 = 0, 1
 
 
 # ---------------------------------------------------------------------------
@@ -141,9 +144,10 @@ fused_bottleneck_i8v2_hwncp_stage_plain = fused_bottleneck_i8v2_stage_plain
 # ---------------------------------------------------------------------------
 
 
-def _check_act(x, what):
-    if x.dim() != 4 or x.dtype not in (torch.int8, torch.bfloat16):
-        raise ValueError(f'{what}: expected an (N, H, W, C) int8 or bf16 '
+def _check_act(x, what, dtypes=(torch.int8, torch.bfloat16)):
+    if x.dim() != 4 or x.dtype not in dtypes:
+        names = ' or '.join(str(d)[6:] for d in dtypes)
+        raise ValueError(f'{what}: expected an (N, H, W, C) {names} '
                          f'tensor, got {tuple(x.shape)} {x.dtype}')
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f'{what}: activation must be contiguous and '
@@ -152,25 +156,28 @@ def _check_act(x, what):
         raise ValueError(f'{what}: channels must be a multiple of 32')
 
 
-def _check_w(w, k, cout, dev, what):
-    if (w.dtype != torch.bfloat16 or w.device != dev
+def _check_w(w, k, cout, dev, what, dtype=torch.bfloat16):
+    if (w.dtype != dtype or w.device != dev
             or tuple(w.shape) != (k, cout) or not w.is_contiguous()
             or w.data_ptr() % 16):
         raise ValueError(f'{what}: weight must be a contiguous ({k}, {cout}) '
-                         f'bf16 tensor on {dev}, got {tuple(w.shape)} '
-                         f'{w.dtype} {w.device}')
+                         f'{str(dtype)[6:]} tensor on {dev}, got '
+                         f'{tuple(w.shape)} {w.dtype} {w.device}')
 
 
-def _check_b(b, cout, dev, what):
+def _check_b(b, cout, dev, what, align=4):
     if (b.dtype != torch.float32 or b.device != dev
-            or tuple(b.shape) != (cout,) or not b.is_contiguous()):
-        raise ValueError(f'{what}: bias must be a contiguous ({cout},) f32 '
-                         f'tensor on {dev}')
+            or tuple(b.shape) != (cout,) or not b.is_contiguous()
+            or b.data_ptr() % align):
+        raise ValueError(f'{what}: bias must be a contiguous, {align}-byte '
+                         f'aligned ({cout},) f32 tensor on {dev}')
 
 
 def _gemm(out, segs, bias, mode, bias2=None, res=None, r=0.0):
     """One launch of the implicit-GEMM kernel. segs: [(act, w, stride,
     ksize)] (one or two K segments); out (N, Ho, Wo, Cout)."""
+    if out.dtype == torch.float32:
+        return _gemm_f32(out, segs, bias, mode, bias2=bias2, res=res, r=r)
     N, Ho, Wo, Cout = out.shape
     dev = out.device
     bn = gemm_layout.tile_n(Cout)
@@ -202,22 +209,67 @@ def _gemm(out, segs, bias, mode, bias2=None, res=None, r=0.0):
     return out
 
 
+def _gemm_f32(out, segs, bias, mode, bias2=None, res=None, r=0.0):
+    """One launch of the implicit-GEMM kernel's f32 mode
+    (csrc/bottleneck_f32.cu): f32 activations, weights, biases, residual
+    and output; segs as `_gemm` takes them."""
+    N, Ho, Wo, Cout = out.shape
+    dev = out.device
+    bn = gemm_layout.tile_n(Cout)
+    gemm_layout.check_k_steps([ksize * ksize * act.shape[-1]
+                               for act, _w, _s, ksize in segs],
+                              step=gemm_layout.F32_K_STEP)
+    f32 = (torch.float32,)
+    args = []
+    for act, w, stride, ksize in segs + [(None, None, 1, 1)] * (2 - len(segs)):
+        if act is None:
+            args += [None, None, 32, 1, 1, 1, 1]
+            continue
+        _check_act(act, 'bottleneck input', f32)
+        _check_w(w, ksize * ksize * act.shape[-1], Cout, dev, 'bottleneck',
+                 torch.float32)
+        args += [act.data_ptr(), w.data_ptr(), act.shape[-1], act.shape[1],
+                 act.shape[2], stride, ksize]
+    # the f32 epilogue reads the biases 16 bytes at a time
+    _check_b(bias, Cout, dev, 'bottleneck', align=16)
+    if bias2 is not None:
+        _check_b(bias2, Cout, dev, 'bottleneck', align=16)
+    if res is not None:
+        _check_act(res, 'bottleneck residual', f32)
+        if tuple(res.shape) != tuple(out.shape):
+            raise ValueError('identity residual must match the output shape')
+    if not out.is_contiguous() or out.data_ptr() % 16:
+        raise ValueError('bottleneck output must be contiguous and 16-byte '
+                         'aligned')
+    rc = _build.library().io_conv_gemm_f32(
+        *args, N, Ho, Wo, Cout, bn, bias.data_ptr(),
+        None if bias2 is None else bias2.data_ptr(),
+        None if res is None else res.data_ptr(), float(r), out.data_ptr(),
+        mode, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, 'bottleneck gemm (f32)')
+    return out
+
+
 def _block_gemms(x, w1, b1, w2, b2, w3, b3, out, mode, stride=1, r=None,
                  wd=None, bd=None):
     """The three launches of one bottleneck into `out` (N, Ho, Wo, Cout):
-    conv1 and the 3x3 into bf16 scratch, then conv3 with the epilogue
-    `mode` and the identity residual r*x or the K-packed projection."""
+    conv1 and the 3x3 into scratch, then conv3 with the epilogue `mode`
+    and the identity residual r*x or the K-packed projection. An f32
+    `out` runs the kernel's f32 mode throughout (f32 scratch, `mode` one
+    of _RELU_F32 / _RES_RELU_F32); otherwise the scratch is bf16."""
     if x.device.type != 'cuda':
         raise ValueError('bottleneck kernel: x must be a CUDA tensor')
     N, H, W, _ = x.shape
     Cm = w1.shape[-1]
     Ho, Wo = out.shape[1], out.shape[2]
     dev = x.device
-    h1 = _gemm(torch.empty((N, H, W, Cm), dtype=torch.bfloat16, device=dev),
-               [(x, w1, 1, 1)], b1, _RELU_BF16)
-    h2 = _gemm(torch.empty((N, Ho, Wo, Cm), dtype=torch.bfloat16,
-                           device=dev),
-               [(h1, w2.reshape(9 * Cm, Cm), stride, 3)], b2, _RELU_BF16)
+    f32 = out.dtype == torch.float32
+    sdt = torch.float32 if f32 else torch.bfloat16
+    relu = _RELU_F32 if f32 else _RELU_BF16
+    h1 = _gemm(torch.empty((N, H, W, Cm), dtype=sdt, device=dev),
+               [(x, w1, 1, 1)], b1, relu)
+    h2 = _gemm(torch.empty((N, Ho, Wo, Cm), dtype=sdt, device=dev),
+               [(h1, w2.reshape(9 * Cm, Cm), stride, 3)], b2, relu)
     if wd is not None:
         return _gemm(out, [(h2, w3, 1, 1), (x, wd, stride, 1)], b3, mode,
                      bias2=bd)

@@ -1,16 +1,19 @@
 """The host-side layout decisions of the implicit-GEMM block kernels
-(csrc/conv_gemm.cuh, csrc/bottleneck_v2.cu, csrc/bottleneck_int8.cu):
-the CTA's output width, the K-step rule of the K-packed projection, and
-the int8 weights' K-major layout. Plain functions, so that the CPU tests
-reach them.
+(csrc/conv_gemm.cuh, csrc/bottleneck_v2.cu, csrc/bottleneck_int8.cu,
+csrc/bottleneck_f32.cu): the CTA's output width, the K step of each
+operand type and the K-packed projection's rule on it, and the int8
+weights' K-major layout. Plain functions, so that the CPU tests reach
+them.
 """
 
 from __future__ import annotations
 
 import torch
 
-# bf16 elements of one K step: 128 bytes of an operand row
+# elements of one K step, 128 bytes of an operand row: bf16 (and int8
+# widened to bf16) in the wgmma ring, f32 in the CUDA-core ring
 BF16_K_STEP = 64
+F32_K_STEP = 32
 
 
 def tile_n(cout, two_sums=False):

@@ -289,10 +289,10 @@ def build_pair_batches_fused(images, masks, pair_idx, rois, out_size=256,
     (S*P, out, out, 5) in `dtype`. passes: 3 = f32 weights (serving
     precision), 1 = bf16 weights and row values (the serving-d1 knob).
 
-    fuse_masks: all five channels in one kernel (`fused_prep_pairs`,
-    bf16 or f32 out); otherwise the RGB kernel (`fused_prep_rgb`, bf16
-    out only: its f32 mode is ROADMAP.md queue 2) plus the exact one-hot
-    mask matmuls of `_mask_pair_batch`, as the JAX default.
+    fuse_masks: all five channels in one kernel (`fused_prep_pairs`);
+    otherwise the RGB kernel (`fused_prep_rgb`) plus the exact one-hot
+    mask matmuls of `_mask_pair_batch`, as the JAX default. Either
+    writes bf16 or f32.
 
     The kernels read their 4x4 cubic taps directly, so any image size
     works (no 8-multiple padding) and there is no per-call pair cap."""
@@ -301,12 +301,10 @@ def build_pair_batches_fused(images, masks, pair_idx, rois, out_size=256,
         return fused_prep_pairs(images, masks, pair_idx, rois,
                                 out_size=out_size, passes=passes,
                                 out_dtype=dtype)
-    if dtype != torch.bfloat16:
-        raise ValueError('the RGB prep kernel writes bf16 only (its f32 '
-                         'mode is ROADMAP.md queue 2); use fuse_masks=True')
-    rgb = fused_prep_rgb(images, rois, out_size=out_size, passes=passes)
+    rgb = fused_prep_rgb(images, rois, out_size=out_size, passes=passes,
+                         out_dtype=dtype)
     m = _mask_pair_batch(masks, pair_idx, rois, out_size)
-    return _with_masks(m.reshape(-1, *m.shape[2:]), rgb, torch.bfloat16)
+    return _with_masks(m.reshape(-1, *m.shape[2:]), rgb, dtype)
 
 
 def _crop_resize_interp(img, rois, out_size, method='cubic'):

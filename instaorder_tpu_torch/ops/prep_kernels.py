@@ -8,8 +8,10 @@ Replaces two TPU kernels of instaorder_tpu/ops/prep_pallas.py:
       or f32 with out_dtype=torch.float32 (the TPU kernel's `out_dtype`;
       eval/pipeline.OrderPredictor's default `prep_dtype`);
   fused_prep_rgb   <- `fused_prep_rgb` (`_prep_rgb_kernel`): the RGB
-      channels only, (S*P, out, out, 3) bf16 NHWC (the TPU kernel writes
-      channel-major), normalised or the raw integers 0..255.
+      channels only, (S*P, out, out, 3) NHWC (the TPU kernel writes
+      channel-major), normalised or the raw integers 0..255, in bf16 or,
+      with out_dtype=torch.float32, f32 (the TPU kernel's `out_dtype`;
+      the f32 model's `--prep-rgb pallas` route).
 
 Bound on the H100: memory (the 5 or 3 * out*out bf16 or f32 output per
 pair plus each scene's image and masks read once, over 3.35 TB/s). The TPU
@@ -128,14 +130,16 @@ def _rgb_plain(img, r, out_size, passes, normalize):
 
 
 def fused_prep_rgb_plain(images, rois, out_size=256, normalize=True,
-                         passes=3):
+                         passes=3, out_dtype=torch.bfloat16):
     """The RGB prep kernel's function in PyTorch (any device). images
     (S, H, W, 3) f32 raw [0, 255]; rois (S, P, 4) f32 xywh ->
-    (S*P, out, out, 3) bf16."""
+    (S*P, out, out, 3) in out_dtype (bf16 or f32: the same f32 values,
+    rounded to bf16 or not)."""
     _check_passes(passes)
+    _check_out_dtype(out_dtype)
     return torch.cat([
         _rgb_plain(images[s].float(), rois[s].float(), out_size, passes,
-                   normalize) for s in range(images.shape[0])]).bfloat16()
+                   normalize) for s in range(images.shape[0])]).to(out_dtype)
 
 
 def fused_prep_pairs_plain(images, masks, pair_idx, rois, out_size=256,
@@ -223,17 +227,21 @@ def fused_prep_pairs(images, masks, pair_idx, rois, out_size=256,
     return out
 
 
-def fused_prep_rgb(images, rois, out_size=256, normalize=True, passes=3):
-    """RGB-only pair prep. On CUDA tensors it launches the CUDA kernel
-    (one launch, counted in `fused_prep_rgb.launches`); on CPU tensors it
-    runs `fused_prep_rgb_plain`.
+def fused_prep_rgb(images, rois, out_size=256, normalize=True, passes=3,
+                   out_dtype=torch.bfloat16):
+    """RGB-only pair prep -> (S*P, out, out, 3) in out_dtype (bf16 or
+    f32). On CUDA tensors it launches the CUDA kernel (one launch,
+    counted in `fused_prep_rgb.launches`); on CPU tensors it runs
+    `fused_prep_rgb_plain`.
 
     CUDA inputs: images (S, H, W, 3) f32, rois (S, P, 4) f32, contiguous
-    on one device -> (S*P, out, out, 3) bf16."""
+    on one device."""
     if images.device.type == 'cpu':
         return fused_prep_rgb_plain(images, rois, out_size=out_size,
-                                    normalize=normalize, passes=passes)
+                                    normalize=normalize, passes=passes,
+                                    out_dtype=out_dtype)
     _check_passes(passes)
+    _check_out_dtype(out_dtype)
     dev = images.device
     S, H, W, C = images.shape
     if images.dtype != torch.float32 or C != 3:
@@ -246,11 +254,12 @@ def fused_prep_rgb(images, rois, out_size=256, normalize=True, passes=3):
             raise ValueError('fused_prep_rgb inputs must be contiguous and '
                              f'on {dev}')
     P = rois.shape[1]
-    out = torch.empty((S * P, out_size, out_size, 3), dtype=torch.bfloat16,
+    out = torch.empty((S * P, out_size, out_size, 3), dtype=out_dtype,
                       device=dev)
     rc = _build.library().io_prep_rgb(
         images.data_ptr(), rois.data_ptr(), out.data_ptr(), S, P, H, W,
         out_size, passes, int(bool(normalize)), BAND_ROWS,
+        int(out_dtype == torch.float32),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, 'fused_prep_rgb')
     fused_prep_rgb.launches += 1

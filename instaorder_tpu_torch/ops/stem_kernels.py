@@ -1,4 +1,4 @@
-"""Kernels 15 and 18: the fused ResNet stem, bf16/q8 and int8c
+"""Kernels 15 and 18: the fused ResNet stem, bf16/q8, f32 and int8c
 (csrc/stem.cu).
 
 Replaces instaorder_tpu/ops/pallas_blocks.py `fused_stem` (kernel body
@@ -21,14 +21,22 @@ writes chunk-planar with its 4C channels padded to 16-byte chunks
 the matching order (`stem_kernel_weights`, laid out once when the model
 is built on the card), and pools in its epilogue.
 
+The f32 mode (`fused_stem` given f32 x and w, which the TPU kernel
+computes in f32): bound by f32 operations (67 TFLOP/s outside the tensor
+cores; TF32 would miss the f32 bar), the conv runs direct on the CUDA
+cores at its real K = 49 C (no pack, no padded taps) against the HWIO
+weights as (49 C, Cout) rows, 64 output channels a CTA, the pool in the
+epilogue as in the bf16 kernel; no rounding below f32.
+
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
-launch the pack and the kernel or raise, and add one to `launches` per
-call. The card takes bf16 x and w and an f32 bias (f32 compute on the
-card is not ported: ROADMAP.md queue 2, "f32 on the card").
+launch the kernel (and the bf16 / int8 pack) or raise, and add one to
+`launches` per call. The card takes bf16 x and w, or f32 ones, and an
+f32 bias.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -75,15 +83,26 @@ def stem_pack_plain(x):
     return xs.reshape(n, hs, ws, J, cw).permute(0, 1, 3, 2, 4).contiguous()
 
 
+def _wk_shape(w):
+    """The shape of stem_kernel_weights(w)."""
+    k = 49 * w.shape[2] if w.dtype == torch.float32 \
+        else 16 * np.prod(stem_chunks(w.dtype))
+    return (w.shape[-1], int(k)) if w.dtype == torch.int8 \
+        else (int(k), w.shape[-1])
+
+
 def stem_kernel_weights(w):
     """HWIO stem weights (7, 7, C <= 5, Cout) -> the layout the card's
     stem kernel reads: the s2d weights (s2d_conv1_w) with their channels
     zero-padded to J * CW, rows in the kernel's K order k = (((du * 2 +
     dxp) * J + j) * 2 + e) * CW + i for tap (du, 2 dxp + e) and padded
     channel j * CW + i. bf16: (K, Cout), K = 384, read MN-major; int8:
-    (Cout, K), K = 512, since int8 wgmma reads B only K-major. Built once,
-    when the model is built on the card (models/folding
-    `add_stem_kernel_weights`)."""
+    (Cout, K), K = 512, since int8 wgmma reads B only K-major. f32 (the
+    direct conv on the CUDA cores): the HWIO weights as (49 C, Cout)
+    rows, K in (dy, dx, c) order. Built once, when the model is built on
+    the card (models/folding `add_stem_kernel_weights`)."""
+    if w.dtype == torch.float32:
+        return w.reshape(-1, w.shape[-1]).contiguous()
     J, cw = stem_chunks(w.dtype)
     co = w.shape[-1]
     w2 = s2d_conv1_w(w)
@@ -94,9 +113,7 @@ def stem_kernel_weights(w):
 
 
 def _check_wk(wk, w, dev, what):
-    J, cw = stem_chunks(w.dtype)
-    k, cout = 16 * J * cw, w.shape[-1]
-    shape = (cout, k) if w.dtype == torch.int8 else (k, cout)
+    shape = _wk_shape(w)
     if wk is None:
         raise ValueError(f'{what}: the card needs the stem\'s kernel weights '
                          '(wk=, stem_kernel_weights(w)), laid out once when '
@@ -146,30 +163,32 @@ def fused_stem(x, w, b, q8=False, wk=None):
     or 128 (the double-width siamese stem); b (Cout,) f32 on the card;
     wk: stem_kernel_weights(w), which the card needs (the CPU ignores it).
     -> (N, ceil(H/4), ceil(W/4), Cout) in x.dtype, or int8 with q8. The
-    card takes even H, W."""
+    card takes bf16 x with even H, W (q8 too), or f32 x (not q8)."""
     if x.device.type == 'cpu':
         return fused_stem_plain(x, w, b, q8=q8)
     dev = x.device
-    if x.dtype != torch.bfloat16:
-        raise ValueError(
-            f'fused_stem: x is {x.dtype}; the card takes bf16 activations '
-            '(f32 compute on the card is not ported: ROADMAP.md queue 2, '
-            '"f32 on the card")')
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f'fused_stem: x is {x.dtype}; the card takes bf16 '
+                         'or f32 activations')
+    if x.dtype == torch.float32 and q8:
+        raise ValueError('fused_stem: the q8 stem takes bf16 activations')
     N, H, W, C = x.shape
     cout = w.shape[-1]
     if tuple(w.shape) != (7, 7, C, cout) or C > 5 or cout not in (64, 128):
         raise ValueError(f'fused_stem: w must be (7, 7, C<=5, 64|128) for x '
                          f'{tuple(x.shape)}, got {tuple(w.shape)}')
-    if w.dtype != torch.bfloat16 or w.device != dev:
-        raise ValueError(f'fused_stem: w must be bf16 on {dev}')
+    if w.dtype != x.dtype or w.device != dev:
+        raise ValueError(f'fused_stem: w must be {str(x.dtype)[6:]} on {dev}')
     if (b.dtype != torch.float32 or b.device != dev
             or tuple(b.shape) != (cout,) or not b.is_contiguous()):
         raise ValueError(f'fused_stem: bias must be a contiguous ({cout},) '
                          f'f32 tensor on {dev}')
     if not x.is_contiguous():
         raise ValueError('fused_stem: x must be contiguous')
-    _check_hw(x, 'fused_stem')
     _check_wk(wk, w, dev, 'fused_stem')
+    if x.dtype == torch.float32:
+        return _fused_stem_f32(x, wk, b)
+    _check_hw(x, 'fused_stem')
     Hc, Wc = H // 2, W // 2
     out = torch.empty((N, (Hc - 1) // 2 + 1, (Wc - 1) // 2 + 1, cout),
                       dtype=torch.int8 if q8 else torch.bfloat16,
@@ -179,6 +198,24 @@ def fused_stem(x, w, b, q8=False, wk=None):
         b.data_ptr(), out.data_ptr(), N, H, W, C, cout, int(bool(q8)),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, 'fused_stem')
+    fused_stem.launches += 1
+    return out
+
+
+def _fused_stem_f32(x, wk, b):
+    N, H, W, C = x.shape
+    cout = wk.shape[-1]
+    if H < 1 or W < 1 or x.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f'fused_stem: the card takes f32 x of H, W >= 1 '
+                         f'and a bias, both 16-byte aligned, got x '
+                         f'{tuple(x.shape)}')
+    Hc, Wc = (H - 1) // 2 + 1, (W - 1) // 2 + 1
+    out = torch.empty((N, (Hc - 1) // 2 + 1, (Wc - 1) // 2 + 1, cout),
+                      dtype=torch.float32, device=x.device)
+    rc = _build.library().io_fused_stem_f32(
+        x.data_ptr(), wk.data_ptr(), b.data_ptr(), out.data_ptr(), N, H, W,
+        C, cout, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, 'fused_stem (f32)')
     fused_stem.launches += 1
     return out
 

@@ -3,12 +3,15 @@ threshold, the counterpart of the root bench.py megastep and its three
 profiles (`PROFILES`, `resolve_profile`):
 
   images (S, H, W, 3) + masks (S, N, H, W) + bboxes (S, N, 4)
-    -> pair_rois -> pair prep -> (S*P, 256, 256, 5) bf16
+    -> pair_rois -> pair prep -> (S*P, 256, 256, 5) bf16 (f32 for the
+       f32 model)
     -> parity:     apply_folded_siamese (bf16 folded ResNet-50)
        serving-d2: apply_folded_v2_siamese (boundary-int8 v2)
        serving-d1: apply_folded_v2, one direction per pair
        --dtype int8c (any profile): apply_folded_int8[_siamese], the
                    fully quantized int8 model
+       --dtype f32 (any profile): apply_folded[_siamese] of the folded
+                   f32 model (the kernels' f32 modes)
     -> logits -> i_over_j, j_over_i decisions (the swap average of both
        directions at directions=2)
 
@@ -49,9 +52,8 @@ PROFILES = {
 }
 
 
-# model dtypes the port serves (the root bench's --dtype without 'f32':
-# the CUDA wrappers take no f32, ROADMAP.md queue 2 "f32 on the card")
-DTYPES = ('int8c', 'int8', 'bf16')
+# model dtypes the port serves (the root bench's --dtype)
+DTYPES = ('int8c', 'int8', 'bf16', 'f32')
 
 
 def prep_precision_of(profile, prep_precision=None):
@@ -111,23 +113,25 @@ def upload_scenes(images, masks, bboxes, device=None):
 
 
 def prep_pairs(images, masks, bboxes, pair_idx, out_size=256, passes=1,
-               prep_rgb='pallas5', prep_precision='high', stage1_dtype=None):
-    """(S*P, out, out, 5) bf16 pair batch for every pair of every scene
-    through the `prep_rgb` route: the kernels at `passes`, 'einsum' at
-    `prep_precision` with its stage-1 intermediate in `stage1_dtype`
-    (None: f32)."""
+               prep_rgb='pallas5', prep_precision='high', stage1_dtype=None,
+               dtype=torch.bfloat16):
+    """(S*P, out, out, 5) pair batch in `dtype` (bf16, or f32 for the f32
+    model, as the root bench's prep_all writes its --dtype) for every
+    pair of every scene through the `prep_rgb` route: the kernels at
+    `passes`, 'einsum' at `prep_precision` with its stage-1 intermediate
+    in `stage1_dtype` (None: f32)."""
     rois = pair_rois(bboxes, pair_idx)
     if prep_rgb == 'einsum':
         return build_pair_batches_matmul(images, masks, pair_idx, rois,
-                                         out_size=out_size,
-                                         dtype=torch.bfloat16,
+                                         out_size=out_size, dtype=dtype,
                                          precision=prep_precision,
                                          stage1_dtype=stage1_dtype)
     if prep_rgb not in ('pallas', 'pallas5'):
         raise ValueError(f'unknown prep_rgb {prep_rgb!r}')
     return build_pair_batches_fused(images, masks, pair_idx, rois,
                                     out_size=out_size, passes=passes,
-                                    fuse_masks=prep_rgb == 'pallas5')
+                                    fuse_masks=prep_rgb == 'pallas5',
+                                    dtype=dtype)
 
 
 def _init_folded(seed, dev, weight_init):
@@ -193,17 +197,39 @@ def build_parity_model(seed, device=None, weight_init='xavier'):
     return params, cfg
 
 
+def build_f32_model(seed, device=None, weight_init='xavier'):
+    """The `--dtype f32` model: the same network from `seed`, BN-folded,
+    left in f32 (the root bench casts nothing at f32). On the card its
+    conv1 also gets the f32 stem kernel's weights
+    (add_stem_kernel_weights). Returns (params, cfg)."""
+    dev = resolve_device(device)
+    folded, cfg = _init_folded(seed, dev, weight_init)
+    if dev.type == 'cuda':
+        add_stem_kernel_weights(folded['conv1'])
+    return folded, cfg
+
+
 def build_model(profile, seed, calib_x, device=None, weight_init='xavier',
                 dtype=None):
     """The model of `profile`'s dtype, or of an explicit `dtype`:
-    build_parity_model for 'bf16', build_serving_model (calibrated on
-    `calib_x`) for 'int8', build_int8c_model for 'int8c'."""
+    build_parity_model for 'bf16', build_f32_model for 'f32',
+    build_serving_model (calibrated on `calib_x`) for 'int8',
+    build_int8c_model for 'int8c'."""
     dtype = resolve_profile(profile, dtype=dtype)['dtype']
-    if dtype == 'bf16':
-        return build_parity_model(seed, device=device,
-                                  weight_init=weight_init)
+    if dtype in ('bf16', 'f32'):
+        build = build_parity_model if dtype == 'bf16' else build_f32_model
+        return build(seed, device=device, weight_init=weight_init)
     build = build_int8c_model if dtype == 'int8c' else build_serving_model
     return build(seed, calib_x, device=device, weight_init=weight_init)
+
+
+def compute_dtype(q):
+    """The dtype a model's forward computes in, which its pair batch is
+    written in: bf16 for the int8c and v2 models (their prep is bf16, as
+    the root bench's), the folded model's own dtype (bf16 or f32)."""
+    if 'cfg_scales' in q or 's_feat' in q:
+        return torch.bfloat16
+    return q['conv1']['w'].dtype
 
 
 @torch.no_grad()
@@ -212,20 +238,24 @@ def megastep(q, cfg, images, masks, bboxes, pair_idx, out_size=256,
              prep_precision='high', stage1_dtype=None):
     """One serving step over S scenes. `q` is an int8c model
     (build_int8c_model, told by its 'cfg_scales' key), a v2 model
-    (build_serving_model) or a bf16 folded model (build_parity_model);
-    use_pallas is the kernel feature set (models/folding for the bf16
-    model, models/quantize for v2 and int8c; False runs no kernel in the
-    model, as the root bench's --no-pallas). prep_precision and
-    stage1_dtype steer the einsum prep (`prep_pairs`).
+    (build_serving_model) or a folded model, bf16 (build_parity_model)
+    or f32 (build_f32_model), which computes in its own dtype
+    (`compute_dtype`, also the pair batch's); use_pallas is the kernel
+    feature set (models/folding for the folded model, models/quantize
+    for v2 and int8c; False runs no kernel in the model, as the root
+    bench's --no-pallas). prep_precision and stage1_dtype steer the
+    einsum prep (`prep_pairs`).
 
     Returns (logits, i_over_j (S*P,) bool, j_over_i (S*P,) bool), logits
     (S*P, 2) f32 at directions=1 and the pair (out1, out2) at
     directions=2 (out2 is the mask-swapped direction)."""
     if directions not in (1, 2):
         raise ValueError(f'directions must be 1 or 2, got {directions}')
+    cdt = compute_dtype(q)
     x = prep_pairs(images, masks, bboxes, pair_idx, out_size=out_size,
                    passes=passes, prep_rgb=prep_rgb,
-                   prep_precision=prep_precision, stage1_dtype=stage1_dtype)
+                   prep_precision=prep_precision, stage1_dtype=stage1_dtype,
+                   dtype=cdt)
     if 'cfg_scales' in q:
         fwd = Q.apply_folded_int8_siamese if directions == 2 \
             else Q.apply_folded_int8
@@ -236,7 +266,7 @@ def megastep(q, cfg, images, masks, bboxes, pair_idx, out_size=256,
         logits = fwd(q, cfg, x, use_pallas=use_pallas)
     else:
         fwd = apply_folded_siamese if directions == 2 else apply_folded
-        logits = fwd(q, cfg, x, dtype=torch.bfloat16, use_pallas=use_pallas)
+        logits = fwd(q, cfg, x, dtype=cdt, use_pallas=use_pallas)
     i_over_j, j_over_i = decode_occ(*logits) if directions == 2 \
         else decode_occ(logits)
     return logits, i_over_j, j_over_i

@@ -4,7 +4,8 @@ kernel (torch.profiler, CUDA activity) and the device's idle share over
 the traced steps, at the bench.py configuration.
 
     python -m instaorder_tpu_torch.trace [--profile serving-d1]
-        [--dtype int8c|int8|bf16] [--prep-rgb ...] [--pallas-features ...]
+        [--dtype int8c|int8|bf16|f32] [--prep-rgb ...]
+        [--pallas-features ...]
         [--no-pallas] [--directions 1|2] [--prep-precision ...]
         [--prep-stage1 f32|bf16]
         [--pairs-per-step 1620]

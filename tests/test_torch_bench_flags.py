@@ -4,8 +4,7 @@
   * serving.resolve_profile (through the port bench's own parser) equals
     the root bench's resolve_profile over every profile x --directions x
     --prep-precision x --dtype x --prep-rgb combination (the root's is
-    pinned by tests/test_bench_profiles.py); --dtype f32 is refused
-    (ROADMAP.md queue 2);
+    pinned by tests/test_bench_profiles.py), --dtype f32 included;
   * the einsum prep at 'highest' against JAX build_pair_batch_matmul
     (precision=HIGHEST); at 'high', 'default' and stage1 bf16 against a
     JAX einsum written here whose operands are split or cast as the TPU
@@ -71,11 +70,12 @@ def test_resolve_profile_matches_root_bench(root_bench, profile):
         want = root_bench.resolve_profile(
             root_bench.build_parser().parse_args(argv))
         if dtype == 'f32':
-            with pytest.raises(SystemExit):       # not a --dtype choice
-                tbench.build_parser().parse_args(argv)
-            with pytest.raises(ValueError, match='dtype'):
-                serving.resolve_profile(profile, dtype='f32')
-            continue
+            # the port resolves --dtype f32 as the root does: the dtype
+            # is a choice of both parsers and the profile's other
+            # settings do not depend on it
+            assert 'f32' in serving.DTYPES
+            assert serving.resolve_profile(profile, dtype='f32')[
+                'dtype'] == want.dtype == 'f32'
         got = tbench.resolve(tbench.build_parser().parse_args(argv))
         assert (got['dtype'], got['directions'], got['prep_rgb'],
                 got['prep_precision']) == (want.dtype, want.directions,

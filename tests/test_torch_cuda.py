@@ -178,6 +178,18 @@ def test_prep_kernels_adversarial_rois_exact(dev, out_size, passes):
         assert n == 0, f'{n} differing values (normalize={normalize})'
 
 
+def _f32_close(got, want, bar=2e-5):
+    """The f32 bar: max |got - want| <= bar * max |want| (2e-5 for blocks
+    and the GEMM, per chained block; 1e-5 for the stem), over 5% of the
+    values nonzero."""
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert err <= bar * scale, (err, scale)
+    assert float((want != 0).float().mean()) > 0.05, 'degenerate test data'
+
+
 def _bf16_close(got, want):
     """max |got - want| <= 1e-2 max |want|; under 1% of values more than
     one bf16 ulp (of the plain value) apart."""
@@ -329,14 +341,23 @@ def test_prep_rgb_kernel_odd_sizes(dev, passes, normalize):
 
 
 def test_bf16_kernel_wrappers_refuse_bad_inputs(dev):
-    """f32 activations on the card and non-f32 biases raise."""
+    """f32 activations launch the f32 mode (within 2e-5 of the output
+    scale of the plain version; with bf16 weights they raise); non-f32
+    biases raise."""
     from instaorder_tpu_torch.ops import bottleneck_bf16_kernels as B16
     from instaorder_tpu_torch.ops import stem_kernels as SK
     rng = np.random.RandomState(0)
     p = _bf16_blk(rng, dev, 64, 64, 64, False)
     x = torch.zeros((1, 8, 8, 64), dtype=torch.float32, device=dev)
-    with pytest.raises(ValueError, match='f32 on the card'):
+    with pytest.raises(ValueError, match='weight'):
         B16.fused_bottleneck(x, *p)
+    x32 = torch.as_tensor(rng.randn(1, 8, 8, 64), dtype=torch.float32,
+                          device=dev)
+    p32 = [a.float() for a in p]
+    before = B16.fused_bottleneck.launches
+    got = B16.fused_bottleneck(x32, *p32)
+    _launched(B16.fused_bottleneck, before)
+    _f32_close(got, B16.fused_bottleneck_plain(x32, *p32))
     pb = [a if i % 2 == 0 else a.bfloat16() for i, a in enumerate(p)]
     with pytest.raises(ValueError, match='bias'):
         B16.fused_bottleneck(x.bfloat16(), *pb)
@@ -344,13 +365,22 @@ def test_bf16_kernel_wrappers_refuse_bad_inputs(dev):
     pd[7] = pd[7].bfloat16()
     with pytest.raises(ValueError, match='bias'):
         B16.fused_bottleneck_down(x.bfloat16(), *pd, stride=2)
-    xs = torch.zeros((1, 32, 32, 5), dtype=torch.float32, device=dev)
-    w = torch.zeros((7, 7, 5, 64), dtype=torch.bfloat16, device=dev)
-    b = torch.zeros((64,), dtype=torch.float32, device=dev)
-    with pytest.raises(ValueError, match='f32 on the card'):
-        SK.fused_stem(xs, w, b)
+    xs = torch.as_tensor(rng.randn(1, 32, 32, 5), dtype=torch.float32,
+                         device=dev)
+    w = torch.as_tensor(rng.randn(7, 7, 5, 64) / np.sqrt(245),
+                        dtype=torch.float32, device=dev)
+    b = torch.as_tensor(rng.randn(64) * 0.1, dtype=torch.float32, device=dev)
+    before = SK.fused_stem.launches
+    got = SK.fused_stem(xs, w, b, wk=SK.stem_kernel_weights(w))
+    assert SK.fused_stem.launches == before + 1
+    _f32_close(got, SK.fused_stem_plain(xs, w, b), 1e-5)
+    with pytest.raises(ValueError, match='w must be float32'):
+        SK.fused_stem(xs, w.bfloat16(), b,
+                      wk=SK.stem_kernel_weights(w.bfloat16()))
+    with pytest.raises(ValueError, match='q8'):
+        SK.fused_stem(xs, w, b, q8=True, wk=SK.stem_kernel_weights(w))
     with pytest.raises(ValueError, match='bias'):
-        SK.fused_stem(xs.bfloat16(), w, b.bfloat16())
+        SK.fused_stem(xs.bfloat16(), w.bfloat16(), b.bfloat16())
 
 
 # ---------------------------------------------------------------------------
@@ -617,14 +647,21 @@ def test_variant_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(ValueError, match='one residual scale'):
         BK.fused_bottleneck_i8v2_stage(x, None, [p], [])
     pb = _bf16_blk(rng, dev, 64, 64, 64, False)
-    xf = torch.zeros((1, 8, 8, 64), dtype=torch.float32, device=dev)
+    pf = [a.float() for a in pb]
+    xf = torch.as_tensor(rng.randn(1, 8, 8, 64), dtype=torch.float32,
+                         device=dev)
+    # f32 activations launch the f32 mode (no fallback to a plain chain)
     for fn in (B16.fused_bottleneck_stage, B16.fused_bottleneck_stage_stream):
-        with pytest.raises(ValueError, match='f32 on the card'):
-            fn(xf, [pb])
+        before = fn.launches
+        got = fn(xf, [pf])
+        _launched(fn, before)
+        _f32_close(got, B16.fused_bottleneck_stage_plain(xf, [pf]))
         with pytest.raises(ValueError, match='at least one block'):
             fn(xf.bfloat16(), [])
-    with pytest.raises(ValueError, match='f32 on the card'):
-        B16.fused_bottleneck_hwnc(xf, *pb)
+    before = B16.fused_bottleneck_hwnc.launches
+    got = B16.fused_bottleneck_hwnc(xf, *pf)
+    _launched(B16.fused_bottleneck_hwnc, before)
+    _f32_close(got, B16.fused_bottleneck_hwnc_plain(xf, *pf))
 
 
 # ---------------------------------------------------------------------------
@@ -874,20 +911,38 @@ def test_predictor_factories_card_vs_cpu(dev, factory):
 
 
 def test_f32_predictor_refuses_card_kernels(dev):
-    """The f32 model runs no kernel on the card (f32 kernels are queue 2):
-    asking for one raises; use_pallas=False builds."""
+    """The f32 model (dtype=None) runs the kernels' f32 modes on the card:
+    each feature set launches its kernels, and the logits stay within
+    1e-5 of max |logit| of the same predictor on the CPU, matrices
+    equal; use_pallas=False launches none."""
     from instaorder_tpu_torch.eval import pipeline as TPL
     from instaorder_tpu_torch.models import resnet
+    from instaorder_tpu_torch.ops import bottleneck_bf16_kernels as B16
+    from instaorder_tpu_torch.ops import stem_kernels as SK
     gen = torch.Generator().manual_seed(0)
     params, stats, cfg = resnet.init(gen, arch='resnet50', in_channels=5,
                                      num_classes=2, layers_override=(1,) * 4)
-    for use_pallas in (True, ('stem',), ('identity', 'down')):
-        with pytest.raises(ValueError, match='queue 2'):
-            TPL.make_folded_predictor(params, stats, cfg, 'InstaOrderNet_o',
-                                      use_pallas=use_pallas, device=dev)
-    pred = TPL.make_folded_predictor(params, stats, cfg, 'InstaOrderNet_o',
-                                     device=dev)
-    assert pred.device.type == 'cuda'
+    params['fc'] = {k: v * 100.0 for k, v in params['fc'].items()}
+    scene = _pred_scene(4)
+    wrappers = (B16.fused_bottleneck, B16.fused_bottleneck_down, SK.fused_stem)
+    for use_pallas, want in ((False, (0, 0, 0)), (True, (0, 0, 0)),
+                             (('stem',), (0, 0, 1)),
+                             (('identity', 'down', 'stem'), (0, 3, 1))):
+        pred = TPL.make_folded_predictor(params, stats, cfg,
+                                         'InstaOrderNet_o', input_size=64,
+                                         use_pallas=use_pallas, device=dev)
+        assert pred.device.type == 'cuda'
+        assert pred.params['conv1']['wk'].dtype == torch.float32
+        before = [w.launches for w in wrappers]
+        _, _, g1, g2, _ = pred.pair_outputs(*scene)
+        assert tuple(w.launches - b for w, b in zip(wrappers, before)) == want
+        _, _, w1, w2, _ = pred.to('cpu').pair_outputs(*scene)
+        for g, w in ((g1, w1), (g2, w2)):
+            scale = float(w.abs().max())
+            assert scale > 0.1
+            assert float((g.cpu() - w).abs().max()) <= 1e-5 * scale
+        np.testing.assert_array_equal(pred.infer_occ_order(*scene),
+                                      pred.to('cpu').infer_occ_order(*scene))
 
 
 @pytest.mark.parametrize('precision', ['default', 'high', 'highest'])
@@ -916,3 +971,187 @@ def test_einsum_prep_precisions_card_vs_cpu(dev, precision, stage1):
     d = (got[..., 2:] - want[..., 2:]).abs()
     assert float(d.max()) <= 1.0 / (255 * 0.224) + 1e-6
     assert float((d > 1e-5).float().mean()) < 0.01
+
+
+# ---------------------------------------------------------------------------
+# the f32 modes (the folded model at f32): the implicit-GEMM kernel's f32
+# mode (csrc/bottleneck_f32.cu) one launch at a time and as blocks, the
+# f32 stem and the RGB prep's f32 output, each against its plain version
+# on the card with TF32 off (resolve_device) within the f32 bar
+# ---------------------------------------------------------------------------
+
+
+def _f32(rng, dev, *shape, scale=1.0):
+    return torch.as_tensor(rng.randn(*shape) * scale, dtype=torch.float32,
+                           device=dev)
+
+
+@pytest.mark.parametrize('n,hw,cin,cout,ksize,stride', [
+    (1, 7, 64, 64, 1, 1),        # one K step pair, M = 49, 128 x 64 tile
+    (2, 9, 96, 128, 1, 1),       # K = 96: three steps, M = 162
+    (2, 5, 512, 2048, 1, 1),     # Cout = 2048
+    (2, 9, 64, 64, 3, 2),        # the stride-2 3x3 at the edges
+    (3, 6, 128, 128, 3, 1)])
+def test_gemm_f32_tiles(dev, n, hw, cin, cout, ksize, stride):
+    from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    rng = np.random.RandomState(200 + cin + ksize)
+    x = _f32(rng, dev, n, hw, hw, cin)
+    w = _f32(rng, dev, ksize, ksize, cin, cout,
+             scale=1 / np.sqrt(ksize * ksize * cin))
+    b = _f32(rng, dev, cout, scale=0.1)
+    ho = (hw - 1) // stride + 1
+    out = torch.empty((n, ho, ho, cout), dtype=torch.float32, device=dev)
+    got = BK._gemm(out, [(x, w.reshape(-1, cout), stride, ksize)], b,
+                   BK._RELU_F32)
+    if ksize == 1:
+        want = torch.relu(x[:, ::stride, ::stride] @ w[0, 0] + b)
+    else:
+        want = torch.relu(BK._conv3x3(x, w, stride) + b)
+    _f32_close(got, want)
+
+
+@pytest.mark.parametrize('n,hw,cm,cin,cout,stride', [
+    (2, 9, 64, 64, 256, 2), (1, 7, 128, 256, 512, 1), (3, 5, 64, 96, 128, 1)])
+def test_gemm_f32_kpacked_projection(dev, n, hw, cm, cin, cout, stride):
+    """relu([h2 | x_s] . [[w3], [wd]] + b3 + bd) in one f32 sum."""
+    from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    rng = np.random.RandomState(220 + cin)
+    ho = (hw - 1) // stride + 1
+    h2 = torch.relu(_f32(rng, dev, n, ho, ho, cm))
+    x = _f32(rng, dev, n, hw, hw, cin)
+    w3 = _f32(rng, dev, cm, cout, scale=1 / np.sqrt(cm))
+    wd = _f32(rng, dev, cin, cout, scale=1 / np.sqrt(cin))
+    b3, bd = _f32(rng, dev, cout, scale=0.1), _f32(rng, dev, cout, scale=0.1)
+    out = torch.empty((n, ho, ho, cout), dtype=torch.float32, device=dev)
+    got = BK._gemm(out, [(h2, w3, 1, 1), (x, wd, stride, 1)], b3,
+                   BK._RES_RELU_F32, bias2=bd)
+    want = torch.relu(h2 @ w3 + b3 + (x[:, ::stride, ::stride] @ wd + bd))
+    _f32_close(got, want)
+
+
+def test_gemm_f32_refuses_mixed_types(dev):
+    """An f32 output with bf16 operands (or a bf16 residual) is refused
+    before the launch: the f32 mode never rounds."""
+    from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    rng = np.random.RandomState(230)
+    x = _f32(rng, dev, 1, 4, 4, 64)
+    w = _f32(rng, dev, 64, 64)
+    b = _f32(rng, dev, 64)
+    out = torch.empty((1, 4, 4, 64), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match='float32'):
+        BK._gemm(out, [(x.bfloat16(), w, 1, 1)], b, BK._RELU_F32)
+    with pytest.raises(ValueError, match='weight'):
+        BK._gemm(out, [(x, w.bfloat16(), 1, 1)], b, BK._RELU_F32)
+    with pytest.raises(ValueError, match='residual'):
+        BK._gemm(out, [(x, w, 1, 1)], b, BK._RES_RELU_F32,
+                 res=x.bfloat16(), r=1.0)
+
+
+@pytest.mark.parametrize('n,hw', [(1, 7), (3, 10), (2, 13)])
+def test_f32_identity_kernel_ragged(dev, n, hw):
+    from instaorder_tpu_torch.ops import bottleneck_bf16_kernels as B16
+    rng = np.random.RandomState(240 + n)
+    x = _f32(rng, dev, n, hw, hw, 256)
+    p = [a.float() for a in _bf16_blk(rng, dev, 256, 64, 256, False)]
+    before = B16.fused_bottleneck.launches
+    got = B16.fused_bottleneck(x, *p)
+    _launched(B16.fused_bottleneck, before)
+    _f32_close(got, B16.fused_bottleneck_plain(x, *p))
+
+
+@pytest.mark.parametrize('stride,n,hw', [(1, 3, 9), (2, 1, 9), (2, 3, 14)])
+def test_f32_down_kernel_ragged(dev, stride, n, hw):
+    from instaorder_tpu_torch.ops import bottleneck_bf16_kernels as B16
+    rng = np.random.RandomState(250 + hw)
+    x = _f32(rng, dev, n, hw, hw, 64)
+    p = [a.float() for a in _bf16_blk(rng, dev, 64, 64, 128, True)]
+    before = B16.fused_bottleneck_down.launches
+    got = B16.fused_bottleneck_down(x, *p, stride=stride)
+    _launched(B16.fused_bottleneck_down, before)
+    assert got.shape[1] == (hw - 1) // stride + 1
+    _f32_close(got, B16.fused_bottleneck_down_plain(x, *p, stride=stride))
+
+
+@pytest.mark.parametrize('n,hw,c,cm,k', [(2, 9, 256, 64, 2),
+                                         (1, 13, 512, 128, 3)])
+def test_f32_stage_and_hwnc_kernels(dev, n, hw, c, cm, k):
+    """Kernels 11, 12 (k identity blocks; the bar per chained block) and
+    14 at f32."""
+    from instaorder_tpu_torch.ops import bottleneck_bf16_kernels as B16
+    rng = np.random.RandomState(260 + hw)
+    x = _f32(rng, dev, n, hw, hw, c)
+    blocks = [[a.float() for a in _bf16_blk(rng, dev, c, cm, c, False)]
+              for _ in range(k)]
+    want = B16.fused_bottleneck_stage_plain(x, blocks)
+    for fn in (B16.fused_bottleneck_stage, B16.fused_bottleneck_stage_stream):
+        before = fn.launches
+        got = fn(x, blocks)
+        _launched(fn, before)
+        _f32_close(got, want, 2e-5 * k)
+    before = B16.fused_bottleneck_hwnc.launches
+    got = B16.fused_bottleneck_hwnc(x, *blocks[0])
+    _launched(B16.fused_bottleneck_hwnc, before)
+    _f32_close(got, B16.fused_bottleneck_hwnc_plain(x, *blocks[0]))
+
+
+@pytest.mark.parametrize('n,hw,cout,c', [
+    (1, 36, 64, 5), (3, 50, 128, 5), (2, 31, 128, 3), (9, 256, 128, 5),
+    (1, 47, 64, 1)])
+def test_f32_stem_kernel(dev, n, hw, cout, c):
+    """Pooled sizes 9, 13, 8, 64 and 12: strips that do not divide the
+    output, odd sizes (the f32 stem takes any H, W), both channel halves,
+    the serving shape with persistent CTAs walking several items, and
+    C = 1 and 3."""
+    from instaorder_tpu_torch.ops import stem_kernels as SK
+    rng = np.random.RandomState(270 + hw)
+    x = _f32(rng, dev, n, hw, hw, c)
+    w = _f32(rng, dev, 7, 7, c, cout, scale=1 / np.sqrt(49 * c))
+    b = _f32(rng, dev, cout, scale=0.1)
+    before = SK.fused_stem.launches
+    got = SK.fused_stem(x, w, b, wk=SK.stem_kernel_weights(w))
+    assert SK.fused_stem.launches == before + 1
+    ho = ((hw - 1) // 2) // 2 + 1
+    assert tuple(got.shape) == (n, ho, ho, cout)
+    _f32_close(got, SK.fused_stem_plain(x, w, b), 1e-5)
+
+
+def test_f32_stem_wide_image(dev):
+    """A 480 x 640 input (the 'orig' predictor mode): three column tiles
+    of pooled columns."""
+    from instaorder_tpu_torch.ops import stem_kernels as SK
+    rng = np.random.RandomState(280)
+    x = _f32(rng, dev, 2, 480, 640, 5)
+    w = _f32(rng, dev, 7, 7, 5, 64, scale=1 / np.sqrt(245))
+    b = _f32(rng, dev, 64, scale=0.1)
+    got = SK.fused_stem(x, w, b, wk=SK.stem_kernel_weights(w))
+    assert tuple(got.shape) == (2, 120, 160, 64)
+    _f32_close(got, SK.fused_stem_plain(x, w, b), 1e-5)
+
+
+@pytest.mark.parametrize('passes,normalize', [(1, True), (3, True),
+                                              (3, False)])
+def test_prep_rgb_f32_out_odd_sizes(dev, passes, normalize):
+    """Kernel 5's f32-output mode equal to its plain version run on the
+    CPU on every value (the card's PyTorch divides by a Python scalar as
+    a multiply by the reciprocal), and to the bf16 mode once rounded."""
+    from instaorder_tpu_torch import serving
+    from instaorder_tpu_torch.ops import pairs as P
+    from instaorder_tpu_torch.ops import prep_kernels as PK
+    images, masks, bboxes = serving.synthetic_scenes(3, 131, 203, 4, seed=6)
+    sc = serving.upload_scenes(images, masks, bboxes, device=dev)
+    pidx = torch.as_tensor(P.all_pair_indices(4)[0], device=dev)
+    rois = P.pair_rois(sc[2], pidx).contiguous()
+    rois[1, 2] = torch.tensor([-40.0, -30.0, 260.0, 260.0])  # off-image
+    before = PK.fused_prep_rgb.launches
+    got = PK.fused_prep_rgb(sc[0], rois, out_size=72, normalize=normalize,
+                            passes=passes, out_dtype=torch.float32)
+    assert PK.fused_prep_rgb.launches == before + 1
+    assert got.dtype == torch.float32
+    want = PK.fused_prep_rgb_plain(sc[0].cpu(), rois.cpu(), out_size=72,
+                                   normalize=normalize, passes=passes,
+                                   out_dtype=torch.float32)
+    n = int((got.cpu() != want).sum())
+    assert n == 0, f'{n} differing values'
+    b16 = PK.fused_prep_rgb(sc[0], rois, out_size=72, normalize=normalize,
+                            passes=passes)
+    assert torch.equal(got.bfloat16(), b16)

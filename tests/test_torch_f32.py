@@ -1,0 +1,422 @@
+"""The port's f32 route (`--dtype f32`, the f32 predictor) against the JAX
+package on the CPU: the f32 megastep at directions 1 and 2 with each
+kernel feature set and its prep, kernel 5's f32-output mode, the f32
+folded predictor with kernels, and the host-side layouts of the card's
+f32 kernels (the stem's weights, the GEMM's K step and thread tiles).
+
+Geometry: ResNet-50 widths at layers (3, 2, 1, 1) (a layer1 identity run
+of two blocks for `stage` / `sstage`), 2 scenes of 96 x 128 with 3
+instances (6 pairs, 12 images at directions 2), 64 x 64 crops; weights
+made in JAX from a seed, the head scaled so that decisions are sure.
+JAX's Pallas kernels run in interpret mode.
+
+Bars: the pair batch at the prep bar (masks exact, RGB within one uint8
+LSB, 1 / (255 * 0.224) in f32, with under 1% of pixels more than 1e-5
+apart: the two f32 normalisations differ by an ulp on most pixels, see
+tests/test_torch_pipeline.py); the forward on the same batch within
+1e-5 of max |logit| (f32 sums in another order), its decisions equal
+where JAX is sure; the kernel wrappers called as often as JAX's kernels.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from instaorder_tpu.eval import pipeline as JPL
+from instaorder_tpu.models import folding as JF
+from instaorder_tpu.models import resnet as jresnet
+from instaorder_tpu.ops import pairs as JP
+from instaorder_tpu.ops import pallas_blocks as PB
+from instaorder_tpu.ops.prep_pallas import fused_prep_rgb as j_prep_rgb
+
+from test_torch_pipeline import scene
+from test_torch_pipeline_factories import KW, _nets, hold_factory
+
+from instaorder_tpu_torch import bench as tbench
+from instaorder_tpu_torch import convert, serving
+from instaorder_tpu_torch.eval import pipeline as TPL
+from instaorder_tpu_torch.models import folding as TF
+from instaorder_tpu_torch.ops import gemm_layout
+from instaorder_tpu_torch.ops import pairs as TP
+from instaorder_tpu_torch.ops import prep_kernels as PK
+from instaorder_tpu_torch.ops import stem_kernels as SK
+
+OUT = 64
+LSB = 1.0 / (255 * 0.224) + 1e-6
+KFEATS = ('identity', 'down', 'stem')
+JAX_KERNELS = ('fused_bottleneck', 'fused_bottleneck_down',
+               'fused_bottleneck_stage', 'fused_bottleneck_stage_stream',
+               'fused_bottleneck_hwnc', 'fused_stem')
+HEAD_GAIN = 100.0
+
+
+@pytest.fixture(scope='module')
+def net():
+    """The folded net (jitted init and fold: seconds, not op by op), its
+    head scaled by HEAD_GAIN, and the same tree in torch."""
+    box = {}
+
+    def init(k):
+        p, s, box['cfg'] = jresnet.init(k, arch='resnet50', in_channels=5,
+                                        num_classes=2,
+                                        layers_override=(3, 2, 1, 1))
+        return JF.fold_resnet(p, s, box['cfg'])
+    folded = jax.device_get(jax.jit(init)(jax.random.PRNGKey(2)))
+    cfg = box['cfg']
+    folded['fc'] = {k: np.asarray(v) * np.float32(HEAD_GAIN)
+                    for k, v in folded['fc'].items()}
+    return folded, convert.to_torch(folded), cfg
+
+
+@pytest.fixture
+def calls(monkeypatch):
+    """JAX's kernels in interpret mode, and every kernel call of both
+    packages counted by name."""
+    seen = {'jax': {}, 'port': {}}
+
+    def spy(side, name, orig, **extra):
+        def f(*a, **kw):
+            seen[side][name] = seen[side].get(name, 0) + 1
+            return orig(*a, **dict(kw, **extra))
+        return f
+
+    for n in JAX_KERNELS:
+        monkeypatch.setattr(PB, n, spy('jax', n, getattr(PB, n),
+                                       interpret=True))
+    for n in JAX_KERNELS[:-1]:
+        monkeypatch.setattr(TF.bk16, n, spy('port', n, getattr(TF.bk16, n)))
+    monkeypatch.setattr(TF, 'fused_stem',
+                        spy('port', 'fused_stem', TF.fused_stem))
+    return seen
+
+
+def _scenes(seed=3, S=2, H=96, W=128, N=3):
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 255, (S, H, W, 3)).astype(np.float32)
+    masks = np.zeros((S, N, H, W), np.float32)
+    bboxes = np.zeros((S, N, 4), np.float32)
+    for s in range(S):
+        for k in range(N):
+            y0, x0 = rng.randint(0, H - 40), rng.randint(0, W - 40)
+            hh, ww = rng.randint(15, 40, 2)
+            masks[s, k, y0:y0 + hh, x0:x0 + ww] = 1
+            bboxes[s, k] = [x0, y0, ww, hh]
+    pidx, _ = JP.all_pair_indices(N)
+    return images, masks, bboxes, pidx
+
+
+def _jax_prep(images, masks, bboxes, pidx, route, passes):
+    """The root bench's prep_all at --dtype f32 (bench.py:222-239)."""
+    pj = jnp.asarray(pidx)
+    if route == 'einsum':
+        def prep(im, m, b):
+            return JP.build_pair_batch_matmul(
+                im, m, pj, JP.pair_rois(b, pj), out_size=OUT,
+                dtype=jnp.float32, precision=jax.lax.Precision.HIGH)
+        x = jax.vmap(prep)(jnp.asarray(images), jnp.asarray(masks),
+                           jnp.asarray(bboxes))
+        return np.asarray(x).reshape(-1, OUT, OUT, 5)
+    rois = jax.vmap(lambda b: JP.pair_rois(b, pj))(jnp.asarray(bboxes))
+    return np.asarray(JP.build_pair_batches_fused(
+        jnp.asarray(images), jnp.asarray(masks), pj, rois, out_size=OUT,
+        dtype=jnp.float32, passes=passes, fuse_masks=route == 'pallas5',
+        interpret=True))
+
+
+def _prep_close(got, want):
+    """The prep bar in f32 units."""
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got[..., :2], want[..., :2])
+    d = np.abs(got[..., 2:] - want[..., 2:])
+    assert d.max() <= LSB and (d > 1e-5).mean() < 0.01, d.max()
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                 1e-6)
+
+
+# (use_pallas, prep route, passes): the root bench's default set with its
+# default prep, parity's kernel set with the RGB kernel, and the other
+# feature sets with parity's einsum prep
+ROUTES = [(True, 'pallas5', 1), (KFEATS, 'pallas', 3),
+          (('stage',), 'einsum', 3), (('sstage',), 'einsum', 3),
+          (('hwnc',), 'pallas5', 3)]
+
+
+@pytest.mark.parametrize('directions', [1, 2])
+@pytest.mark.parametrize('use_pallas,prep_rgb,passes', ROUTES)
+def test_f32_megastep_matches_jax(net, calls, use_pallas, prep_rgb, passes,
+                                  directions):
+    """serving.megastep on the f32 model (the root bench's --dtype f32:
+    bench.py:190, 329-345) against JAX's apply_folded[_siamese] at
+    dtype=jnp.float32 on the port's own pair batch, which is held
+    against JAX's prep first."""
+    folded, tf, cfg = net
+    images, masks, bboxes, pidx = _scenes()
+    sc = [torch.from_numpy(a) for a in (images, masks, bboxes)]
+    assert serving.compute_dtype(tf) == torch.float32
+    kw = dict(out_size=OUT, passes=passes, prep_rgb=prep_rgb)
+    x = serving.prep_pairs(*sc, pidx, dtype=torch.float32, **kw).numpy()
+    _prep_close(x, _jax_prep(images, masks, bboxes, pidx, prep_rgb, passes))
+    logits, ij, ji = serving.megastep(tf, cfg, *sc, pidx, **kw,
+                                      directions=directions,
+                                      use_pallas=use_pallas)
+    if directions == 2:
+        want = JF.apply_folded_siamese(folded, cfg, jnp.asarray(x),
+                                       dtype=jnp.float32,
+                                       use_pallas=use_pallas)
+    else:
+        want = (JF.apply_folded(folded, cfg, jnp.asarray(x),
+                                dtype=jnp.float32, use_pallas=use_pallas),)
+        logits = (logits,)
+    for g, w in zip(logits, want):
+        assert g.dtype == torch.float32 and g.shape == (6, 2)
+        assert _rel(g.numpy(), w) <= 1e-5, _rel(g.numpy(), w)
+        assert float(np.abs(np.asarray(w)).max()) > 0.1
+    # decisions equal where JAX is sure
+    s = [1.0 / (1.0 + np.exp(-np.asarray(w, np.float64))) for w in want]
+    p_ij, p_ji = ((s[0][:, 1] + s[1][:, 0]) / 2,
+                  (s[0][:, 0] + s[1][:, 1]) / 2) if directions == 2 \
+        else (s[0][:, 1], s[0][:, 0])
+    for p, dec in ((p_ij, ij), (p_ji, ji)):
+        # (the swap average of this random net's directions stays near
+        # 0.5: at directions=2 no decision may be sure)
+        sure = np.abs(p - 0.5) > 1e-2
+        assert sure.any() or directions == 2
+        np.testing.assert_array_equal(dec.numpy()[sure], p[sure] > 0.5)
+    assert calls['port'] == calls['jax'] and calls['port'], calls
+
+
+def test_f32_resolves_like_the_root_bench():
+    """--dtype f32 runs the folded f32 model with the bf16 default
+    feature set, its prep in f32; no calibration batch is needed."""
+    args = tbench.build_parser().parse_args(['--dtype', 'f32'])
+    prof = tbench.resolve(args)
+    assert (prof['dtype'], prof['directions'], prof['prep_rgb']) == (
+        'f32', 1, 'pallas5')
+    q, cfg = serving.build_model('serving-d1', 0, None, device='cpu',
+                                 dtype='f32', weight_init='kaiming_out')
+    assert serving.compute_dtype(q) == torch.float32
+    assert set(q['conv1']) == {'w', 'b'}       # no kernel weights on the CPU
+    assert all(t.dtype == torch.float32 for t in (
+        q['conv1']['w'], q['layer4'][0]['down']['b'], q['fc']['w']))
+    images, masks, bboxes, pidx = _scenes(seed=4)
+    sc = serving.upload_scenes(images, masks, bboxes, device='cpu')
+    for prep_rgb in ('einsum', 'pallas', 'pallas5'):
+        x = serving.prep_pairs(*sc, pidx, out_size=OUT, prep_rgb=prep_rgb,
+                               dtype=torch.float32)
+        assert x.dtype == torch.float32 and x.shape == (6, OUT, OUT, 5)
+    logits, ij, _ = serving.megastep(q, cfg, *sc, pidx, out_size=OUT)
+    assert logits.dtype == torch.float32 and logits.shape == (6, 2)
+    assert torch.isfinite(logits).all() and ij.shape == (6,)
+
+
+# ---- kernel 5's f32-output mode ---------------------------------------------
+
+
+def _prep_scenes(seed, S=2, H=96, W=128, N=4):
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 255, (S, H, W, 3)).astype(np.float32)
+    masks = (rng.rand(S, N, H, W) > 0.6).astype(np.float32)
+    bboxes = np.zeros((S, N, 4), np.float32)
+    for s in range(S):
+        for k in range(N):
+            y0, x0 = rng.randint(0, H - 20), rng.randint(0, W - 20)
+            hh, ww = rng.randint(5, 60, 2)
+            bboxes[s, k] = [x0, y0, ww, hh]
+    pidx, _ = JP.all_pair_indices(N)
+    rois = np.array(jax.vmap(lambda b: JP.pair_rois(b, jnp.asarray(pidx)))(
+        jnp.asarray(bboxes)))
+    return images, masks, pidx, rois
+
+
+@pytest.mark.parametrize('passes', [3, 1])
+@pytest.mark.parametrize('normalize', [True, False])
+def test_prep_rgb_f32_out_matches_pallas_f32(passes, normalize):
+    """fused_prep_rgb(out_dtype=f32) against the JAX kernel's f32 output
+    in interpret mode (one uint8 LSB: 1 / (255 * 0.224) normalised, 1 on
+    the raw integers); the bf16 mode is the f32 mode rounded."""
+    images, _, _, rois = _prep_scenes(10 + passes + 2 * normalize)
+    want = np.transpose(np.asarray(j_prep_rgb(
+        jnp.asarray(images), jnp.asarray(rois), out_size=OUT,
+        normalize=normalize, out_dtype=jnp.float32, passes=passes,
+        interpret=True)), (0, 2, 3, 1))
+    args = (torch.from_numpy(images), torch.from_numpy(rois))
+    got = PK.fused_prep_rgb(*args, out_size=OUT, normalize=normalize,
+                            passes=passes, out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (12, OUT, OUT, 3)
+    d = np.abs(got.numpy() - want)
+    assert d.max() <= (LSB if normalize else 1.0), d.max()
+    assert (d > 1e-5).mean() < 0.01, (d > 1e-5).mean()
+    b16 = PK.fused_prep_rgb(*args, out_size=OUT, normalize=normalize,
+                            passes=passes)
+    assert torch.equal(b16, got.bfloat16())
+    with pytest.raises(ValueError, match='out_dtype'):
+        PK.fused_prep_rgb(*args, out_size=OUT, out_dtype=torch.float16)
+
+
+@pytest.mark.parametrize('passes', [3, 1])
+def test_pair_batches_rgb_route_f32_matches_jax(passes):
+    """build_pair_batches_fused's RGB-kernel route (fuse_masks=False) at
+    f32 against the JAX one: masks exact, RGB within one LSB."""
+    images, masks, pidx, rois = _prep_scenes(20 + passes)
+    want = np.asarray(JP.build_pair_batches_fused(
+        jnp.asarray(images), jnp.asarray(masks), jnp.asarray(pidx),
+        jnp.asarray(rois), out_size=OUT, passes=passes, dtype=jnp.float32,
+        interpret=True))
+    got = TP.build_pair_batches_fused(
+        torch.from_numpy(images), torch.from_numpy(masks), pidx,
+        torch.from_numpy(rois), out_size=OUT, passes=passes,
+        dtype=torch.float32)
+    assert got.dtype == torch.float32
+    _prep_close(got.numpy(), want)
+
+
+# ---- the f32 predictor with kernels -----------------------------------------
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    for n in JAX_KERNELS:
+        orig = getattr(PB, n)
+        monkeypatch.setattr(PB, n, (lambda o: lambda *a, **kw: o(
+            *a, **dict(kw, interpret=True)))(orig))
+
+
+@pytest.mark.parametrize('use_pallas,prep_impl', [
+    (KFEATS, 'pallas5'), (KFEATS, 'einsum'), (True, 'pallas5'),
+    (('hwnc', 'down', 'stem'), 'pallas5')])
+def test_folded_f32_kernel_predictor_matches_jax(interpret, use_pallas,
+                                                 prep_impl):
+    """make_folded_predictor(dtype=None, use_pallas=...) on the CPU (the
+    kernels' plain versions) against JAX's with the same kernels: the
+    batch at the prep bar, the logits on JAX's batch within 1e-5, the
+    matrices equal."""
+    method = 'InstaOrderNet_o'
+    j, t = _nets(method)
+    kw = dict(KW, prep_impl=prep_impl)
+    jp = JPL.make_folded_predictor(*j[:3], method, use_pallas=use_pallas,
+                                   prep_interpret=True, **kw)
+    tp = TPL.make_folded_predictor(*t[:3], method, use_pallas=use_pallas,
+                                   device='cpu', **kw)
+    assert tp.prep_dtype == torch.float32
+    assert tp.params['conv1']['w'].dtype == torch.float32
+    hold_factory(jp, tp, *scene(23, n=5), bar=1e-5, exact=True, dual=False)
+
+
+# ---- the host-side layouts of the f32 kernels -------------------------------
+
+
+def _im2col_7x7(x):
+    """(N, H, W, C) -> (N, Hc, Wc, 49 C) rows of the stride-2 pad-3 7x7
+    conv, K in (dy, dx, c) order: what csrc/stem.cu `stem_f32_kernel`
+    multiplies the kernel weights by."""
+    n, H, W, C = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 3, 3, 3, 3))
+    hc, wc = (H - 1) // 2 + 1, (W - 1) // 2 + 1
+    return torch.cat([xp[:, dy:dy + 2 * hc:2, dx:dx + 2 * wc:2, :]
+                      for dy in range(7) for dx in range(7)], dim=-1)
+
+
+@pytest.mark.parametrize('hw,cout,c', [(30, 64, 5), (31, 128, 3),
+                                       (50, 128, 5), (17, 64, 1)])
+def test_f32_stem_layout_equals_plain_stem(hw, cout, c):
+    """The f32 stem kernel's arithmetic on the CPU: im2col rows in its K
+    order times stem_kernel_weights(w) (the HWIO weights as (49 C, Cout)
+    rows), + bias, relu, pool, equals fused_stem_plain within 1e-5 of
+    the output scale (the same products summed in another order)."""
+    rng = np.random.RandomState(hw + cout + c)
+    x = torch.as_tensor(rng.randn(2, hw, hw, c), dtype=torch.float32)
+    w = torch.as_tensor(rng.randn(7, 7, c, cout) / np.sqrt(49 * c),
+                        dtype=torch.float32)
+    b = torch.as_tensor(rng.randn(cout) * 0.1, dtype=torch.float32)
+    wk = SK.stem_kernel_weights(w)
+    assert wk.shape == (49 * c, cout) and wk.is_contiguous()
+    h = torch.relu(_im2col_7x7(x) @ wk + b)
+    got = torch.nn.functional.max_pool2d(h.permute(0, 3, 1, 2), 3, 2, 1)
+    want = SK.fused_stem_plain(x, w, b)
+    got = got.permute(0, 2, 3, 1)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_add_stem_kernel_weights_f32():
+    """An f32 model built on the card gets f32 kernel weights for both
+    stems; the JAX-layout w stays as it was."""
+    rng = np.random.RandomState(31)
+    conv1 = {'w': torch.as_tensor(rng.randn(7, 7, 5, 64),
+                                  dtype=torch.float32),
+             'b': torch.as_tensor(rng.randn(64), dtype=torch.float32)}
+    w = conv1['w'].clone()
+    TF.add_stem_kernel_weights(conv1)
+    assert torch.equal(conv1['w'], w)
+    assert conv1['wk'].dtype == torch.float32
+    assert torch.equal(conv1['wk'], w.reshape(245, 64))
+    wide = TF.siamese_conv1(conv1)
+    assert wide['wk'].shape == (245, 128)
+    assert torch.equal(wide['wk'], SK.stem_kernel_weights(wide['w']))
+
+
+def test_f32_k_step_rule():
+    """The K step counts elements of the operand type: 128 bytes, 64
+    bf16 (and int8 widened to bf16) or 32 f32. The K-packed projection's
+    first segment must be a whole number of steps of its type."""
+    assert gemm_layout.BF16_K_STEP * 2 == gemm_layout.F32_K_STEP * 4 == 128
+    step = gemm_layout.F32_K_STEP
+    assert gemm_layout.check_k_steps([64, 256], step) == [2, 8]
+    assert gemm_layout.check_k_steps([96, 40], step) == [3, 2]
+    for ks in ([48, 64], [80, 256]):
+        with pytest.raises(ValueError, match='straddle'):
+            gemm_layout.check_k_steps(ks, step)
+    # K = 96 is whole at f32 but straddles a bf16 step
+    with pytest.raises(ValueError, match='straddle'):
+        gemm_layout.check_k_steps([96, 64], gemm_layout.BF16_K_STEP)
+
+
+@pytest.mark.parametrize('bn', [64, 128])
+def test_f32_gemm_thread_tile_covers_the_cta_tile(bn):
+    """csrc/bottleneck_f32.cu's micro-tiles: thread (warp, lane) owns rows
+    tm + kNTM * i and columns c0 .. c0 + 3, c1 .. c1 + 3; over the 256
+    threads every (row, column) of the 128 x bn tile is owned once, and
+    the 4 rows a warp reads at one K index lie in 4 banks (pitch 36)."""
+    ntn = bn // 8
+    ntm = 256 // ntn
+    tm_rows = 128 // ntm
+    wn = ntn // 8
+    owned = np.zeros((128, bn), np.int32)
+    for tid in range(256):
+        lane, warp = tid % 32, tid // 32
+        tn = (warp % wn) * 8 + lane % 8
+        tm = (warp // wn) * 4 + lane // 8
+        c0, c1 = tn * 4, bn // 2 + tn * 4
+        for i in range(tm_rows):
+            for c in (*range(c0, c0 + 4), *range(c1, c1 + 4)):
+                owned[tm + ntm * i, c] += 1
+    assert (owned == 1).all()
+    for warp in range(8):
+        tms = {(warp // wn) * 4 + lane // 8 for lane in range(32)}
+        assert len({(tm * 36) % 32 for tm in tms}) == 4
+
+
+def test_f32_stem_thread_tile_covers_the_conv_row():
+    """csrc/stem.cu `stem_f32_kernel`: pixels tm + 32 i (i < 4) and
+    channels c0 .. c0 + 3, 32 + c0 .. of the CTA's 64: every (pixel,
+    channel) of a 128-pixel conv row owned once; a warp's four pixel
+    reads at one tap lie in four banks for every C."""
+    owned = np.zeros((128, 64), np.int32)
+    for tid in range(256):
+        lane = tid % 32
+        tm = (tid // 32) * 4 + lane // 8
+        c0 = (lane % 8) * 4
+        for i in range(4):
+            for c in (*range(c0, c0 + 4), *range(32 + c0, 36 + c0)):
+                owned[tm + 32 * i, c] += 1
+    assert (owned == 1).all()
+    for C in range(1, 6):
+        for warp in range(8):
+            banks = {((2 * (warp * 4 + m)) * C) % 32 for m in range(4)}
+            assert len(banks) == 4, C

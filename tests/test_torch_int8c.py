@@ -417,7 +417,7 @@ def test_int8c_features_refuse_unported():
 
 
 @pytest.mark.parametrize('profile', sorted(serving.PROFILES))
-@pytest.mark.parametrize('dtype', [None, 'int8c', 'int8', 'bf16'])
+@pytest.mark.parametrize('dtype', [None, 'int8c', 'int8', 'bf16', 'f32'])
 def test_dtype_resolution_mirrors_the_root_bench(profile, dtype):
     import bench
     argv = ['--profile', profile] + (['--dtype', dtype] if dtype else [])
@@ -433,10 +433,13 @@ def test_port_bench_dtype_flag():
     args = tbench.build_parser().parse_args(['--dtype', 'int8c'])
     assert args.dtype == 'int8c' and args.profile == 'serving-d1'
     assert tbench.build_parser().parse_args([]).dtype is None
+    # --dtype f32 is a choice since the f32 kernels; a name outside the
+    # root bench's four is refused
+    assert tbench.build_parser().parse_args(['--dtype', 'f32']).dtype == 'f32'
     with pytest.raises(SystemExit):
-        tbench.build_parser().parse_args(['--dtype', 'f32'])
+        tbench.build_parser().parse_args(['--dtype', 'fp16'])
     with pytest.raises(ValueError, match='dtype'):
-        serving.resolve_profile('serving-d1', dtype='f32')
+        serving.resolve_profile('serving-d1', dtype='fp16')
 
 
 def test_int8c_model_runs_on_cpu():

@@ -238,10 +238,17 @@ def test_prep_f32_out_through_pair_batches_fused():
             torch.from_numpy(images), torch.from_numpy(masks), pidx,
             torch.from_numpy(rois), out_size=OUT, passes=3,
             out_dtype=torch.float32).numpy())
-    with pytest.raises(ValueError, match='bf16 only'):
-        TP.build_pair_batches_fused(
-            torch.from_numpy(images), torch.from_numpy(masks), pidx,
-            torch.from_numpy(rois), out_size=OUT, dtype=torch.float32)
+    # the RGB-kernel route writes f32 too (kernel 5's f32 mode): the
+    # same masks, and the RGB kernel's plain f32 values
+    rgb = TP.build_pair_batches_fused(
+        torch.from_numpy(images), torch.from_numpy(masks), pidx,
+        torch.from_numpy(rois), out_size=OUT, dtype=torch.float32)
+    assert rgb.dtype == torch.float32
+    np.testing.assert_array_equal(rgb[..., :2].numpy(), x[..., :2].numpy())
+    np.testing.assert_array_equal(
+        rgb[..., 2:].numpy(), PK.fused_prep_rgb_plain(
+            torch.from_numpy(images), torch.from_numpy(rois), out_size=OUT,
+            passes=3, out_dtype=torch.float32).numpy())
 
 
 # ---- decode and buckets -----------------------------------------------------

@@ -57,7 +57,9 @@ def test_packed_bf16_layout_equals_plain_stem(hw, cout, c):
     w = bf(rng.randn(7, 7, c, cout) / np.sqrt(49 * c))
     b = torch.as_tensor(rng.randn(cout) * 0.1, dtype=torch.float32)
     xs = SK.stem_pack_plain(x)
-    wk = SK.stem_kernel_weights(w)
+    # the bf16 layout of the bf16 weights (an f32 w has the f32 stem's
+    # own layout), widened back to f32 for the product
+    wk = SK.stem_kernel_weights(w.bfloat16()).float()
     assert tuple(xs.shape) == (2, hw // 2 + 3, 3, hw // 2 + 3, 8)
     assert tuple(wk.shape) == (384, cout)
     got = _pool(torch.relu(_packed_conv(xs, wk, False) + b))
@@ -103,7 +105,7 @@ def test_pack_is_the_padded_s2d_input():
     flat = xs.permute(0, 1, 3, 2, 4).reshape(1, 9, 8, 24)
     assert torch.equal(flat[..., :20], SK.s2d_stem_input(x))
     assert not flat[..., 20:].any()
-    w = torch.as_tensor(rng.randn(7, 7, 5, 64), dtype=torch.float32)
+    w = torch.as_tensor(rng.randn(7, 7, 5, 64), dtype=torch.bfloat16)
     wk = SK.stem_kernel_weights(w).reshape(4, 2, 3, 2, 8, 64)
     w2 = wk.permute(0, 1, 3, 2, 4, 5).reshape(4, 4, 24, 64)
     assert torch.equal(w2[:, :, :20], SK.s2d_conv1_w(w))
