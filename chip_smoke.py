@@ -27,7 +27,10 @@ Phases (any failed check raises and the script exits nonzero):
      RGB prep (its own row, 0 differing values expected) and of kernels
      10-15 on the f32 parity trunk's activations (the folded f32 model,
      360 images; blocks within 2e-5 of max |plain| per chained block,
-     the stem within 1e-5); all timed with CUDA events, the bf16 and
+     the stem within 1e-5); the f32 modes of the v2 kernels 2-4, 6-9
+     (and 2') and of the q8 stem (15') on the trunk of the v2 model
+     quantized at compute_dtype=f32 (serving-d1's network and
+     calibration; the v2 bars); all timed with CUDA events, the bf16 and
      f32 kernels beside the plain cuDNN chain the JAX default runs for
      the same block or stem (at f32 with TF32 off), and every bf16 / v2
      row beside its convolutions alone (`conv_only_ms`: bf16 conv2d,
@@ -45,11 +48,14 @@ Phases (any failed check raises and the script exits nonzero):
      (within 2%, at f32 within 1e-5; the v2 error also over 12 pairs);
      for int8c also the trunk's int8 output equal to the plain int8c
      forward's on the same prepped tensor on the card, logits within
-     1e-5 of max |logit|;
+     1e-5 of max |logit|; then the v2 model at compute_dtype=f32 through
+     apply_folded_v2 and apply_folded_v2_siamese with the default set,
+     +stem, hwncp, hwncs,hwncs1 and identity,down1 (launches reported
+     under the v2 [f32] rows, logits within 2% of the CPU's);
   4. the order predictors (eval/pipeline.py) on 4 synthetic 480x640
      scenes of 3, 7, 10 and 16 instances (pair buckets 8, 32, 64, 128):
-     make_v2_predictor (a dual-head net; directions 1 and 2),
-     make_int8_predictor, make_folded_predictor(bf16, identity,down,stem)
+     make_v2_predictor (a dual-head net; directions 1 and 2, and at
+     compute_dtype=f32 with directions 2), make_int8_predictor, make_folded_predictor(bf16, identity,down,stem)
      and make_folded_predictor(f32, identity,down,stem; also the image,
      resize and orig modes), and the f32 one without kernels (the cuDNN
      f32 route, timed only). For each: the launches of every infer call,
@@ -114,6 +120,12 @@ F32 = '[f32]'
 IDEN32, DOWN32, STAGE32, SSTAGE32, HWNC32, STEM32, RGB32 = (
     n + F32 for n in (IDEN16, DOWN16, STAGE16, SSTAGE16, HWNC16, STEM, RGB))
 F32_ROWS = (IDEN32, DOWN32, STAGE32, SSTAGE32, HWNC32, STEM32, RGB32)
+# the f32 modes of the v2 kernels 2-4, 6-9 (and 2') and of the q8 stem
+# (15'): the v2 model at compute_dtype=f32, its own rows, counted by the
+# wrappers of the v2 rows of the same name
+V2F32 = {n: n + F32 for n in (STAGE, RUN, DOWN, IDEN, HWNCP, DOWN1H, IDENN,
+                              DOWN1N, STEMQ8)}
+V2F32_ROWS = tuple(V2F32.values())
 # not a kernel: the v2 plain-chain blocks of a megastep, counted too
 PLAIN_V2 = 'plain v2 blocks'
 _CSRC = 'instaorder_tpu_torch/csrc/'
@@ -132,7 +144,10 @@ SOURCES = {PREP: _CSRC + 'prep.cu', PREP_F32: _CSRC + 'prep.cu',
                RUN)},
            **{k: _CSRC + 'bottleneck_f32.cu' for k in (
                IDEN32, DOWN32, STAGE32, SSTAGE32, HWNC32)},
-           STEM32: _CSRC + 'stem.cu', RGB32: _CSRC + 'prep.cu'}
+           STEM32: _CSRC + 'stem.cu', RGB32: _CSRC + 'prep.cu',
+           **{V2F32[k]: _CSRC + 'bottleneck_f32.cu' for k in V2F32
+              if k != STEMQ8},
+           V2F32[STEMQ8]: _CSRC + 'stem.cu'}
 REPLACES = {PREP: 'instaorder_tpu/ops/prep_pallas.py:315',
             PREP_F32: 'instaorder_tpu/ops/prep_pallas.py:316',
             STAGE: 'instaorder_tpu/ops/pallas_blocks.py:1526',
@@ -159,6 +174,7 @@ REPLACES = {PREP: 'instaorder_tpu/ops/prep_pallas.py:315',
             RUN: 'instaorder_tpu/ops/pallas_blocks.py:1526'}
 REPLACES.update({n + F32: REPLACES[n] for n in (
     IDEN16, DOWN16, STAGE16, SSTAGE16, HWNC16, STEM, RGB)})
+REPLACES.update({V2F32[n]: REPLACES[n] for n in V2F32})
 # the megasteps: (name, profile, megastep keywords, launches per step;
 # every other kernel must launch 0 times)
 V2_LAUNCHES = {PREP: 1, STAGE: 1, DOWN: 3, IDEN: 10}
@@ -221,6 +237,25 @@ MEGASTEPS = [
 # same pair batch: the f32 preps equal their plain versions on every
 # value; f32 sums in another order)
 F32_LOGIT_BAR = 1e-5
+# the v2 model at compute_dtype=f32 (quantize_folded_v2, the smoke cell's
+# calibration) through apply_folded_v2 (d1) and apply_folded_v2_siamese
+# (d2) on the smoke cell's pair batch in f32, per feature set: (name,
+# use_pallas, launches per forward of the v2 rows' wrappers; every other
+# kernel must launch 0 times). The launches are reported under the
+# V2F32 rows.
+V2F32_FORWARDS = [
+    ('hwnc,down2,hwncs1d,dirpack', True, {STAGE: 1, DOWN: 3, IDEN: 10}),
+    ('hwnc,down2,hwncs1d,dirpack,stem',
+     ('hwnc', 'down2', 'hwncs1d', 'dirpack', 'stem'),
+     {STEM: 1, STAGE: 1, DOWN: 3, IDEN: 10}),
+    ('hwnc,down2,hwncp,dirpack', ('hwnc', 'down2', 'hwncp', 'dirpack'),
+     {HWNCP: 1, DOWN: 3, IDEN: 10}),
+    ('hwnc,down1,down2,hwncs,hwncs1',
+     ('hwnc', 'down1', 'down2', 'hwncs', 'hwncs1'),
+     {DOWN1H: 1, STAGE: 4, DOWN: 3}),
+    ('identity,down1', ('identity', 'down1'),
+     {DOWN1N: 1, IDENN: 5, PLAIN_V2: 10}),
+]
 
 
 def check(ok, what):
@@ -556,22 +591,25 @@ def stem_ops(x, w):
     return 2 * n * hc * wc * w[..., 0].numel() * w.shape[-1]
 
 
-def phase_stem_q8(torch, SK, FO, q, x, results):
+def phase_stem_q8(torch, SK, FO, q, x, results, f32=False):
     """Row 15': the serving-d2 route's q8 stem (double width, Cout 128)
-    vs its plain version, both timed."""
+    vs its plain version, both timed; f32: row 15'[f32], the q8 stem of
+    the v2 model at compute_dtype=f32 on x in f32."""
+    name = V2F32[STEMQ8] if f32 else STEMQ8
     c1 = FO.siamese_conv1(q['conv1'])
-    x = x.contiguous()
+    x = (x.float() if f32 else x).contiguous()
     kern = lambda: SK.fused_stem(x, c1['w'], c1['b'], q8=True, wk=c1['wk'])
     want = SK.fused_stem_plain(x, c1['w'], c1['b'], q8=True)
-    err, frac = diff(torch, f'{STEMQ8} {tuple(x.shape)}->'
+    err, frac = diff(torch, f'{name} {tuple(x.shape)}->'
                      f'{tuple(want.shape)}', kern(), want)
-    check(err <= 1 and frac < 0.01, f'{STEMQ8}: <=1 LSB on <1%')
+    check(err <= 1 and frac < 0.01, f'{name}: <=1 LSB on <1%')
     live = float(((want > 0) & (want < 127)).float().mean())
-    check(live > 0.05, f'{STEMQ8}: {live:.3f} of outputs unclipped')
-    add_row(results, STEMQ8, err, cuda_ms(torch, kern),
+    check(live > 0.05, f'{name}: {live:.3f} of outputs unclipped')
+    add_row(results, name, err, cuda_ms(torch, kern),
             cuda_ms(torch, lambda: SK.fused_stem_plain(
                 x, c1['w'], c1['b'], q8=True), reps=2), None,
-            nbytes(x, want, c1['w'], c1['b']), stem_ops(x, c1['w']))
+            nbytes(x, want, c1['w'], c1['b']), stem_ops(x, c1['w']),
+            rate=H100_F32_PER_S if f32 else H100_BF16_PER_S)
 
 
 def add_row(results, name, err, kern, plain, chain, nbytes_, ops,
@@ -859,12 +897,15 @@ def phase_trunk_int8(torch, IK, SK, Q, FO, q, x, results, wide):
 
 
 def v2_row(torch, results, name, kern, plain, h, blocks, bar=1,
-           share=0.01):
+           share=0.01, f32=False):
     """One v2 kernel call on the plain trunk's activation h against its
     plain version: within `bar` LSB (one per block chained in the call)
     on under `share` of the values (None: any share); both timed, the
-    row's bytes and operations added. blocks: [(block params, stride)]
-    the call covers. Returns the plain output."""
+    row's bytes and operations added (f32: the row of the kernel's f32
+    mode, operations at the f32 peak, no bf16 conv_only yardstick).
+    blocks: [(block params, stride)] the call covers. Returns the plain
+    output."""
+    name = V2F32[name] if f32 else name
     want = plain(h)
     err, frac = diff(torch, f'{name} {tuple(h.shape)}->'
                      f'{tuple(want.shape)} {str(want.dtype)[6:]}',
@@ -883,27 +924,33 @@ def v2_row(torch, results, name, kern, plain, h, blocks, bar=1,
     add_row(results, name, err, cuda_ms(torch, lambda: kern(h)),
             cuda_ms(torch, lambda: plain(h), reps=2), None,
             nbytes(h, want, *weights), 2 * macs,
-            conv_only=conv_only_ms(torch, tuple(h.shape), blocks))
+            rate=H100_F32_PER_S if f32 else H100_BF16_PER_S,
+            conv_only=None if f32 else conv_only_ms(torch, tuple(h.shape),
+                                                    blocks))
     return want
 
 
-def phase_trunk(torch, BK, Q, FO, q, x, results):
+def phase_trunk(torch, BK, Q, FO, q, x, results, f32=False):
     """Walk the trunk: each kernel gets the plain trunk's activation at
-    its position; outputs compared, both versions timed."""
+    its position; outputs compared, both versions timed. f32: the model
+    quantized at compute_dtype=f32, its calls reported under the V2F32
+    rows (int8 between calls, f32 holding the integers where a call
+    hands the next kernel its output, as in the forward)."""
     h = Q._stem_v2(q, x)
     for name, kern, plain, blocks in trunk_calls(q, BK, FO):
         bar = (check_stage_blocks(torch, BK, FO, q['layer1'], h)
                if name == STAGE else 1)
-        h = v2_row(torch, results, name, kern, plain, h, blocks, bar)
+        h = v2_row(torch, results, name, kern, plain, h, blocks, bar,
+                   f32=f32)
 
 
-def phase_trunk_v2_variants(torch, BK, Q, FO, q, x, results):
+def phase_trunk_v2_variants(torch, BK, Q, FO, q, x, results, f32=False):
     """The other v2 feature sets' kernels on the plain trunk's
     activations: at layer1's input the hwncp stage (kernel 6) and the
     stride-1 projections (7, 9); at each layer's identity run the
     down=False stage (kernel 2's second mode); each identity block with
     conv1 Cin <= 512 through kernel 8. Output dtypes as the megasteps
-    give them."""
+    give them. f32: as phase_trunk."""
     h = Q._stem_v2(q, x)
     for li in range(1, 5):
         layer = q[f'layer{li}']
@@ -916,16 +963,16 @@ def phase_trunk_v2_variants(torch, BK, Q, FO, q, x, results):
                        h, a, run, rs),
                    lambda h: BK.fused_bottleneck_i8v2_hwncp_stage_plain(
                        h, a, run, rs), h, [(b, 1) for b in layer],
-                   bar=len(layer))
+                   bar=len(layer), f32=f32)
             v2_row(torch, results, DOWN1N,
                    lambda h: BK.fused_bottleneck_down_i8v2(
                        h, *a, out_int8=False),
                    lambda h: BK.fused_bottleneck_down_i8v2_plain(
-                       h, *a, out_int8=False), h, [(layer[0], 1)])
+                       h, *a, out_int8=False), h, [(layer[0], 1)], f32=f32)
             h = v2_row(torch, results, DOWN1H,
                        lambda h: BK.fused_bottleneck_down_i8v2_hwnc(h, *a),
                        lambda h: BK.fused_bottleneck_down_i8v2_hwnc_plain(
-                           h, *a), h, [(layer[0], 1)])
+                           h, *a), h, [(layer[0], 1)], f32=f32)
         else:
             h = BK.fused_bottleneck_i8v2_down_s2_plain(h, *a)
         # an identity run of k blocks: each block within the one-block
@@ -941,7 +988,8 @@ def phase_trunk_v2_variants(torch, BK, Q, FO, q, x, results):
                           h, None, run, rs, out_int8=o),
                       lambda h: BK.fused_bottleneck_i8v2_stage_plain(
                           h, None, run, rs, out_int8=o),
-                      h, [(b, 1) for b in layer[1:]], bar=k, share=None)
+                      h, [(b, 1) for b in layer[1:]], bar=k, share=None,
+                      f32=f32)
         if layer[1]['conv1']['w'].shape[2] > FO.IDEN_CIN_CAP:
             h = want.to(torch.int8)
             continue
@@ -952,11 +1000,11 @@ def phase_trunk_v2_variants(torch, BK, Q, FO, q, x, results):
                            h, *blk, r, out_int8=o),
                        lambda h, blk=blk, r=r, o=o:
                        BK.fused_bottleneck_i8v2_plain(h, *blk, r, out_int8=o),
-                       h, [(layer[k + 1], 1)])
+                       h, [(layer[k + 1], 1)], f32=f32)
 
 
 def phase_megastep(torch, name, step, reference, wrappers, expected,
-                   n_pairs, card, directions, margins, bar=0.02):
+                   n_pairs, card, directions, margins, bar=0.02, iters=10):
     """One megastep with the counts set to 0 just before it: launch
     counts, timing, and the first `few` pairs' logits (both directions at
     directions=2) against `reference()`, the plain path on the CPU,
@@ -979,7 +1027,6 @@ def phase_megastep(torch, name, step, reference, wrappers, expected,
               and bool(torch.isfinite(o).all()) for o in outs),
           'finite (P, 2) logits')
 
-    iters = 10
     step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1162,6 +1209,11 @@ def phase_predictors(torch, serving, resnet, TPL, wrappers, calib_x, dev,
             *n, 'InstaOrderNet_od', [calib_x], prep_dtype=b16,
             prep_passes=1, directions=1, **kw), 0.02, False,
          {PREP: 1, STAGE: 1, DOWN: 3, IDEN: 10}),
+        # the v2 model at compute_dtype=f32 (the f32 modes of rows 2-4,
+        # its f32 pair batch through row 1'')
+        ('v2-f32 d2', 'InstaOrderNet_od', lambda n: TPL.make_v2_predictor(
+            *n, 'InstaOrderNet_od', [calib_x], compute_dtype=torch.float32,
+            **kw), 0.02, False, {PREP: 1, STAGE: 1, DOWN: 3, IDEN: 10}),
         ('int8c d2', 'InstaOrderNet_o', lambda n: TPL.make_int8_predictor(
             *n, 'InstaOrderNet_o', [calib_x], prep_dtype=b16, **kw), 1e-5,
          True, {PREP: 1, I8: 12, D8: 4}),
@@ -1240,6 +1292,46 @@ def phase_predictors(torch, serving, resnet, TPL, wrappers, calib_x, dev,
               f'{len(row) / (sum(row) / 1e3):.2f} images/s over the '
               f'{len(row)} scenes ({card})')
     return counted
+
+
+def phase_v2_f32_forwards(torch, serving, Q, q32, cfg, x32, counters,
+                          n_pairs, card, launches):
+    """The v2 model at compute_dtype=f32 through apply_folded_v2 (d1) and
+    apply_folded_v2_siamese (d2) on the smoke cell's pair batch x32, per
+    feature set of V2F32_FORWARDS, each with the counts set to 0 just
+    before: launches, timing, and the logits against the same forward on
+    the CPU (2% of max |logit|, as the v2 megasteps). Adds the launches
+    to `launches` under the V2F32 rows."""
+    from instaorder_tpu_torch.convert import tree_to
+    q_cpu = tree_to(q32, 'cpu')
+    t0 = time.perf_counter()
+    for fname, feats, expected in V2F32_FORWARDS:
+        for directions in (1, 2):
+            fwd = (Q.apply_folded_v2_siamese if directions == 2
+                   else Q.apply_folded_v2)
+
+            def step(fwd=fwd, feats=feats, directions=directions):
+                logits = fwd(q32, cfg, x32, use_pallas=feats)
+                dec = serving.decode_occ(*logits) if directions == 2 \
+                    else serving.decode_occ(logits)
+                return (logits, *dec)
+
+            def reference(few, fwd=fwd, feats=feats):
+                return fwd(q_cpu, cfg, x32[:few].cpu(), use_pallas=feats)
+
+            got, _ = phase_megastep(
+                torch, f'v2 f32 d{directions} +{fname}', step, reference,
+                counters, expected, n_pairs, card, directions,
+                (MARGIN_PAIRS,), iters=3)
+            for k, n in got.items():
+                # the stage launches of the hwncs set are kernel 2's
+                # down=False mode
+                run = feats is not True and 'hwncs' in feats
+                row = (V2F32[STEMQ8] if k == STEM else
+                       V2F32[RUN] if k == STAGE and run else V2F32.get(k))
+                if n and row is not None and row not in launches:
+                    launches[row] = n
+    print(f'v2 f32 forwards: {time.perf_counter() - t0:.1f} s')
 
 
 def check_int8c_same_input(torch, Q, FO, q, cfg, x, directions, feats,
@@ -1331,6 +1423,13 @@ def main():
     # the --dtype f32 model: the same network, folded, left in f32
     params32, _ = serving.build_f32_model(0, device=dev,
                                           weight_init='kaiming_out')
+    # the v2 model at compute_dtype=f32: serving-d1's network and
+    # calibration, quantized at f32, with its f32 stem kernel weights
+    folded, _, scales = serving._calibrated(0, x, dev, 'kaiming_out')
+    q32 = Q.quantize_folded_v2(folded, cfg, scales,
+                               compute_dtype=torch.float32)
+    FO.add_stem_kernel_weights(q32['conv1'])
+    del folded
     torch.cuda.synchronize()
     print(f'build_serving_model + build_parity_model: '
           f'{time.perf_counter() - t0:.2f} s')
@@ -1362,6 +1461,13 @@ def main():
         phase_trunk_f32(torch, B16, SK, FO, params32, x3f, results)
         del x3f
         print(f'f32 kernels vs plain: {time.perf_counter() - t0:.1f} s')
+        # the v2 f32 rows on the v2 f32 model's trunk (x in f32)
+        t0 = time.perf_counter()
+        phase_stem_q8(torch, SK, FO, q32, x, results, f32=True)
+        phase_trunk(torch, BK, Q, FO, q32, x.float(), results, f32=True)
+        phase_trunk_v2_variants(torch, BK, Q, FO, q32, x.float(), results,
+                                f32=True)
+        print(f'v2 f32 kernels vs plain: {time.perf_counter() - t0:.1f} s')
         t0 = time.perf_counter()
         phase_trunk_int8(torch, IK, SK, Q, FO, q8c, x, results, wide=False)
         phase_trunk_int8(torch, IK, SK, Q, FO, q8c2, x3, results, wide=True)
@@ -1453,12 +1559,15 @@ def main():
             launches[RUN] = got[STAGE]
         if name == STEMQ8_STEP:
             launches[STEMQ8] = got[STEM]
+    with torch.no_grad():
+        phase_v2_f32_forwards(torch, serving, Q, q32, cfg, x.float(),
+                              counters, n_pairs, card, launches)
 
     # ---- 4. the order predictors -------------------------------------------
     launches.update(phase_predictors(torch, serving, resnet, TPL, wrappers,
                                      x, dev, card))
     check(set(launches) == set(wrappers) | {RUN, STEMQ8, PREP_F32,
-                                            *F32_ROWS},
+                                            *F32_ROWS, *V2F32_ROWS},
           f'every kernel launched on a main path: {sorted(launches)}')
 
     # ---- 5. report ----------------------------------------------------------

@@ -487,7 +487,10 @@ extern "C" int io_fused_stem_s8(const void* x, void* xs, const void* wk,
 // ---------------------------------------------------------------------------
 // The f32 stem: kernel 15 given f32 activations (the TPU kernel
 // `fused_stem` is dtype-generic), conv 7x7 / stride 2 / pad 3 with f32
-// sums, + f32 bias, relu, max-pool 3x3 / stride 2 / pad 1, stored f32.
+// sums, + f32 bias, relu, max-pool 3x3 / stride 2 / pad 1, stored f32 or
+// (q8: the v2 model's stem at f32 compute, instaorder_tpu/models/
+// quantize.py `_stem_v2`) as the one-sided int8 clip(rint(v), 0, 127) of
+// the pooled value, quantised after the pool as the TPU kernel does.
 //
 // Bound on the H100: f32 operations at the double-width siamese stem
 // (Cout 128: 128^2 * 245 * 128 MAC, 1.03 GFLOP per 256^2 image, against
@@ -511,7 +514,8 @@ extern "C" int io_fused_stem_s8(const void* x, void* xs, const void* wk,
 //    banks) and two 16-byte B vectors per tap.
 //  - The epilogue adds the bias and takes the relu into a one-row conv
 //    buffer; the bf16 stem's separable pool then runs on 16-byte chunks
-//    of four channels with the running vertical max in registers.
+//    of four channels with the running vertical max in registers, and a
+//    pooled chunk is stored as four f32 or (q8) four int8 values.
 
 namespace {
 
@@ -550,9 +554,9 @@ __device__ __forceinline__ float4 vmax4(float4 a, float4 b) {
 template <int C>
 __global__ void __launch_bounds__(kThreads, 1)
 stem_f32_kernel(const float* __restrict__ x, const float* __restrict__ wk,
-                const float* __restrict__ bias, float* __restrict__ out,
+                const float* __restrict__ bias, void* __restrict__ out,
                 int N, int H, int W, int Cout, int Hc, int Wc, int Ho,
-                int Wo, int nstrips, int ntiles) {
+                int Wo, int nstrips, int ntiles, int q8) {
   using S = StemF<C>;
   extern __shared__ __align__(16) float smf[];
   float* ws = smf;
@@ -605,11 +609,20 @@ stem_f32_kernel(const float* __restrict__ x, const float* __restrict__ wk,
       }
     };
 
-    // pooled output (image n, row i, column j, chunk q of this half)
+    // pooled output (image n, row i, column j, chunk q of this half):
+    // f32, or (q8) clip(rint(v), 0, 127) as int8
     auto store = [&](int i, int j, int q, float4 v) {
-      *reinterpret_cast<float4*>(
-          out + (((int64_t)n * Ho + i) * Wo + j) * Cout + hf * kChF
-          + q * 4) = v;
+      const int64_t o = (((int64_t)n * Ho + i) * Wo + j) * Cout + hf * kChF
+                        + q * 4;
+      if (q8) {
+        auto q8v = [](float t) {
+          return (signed char)fminf(fmaxf(rintf(t), 0.0f), 127.0f);
+        };
+        *reinterpret_cast<char4*>(static_cast<int8_t*>(out) + o) =
+            make_char4(q8v(v.x), q8v(v.y), q8v(v.z), q8v(v.w));
+      } else {
+        *reinterpret_cast<float4*>(static_cast<float*>(out) + o) = v;
+      }
     };
 
     float4 V[S::kNI];
@@ -708,7 +721,8 @@ stem_f32_kernel(const float* __restrict__ x, const float* __restrict__ wk,
 
 template <int C>
 int launch_f32(const float* x, const float* wk, const float* bias,
-               float* out, int N, int H, int W, int cout, cudaStream_t st) {
+               void* out, int N, int H, int W, int cout, int q8,
+               cudaStream_t st) {
   using S = StemF<C>;
   static bool smem_set = false;
   static int grid_cap = 0;
@@ -733,7 +747,7 @@ int launch_f32(const float* x, const float* wk, const float* bias,
   if (items == 0) return 0;
   const int grid = (int)(items < grid_cap ? items : grid_cap);
   stem_f32_kernel<C><<<grid, kThreads, S::kSmem, st>>>(
-      x, wk, bias, out, N, H, W, cout, Hc, Wc, Ho, Wo, nstrips, ntiles);
+      x, wk, bias, out, N, H, W, cout, Hc, Wc, Ho, Wo, nstrips, ntiles, q8);
   return (int)cudaGetLastError();
 }
 
@@ -741,24 +755,24 @@ int launch_f32(const float* x, const float* wk, const float* bias,
 
 // f32 stem. x (N, H, W, C) f32 with C <= 5, H, W >= 1; wk (49 C, cout)
 // f32 (ops/stem_kernels `stem_kernel_weights`); bias (cout,) f32; out (N,
-// Ho, Wo, cout) f32, Ho = ceil(ceil(H / 2) / 2). cout is 64 or 128;
-// pointers 16-byte aligned (checked by the Python wrapper).
+// Ho, Wo, cout) f32, or int8 with q8, Ho = ceil(ceil(H / 2) / 2). cout is
+// 64 or 128; pointers 16-byte aligned (checked by the Python wrapper).
 extern "C" int io_fused_stem_f32(const void* x, const void* wk,
                                  const void* bias, void* out, int N, int H,
-                                 int W, int C, int cout, void* stream) {
+                                 int W, int C, int cout, int q8,
+                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float* xf = (const float*)x;
   const float* w = (const float*)wk;
   const float* b = (const float*)bias;
-  float* o = (float*)out;
   if (H < 1 || W < 1 || (cout != 64 && cout != 128))
     return (int)cudaErrorInvalidValue;
   switch (C) {
-    case 1: return launch_f32<1>(xf, w, b, o, N, H, W, cout, s);
-    case 2: return launch_f32<2>(xf, w, b, o, N, H, W, cout, s);
-    case 3: return launch_f32<3>(xf, w, b, o, N, H, W, cout, s);
-    case 4: return launch_f32<4>(xf, w, b, o, N, H, W, cout, s);
-    case 5: return launch_f32<5>(xf, w, b, o, N, H, W, cout, s);
+    case 1: return launch_f32<1>(xf, w, b, out, N, H, W, cout, q8, s);
+    case 2: return launch_f32<2>(xf, w, b, out, N, H, W, cout, q8, s);
+    case 3: return launch_f32<3>(xf, w, b, out, N, H, W, cout, q8, s);
+    case 4: return launch_f32<4>(xf, w, b, out, N, H, W, cout, q8, s);
+    case 5: return launch_f32<5>(xf, w, b, out, N, H, W, cout, q8, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -359,14 +359,16 @@ def make_v2_predictor(params, stats, cfg, method, calib_batches,
     (default bf16) inside the blocks; use_pallas: the v2 feature set
     (default `hwnc,down2,hwncs1d,dirpack`). The JAX factory's TPU-only
     knobs (conv2_mode, hwnc_io, pipeline, stage_unroll) do not carry
-    over. On the card a bf16 model gets the stem kernel's weights."""
+    over. On the card the model gets the stem kernel's weights in its
+    compute dtype (add_stem_kernel_weights), which the `stem` feature's
+    q8 stem reads."""
     dev = resolve_device(device)
     cdt = torch.bfloat16 if compute_dtype is None else compute_dtype
     folded = fold_resnet(tree_to(params, dev), tree_to(stats, dev), cfg)
     scales = Q.calibrate_folded_resnet(folded, cfg, _calib(calib_batches,
                                                            dev))
     qp = Q.quantize_folded_v2(folded, cfg, scales, compute_dtype=cdt)
-    if dev.type == 'cuda' and cdt == torch.bfloat16:
+    if dev.type == 'cuda':
         add_stem_kernel_weights(qp['conv1'])
 
     def apply_fn(p, s, c, x):

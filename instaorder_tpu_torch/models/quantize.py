@@ -5,8 +5,9 @@
 
 int8 is only the storage format at block boundaries — the stem output
 and every bottleneck output hold integers 0..127 — while all arithmetic
-inside a block runs in the compute dtype (bf16 on the card, f32 in the
-CPU tests). Scale algebra per block with boundary scales s_in / s_out:
+inside a block runs in the compute dtype (`quantize_folded_v2`'s
+compute_dtype: bf16 by default, or f32; the kernels take either on the
+card). Scale algebra per block with boundary scales s_in / s_out:
   conv1 w *= s_in          (the int8 input feeds the matmul directly)
   conv3 w /= s_out, b /= s_out
   down  w *= s_in / s_out, b /= s_out

@@ -130,16 +130,16 @@ def library() -> ctypes.CDLL:
            P, I, P])                    # out, epilogue mode, stream
     lib.io_conv_gemm.restype = I
     lib.io_conv_gemm_f32.argtypes = (
-        # two K segments: f32 activation, its (K, Cout) f32 weight rows,
-        # C, H, W, stride, ksize
-        [P, P, I, I, I, I, I] * 2
+        # two K segments: f32 or int8 activation, its (K, Cout) f32
+        # weight rows, is_int8, C, H, W, stride, ksize
+        [P, P, I, I, I, I, I, I] * 2
         + [I, I, I, I, I,               # N, Ho, Wo, Cout, tile width
            P, P,                        # bias, second bias (or null)
-           P, F,                        # identity residual (or null), r
+           P, I, F,                     # identity residual, its dtype, r
            P, I, P])                    # out, epilogue mode, stream
     lib.io_conv_gemm_f32.restype = I
-    # x, kernel weights, bias, out, N, H, W, C, cout, stream
-    lib.io_fused_stem_f32.argtypes = [P, P, P, P, I, I, I, I, I, P]
+    # x, kernel weights, bias, out, N, H, W, C, cout, q8, stream
+    lib.io_fused_stem_f32.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
     lib.io_fused_stem_f32.restype = I
     # x, pack scratch, kernel weights, m, b, out, N, H, W, C, cout, stream
     lib.io_fused_stem_s8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P]

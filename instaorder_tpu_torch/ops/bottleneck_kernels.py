@@ -32,13 +32,18 @@ Math contract (quantize.quantize_folded_v2; the Pallas kernel bodies):
   y   = h2 . w3 + b3 + r*x        (identity)
   y   = [h2 | x_s] . [[w3],[wd]] + b3 + bd        (projection, one sum)
   out = clip(rint(y), 0, 127) as int8, or as cdt holding the integers
-x is int8, or cdt holding integers 0..127; weights cdt (bf16 on the
-card); biases f32; r an f32 scalar.
+x is int8, or cdt holding integers 0..127; weights cdt (bf16 or f32 on
+the card: quantize_folded_v2's compute_dtype); biases f32; r an f32
+scalar.
 
 Bound on the H100: tensor-core operations (see csrc/bottleneck_v2.cu).
 Design: each block is three launches of one implicit-GEMM kernel (bf16
 wgmma, f32 accumulators, 128 x 128 or 128 x 64 output tiles by
 `gemm_layout.tile_n`) with h1/h2 in bf16 scratch from `torch.empty`.
+With f32 weights (the v2 model at compute_dtype=f32) the same three
+launches run the kernel's f32 mode (csrc/bottleneck_f32.cu: f32 FMA on
+the CUDA cores, bound at 67 TFLOP/s; int8 x widened to f32 in shared
+memory) with h1/h2 in f32 scratch and the output int8 or f32.
 A (64, 64, 256) layer1 plane is 1 MB (int8) per image, far beyond one
 SM's shared memory, so the stage function runs the block kernels once
 per block with the int8 activation between blocks in device memory
@@ -59,9 +64,10 @@ from . import _build, gemm_layout
 
 # epilogue modes of csrc/bottleneck_v2.cu
 _RELU_BF16, _Q8_INT8, _Q8_BF16, _RES_RELU_BF16 = 0, 1, 2, 3
-# and of its f32 mode, csrc/bottleneck_f32.cu: relu(acc + b), and
-# relu(acc + b (+ b2) (+ r * x))
-_RELU_F32, _RES_RELU_F32 = 0, 1
+# and of its f32 mode, csrc/bottleneck_f32.cu: relu(acc + b), relu(acc +
+# b (+ b2) (+ r * x)), and the v2 boundary clip(rint(acc + b (+ b2) (+ r
+# * x)), 0, 127) as int8 or as f32
+_RELU_F32, _RES_RELU_F32, _Q8_INT8_F32, _Q8_F32 = 0, 1, 2, 3
 
 
 # ---------------------------------------------------------------------------
@@ -175,8 +181,10 @@ def _check_b(b, cout, dev, what, align=4):
 
 def _gemm(out, segs, bias, mode, bias2=None, res=None, r=0.0):
     """One launch of the implicit-GEMM kernel. segs: [(act, w, stride,
-    ksize)] (one or two K segments); out (N, Ho, Wo, Cout)."""
-    if out.dtype == torch.float32:
+    ksize)] (one or two K segments); out (N, Ho, Wo, Cout). f32 weights
+    or an f32 output run its f32 mode (`_gemm_f32`)."""
+    if out.dtype == torch.float32 or any(
+            w.dtype == torch.float32 for _a, w, _s, _k in segs):
         return _gemm_f32(out, segs, bias, mode, bias2=bias2, res=res, r=r)
     N, Ho, Wo, Cout = out.shape
     dev = out.device
@@ -211,41 +219,47 @@ def _gemm(out, segs, bias, mode, bias2=None, res=None, r=0.0):
 
 def _gemm_f32(out, segs, bias, mode, bias2=None, res=None, r=0.0):
     """One launch of the implicit-GEMM kernel's f32 mode
-    (csrc/bottleneck_f32.cu): f32 activations, weights, biases, residual
-    and output; segs as `_gemm` takes them."""
+    (csrc/bottleneck_f32.cu): f32 weights and biases, f32 or int8
+    activations and residual (int8 widened to f32 exactly), an f32
+    output, or an int8 one in the _Q8_INT8_F32 mode; segs as `_gemm`
+    takes them. A K step is F32_K_STEP elements of either type."""
     N, Ho, Wo, Cout = out.shape
     dev = out.device
     bn = gemm_layout.tile_n(Cout)
     gemm_layout.check_k_steps([ksize * ksize * act.shape[-1]
                                for act, _w, _s, ksize in segs],
                               step=gemm_layout.F32_K_STEP)
-    f32 = (torch.float32,)
+    acts = (torch.int8, torch.float32)
     args = []
     for act, w, stride, ksize in segs + [(None, None, 1, 1)] * (2 - len(segs)):
         if act is None:
-            args += [None, None, 32, 1, 1, 1, 1]
+            args += [None, None, 0, 32, 1, 1, 1, 1]
             continue
-        _check_act(act, 'bottleneck input', f32)
+        _check_act(act, 'bottleneck input', acts)
         _check_w(w, ksize * ksize * act.shape[-1], Cout, dev, 'bottleneck',
                  torch.float32)
-        args += [act.data_ptr(), w.data_ptr(), act.shape[-1], act.shape[1],
-                 act.shape[2], stride, ksize]
+        args += [act.data_ptr(), w.data_ptr(), int(act.dtype == torch.int8),
+                 act.shape[-1], act.shape[1], act.shape[2], stride, ksize]
     # the f32 epilogue reads the biases 16 bytes at a time
     _check_b(bias, Cout, dev, 'bottleneck', align=16)
     if bias2 is not None:
         _check_b(bias2, Cout, dev, 'bottleneck', align=16)
     if res is not None:
-        _check_act(res, 'bottleneck residual', f32)
+        _check_act(res, 'bottleneck residual', acts)
         if tuple(res.shape) != tuple(out.shape):
             raise ValueError('identity residual must match the output shape')
     if not out.is_contiguous() or out.data_ptr() % 16:
         raise ValueError('bottleneck output must be contiguous and 16-byte '
                          'aligned')
+    if out.dtype != (torch.int8 if mode == _Q8_INT8_F32 else torch.float32):
+        raise ValueError(f'bottleneck output: {out.dtype} does not match '
+                         f'the f32 epilogue mode {mode}')
     rc = _build.library().io_conv_gemm_f32(
         *args, N, Ho, Wo, Cout, bn, bias.data_ptr(),
         None if bias2 is None else bias2.data_ptr(),
-        None if res is None else res.data_ptr(), float(r), out.data_ptr(),
-        mode, torch.cuda.current_stream(dev).cuda_stream)
+        None if res is None else res.data_ptr(),
+        int(res is not None and res.dtype == torch.int8), float(r),
+        out.data_ptr(), mode, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, 'bottleneck gemm (f32)')
     return out
 
@@ -254,16 +268,20 @@ def _block_gemms(x, w1, b1, w2, b2, w3, b3, out, mode, stride=1, r=None,
                  wd=None, bd=None):
     """The three launches of one bottleneck into `out` (N, Ho, Wo, Cout):
     conv1 and the 3x3 into scratch, then conv3 with the epilogue `mode`
-    and the identity residual r*x or the K-packed projection. An f32
-    `out` runs the kernel's f32 mode throughout (f32 scratch, `mode` one
-    of _RELU_F32 / _RES_RELU_F32); otherwise the scratch is bf16."""
+    and the identity residual r*x or the K-packed projection. f32
+    weights run the kernel's f32 mode throughout (f32 scratch, `mode`
+    one of the _*_F32 modes); bf16 weights the bf16 one (bf16
+    scratch)."""
     if x.device.type != 'cuda':
         raise ValueError('bottleneck kernel: x must be a CUDA tensor')
+    if x.dtype != torch.int8 and x.dtype != w1.dtype:
+        raise ValueError(f'bottleneck kernel: {x.dtype} x needs weights of '
+                         f'its dtype, got {w1.dtype}')
     N, H, W, _ = x.shape
     Cm = w1.shape[-1]
     Ho, Wo = out.shape[1], out.shape[2]
     dev = x.device
-    f32 = out.dtype == torch.float32
+    f32 = w1.dtype == torch.float32
     sdt = torch.float32 if f32 else torch.bfloat16
     relu = _RELU_F32 if f32 else _RELU_BF16
     h1 = _gemm(torch.empty((N, H, W, Cm), dtype=sdt, device=dev),
@@ -278,13 +296,17 @@ def _block_gemms(x, w1, b1, w2, b2, w3, b3, out, mode, stride=1, r=None,
 
 def _block_cuda(x, w1, b1, w2, b2, w3, b3, stride=1, r=None, wd=None,
                 bd=None, out_int8=True):
+    """One v2 block on the card, in the weights' compute dtype (bf16, or
+    f32: the kernel's f32 mode); the output int8 or that dtype."""
     N, H, W, _ = x.shape
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    f32 = w1.dtype == torch.float32
     out = torch.empty((N, Ho, Wo, w3.shape[-1]),
-                      dtype=torch.int8 if out_int8 else torch.bfloat16,
+                      dtype=torch.int8 if out_int8 else w1.dtype,
                       device=x.device)
-    return _block_gemms(x, w1, b1, w2, b2, w3, b3, out,
-                        _Q8_INT8 if out_int8 else _Q8_BF16, stride=stride,
+    mode = ((_Q8_INT8_F32 if out_int8 else _Q8_F32) if f32
+            else (_Q8_INT8 if out_int8 else _Q8_BF16))
+    return _block_gemms(x, w1, b1, w2, b2, w3, b3, out, mode, stride=stride,
                         r=r, wd=wd, bd=bd)
 
 

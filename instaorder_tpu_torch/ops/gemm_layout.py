@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 # elements of one K step, 128 bytes of an operand row: bf16 (and int8
-# widened to bf16) in the wgmma ring, f32 in the CUDA-core ring
+# widened to bf16) in the wgmma ring, f32 (and int8, 32 raw bytes
+# widened to f32) in the CUDA-core ring
 BF16_K_STEP = 64
 F32_K_STEP = 32
 

@@ -1,5 +1,5 @@
-"""Kernels 15 and 18: the fused ResNet stem, bf16/q8, f32 and int8c
-(csrc/stem.cu).
+"""Kernels 15 and 18: the fused ResNet stem, bf16 and f32 (each also q8)
+and int8c (csrc/stem.cu).
 
 Replaces instaorder_tpu/ops/pallas_blocks.py `fused_stem` (kernel body
 `_stem_v2_kernel`, with its `q8` option): conv 7x7 / stride 2 / pad 3,
@@ -26,7 +26,9 @@ computes in f32): bound by f32 operations (67 TFLOP/s outside the tensor
 cores; TF32 would miss the f32 bar), the conv runs direct on the CUDA
 cores at its real K = 49 C (no pack, no padded taps) against the HWIO
 weights as (49 C, Cout) rows, 64 output channels a CTA, the pool in the
-epilogue as in the bf16 kernel; no rounding below f32.
+epilogue as in the bf16 kernel; no rounding below f32. With q8 (the v2
+model's stem at compute_dtype=f32) it stores the pooled values as the
+one-sided int8 clip(rint(v), 0, 127), quantised after the pool.
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
 launch the kernel (and the bf16 / int8 pack) or raise, and add one to
@@ -163,15 +165,13 @@ def fused_stem(x, w, b, q8=False, wk=None):
     or 128 (the double-width siamese stem); b (Cout,) f32 on the card;
     wk: stem_kernel_weights(w), which the card needs (the CPU ignores it).
     -> (N, ceil(H/4), ceil(W/4), Cout) in x.dtype, or int8 with q8. The
-    card takes bf16 x with even H, W (q8 too), or f32 x (not q8)."""
+    card takes bf16 x with even H, W, or f32 x; either with q8."""
     if x.device.type == 'cpu':
         return fused_stem_plain(x, w, b, q8=q8)
     dev = x.device
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f'fused_stem: x is {x.dtype}; the card takes bf16 '
                          'or f32 activations')
-    if x.dtype == torch.float32 and q8:
-        raise ValueError('fused_stem: the q8 stem takes bf16 activations')
     N, H, W, C = x.shape
     cout = w.shape[-1]
     if tuple(w.shape) != (7, 7, C, cout) or C > 5 or cout not in (64, 128):
@@ -187,7 +187,7 @@ def fused_stem(x, w, b, q8=False, wk=None):
         raise ValueError('fused_stem: x must be contiguous')
     _check_wk(wk, w, dev, 'fused_stem')
     if x.dtype == torch.float32:
-        return _fused_stem_f32(x, wk, b)
+        return _fused_stem_f32(x, wk, b, q8)
     _check_hw(x, 'fused_stem')
     Hc, Wc = H // 2, W // 2
     out = torch.empty((N, (Hc - 1) // 2 + 1, (Wc - 1) // 2 + 1, cout),
@@ -202,7 +202,7 @@ def fused_stem(x, w, b, q8=False, wk=None):
     return out
 
 
-def _fused_stem_f32(x, wk, b):
+def _fused_stem_f32(x, wk, b, q8):
     N, H, W, C = x.shape
     cout = wk.shape[-1]
     if H < 1 or W < 1 or x.data_ptr() % 16 or b.data_ptr() % 16:
@@ -211,10 +211,12 @@ def _fused_stem_f32(x, wk, b):
                          f'{tuple(x.shape)}')
     Hc, Wc = (H - 1) // 2 + 1, (W - 1) // 2 + 1
     out = torch.empty((N, (Hc - 1) // 2 + 1, (Wc - 1) // 2 + 1, cout),
-                      dtype=torch.float32, device=x.device)
+                      dtype=torch.int8 if q8 else torch.float32,
+                      device=x.device)
     rc = _build.library().io_fused_stem_f32(
         x.data_ptr(), wk.data_ptr(), b.data_ptr(), out.data_ptr(), N, H, W,
-        C, cout, torch.cuda.current_stream(x.device).cuda_stream)
+        C, cout, int(bool(q8)),
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, 'fused_stem (f32)')
     fused_stem.launches += 1
     return out

@@ -94,6 +94,9 @@ def test_stage_kernel(dev):
 
 
 def test_kernel_wrappers_refuse_bad_inputs(dev):
+    """A float x must be in the weights' compute dtype: f32 x with bf16
+    weights and bf16 x with f32 weights raise. int8 x with f32 weights
+    (the v2 model at compute_dtype=f32) launches the f32 mode."""
     from instaorder_tpu_torch.ops import bottleneck_kernels as BK
     rng = np.random.RandomState(0)
     p = _blk(rng, dev, 64, 64, 64, False)
@@ -102,7 +105,13 @@ def test_kernel_wrappers_refuse_bad_inputs(dev):
         BK.fused_bottleneck_i8v2_identity(x, *p, 0.5)
     p32 = [a.float() for a in p]
     with pytest.raises(ValueError):
-        BK.fused_bottleneck_i8v2_identity(x.to(torch.int8), *p32, 0.5)
+        BK.fused_bottleneck_i8v2_identity(x.bfloat16(), *p32, 0.5)
+    x8 = torch.as_tensor(rng.randint(0, 128, (1, 8, 8, 64)), device=dev,
+                         dtype=torch.int8)
+    before = BK.fused_bottleneck_i8v2_identity.launches
+    got = BK.fused_bottleneck_i8v2_identity(x8, *p32, 0.5)
+    assert BK.fused_bottleneck_i8v2_identity.launches == before + 1
+    _close(got, BK.fused_bottleneck_i8v2_identity_plain(x8, *p32, 0.5))
 
 
 @pytest.mark.parametrize('passes', [1, 3])
@@ -342,8 +351,9 @@ def test_prep_rgb_kernel_odd_sizes(dev, passes, normalize):
 
 def test_bf16_kernel_wrappers_refuse_bad_inputs(dev):
     """f32 activations launch the f32 mode (within 2e-5 of the output
-    scale of the plain version; with bf16 weights they raise); non-f32
-    biases raise."""
+    scale of the plain version; with bf16 weights they raise), the f32
+    stem also with q8 (within one LSB on under 1%); non-f32 biases
+    raise."""
     from instaorder_tpu_torch.ops import bottleneck_bf16_kernels as B16
     from instaorder_tpu_torch.ops import stem_kernels as SK
     rng = np.random.RandomState(0)
@@ -377,8 +387,10 @@ def test_bf16_kernel_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(ValueError, match='w must be float32'):
         SK.fused_stem(xs, w.bfloat16(), b,
                       wk=SK.stem_kernel_weights(w.bfloat16()))
-    with pytest.raises(ValueError, match='q8'):
-        SK.fused_stem(xs, w, b, q8=True, wk=SK.stem_kernel_weights(w))
+    got = SK.fused_stem(xs, w * 30, b, q8=True,
+                        wk=SK.stem_kernel_weights(w * 30))
+    assert SK.fused_stem.launches == before + 2 and got.dtype == torch.int8
+    _close(got, SK.fused_stem_plain(xs, w * 30, b, q8=True))
     with pytest.raises(ValueError, match='bias'):
         SK.fused_stem(xs.bfloat16(), w.bfloat16(), b.bfloat16())
 
@@ -846,7 +858,7 @@ def _pred_scene(seed, n=5, h=96, w=128):
     return image, masks, bboxes
 
 
-@pytest.mark.parametrize('factory', ['v2', 'int8c', 'bf16', 'f32'])
+@pytest.mark.parametrize('factory', ['v2', 'v2-f32', 'int8c', 'bf16', 'f32'])
 def test_predictor_factories_card_vs_cpu(dev, factory):
     """Each factory's infer_occ_order on the card against the same
     predictor moved to the CPU (the plain versions), on one small scene
@@ -875,6 +887,12 @@ def test_predictor_factories_card_vs_cpu(dev, factory):
         'v2': (lambda: TPL.make_v2_predictor(params, stats, cfg,
                                              'InstaOrderNet_o', calib,
                                              prep_passes=1, **b16), 0.02),
+        # the v2 model at compute_dtype=f32 with its q8 stem: the f32
+        # modes of the v2 kernels
+        'v2-f32': (lambda: TPL.make_v2_predictor(
+            params, stats, cfg, 'InstaOrderNet_o', calib,
+            use_pallas=('hwnc', 'down2', 'hwncs1d', 'dirpack', 'stem'),
+            compute_dtype=torch.float32, **kw), 0.02),
         'int8c': (lambda: TPL.make_int8_predictor(
             params, stats, cfg, 'InstaOrderNet_o', calib, **b16), 1e-5),
         'bf16': (lambda: TPL.make_folded_predictor(
@@ -1155,3 +1173,201 @@ def test_prep_rgb_f32_out_odd_sizes(dev, passes, normalize):
     b16 = PK.fused_prep_rgb(sc[0], rois, out_size=72, normalize=normalize,
                             passes=passes)
     assert torch.equal(got.bfloat16(), b16)
+
+
+# ---------------------------------------------------------------------------
+# the v2 model at compute_dtype=f32: the f32 GEMM with int8 A segments, an
+# int8 residual and the v2 epilogues (int8 or f32 out), each v2 wrapper
+# given f32 weights, and the f32 q8 stem, against their plain versions
+# (the v2 bars: one int8 LSB on under 1% a block, k LSB over k chained)
+# ---------------------------------------------------------------------------
+
+
+def _blk32(rng, dev, cin, cm, cout, down):
+    return [a.float() for a in _blk(rng, dev, cin, cm, cout, down)]
+
+
+@pytest.mark.parametrize('n,hw,cin,cout,out_int8', [
+    (3, 7, 64, 64, True),        # M = 147, one K step pair, 128 x 64
+    (2, 10, 96, 256, False),     # K = 96: three int8 steps, f32 out
+    (1, 5, 512, 2048, True)])    # Cout = 2048, M = 25
+def test_gemm_f32_int8_segment(dev, n, hw, cin, cout, out_int8):
+    """One launch on an int8 x (32 raw bytes a K step, widened to f32):
+    relu(x . w + b) in f32 within 2e-5, and the v2 epilogue clip(rint(x
+    . w + b + r * res), 0, 127) with an int8 residual, int8 or f32 out."""
+    from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    rng = np.random.RandomState(300 + cin)
+    x = torch.as_tensor(rng.randint(-128, 128, (n, hw, hw, cin)), device=dev,
+                        dtype=torch.int8)
+    w = _f32(rng, dev, cin, cout, scale=0.3 / np.sqrt(cin))
+    b = _f32(rng, dev, cout, scale=5.0)
+    out = torch.empty((n, hw, hw, cout), dtype=torch.float32, device=dev)
+    got = BK._gemm(out, [(x, w, 1, 1)], b, BK._RELU_F32)
+    _f32_close(got, torch.relu(x.float() @ w + b))
+    res = torch.as_tensor(rng.randint(0, 128, (n, hw, hw, cout)), device=dev,
+                          dtype=torch.int8)
+    out = torch.empty((n, hw, hw, cout), device=dev,
+                      dtype=torch.int8 if out_int8 else torch.float32)
+    got = BK._gemm(out, [(x, w, 1, 1)], b,
+                   BK._Q8_INT8_F32 if out_int8 else BK._Q8_F32, res=res,
+                   r=0.43)
+    y = x.float() @ w + b + res.float() * 0.43
+    want = torch.clamp(torch.round(y), 0, 127).to(out.dtype)
+    _close(got, want)
+    assert float(((want > 0) & (want < 127)).float().mean()) > 0.05
+
+
+@pytest.mark.parametrize('n,hw,cm,cin,cout,stride', [
+    (2, 9, 64, 64, 256, 2), (1, 7, 128, 256, 512, 1), (3, 5, 64, 96, 128, 1)])
+def test_gemm_f32_kpacked_int8_second_segment(dev, n, hw, cm, cin, cout,
+                                              stride):
+    """The K-packed projection [h2 | x_s] . [[w3], [wd]] + b3 + bd with an
+    f32 h2 and an int8 x (stride 2 at the edges, K = 96 in three steps)
+    in one f32 sum, the v2 epilogue within one int8 LSB; int8 and f32
+    out hold the same integers."""
+    from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    rng = np.random.RandomState(320 + cin)
+    ho = (hw - 1) // stride + 1
+    h2 = torch.relu(_f32(rng, dev, n, ho, ho, cm))
+    x = torch.as_tensor(rng.randint(0, 128, (n, hw, hw, cin)), device=dev,
+                        dtype=torch.int8)
+    w3 = _f32(rng, dev, cm, cout, scale=8 / np.sqrt(cm))
+    wd = _f32(rng, dev, cin, cout, scale=1 / np.sqrt(cin))
+    b3, bd = _f32(rng, dev, cout, scale=5.0), _f32(rng, dev, cout, scale=5.0)
+    xs = x.float()[:, ::stride, ::stride]
+    y = torch.cat([h2, xs], -1) @ torch.cat([w3, wd]) + b3 + bd
+    want = torch.clamp(torch.round(y), 0, 127)
+    outs = []
+    for dt, mode in ((torch.int8, BK._Q8_INT8_F32),
+                     (torch.float32, BK._Q8_F32)):
+        out = torch.empty((n, ho, ho, cout), dtype=dt, device=dev)
+        got = BK._gemm(out, [(h2, w3, 1, 1), (x, wd, stride, 1)], b3, mode,
+                       bias2=bd)
+        _close(got, want.to(dt))
+        outs.append(got)
+    assert torch.equal(outs[0].float(), outs[1])
+    assert float(((want > 0) & (want < 127)).float().mean()) > 0.05
+
+
+def test_gemm_f32_refuses_mismatched_v2_output(dev):
+    """The f32 mode's int8 output goes with _Q8_INT8_F32 only, and a bf16
+    A segment is refused before the launch."""
+    from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    rng = np.random.RandomState(330)
+    x = torch.zeros((1, 4, 4, 64), dtype=torch.int8, device=dev)
+    w, b = _f32(rng, dev, 64, 64), _f32(rng, dev, 64)
+    with pytest.raises(ValueError, match='epilogue mode'):
+        BK._gemm(torch.empty((1, 4, 4, 64), dtype=torch.int8, device=dev),
+                 [(x, w, 1, 1)], b, BK._Q8_F32)
+    with pytest.raises(ValueError, match='epilogue mode'):
+        BK._gemm(torch.empty((1, 4, 4, 64), dtype=torch.float32, device=dev),
+                 [(x, w, 1, 1)], b, BK._Q8_INT8_F32)
+    with pytest.raises(ValueError, match='int8 or float32'):
+        BK._gemm(torch.empty((1, 4, 4, 64), dtype=torch.int8, device=dev),
+                 [(x.bfloat16(), w, 1, 1)], b, BK._Q8_INT8_F32)
+
+
+@pytest.mark.parametrize('n,hw,c,cm,in_dt,out_int8', [
+    (3, 7, 64, 64, torch.int8, True), (2, 10, 256, 64, torch.float32, False),
+    (1, 16, 512, 128, torch.int8, False)])
+def test_v2_f32_identity_kernels(dev, n, hw, c, cm, in_dt, out_int8):
+    """Kernels 4[f32] and 8[f32]: int8 x (or f32 holding the integers),
+    the int8 residual r*x, int8 or f32 out; M = 147, 200, 256."""
+    from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    rng = np.random.RandomState(340 + hw)
+    x = torch.as_tensor(rng.randint(0, 128, (n, hw, hw, c)),
+                        device=dev).to(in_dt)
+    p = _blk32(rng, dev, c, cm, c, False)
+    want = BK.fused_bottleneck_i8v2_identity_plain(x, *p, 0.45,
+                                                   out_int8=out_int8)
+    assert want.dtype == (torch.int8 if out_int8 else torch.float32)
+    for fn in (BK.fused_bottleneck_i8v2_identity, BK.fused_bottleneck_i8v2):
+        before = fn.launches
+        got = fn(x, *p, 0.45, out_int8=out_int8)
+        _launched(fn, before)
+        _close(got, want)
+
+
+@pytest.mark.parametrize('hw,cin,cout', [(8, 64, 256), (9, 256, 512),
+                                         (14, 512, 1024)])
+def test_v2_f32_down_s2_kernel(dev, hw, cin, cout):
+    """Kernel 3[f32]: the stride-2 3x3 and the stride-2 int8 projection
+    segment at the bottom and right edges of even and odd planes."""
+    from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    rng = np.random.RandomState(350 + hw)
+    x = torch.as_tensor(rng.randint(0, 128, (2, hw, hw, cin)), device=dev,
+                        dtype=torch.int8)
+    p = _blk32(rng, dev, cin, cout // 4, cout, True)
+    before = BK.fused_bottleneck_i8v2_down_s2.launches
+    got = BK.fused_bottleneck_i8v2_down_s2(x, *p)
+    _launched(BK.fused_bottleneck_i8v2_down_s2, before)
+    assert tuple(got.shape) == (2, (hw - 1) // 2 + 1, (hw - 1) // 2 + 1, cout)
+    _close(got, BK.fused_bottleneck_i8v2_down_s2_plain(x, *p))
+
+
+@pytest.mark.parametrize('n,hw,cin,cm,cout,out_int8', [
+    (3, 9, 64, 64, 256, True), (2, 7, 512, 128, 512, False),
+    (1, 12, 256, 64, 256, True)])
+def test_v2_f32_stride1_projection_kernels(dev, n, hw, cin, cm, cout,
+                                           out_int8):
+    """Kernels 7[f32] and 9[f32]: the K-packed projection with the int8 x
+    as its second segment."""
+    from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    rng = np.random.RandomState(360 + hw)
+    x = torch.as_tensor(rng.randint(0, 128, (n, hw, hw, cin)), device=dev,
+                        dtype=torch.int8)
+    p = _blk32(rng, dev, cin, cm, cout, True)
+    for fn, plain in ((BK.fused_bottleneck_down_i8v2_hwnc,
+                       BK.fused_bottleneck_down_i8v2_hwnc_plain),
+                      (BK.fused_bottleneck_down_i8v2,
+                       BK.fused_bottleneck_down_i8v2_plain)):
+        before = fn.launches
+        got = fn(x, *p, out_int8=out_int8)
+        _launched(fn, before)
+        _close(got, plain(x, *p, out_int8=out_int8))
+
+
+@pytest.mark.parametrize('kind', ['stage', 'hwncp', 'run'])
+def test_v2_f32_stage_kernels(dev, kind):
+    """Kernels 2[f32], 6[f32] (layer1: the projection then two identity
+    blocks) and 2'[f32] (an identity run of two blocks, f32 out): within
+    one LSB per chained block."""
+    from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    rng = np.random.RandomState(370 + len(kind))
+    c = 256 if kind == 'run' else 64
+    x = torch.as_tensor(rng.randint(0, 128, (3, 10, 10, c)), device=dev,
+                        dtype=torch.int8)
+    down = None if kind == 'run' else _blk32(rng, dev, 64, 64, 256, True)
+    blocks = [_blk32(rng, dev, 256, 64, 256, False) for _ in range(2)]
+    rs = [0.5, 0.7]
+    o = kind != 'run'
+    fn = (BK.fused_bottleneck_i8v2_hwncp_stage if kind == 'hwncp'
+          else BK.fused_bottleneck_i8v2_stage)
+    before = fn.launches
+    got = fn(x, down, blocks, rs, out_int8=o)
+    _launched(fn, before)
+    k = len(blocks) + (down is not None)
+    _close(got, BK.fused_bottleneck_i8v2_stage_plain(x, down, blocks, rs,
+                                                     out_int8=o),
+           bar=k, share=0.01 * k)
+
+
+@pytest.mark.parametrize('n,hw,cout', [(1, 36, 64), (3, 50, 128),
+                                       (2, 31, 64), (9, 256, 128)])
+def test_f32_q8_stem_kernel(dev, n, hw, cout):
+    """Kernel 15'[f32]: the f32 stem with the q8 epilogue (pooled, then
+    clip(rint(v), 0, 127) as int8), Cout 64 and 128, odd sizes and the
+    serving shape, within one LSB on under 1% of outputs."""
+    from instaorder_tpu_torch.ops import stem_kernels as SK
+    rng = np.random.RandomState(380 + hw)
+    x = _f32(rng, dev, n, hw, hw, 5)
+    w = _f32(rng, dev, 7, 7, 5, cout, scale=30 / np.sqrt(245))
+    b = _f32(rng, dev, cout, scale=3.0)
+    before = SK.fused_stem.launches
+    got = SK.fused_stem(x, w, b, q8=True, wk=SK.stem_kernel_weights(w))
+    assert SK.fused_stem.launches == before + 1
+    want = SK.fused_stem_plain(x, w, b, q8=True)
+    ho = ((hw - 1) // 2) // 2 + 1
+    assert tuple(got.shape) == (n, ho, ho, cout) and got.dtype == torch.int8
+    _close(got, want)
+    assert float(((want > 0) & (want < 127)).float().mean()) > 0.2
