@@ -63,8 +63,11 @@ Phases (any failed check raises and the script exits nonzero):
      moved to the CPU on the two smallest scenes, and the per-image ms
      of infer_occ_order at each bucket with images/s over the four
      scenes;
-  5. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, the
-     `kernels` JSON line, then {"ok": true, "device": {...}}.
+  5. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
+     f32 row's share of its 3xTF32 bound (495 TF32 TFLOP/s, three
+     products a MAC, two for an int8 A: the row's bound_ms) and of the
+     f32 peak, the `kernels` JSON line, then {"ok": true, "device":
+     {...}}.
 Exits nonzero without a result when no CUDA device is present.
 """
 
@@ -82,6 +85,7 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_BF16_PER_S = 989e12        # dense bf16 tensor-core peak
 H100_INT8_PER_S = 1979e12       # dense int8 tensor-core peak
 H100_F32_PER_S = 67e12          # f32 outside the tensor cores
+H100_TF32_PER_S = 495e12        # dense TF32 tensor-core peak
 PREP_FLOPS_PER_PIXEL = 3 * (4 * 4 + 4) * 2 + 12   # taps + epilogue
 PREP = 'fused_prep_pairs'
 # the 5-channel prep's f32-output mode (row 1''): its own entry in the
@@ -360,6 +364,26 @@ def block_macs(shape, blk, stride):
     return macs, (n, ho, wo, cout)
 
 
+def tf32x3_ops(shape, blocks, x_int8):
+    """TF32 tensor-core operations of the f32 block kernel's 3xTF32 method
+    over `blocks` [(block params, stride)] chained from an (N, H, W, Cin)
+    input: three products a MAC, two where the A operand is int8 (x_int8:
+    one flag a block, True where its x, read by conv1 and the projection,
+    is int8)."""
+    ops = 0
+    for (blk, stride), i8 in zip(blocks, x_int8, strict=True):
+        n, h, w, cin = shape
+        cm, cout = blk['conv1']['w'].shape[-1], blk['conv3']['w'].shape[-1]
+        ho, wo = h // stride, w // stride
+        x_macs = n * h * w * cin * cm
+        if 'down' in blk:
+            x_macs += n * ho * wo * cin * cout
+        ops += 2 * ((2 if i8 else 3) * x_macs
+                    + 3 * n * ho * wo * (9 * cm * cm + cm * cout))
+        shape = (n, ho, wo, cout)
+    return ops
+
+
 def trunk_calls(q, BK, FO):
     """The trunk's kernel calls in _apply_trunk_v2's order: (name,
     kernel(h), plain(h), [(block params, stride)] it covers)."""
@@ -367,24 +391,27 @@ def trunk_calls(q, BK, FO):
     down = FO._kernel_args(l1[0])
     run = [FO._kernel_args(b) for b in l1[1:]]
     rs = [b['r'] for b in l1[1:]]
-    yield (STAGE, lambda h: BK.fused_bottleneck_i8v2_stage(h, down, run, rs),
+    wks = [b.get('wk') for b in l1]
+    yield (STAGE, lambda h: BK.fused_bottleneck_i8v2_stage(h, down, run, rs,
+                                                           wk=wks),
            lambda h: BK.fused_bottleneck_i8v2_stage_plain(h, down, run, rs),
            [(b, 1) for b in l1])
     rest = [qb for li in (2, 3, 4) for qb in q[f'layer{li}']]
     for i, qb in enumerate(rest):
         o = i + 1 == len(rest)          # int8 out at the trunk's end only
-        a = FO._kernel_args(qb)
+        a, wk = FO._kernel_args(qb), qb.get('wk')
         if 'down' in qb:
             yield (DOWN,
-                   lambda h, a=a, o=o: BK.fused_bottleneck_i8v2_down_s2(
-                       h, *a, out_int8=o),
+                   lambda h, a=a, o=o, wk=wk: BK.fused_bottleneck_i8v2_down_s2(
+                       h, *a, out_int8=o, wk=wk),
                    lambda h, a=a, o=o: BK.fused_bottleneck_i8v2_down_s2_plain(
                        h, *a, out_int8=o), [(qb, 2)])
         else:
             a = (*a, qb['r'])
             yield (IDEN,
-                   lambda h, a=a, o=o: BK.fused_bottleneck_i8v2_identity(
-                       h, *a, out_int8=o),
+                   lambda h, a=a, o=o, wk=wk:
+                   BK.fused_bottleneck_i8v2_identity(h, *a, out_int8=o,
+                                                     wk=wk),
                    lambda h, a=a, o=o: BK.fused_bottleneck_i8v2_identity_plain(
                        h, *a, out_int8=o), [(qb, 1)])
 
@@ -400,7 +427,7 @@ def check_stage_blocks(torch, BK, FO, blocks, h):
         w = w[:6]
         want = BK._block_plain(h, *w, **kw)
         err, frac = diff(torch, f'  stage block {j}',
-                         BK._block_cuda(h, *w, **kw), want)
+                         BK._block_cuda(h, *w, **kw, wk=qb.get('wk')), want)
         check(err <= 1 and frac < 0.01, f'stage block {j}: <=1 LSB on <1%')
         h = want
     return len(blocks)
@@ -609,14 +636,16 @@ def phase_stem_q8(torch, SK, FO, q, x, results, f32=False):
             cuda_ms(torch, lambda: SK.fused_stem_plain(
                 x, c1['w'], c1['b'], q8=True), reps=2), None,
             nbytes(x, want, c1['w'], c1['b']), stem_ops(x, c1['w']),
-            rate=H100_F32_PER_S if f32 else H100_BF16_PER_S)
+            rate=H100_F32_PER_S if f32 else H100_BF16_PER_S,
+            tf32_ops=3 * stem_ops(x, c1['w']) if f32 else None)
 
 
 def add_row(results, name, err, kern, plain, chain, nbytes_, ops,
-            rate=H100_BF16_PER_S, conv_only=None):
+            rate=H100_BF16_PER_S, conv_only=None, tf32_ops=None):
     """Add one call's numbers to the kernel's row (chain: the cuDNN
-    route's ms, conv_only: conv_only_ms(); None where the row has no
-    such column)."""
+    route's ms, conv_only: conv_only_ms(), tf32_ops: the TF32 operations
+    of the f32 kernels' 3xTF32 method; None where the row has no such
+    column)."""
     r = results.setdefault(name, dict(
         max_abs_err=0.0, ms=0.0, plain_ms=0.0, bytes=0, ops=0,
         ops_rate=rate))
@@ -627,6 +656,8 @@ def add_row(results, name, err, kern, plain, chain, nbytes_, ops,
         r['chain_ms'] = r.get('chain_ms', 0.0) + chain
     if conv_only is not None:
         r['conv_only_ms'] = r.get('conv_only_ms', 0.0) + conv_only
+    if tf32_ops is not None:
+        r['tf32_ops'] = r.get('tf32_ops', 0) + tf32_ops
     r['bytes'] += nbytes_
     r['ops'] += ops
 
@@ -753,7 +784,7 @@ def phase_trunk_f32(torch, B16, SK, FO, params, x, results):
                     reps=2),
             cuda_ms(torch, lambda: FO._plain_stem(c1, x), reps=2),
             nbytes(x, want, c1['w'], c1['b']), stem_ops(x, c1['w']),
-            rate=H100_F32_PER_S)
+            rate=H100_F32_PER_S, tf32_ops=3 * stem_ops(x, c1['w']))
     h = FO.directions_to_batch(want)
     for li in range(4):
         for bi, bp in enumerate(params[f'layer{li + 1}']):
@@ -761,16 +792,17 @@ def phase_trunk_f32(torch, B16, SK, FO, params, x, results):
             if bp['conv1']['w'].shape[2] > FO.IDEN_CIN_CAP:
                 h = FO._plain_block(bp, h, stride)      # no kernel here
                 continue
-            args = FO._kernel_args(bp)
+            args, wk = FO._kernel_args(bp), bp['wk']
             if 'down' in bp:
                 name = DOWN32
-                kern = lambda h, a=args, s=stride: B16.fused_bottleneck_down(
-                    h, *a, stride=s)
+                kern = lambda h, a=args, s=stride, wk=wk: (
+                    B16.fused_bottleneck_down(h, *a, stride=s, wk=wk))
                 plain = lambda h, a=args, s=stride: (
                     B16.fused_bottleneck_down_plain(h, *a, stride=s))
             else:
                 name = IDEN32
-                kern = lambda h, a=args: B16.fused_bottleneck(h, *a)
+                kern = lambda h, a=args, wk=wk: B16.fused_bottleneck(h, *a,
+                                                                     wk=wk)
                 plain = lambda h, a=args: B16.fused_bottleneck_plain(h, *a)
             if name == IDEN32 and bi == 1:
                 f32_stage_rows(torch, B16, FO, params[f'layer{li + 1}'][1:],
@@ -781,19 +813,22 @@ def phase_trunk_f32(torch, B16, SK, FO, params, x, results):
             macs, _ = block_macs(tuple(h.shape), bp, stride)
             chain = cuda_ms(torch, lambda: FO._plain_block(bp, h, stride),
                             reps=2)
+            tops = tf32x3_ops(tuple(h.shape), [(bp, stride)], [False])
             add_row(results, name, err, cuda_ms(torch, lambda: kern(h)),
                     cuda_ms(torch, lambda: plain(h), reps=2), chain,
-                    nbytes(h, want, *args), 2 * macs, rate=H100_F32_PER_S)
+                    nbytes(h, want, *args), 2 * macs, rate=H100_F32_PER_S,
+                    tf32_ops=tops)
             if name == IDEN32:
                 err = f32_diff(torch, f'{HWNC32} {tuple(h.shape)}',
-                               B16.fused_bottleneck_hwnc(h, *args), want,
-                               2e-5)
+                               B16.fused_bottleneck_hwnc(h, *args, wk=wk),
+                               want, 2e-5)
                 add_row(results, HWNC32, err,
                         cuda_ms(torch, lambda: B16.fused_bottleneck_hwnc(
-                            h, *args)),
+                            h, *args, wk=wk)),
                         cuda_ms(torch, lambda: B16.fused_bottleneck_hwnc_plain(
                             h, *args), reps=2), chain,
-                        nbytes(h, want, *args), 2 * macs, rate=H100_F32_PER_S)
+                        nbytes(h, want, *args), 2 * macs, rate=H100_F32_PER_S,
+                        tf32_ops=tops)
             h = want
 
 
@@ -803,6 +838,7 @@ def f32_stage_rows(torch, B16, FO, run, h, results):
     |plain| per chained block, beside the cuDNN f32 chain of the same K
     blocks."""
     blocks = [FO._kernel_args(bp) for bp in run]
+    wks = [bp['wk'] for bp in run]
     want = B16.fused_bottleneck_stage_plain(h, blocks)
     macs = sum(block_macs(tuple(h.shape), bp, 1)[0] for bp in run)
     weights = [t for blk in blocks for t in blk]
@@ -816,11 +852,15 @@ def f32_stage_rows(torch, B16, FO, run, h, results):
     for name, fn in ((STAGE32, B16.fused_bottleneck_stage),
                      (SSTAGE32, B16.fused_bottleneck_stage_stream)):
         err = f32_diff(torch, f'{name} K={len(run)} {tuple(h.shape)}',
-                       fn(h, blocks), want, 2e-5 * len(run))
-        add_row(results, name, err, cuda_ms(torch, lambda: fn(h, blocks)),
+                       fn(h, blocks, wk=wks), want, 2e-5 * len(run))
+        add_row(results, name, err,
+                cuda_ms(torch, lambda: fn(h, blocks, wk=wks)),
                 cuda_ms(torch, lambda: B16.fused_bottleneck_stage_plain(
                     h, blocks), reps=2), chain_ms,
-                nbytes(h, want, *weights), 2 * macs, rate=H100_F32_PER_S)
+                nbytes(h, want, *weights), 2 * macs, rate=H100_F32_PER_S,
+                tf32_ops=tf32x3_ops(tuple(h.shape),
+                                    [(bp, 1) for bp in run],
+                                    [False] * len(run)))
 
 
 def exact(torch, what, got, want):
@@ -926,7 +966,11 @@ def v2_row(torch, results, name, kern, plain, h, blocks, bar=1,
             nbytes(h, want, *weights), 2 * macs,
             rate=H100_F32_PER_S if f32 else H100_BF16_PER_S,
             conv_only=None if f32 else conv_only_ms(torch, tuple(h.shape),
-                                                    blocks))
+                                                    blocks),
+            tf32_ops=tf32x3_ops(tuple(h.shape), blocks,
+                                [h.dtype == torch.int8]
+                                + [True] * (len(blocks) - 1)) if f32
+            else None)
     return want
 
 
@@ -957,20 +1001,22 @@ def phase_trunk_v2_variants(torch, BK, Q, FO, q, x, results, f32=False):
         a = FO._kernel_args(layer[0])
         run = [FO._kernel_args(b) for b in layer[1:]]
         rs = [b['r'] for b in layer[1:]]
+        wks = [b.get('wk') for b in layer]
         if li == 1:
             v2_row(torch, results, HWNCP,
                    lambda h: BK.fused_bottleneck_i8v2_hwncp_stage(
-                       h, a, run, rs),
+                       h, a, run, rs, wk=wks),
                    lambda h: BK.fused_bottleneck_i8v2_hwncp_stage_plain(
                        h, a, run, rs), h, [(b, 1) for b in layer],
                    bar=len(layer), f32=f32)
             v2_row(torch, results, DOWN1N,
                    lambda h: BK.fused_bottleneck_down_i8v2(
-                       h, *a, out_int8=False),
+                       h, *a, out_int8=False, wk=wks[0]),
                    lambda h: BK.fused_bottleneck_down_i8v2_plain(
                        h, *a, out_int8=False), h, [(layer[0], 1)], f32=f32)
             h = v2_row(torch, results, DOWN1H,
-                       lambda h: BK.fused_bottleneck_down_i8v2_hwnc(h, *a),
+                       lambda h: BK.fused_bottleneck_down_i8v2_hwnc(
+                           h, *a, wk=wks[0]),
                        lambda h: BK.fused_bottleneck_down_i8v2_hwnc_plain(
                            h, *a), h, [(layer[0], 1)], f32=f32)
         else:
@@ -985,7 +1031,7 @@ def phase_trunk_v2_variants(torch, BK, Q, FO, q, x, results, f32=False):
         o = li in (1, 4)        # int8 out at layer1 and the trunk's end
         want = v2_row(torch, results, RUN,
                       lambda h: BK.fused_bottleneck_i8v2_stage(
-                          h, None, run, rs, out_int8=o),
+                          h, None, run, rs, out_int8=o, wk=wks[1:]),
                       lambda h: BK.fused_bottleneck_i8v2_stage_plain(
                           h, None, run, rs, out_int8=o),
                       h, [(b, 1) for b in layer[1:]], bar=k, share=None,
@@ -996,8 +1042,9 @@ def phase_trunk_v2_variants(torch, BK, Q, FO, q, x, results, f32=False):
         for k, (blk, r) in enumerate(zip(run, rs)):
             o = k == len(run) - 1   # int8 before the plain stride-2 block
             h = v2_row(torch, results, IDENN,
-                       lambda h, blk=blk, r=r, o=o: BK.fused_bottleneck_i8v2(
-                           h, *blk, r, out_int8=o),
+                       lambda h, blk=blk, r=r, o=o, wk=wks[k + 1]:
+                       BK.fused_bottleneck_i8v2(h, *blk, r, out_int8=o,
+                                                wk=wk),
                        lambda h, blk=blk, r=r, o=o:
                        BK.fused_bottleneck_i8v2_plain(h, *blk, r, out_int8=o),
                        h, [(layer[k + 1], 1)], f32=f32)
@@ -1429,6 +1476,7 @@ def main():
     q32 = Q.quantize_folded_v2(folded, cfg, scales,
                                compute_dtype=torch.float32)
     FO.add_stem_kernel_weights(q32['conv1'])
+    FO.add_f32_block_weights(q32)
     del folded
     torch.cuda.synchronize()
     print(f'build_serving_model + build_parity_model: '
@@ -1587,6 +1635,13 @@ def main():
         if 'conv_only_ms' in r:
             print(f'{name}: kernel {r["ms"]:.4f} ms, its convolutions alone '
                   f'(bf16 conv2d, channels_last) {r["conv_only_ms"]:.4f} ms')
+        if 'tf32_ops' in r:
+            # the f32 rows: the least time for f32-accurate work is the
+            # 3xTF32 method's on the tensor cores, below the f32 peak's
+            t_f32, t_ops = t_ops, r['tf32_ops'] / H100_TF32_PER_S * 1e3
+            print(f'{name}: kernel {r["ms"]:.4f} ms; 3xTF32 bound '
+                  f'{t_ops:.4f} ms ({100 * t_ops / r["ms"]:.1f}% of it), '
+                  f'f32 bound {t_f32:.4f} ms ({100 * t_f32 / r["ms"]:.1f}%)')
         kernels.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches[name],

@@ -1,13 +1,16 @@
-// Building blocks shared by the two implicit-GEMM block kernels for
-// Hopper (sm_90a): csrc/bottleneck_v2.cu (bf16 operands, f32 sums) and
-// csrc/bottleneck_int8.cu (int8 operands, s32 sums). The stem kernels
-// (csrc/stem.cu) use its copy, descriptor, wgmma and fragment helpers.
+// Building blocks shared by the implicit-GEMM block kernels for Hopper
+// (sm_90a): csrc/bottleneck_v2.cu (bf16 operands, f32 sums),
+// csrc/bottleneck_int8.cu (int8 operands, s32 sums) and
+// csrc/bottleneck_f32.cu (f32 operands split into TF32 halves, f32
+// sums). The stem kernels (csrc/stem.cu) use its copy, descriptor,
+// wgmma and fragment helpers.
 //
 // The design both kernels follow:
 //   - a CTA computes a 128 x BN output tile (BN = 64 or 128, chosen by
 //     ops/gemm_layout.tile_n) with two consumer warpgroups of 64 rows
 //     each, through wgmma reading both operands from shared memory;
-//   - a K step is 128 bytes of every operand row (64 bf16 or 128 int8),
+//   - a K step is 128 bytes of every operand row (64 bf16, 128 int8 or
+//     32 f32),
 //     stored with the 128-byte swizzle wgmma reads: 16-byte chunk c of
 //     row r at r * 128 + ((c ^ r % 8) * 16), every tile 1024-byte aligned;
 //   - all 256 threads issue cp.async 16-byte copies of the im2col gather
@@ -91,6 +94,14 @@ __device__ __forceinline__ void prefetch_rows_l2(const void* tile, int64_t ld,
   }
 }
 
+// a rounded to TF32 (10 mantissa bits, to nearest, ties away from zero)
+// as an f32 whose low 13 mantissa bits are 0; a - tf32_rna(a) is exact
+__device__ __forceinline__ float tf32_rna(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return __uint_as_float(r);
+}
+
 // wgmma shared-memory descriptor with the 128-byte swizzle: start address,
 // leading and stride byte offsets (bytes, multiples of 16)
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
@@ -143,6 +154,13 @@ __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t a, uint64_t b);
 // D(64 x BN, s32) += A(64 x 32, K-major) . B(32 x BN, K-major), int8
 template <int BN>
 __device__ __forceinline__ void wgmma_s8(int* d, uint64_t a, uint64_t b);
+
+// D(64 x BN, f32) = A(64 x 8, K-major) . B(8 x BN, K-major) (+ D where
+// accumulate != 0), tf32: both operands K-major (tf32 wgmma has no
+// transpose), each element an f32 whose low 13 mantissa bits are 0
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32(float* d, uint64_t a, uint64_t b,
+                                           int accumulate);
 
 template <>
 __device__ __forceinline__ void wgmma_bf16<64>(float* d, uint64_t a,
@@ -234,6 +252,52 @@ __device__ __forceinline__ void wgmma_s8<128>(int* d, uint64_t a,
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float* d, uint64_t a,
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float* d, uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // Accumulator layout of wgmma m64nN: element 4 * j + e of a thread holds

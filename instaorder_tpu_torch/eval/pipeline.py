@@ -32,8 +32,9 @@ from ..convert import tree_to
 from ..core.nn import tree_cast
 from ..device import resolve_device
 from ..models import quantize as Q
-from ..models.folding import (add_stem_kernel_weights, apply_folded,
-                              apply_folded_siamese, fold_resnet)
+from ..models.folding import (add_f32_block_weights, add_stem_kernel_weights,
+                              apply_folded, apply_folded_siamese,
+                              fold_resnet)
 from ..ops.morphology import bordering_matrix
 from ..ops.pairs import (_normalize, all_pair_indices, build_pair_batch,
                          build_pair_batch_rois, build_pair_batch_shared_rgb,
@@ -304,14 +305,17 @@ def make_folded_predictor(params, stats, cfg, method, dtype=None,
     (the cuDNN f32 route on the card, TF32 off).
 
     On the card the model gets the stem kernel's weights in its dtype
-    (add_stem_kernel_weights), as serving.build_parity_model and
-    build_f32_model do."""
+    (add_stem_kernel_weights), and at f32 every block the f32 block
+    kernel's split K-major weights (add_f32_block_weights), as
+    serving.build_parity_model and build_f32_model do."""
     dev = resolve_device(device)
     folded = fold_resnet(tree_to(params, dev), tree_to(stats, dev), cfg)
     if dtype is not None:
         folded = tree_cast(folded, dtype)
     if dev.type == 'cuda':
         add_stem_kernel_weights(folded['conv1'])
+        if folded['conv1']['w'].dtype == torch.float32:
+            add_f32_block_weights(folded)
 
     def apply_fn(p, s, c, x):
         return apply_folded(p, c, x, dtype=dtype, use_pallas=use_pallas)
@@ -361,7 +365,8 @@ def make_v2_predictor(params, stats, cfg, method, calib_batches,
     knobs (conv2_mode, hwnc_io, pipeline, stage_unroll) do not carry
     over. On the card the model gets the stem kernel's weights in its
     compute dtype (add_stem_kernel_weights), which the `stem` feature's
-    q8 stem reads."""
+    q8 stem reads, and at compute_dtype=f32 every block the f32 block
+    kernel's split K-major weights (add_f32_block_weights)."""
     dev = resolve_device(device)
     cdt = torch.bfloat16 if compute_dtype is None else compute_dtype
     folded = fold_resnet(tree_to(params, dev), tree_to(stats, dev), cfg)
@@ -370,6 +375,8 @@ def make_v2_predictor(params, stats, cfg, method, calib_batches,
     qp = Q.quantize_folded_v2(folded, cfg, scales, compute_dtype=cdt)
     if dev.type == 'cuda':
         add_stem_kernel_weights(qp['conv1'])
+        if cdt == torch.float32:
+            add_f32_block_weights(qp)
 
     def apply_fn(p, s, c, x):
         return Q.apply_folded_v2(p, c, x, use_pallas=use_pallas)

@@ -27,6 +27,7 @@ import torch
 
 from ..core import nn as cnn
 from ..ops import bottleneck_bf16_kernels as bk16
+from ..ops.gemm_layout import split_kmajor_f32
 from ..ops.stem_kernels import (fused_stem, s2d_conv1_w, s2d_stem_input,
                                 stem_kernel_weights)
 
@@ -132,6 +133,21 @@ def add_stem_kernel_weights(conv1):
     return conv1
 
 
+def add_f32_block_weights(tree):
+    """Give every block of an f32 tree (a folded model left in f32, or a
+    v2 model quantized at compute_dtype=f32) the weights the card's f32
+    block kernel reads: `wk`, the split K-major (2, Cout, K) copies of
+    w1, w2, w3 (and wd) (ops/gemm_layout.split_kmajor_f32), once, when
+    the model is built on the card. The JAX-layout weights stay beside
+    them for the plain versions. Returns tree."""
+    for li in range(4):
+        for bp in tree[f'layer{li + 1}']:
+            bp['wk'] = [split_kmajor_f32(bp[c]['w'])
+                        for c in ('conv1', 'conv2', 'conv3', 'down')
+                        if c in bp]
+    return tree
+
+
 def _plain_block(bp, out, stride, block='bottleneck', groups=1):
     """One residual block as the plain conv chain (cuDNN on the card):
     every conv adds its bias in the compute dtype."""
@@ -182,9 +198,10 @@ def _apply_trunk(params, cfg, out, use_pallas=False):
             bp = blocks[bi]
             stride = 2 if (li > 0 and bi == 0) else 1
             small = fusable and bp['conv1']['w'].shape[2] <= IDEN_CIN_CAP
+            wk = bp.get('wk')
             if 'hwnc' in feats and iden_ok(bp):
                 out = bk16.fused_bottleneck_hwnc(out.contiguous(),
-                                                 *_kernel_args(bp))
+                                                 *_kernel_args(bp), wk=wk)
             elif feats & {'stage', 'sstage'} and iden_ok(bp):
                 run = [bp]
                 while bi + len(run) < len(blocks) and iden_ok(
@@ -192,20 +209,21 @@ def _apply_trunk(params, cfg, out, use_pallas=False):
                     run.append(blocks[bi + len(run)])
                 if len(run) == 1:
                     out = bk16.fused_bottleneck(out.contiguous(),
-                                                *_kernel_args(bp))
+                                                *_kernel_args(bp), wk=wk)
                 else:
                     fn = (bk16.fused_bottleneck_stage_stream
                           if 'sstage' in feats else bk16.fused_bottleneck_stage)
-                    out = fn(out.contiguous(), [_kernel_args(p) for p in run])
+                    out = fn(out.contiguous(), [_kernel_args(p) for p in run],
+                             wk=[p.get('wk') for p in run])
                 bi += len(run)
                 continue
             elif small and 'down' in bp and (
                     'down' in feats or ('down1' in feats and stride == 1)):
                 out = bk16.fused_bottleneck_down(
-                    out.contiguous(), *_kernel_args(bp), stride=stride)
+                    out.contiguous(), *_kernel_args(bp), stride=stride, wk=wk)
             elif 'identity' in feats and iden_ok(bp):
                 out = bk16.fused_bottleneck(out.contiguous(),
-                                            *_kernel_args(bp))
+                                            *_kernel_args(bp), wk=wk)
             else:
                 out = _plain_block(bp, out, stride, block, groups)
             bi += 1

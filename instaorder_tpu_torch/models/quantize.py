@@ -283,41 +283,49 @@ def _apply_trunk_v2(q, cfg, h8, use_pallas=True):
         run = [blocks[t][2] for t in range(i, j)]
         return [_kernel_args(b) for b in run], [b['r'] for b in run]
 
+    def run_wk(i, j):
+        return [blocks[t][2].get('wk') for t in range(i, j)]
+
     k = 0
     while k < len(blocks):
         li, bi, qb = blocks[k]
         stride = 2 if (li > 0 and bi == 0) else 1
         out_i8 = not ok[k + 1]
         a = _kernel_args(qb)
+        wk = qb.get('wk')
         j = k + 1
         if not ok[k]:
             h8 = _plain_block_v2(qb, h8, stride)
         elif stride == 2:
-            h8 = bk.fused_bottleneck_i8v2_down_s2(h8, *a, out_int8=out_i8)
+            h8 = bk.fused_bottleneck_i8v2_down_s2(h8, *a, out_int8=out_i8,
+                                                  wk=wk)
         elif 'down' in qb and hwnc_on:
             j = run_end(k + 1)
             if j > k + 1 and feats & {'hwncs1d', 'hwncp'}:
                 fn = (bk.fused_bottleneck_i8v2_hwncp_stage if 'hwncp' in feats
                       else bk.fused_bottleneck_i8v2_stage)
-                h8 = fn(h8, a, *run_args(k + 1, j), out_int8=True)
+                h8 = fn(h8, a, *run_args(k + 1, j), out_int8=True,
+                        wk=run_wk(k, j))
             else:
                 j = k + 1
                 h8 = bk.fused_bottleneck_down_i8v2_hwnc(
-                    h8, *a, out_int8=out_i8 or 'hwncs1' in feats)
+                    h8, *a, out_int8=out_i8 or 'hwncs1' in feats, wk=wk)
         elif hwnc_on:
             plane = h8.shape[1] * h8.shape[2] * qb['conv1']['w'].shape[2]
             if (('hwncs' in feats and plane <= HWNCS_PLANE_CAP)
                     or ('hwncs1' in feats and li == 0)):
                 j = run_end(k)
                 h8 = bk.fused_bottleneck_i8v2_stage(
-                    h8, None, *run_args(k, j), out_int8=li == 0 or not ok[j])
+                    h8, None, *run_args(k, j), out_int8=li == 0 or not ok[j],
+                    wk=run_wk(k, j))
             else:
                 h8 = bk.fused_bottleneck_i8v2_identity(h8, *a, qb['r'],
-                                                       out_int8=out_i8)
+                                                       out_int8=out_i8, wk=wk)
         elif 'down' in qb:
-            h8 = bk.fused_bottleneck_down_i8v2(h8, *a, out_int8=out_i8)
+            h8 = bk.fused_bottleneck_down_i8v2(h8, *a, out_int8=out_i8, wk=wk)
         else:
-            h8 = bk.fused_bottleneck_i8v2(h8, *a, qb['r'], out_int8=out_i8)
+            h8 = bk.fused_bottleneck_i8v2(h8, *a, qb['r'], out_int8=out_i8,
+                                          wk=wk)
         k = j
     pooled = (h8.float() * q['s_feat']).mean(dim=(1, 2))
     if cfg['dual_head']:

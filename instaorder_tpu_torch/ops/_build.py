@@ -28,7 +28,7 @@ BUILD_DIR = _PKG / '_build'
 # -fmad=false: the prep weights must equal numpy's f32 values bit for bit
 # (a contracted FMA can flip a bf16 rounding); the bottleneck and stem
 # epilogues follow the unfused f32 order of the reference kernels. The
-# f32 kernels' products are written as __fmaf_rn, which the flag leaves
+# f32 stem's products are written as __fmaf_rn, which the flag leaves
 # fused.
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-std=c++17', '-Xcompiler', '-fPIC', '-fmad=false',
@@ -130,8 +130,9 @@ def library() -> ctypes.CDLL:
            P, I, P])                    # out, epilogue mode, stream
     lib.io_conv_gemm.restype = I
     lib.io_conv_gemm_f32.argtypes = (
-        # two K segments: f32 or int8 activation, its (K, Cout) f32
-        # weight rows, is_int8, C, H, W, stride, ksize
+        # two K segments: f32 or int8 activation, its split K-major
+        # (2, Cout, K) f32 weights, kind (0 f32, 1 int8, 2 f32 exact in
+        # TF32), C, H, W, stride, ksize
         [P, P, I, I, I, I, I, I] * 2
         + [I, I, I, I, I,               # N, Ho, Wo, Cout, tile width
            P, P,                        # bias, second bias (or null)

@@ -42,15 +42,19 @@ carry over: the GEMM's im2col view reads strided taps directly.
 
 The f32 mode (the TPU kernels run in f32 when given f32 activations;
 h1 and h2 stay f32, never rounded): the same three launches of the f32
-implicit-GEMM kernel, f32 FMA on the CUDA cores (bound at 67 TFLOP/s;
-TF32 would miss the f32 bar), h1/h2 in f32 scratch, the epilogue's adds
-in the same order with no rounding.
+implicit-GEMM kernel, 3xTF32 on the tensor cores (bound at 495 / 3
+TFLOP/s; one TF32 product would miss the f32 bar), h1/h2 in f32
+scratch, the epilogue's adds in the same order with no rounding. It
+reads the block's weights split and K-major, `wk` = [w1, w2, w3(, wd)]
+through gemm_layout.split_kmajor_f32, made once when the model is built
+on the card (models/folding `add_f32_block_weights`); a CUDA call at
+f32 without them raises.
 
 On CPU tensors each wrapper runs its `_plain` version (PyTorch, f32 sums
-on operands in the compute dtype; f32 or bf16). On CUDA tensors it
-launches the kernel or raises, and adds one to its `launches` count per
-call (a bf16 and an f32 launch alike). The card takes bf16 activations
-and weights, or f32 ones, and f32 biases.
+on operands in the compute dtype; f32 or bf16; `wk` is not read). On
+CUDA tensors it launches the kernel or raises, and adds one to its
+`launches` count per call (a bf16 and an f32 launch alike). The card
+takes bf16 activations and weights, or f32 ones, and f32 biases.
 """
 
 from __future__ import annotations
@@ -94,7 +98,8 @@ def fused_bottleneck_down_plain(x, w1, b1, w2, b2, w3, b3, wd, bd,
 # ---------------------------------------------------------------------------
 
 
-def _cuda_block(x, w1, b1, w2, b2, w3, b3, stride=1, wd=None, bd=None):
+def _cuda_block(x, w1, b1, w2, b2, w3, b3, stride=1, wd=None, bd=None,
+                wk=None):
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f'bottleneck kernel: x is {x.dtype}; the card '
                          'takes bf16 or f32 activations')
@@ -105,31 +110,34 @@ def _cuda_block(x, w1, b1, w2, b2, w3, b3, stride=1, wd=None, bd=None):
     mode = _RES_RELU_F32 if x.dtype == torch.float32 else _RES_RELU_BF16
     return _block_gemms(x, w1, b1, w2, b2, w3, b3, out, mode,
                         stride=stride, r=1.0 if wd is None else None,
-                        wd=wd, bd=bd)
+                        wd=wd, bd=bd, wk=wk)
 
 
-def fused_bottleneck(x, w1, b1, w2, b2, w3, b3):
+def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wk=None):
     """Stride-1 identity bottleneck. x (N, H, W, C); w1 (C, Cm); w2
     (3, 3, Cm, Cm) HWIO; w3 (Cm, C); biases (Cm,) / (C,), f32 on the
-    card. -> (N, H, W, C) in x.dtype."""
+    card; wk: the split K-major [w1, w2, w3], which a CUDA call at f32
+    needs. -> (N, H, W, C) in x.dtype."""
     if x.device.type == 'cpu':
         return fused_bottleneck_plain(x, w1, b1, w2, b2, w3, b3)
-    out = _cuda_block(x, w1, b1, w2, b2, w3, b3)
+    out = _cuda_block(x, w1, b1, w2, b2, w3, b3, wk=wk)
     fused_bottleneck.launches += 1
     return out
 
 
-def fused_bottleneck_down(x, w1, b1, w2, b2, w3, b3, wd, bd, stride=1):
+def fused_bottleneck_down(x, w1, b1, w2, b2, w3, b3, wd, bd, stride=1,
+                          wk=None):
     """Projection bottleneck at stride 1 or 2. x (N, H, W, Cin); w3
-    (Cm, Cout); wd (Cin, Cout) -> (N, ceil(H/s), ceil(W/s), Cout) in
-    x.dtype."""
+    (Cm, Cout); wd (Cin, Cout); wk: the split K-major [w1, w2, w3, wd],
+    which a CUDA call at f32 needs -> (N, ceil(H/s), ceil(W/s), Cout)
+    in x.dtype."""
     if stride not in (1, 2):
         raise ValueError(f'stride must be 1 or 2, got {stride}')
     if x.device.type == 'cpu':
         return fused_bottleneck_down_plain(x, w1, b1, w2, b2, w3, b3, wd,
                                            bd, stride=stride)
     out = _cuda_block(x, w1, b1, w2, b2, w3, b3, stride=stride, wd=wd,
-                      bd=bd)
+                      bd=bd, wk=wk)
     fused_bottleneck_down.launches += 1
     return out
 
@@ -144,41 +152,42 @@ fused_bottleneck_stage_stream_plain = fused_bottleneck_stage_plain
 fused_bottleneck_hwnc_plain = fused_bottleneck_plain
 
 
-def _cuda_stage(x, blocks):
+def _cuda_stage(x, blocks, wk):
     if not blocks:
         raise ValueError('a stage needs at least one block')
-    for blk in blocks:
-        x = _cuda_block(x, *blk)
+    for blk, bwk in zip(blocks, [None] * len(blocks) if wk is None else wk):
+        x = _cuda_block(x, *blk, wk=bwk)
     return x
 
 
-def fused_bottleneck_stage(x, blocks):
+def fused_bottleneck_stage(x, blocks, wk=None):
     """K stride-1 identity bottlenecks in order. blocks: [(w1, b1, w2, b2,
-    w3, b3)] as fused_bottleneck takes them. x (N, H, W, C) -> the
-    same shape in x.dtype, rounded to it between blocks."""
+    w3, b3)] as fused_bottleneck takes them; wk: each block's split
+    K-major weights, which a CUDA call at f32 needs. x (N, H, W, C) ->
+    the same shape in x.dtype, rounded to it between blocks."""
     if x.device.type == 'cpu':
         return fused_bottleneck_stage_plain(x, blocks)
-    out = _cuda_stage(x, blocks)
+    out = _cuda_stage(x, blocks, wk)
     fused_bottleneck_stage.launches += 1
     return out
 
 
-def fused_bottleneck_stage_stream(x, blocks):
+def fused_bottleneck_stage_stream(x, blocks, wk=None):
     """fused_bottleneck_stage's function (the JAX kernel streams the
     per-block weights through VMEM; the card reads them per launch)."""
     if x.device.type == 'cpu':
         return fused_bottleneck_stage_stream_plain(x, blocks)
-    out = _cuda_stage(x, blocks)
+    out = _cuda_stage(x, blocks, wk)
     fused_bottleneck_stage_stream.launches += 1
     return out
 
 
-def fused_bottleneck_hwnc(x, w1, b1, w2, b2, w3, b3):
+def fused_bottleneck_hwnc(x, w1, b1, w2, b2, w3, b3, wk=None):
     """fused_bottleneck's function on NHWC (the JAX kernel takes the
     (H, W, N, C) view)."""
     if x.device.type == 'cpu':
         return fused_bottleneck_hwnc_plain(x, w1, b1, w2, b2, w3, b3)
-    out = _cuda_block(x, w1, b1, w2, b2, w3, b3)
+    out = _cuda_block(x, w1, b1, w2, b2, w3, b3, wk=wk)
     fused_bottleneck_hwnc.launches += 1
     return out
 

@@ -41,16 +41,21 @@ Design: each block is three launches of one implicit-GEMM kernel (bf16
 wgmma, f32 accumulators, 128 x 128 or 128 x 64 output tiles by
 `gemm_layout.tile_n`) with h1/h2 in bf16 scratch from `torch.empty`.
 With f32 weights (the v2 model at compute_dtype=f32) the same three
-launches run the kernel's f32 mode (csrc/bottleneck_f32.cu: f32 FMA on
-the CUDA cores, bound at 67 TFLOP/s; int8 x widened to f32 in shared
-memory) with h1/h2 in f32 scratch and the output int8 or f32.
+launches run the kernel's f32 mode (csrc/bottleneck_f32.cu: 3xTF32 on
+wgmma, bound at 495 / 3 TFLOP/s; an int8 x is exact in TF32 and takes
+two products) with h1/h2 in f32 scratch and
+the output int8 or f32. That mode reads the weights split and K-major,
+`wk` = [w1, w2, w3(, wd)] through gemm_layout.split_kmajor_f32, made
+once when the model is built on the card (models/folding
+`add_f32_block_weights`); a CUDA call at f32 without them raises.
 A (64, 64, 256) layer1 plane is 1 MB (int8) per image, far beyond one
 SM's shared memory, so the stage function runs the block kernels once
 per block with the int8 activation between blocks in device memory
 (L2 is 50 MB); fusing across blocks is later work.
 
 On CPU tensors each wrapper runs its `_plain` version (PyTorch, f32 sums
-on operands already rounded to the compute dtype: the same contract).
+on operands already rounded to the compute dtype: the same contract;
+`wk` is not read).
 On CUDA tensors it launches the kernel or raises, and adds one to its
 `launches` count per call.
 """
@@ -68,6 +73,9 @@ _RELU_BF16, _Q8_INT8, _Q8_BF16, _RES_RELU_BF16 = 0, 1, 2, 3
 # b (+ b2) (+ r * x)), and the v2 boundary clip(rint(acc + b (+ b2) (+ r
 # * x)), 0, 127) as int8 or as f32
 _RELU_F32, _RES_RELU_F32, _Q8_INT8_F32, _Q8_F32 = 0, 1, 2, 3
+# what an A segment of the f32 mode holds: f32 (split into hi and lo) or
+# int8 (exact in TF32, no lo)
+_A_F32, _A_INT8 = 0, 1
 
 
 # ---------------------------------------------------------------------------
@@ -162,21 +170,30 @@ def _check_act(x, what, dtypes=(torch.int8, torch.bfloat16)):
         raise ValueError(f'{what}: channels must be a multiple of 32')
 
 
-def _check_w(w, k, cout, dev, what, dtype=torch.bfloat16):
-    if (w.dtype != dtype or w.device != dev
+def _check_w(w, k, cout, dev, what):
+    if (w.dtype != torch.bfloat16 or w.device != dev
             or tuple(w.shape) != (k, cout) or not w.is_contiguous()
             or w.data_ptr() % 16):
         raise ValueError(f'{what}: weight must be a contiguous ({k}, {cout}) '
-                         f'{str(dtype)[6:]} tensor on {dev}, got '
+                         f'bfloat16 tensor on {dev}, got '
                          f'{tuple(w.shape)} {w.dtype} {w.device}')
 
 
-def _check_b(b, cout, dev, what, align=4):
+def _check_wk(w, k, cout, dev, what):
+    if (w.dtype != torch.float32 or w.device != dev
+            or tuple(w.shape) != (2, cout, k) or not w.is_contiguous()
+            or w.data_ptr() % 16):
+        raise ValueError(f'{what}: weight must be the contiguous (2, {cout}, '
+                         f'{k}) f32 split K-major tensor on {dev} '
+                         f'(gemm_layout.split_kmajor_f32), got '
+                         f'{tuple(w.shape)} {w.dtype} {w.device}')
+
+
+def _check_b(b, cout, dev, what):
     if (b.dtype != torch.float32 or b.device != dev
-            or tuple(b.shape) != (cout,) or not b.is_contiguous()
-            or b.data_ptr() % align):
-        raise ValueError(f'{what}: bias must be a contiguous, {align}-byte '
-                         f'aligned ({cout},) f32 tensor on {dev}')
+            or tuple(b.shape) != (cout,) or not b.is_contiguous()):
+        raise ValueError(f'{what}: bias must be a contiguous ({cout},) f32 '
+                         f'tensor on {dev}')
 
 
 def _gemm(out, segs, bias, mode, bias2=None, res=None, r=0.0):
@@ -217,33 +234,36 @@ def _gemm(out, segs, bias, mode, bias2=None, res=None, r=0.0):
     return out
 
 
-def _gemm_f32(out, segs, bias, mode, bias2=None, res=None, r=0.0):
+def _gemm_f32(out, segs, bias, mode, bias2=None, res=None, r=0.0,
+              bn=None):
     """One launch of the implicit-GEMM kernel's f32 mode
-    (csrc/bottleneck_f32.cu): f32 weights and biases, f32 or int8
-    activations and residual (int8 widened to f32 exactly), an f32
-    output, or an int8 one in the _Q8_INT8_F32 mode; segs as `_gemm`
-    takes them. A K step is F32_K_STEP elements of either type."""
+    (csrc/bottleneck_f32.cu, 3xTF32): segs [(act, wk, stride, ksize)]
+    with wk the segment's split K-major weights, (2, Cout, K)
+    (gemm_layout.split_kmajor_f32); f32 biases; f32 or int8 activations
+    and residual (int8 widened to f32 exactly); an f32 output, or an
+    int8 one in the _Q8_INT8_F32 mode. An int8 segment takes two
+    products, an f32 one three. A K step is F32_K_STEP elements of
+    either type. bn: the tile width, gemm_layout.tile_n_f32's unless
+    given (a timing sweep forces it)."""
     N, Ho, Wo, Cout = out.shape
     dev = out.device
-    bn = gemm_layout.tile_n(Cout)
-    gemm_layout.check_k_steps([ksize * ksize * act.shape[-1]
-                               for act, _w, _s, ksize in segs],
-                              step=gemm_layout.F32_K_STEP)
+    ks = [ksize * ksize * act.shape[-1] for act, _w, _s, ksize in segs]
+    bn = gemm_layout.tile_n_f32(Cout, sum(ks)) if bn is None else bn
+    gemm_layout.check_k_steps(ks, step=gemm_layout.F32_K_STEP)
     acts = (torch.int8, torch.float32)
     args = []
     for act, w, stride, ksize in segs + [(None, None, 1, 1)] * (2 - len(segs)):
         if act is None:
-            args += [None, None, 0, 32, 1, 1, 1, 1]
+            args += [None, None, _A_F32, 32, 1, 1, 1, 1]
             continue
         _check_act(act, 'bottleneck input', acts)
-        _check_w(w, ksize * ksize * act.shape[-1], Cout, dev, 'bottleneck',
-                 torch.float32)
-        args += [act.data_ptr(), w.data_ptr(), int(act.dtype == torch.int8),
-                 act.shape[-1], act.shape[1], act.shape[2], stride, ksize]
-    # the f32 epilogue reads the biases 16 bytes at a time
-    _check_b(bias, Cout, dev, 'bottleneck', align=16)
+        _check_wk(w, ksize * ksize * act.shape[-1], Cout, dev, 'bottleneck')
+        kind = _A_INT8 if act.dtype == torch.int8 else _A_F32
+        args += [act.data_ptr(), w.data_ptr(), kind, act.shape[-1],
+                 act.shape[1], act.shape[2], stride, ksize]
+    _check_b(bias, Cout, dev, 'bottleneck')
     if bias2 is not None:
-        _check_b(bias2, Cout, dev, 'bottleneck', align=16)
+        _check_b(bias2, Cout, dev, 'bottleneck')
     if res is not None:
         _check_act(res, 'bottleneck residual', acts)
         if tuple(res.shape) != tuple(out.shape):
@@ -265,13 +285,14 @@ def _gemm_f32(out, segs, bias, mode, bias2=None, res=None, r=0.0):
 
 
 def _block_gemms(x, w1, b1, w2, b2, w3, b3, out, mode, stride=1, r=None,
-                 wd=None, bd=None):
+                 wd=None, bd=None, wk=None):
     """The three launches of one bottleneck into `out` (N, Ho, Wo, Cout):
     conv1 and the 3x3 into scratch, then conv3 with the epilogue `mode`
     and the identity residual r*x or the K-packed projection. f32
     weights run the kernel's f32 mode throughout (f32 scratch, `mode`
-    one of the _*_F32 modes); bf16 weights the bf16 one (bf16
-    scratch)."""
+    one of the _*_F32 modes) on the block's split K-major weights `wk` =
+    [w1, w2, w3(, wd)] (gemm_layout.split_kmajor_f32), which it needs;
+    bf16 weights the bf16 one (bf16 scratch)."""
     if x.device.type != 'cuda':
         raise ValueError('bottleneck kernel: x must be a CUDA tensor')
     if x.dtype != torch.int8 and x.dtype != w1.dtype:
@@ -284,10 +305,20 @@ def _block_gemms(x, w1, b1, w2, b2, w3, b3, out, mode, stride=1, r=None,
     f32 = w1.dtype == torch.float32
     sdt = torch.float32 if f32 else torch.bfloat16
     relu = _RELU_F32 if f32 else _RELU_BF16
+    if f32:
+        if wk is None or len(wk) != (3 if wd is None else 4):
+            raise ValueError('f32 bottleneck kernel: the card takes the '
+                             'split K-major weights (wk=, gemm_layout.'
+                             'split_kmajor_f32 of w1, w2, w3 and wd), made '
+                             'once when the model is built on the card')
+        w1, w2, w3 = wk[:3]
+        wd = None if wd is None else wk[3]
+    else:
+        w2 = w2.reshape(9 * Cm, Cm)
     h1 = _gemm(torch.empty((N, H, W, Cm), dtype=sdt, device=dev),
                [(x, w1, 1, 1)], b1, relu)
     h2 = _gemm(torch.empty((N, Ho, Wo, Cm), dtype=sdt, device=dev),
-               [(h1, w2.reshape(9 * Cm, Cm), stride, 3)], b2, relu)
+               [(h1, w2, stride, 3)], b2, relu)
     if wd is not None:
         return _gemm(out, [(h2, w3, 1, 1), (x, wd, stride, 1)], b3, mode,
                      bias2=bd)
@@ -295,9 +326,10 @@ def _block_gemms(x, w1, b1, w2, b2, w3, b3, out, mode, stride=1, r=None,
 
 
 def _block_cuda(x, w1, b1, w2, b2, w3, b3, stride=1, r=None, wd=None,
-                bd=None, out_int8=True):
+                bd=None, out_int8=True, wk=None):
     """One v2 block on the card, in the weights' compute dtype (bf16, or
-    f32: the kernel's f32 mode); the output int8 or that dtype."""
+    f32: the kernel's f32 mode on the split weights `wk`); the output
+    int8 or that dtype."""
     N, H, W, _ = x.shape
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     f32 = w1.dtype == torch.float32
@@ -307,7 +339,7 @@ def _block_cuda(x, w1, b1, w2, b2, w3, b3, stride=1, r=None, wd=None,
     mode = ((_Q8_INT8_F32 if out_int8 else _Q8_F32) if f32
             else (_Q8_INT8 if out_int8 else _Q8_BF16))
     return _block_gemms(x, w1, b1, w2, b2, w3, b3, out, mode, stride=stride,
-                        r=r, wd=wd, bd=bd)
+                        r=r, wd=wd, bd=bd, wk=wk)
 
 
 # ---------------------------------------------------------------------------
@@ -316,61 +348,70 @@ def _block_cuda(x, w1, b1, w2, b2, w3, b3, stride=1, r=None, wd=None,
 
 
 def fused_bottleneck_i8v2_identity(x, w1, b1, w2, b2, w3, b3, r,
-                                   out_int8=True):
+                                   out_int8=True, wk=None):
     """Stride-1 identity bottleneck. x (N, H, W, C); w1 (C, Cm); w2
-    (3, 3, Cm, Cm); w3 (Cm, C); r float. -> (N, H, W, C) int8 or cdt."""
+    (3, 3, Cm, Cm); w3 (Cm, C); r float; wk: the split K-major [w1, w2,
+    w3], which a CUDA call at f32 needs. -> (N, H, W, C) int8 or cdt."""
     if x.device.type == 'cpu':
         return fused_bottleneck_i8v2_identity_plain(
             x, w1, b1, w2, b2, w3, b3, r, out_int8=out_int8)
-    out = _block_cuda(x, w1, b1, w2, b2, w3, b3, r=r, out_int8=out_int8)
+    out = _block_cuda(x, w1, b1, w2, b2, w3, b3, r=r, out_int8=out_int8,
+                      wk=wk)
     fused_bottleneck_i8v2_identity.launches += 1
     return out
 
 
 def fused_bottleneck_i8v2_down_s2(x, w1, b1, w2, b2, w3, b3, wd, bd,
-                                  out_int8=True):
-    """Stride-2 projection bottleneck. x (N, H, W, Cin); wd (Cin, Cout)
-    -> (N, H/2, W/2, Cout) int8 or cdt."""
+                                  out_int8=True, wk=None):
+    """Stride-2 projection bottleneck. x (N, H, W, Cin); wd (Cin, Cout);
+    wk: the split K-major [w1, w2, w3, wd], which a CUDA call at f32
+    needs -> (N, H/2, W/2, Cout) int8 or cdt."""
     if x.device.type == 'cpu':
         return fused_bottleneck_i8v2_down_s2_plain(
             x, w1, b1, w2, b2, w3, b3, wd, bd, out_int8=out_int8)
     out = _block_cuda(x, w1, b1, w2, b2, w3, b3, stride=2, wd=wd, bd=bd,
-                      out_int8=out_int8)
+                      out_int8=out_int8, wk=wk)
     fused_bottleneck_i8v2_down_s2.launches += 1
     return out
 
 
-def _stage_cuda(x, down, blocks, rs, out_int8):
+def _stage_cuda(x, down, blocks, rs, out_int8, wk):
     if len(blocks) != len(rs):
         raise ValueError('one residual scale per identity block')
     if down is None and not blocks:
         raise ValueError('a stage needs at least one block')
+    wk = [None] * (len(blocks) + (down is not None)) if wk is None else wk
     h = x
     if down is not None:
         h = _block_cuda(x, *down[:6], wd=down[6], bd=down[7],
-                        out_int8=out_int8 or bool(blocks))
+                        out_int8=out_int8 or bool(blocks), wk=wk[0])
+        wk = wk[1:]
     for k, (blk, r) in enumerate(zip(blocks, rs)):
         last = k == len(blocks) - 1
-        h = _block_cuda(h, *blk, r=r, out_int8=out_int8 or not last)
+        h = _block_cuda(h, *blk, r=r, out_int8=out_int8 or not last,
+                        wk=wk[k])
     return h
 
 
-def fused_bottleneck_i8v2_stage(x, down, blocks, rs, out_int8=True):
+def fused_bottleneck_i8v2_stage(x, down, blocks, rs, out_int8=True,
+                                wk=None):
     """A stage: the stride-1 projection block `down` = (w1, b1, w2, b2,
     w3, b3, wd, bd), or None for an identity run alone, then the
     identity blocks `blocks` = [(w1, b1, w2, b2, w3, b3)] with residual
-    scales `rs`. The activation between blocks is int8 in device memory
-    (exact: the values are integers 0..127). x (N, H, W, Cin) -> (N, H,
-    W, Cout)."""
+    scales `rs`; wk: each block's split K-major weights (`down`'s
+    first), which a CUDA call at f32 needs. The activation between
+    blocks is int8 in device memory (exact: the values are integers
+    0..127). x (N, H, W, Cin) -> (N, H, W, Cout)."""
     if x.device.type == 'cpu':
         return fused_bottleneck_i8v2_stage_plain(x, down, blocks, rs,
                                                  out_int8=out_int8)
-    h = _stage_cuda(x, down, blocks, rs, out_int8)
+    h = _stage_cuda(x, down, blocks, rs, out_int8, wk)
     fused_bottleneck_i8v2_stage.launches += 1
     return h
 
 
-def fused_bottleneck_i8v2_hwncp_stage(x, down, blocks, rs, out_int8=True):
+def fused_bottleneck_i8v2_hwncp_stage(x, down, blocks, rs, out_int8=True,
+                                      wk=None):
     """fused_bottleneck_i8v2_stage's function with a projection block
     (ResNet-50 layer1: the `hwncp` feature)."""
     if down is None:
@@ -378,38 +419,41 @@ def fused_bottleneck_i8v2_hwncp_stage(x, down, blocks, rs, out_int8=True):
     if x.device.type == 'cpu':
         return fused_bottleneck_i8v2_hwncp_stage_plain(x, down, blocks, rs,
                                                        out_int8=out_int8)
-    h = _stage_cuda(x, down, blocks, rs, out_int8)
+    h = _stage_cuda(x, down, blocks, rs, out_int8, wk)
     fused_bottleneck_i8v2_hwncp_stage.launches += 1
     return h
 
 
 def fused_bottleneck_down_i8v2_hwnc(x, w1, b1, w2, b2, w3, b3, wd, bd,
-                                    out_int8=True):
+                                    out_int8=True, wk=None):
     """Stride-1 projection bottleneck, conv3 and the projection K-packed
-    into one f32 sum. x (N, H, W, Cin); wd (Cin, Cout) -> (N, H, W,
-    Cout) int8 or cdt."""
+    into one f32 sum. x (N, H, W, Cin); wd (Cin, Cout); wk as
+    fused_bottleneck_i8v2_down_s2 takes it -> (N, H, W, Cout) int8 or
+    cdt."""
     if x.device.type == 'cpu':
         return fused_bottleneck_down_i8v2_hwnc_plain(
             x, w1, b1, w2, b2, w3, b3, wd, bd, out_int8=out_int8)
     out = _block_cuda(x, w1, b1, w2, b2, w3, b3, wd=wd, bd=bd,
-                      out_int8=out_int8)
+                      out_int8=out_int8, wk=wk)
     fused_bottleneck_down_i8v2_hwnc.launches += 1
     return out
 
 
-def fused_bottleneck_i8v2(x, w1, b1, w2, b2, w3, b3, r, out_int8=True):
+def fused_bottleneck_i8v2(x, w1, b1, w2, b2, w3, b3, r, out_int8=True,
+                          wk=None):
     """fused_bottleneck_i8v2_identity's function (the `identity`
     feature)."""
     if x.device.type == 'cpu':
         return fused_bottleneck_i8v2_plain(x, w1, b1, w2, b2, w3, b3, r,
                                            out_int8=out_int8)
-    out = _block_cuda(x, w1, b1, w2, b2, w3, b3, r=r, out_int8=out_int8)
+    out = _block_cuda(x, w1, b1, w2, b2, w3, b3, r=r, out_int8=out_int8,
+                      wk=wk)
     fused_bottleneck_i8v2.launches += 1
     return out
 
 
 def fused_bottleneck_down_i8v2(x, w1, b1, w2, b2, w3, b3, wd, bd,
-                               out_int8=True):
+                               out_int8=True, wk=None):
     """Stride-1 projection bottleneck (the `down1` feature without an
     hwnc feature); on the card the K-packed launch of
     fused_bottleneck_down_i8v2_hwnc."""
@@ -417,7 +461,7 @@ def fused_bottleneck_down_i8v2(x, w1, b1, w2, b2, w3, b3, wd, bd,
         return fused_bottleneck_down_i8v2_plain(
             x, w1, b1, w2, b2, w3, b3, wd, bd, out_int8=out_int8)
     out = _block_cuda(x, w1, b1, w2, b2, w3, b3, wd=wd, bd=bd,
-                      out_int8=out_int8)
+                      out_int8=out_int8, wk=wk)
     fused_bottleneck_down_i8v2.launches += 1
     return out
 

@@ -33,8 +33,8 @@ from .device import resolve_device
 from .eval.decode import decode_occ
 from .models import quantize as Q
 from .models import resnet
-from .models.folding import (add_stem_kernel_weights, apply_folded,
-                             apply_folded_siamese, fold_resnet)
+from .models.folding import (add_f32_block_weights, add_stem_kernel_weights,
+                             apply_folded, apply_folded_siamese, fold_resnet)
 from .ops.pairs import (PRECISIONS, build_pair_batches_fused,
                         build_pair_batches_matmul, pair_rois)
 
@@ -201,11 +201,14 @@ def build_f32_model(seed, device=None, weight_init='xavier'):
     """The `--dtype f32` model: the same network from `seed`, BN-folded,
     left in f32 (the root bench casts nothing at f32). On the card its
     conv1 also gets the f32 stem kernel's weights
-    (add_stem_kernel_weights). Returns (params, cfg)."""
+    (add_stem_kernel_weights) and every block the f32 block kernel's
+    split K-major weights (add_f32_block_weights). Returns (params,
+    cfg)."""
     dev = resolve_device(device)
     folded, cfg = _init_folded(seed, dev, weight_init)
     if dev.type == 'cuda':
         add_stem_kernel_weights(folded['conv1'])
+        add_f32_block_weights(folded)
     return folded, cfg
 
 

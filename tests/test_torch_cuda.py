@@ -46,6 +46,13 @@ def _blk(rng, dev, cin, cm, cout, down):
     return p
 
 
+def _wk32(p):
+    """A block's split K-major f32 weights (the f32 kernel's `wk`) from
+    its parameter list [w1, b1, w2, b2, w3, b3(, wd, bd)]."""
+    from instaorder_tpu_torch.ops.gemm_layout import split_kmajor_f32
+    return [split_kmajor_f32(w) for w in p[0::2]]
+
+
 def _close(got, want, bar=1, share=0.01):
     assert got.dtype == want.dtype and got.shape == want.shape
     d = (got.float() - want.float()).abs()
@@ -96,7 +103,8 @@ def test_stage_kernel(dev):
 def test_kernel_wrappers_refuse_bad_inputs(dev):
     """A float x must be in the weights' compute dtype: f32 x with bf16
     weights and bf16 x with f32 weights raise. int8 x with f32 weights
-    (the v2 model at compute_dtype=f32) launches the f32 mode."""
+    (the v2 model at compute_dtype=f32) launches the f32 mode on the
+    split weights, and raises without them."""
     from instaorder_tpu_torch.ops import bottleneck_kernels as BK
     rng = np.random.RandomState(0)
     p = _blk(rng, dev, 64, 64, 64, False)
@@ -108,8 +116,10 @@ def test_kernel_wrappers_refuse_bad_inputs(dev):
         BK.fused_bottleneck_i8v2_identity(x.bfloat16(), *p32, 0.5)
     x8 = torch.as_tensor(rng.randint(0, 128, (1, 8, 8, 64)), device=dev,
                          dtype=torch.int8)
+    with pytest.raises(ValueError, match='wk='):
+        BK.fused_bottleneck_i8v2_identity(x8, *p32, 0.5)
     before = BK.fused_bottleneck_i8v2_identity.launches
-    got = BK.fused_bottleneck_i8v2_identity(x8, *p32, 0.5)
+    got = BK.fused_bottleneck_i8v2_identity(x8, *p32, 0.5, wk=_wk32(p32))
     assert BK.fused_bottleneck_i8v2_identity.launches == before + 1
     _close(got, BK.fused_bottleneck_i8v2_identity_plain(x8, *p32, 0.5))
 
@@ -365,7 +375,7 @@ def test_bf16_kernel_wrappers_refuse_bad_inputs(dev):
                           device=dev)
     p32 = [a.float() for a in p]
     before = B16.fused_bottleneck.launches
-    got = B16.fused_bottleneck(x32, *p32)
+    got = B16.fused_bottleneck(x32, *p32, wk=_wk32(p32))
     _launched(B16.fused_bottleneck, before)
     _f32_close(got, B16.fused_bottleneck_plain(x32, *p32))
     pb = [a if i % 2 == 0 else a.bfloat16() for i, a in enumerate(p)]
@@ -665,13 +675,13 @@ def test_variant_wrappers_refuse_bad_inputs(dev):
     # f32 activations launch the f32 mode (no fallback to a plain chain)
     for fn in (B16.fused_bottleneck_stage, B16.fused_bottleneck_stage_stream):
         before = fn.launches
-        got = fn(xf, [pf])
+        got = fn(xf, [pf], wk=[_wk32(pf)])
         _launched(fn, before)
         _f32_close(got, B16.fused_bottleneck_stage_plain(xf, [pf]))
         with pytest.raises(ValueError, match='at least one block'):
             fn(xf.bfloat16(), [])
     before = B16.fused_bottleneck_hwnc.launches
-    got = B16.fused_bottleneck_hwnc(xf, *pf)
+    got = B16.fused_bottleneck_hwnc(xf, *pf, wk=_wk32(pf))
     _launched(B16.fused_bottleneck_hwnc, before)
     _f32_close(got, B16.fused_bottleneck_hwnc_plain(xf, *pf))
 
@@ -951,6 +961,8 @@ def test_f32_predictor_refuses_card_kernels(dev):
                                          use_pallas=use_pallas, device=dev)
         assert pred.device.type == 'cuda'
         assert pred.params['conv1']['wk'].dtype == torch.float32
+        assert all(bp['wk'][0].shape[0] == 2
+                   for li in range(4) for bp in pred.params[f'layer{li + 1}'])
         before = [w.launches for w in wrappers]
         _, _, g1, g2, _ = pred.pair_outputs(*scene)
         assert tuple(w.launches - b for w, b in zip(wrappers, before)) == want
@@ -1009,9 +1021,11 @@ def _f32(rng, dev, *shape, scale=1.0):
     (2, 9, 96, 128, 1, 1),       # K = 96: three steps, M = 162
     (2, 5, 512, 2048, 1, 1),     # Cout = 2048
     (2, 9, 64, 64, 3, 2),        # the stride-2 3x3 at the edges
-    (3, 6, 128, 128, 3, 1)])
+    (3, 6, 128, 128, 3, 1),
+    (2, 8, 512, 512, 3, 1)])     # layer4's 3x3: K = 4,608, 144 steps
 def test_gemm_f32_tiles(dev, n, hw, cin, cout, ksize, stride):
     from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    from instaorder_tpu_torch.ops.gemm_layout import split_kmajor_f32
     rng = np.random.RandomState(200 + cin + ksize)
     x = _f32(rng, dev, n, hw, hw, cin)
     w = _f32(rng, dev, ksize, ksize, cin, cout,
@@ -1019,7 +1033,7 @@ def test_gemm_f32_tiles(dev, n, hw, cin, cout, ksize, stride):
     b = _f32(rng, dev, cout, scale=0.1)
     ho = (hw - 1) // stride + 1
     out = torch.empty((n, ho, ho, cout), dtype=torch.float32, device=dev)
-    got = BK._gemm(out, [(x, w.reshape(-1, cout), stride, ksize)], b,
+    got = BK._gemm(out, [(x, split_kmajor_f32(w), stride, ksize)], b,
                    BK._RELU_F32)
     if ksize == 1:
         want = torch.relu(x[:, ::stride, ::stride] @ w[0, 0] + b)
@@ -1033,6 +1047,7 @@ def test_gemm_f32_tiles(dev, n, hw, cin, cout, ksize, stride):
 def test_gemm_f32_kpacked_projection(dev, n, hw, cm, cin, cout, stride):
     """relu([h2 | x_s] . [[w3], [wd]] + b3 + bd) in one f32 sum."""
     from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    from instaorder_tpu_torch.ops.gemm_layout import split_kmajor_f32 as sk
     rng = np.random.RandomState(220 + cin)
     ho = (hw - 1) // stride + 1
     h2 = torch.relu(_f32(rng, dev, n, ho, ho, cm))
@@ -1041,7 +1056,7 @@ def test_gemm_f32_kpacked_projection(dev, n, hw, cm, cin, cout, stride):
     wd = _f32(rng, dev, cin, cout, scale=1 / np.sqrt(cin))
     b3, bd = _f32(rng, dev, cout, scale=0.1), _f32(rng, dev, cout, scale=0.1)
     out = torch.empty((n, ho, ho, cout), dtype=torch.float32, device=dev)
-    got = BK._gemm(out, [(h2, w3, 1, 1), (x, wd, stride, 1)], b3,
+    got = BK._gemm(out, [(h2, sk(w3), 1, 1), (x, sk(wd), stride, 1)], b3,
                    BK._RES_RELU_F32, bias2=bd)
     want = torch.relu(h2 @ w3 + b3 + (x[:, ::stride, ::stride] @ wd + bd))
     _f32_close(got, want)
@@ -1049,20 +1064,81 @@ def test_gemm_f32_kpacked_projection(dev, n, hw, cm, cin, cout, stride):
 
 def test_gemm_f32_refuses_mixed_types(dev):
     """An f32 output with bf16 operands (or a bf16 residual) is refused
-    before the launch: the f32 mode never rounds."""
+    before the launch: the f32 mode never rounds. So are f32 weights in
+    any layout but the split K-major one."""
     from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    from instaorder_tpu_torch.ops.gemm_layout import split_kmajor_f32
     rng = np.random.RandomState(230)
     x = _f32(rng, dev, 1, 4, 4, 64)
     w = _f32(rng, dev, 64, 64)
+    wk = split_kmajor_f32(w)
     b = _f32(rng, dev, 64)
     out = torch.empty((1, 4, 4, 64), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError, match='float32'):
-        BK._gemm(out, [(x.bfloat16(), w, 1, 1)], b, BK._RELU_F32)
+        BK._gemm(out, [(x.bfloat16(), wk, 1, 1)], b, BK._RELU_F32)
     with pytest.raises(ValueError, match='weight'):
-        BK._gemm(out, [(x, w.bfloat16(), 1, 1)], b, BK._RELU_F32)
+        BK._gemm(out, [(x, wk.bfloat16(), 1, 1)], b, BK._RELU_F32)
+    with pytest.raises(ValueError, match='split K-major'):
+        BK._gemm(out, [(x, w, 1, 1)], b, BK._RELU_F32)
     with pytest.raises(ValueError, match='residual'):
-        BK._gemm(out, [(x, w, 1, 1)], b, BK._RES_RELU_F32,
+        BK._gemm(out, [(x, wk, 1, 1)], b, BK._RES_RELU_F32,
                  res=x.bfloat16(), r=1.0)
+
+
+def test_f32_wrappers_need_split_weights(dev):
+    """A CUDA call at f32 without the split K-major weights raises (no
+    split on the fly, no fallback), for each wrapper family; with them it
+    launches."""
+    from instaorder_tpu_torch.ops import bottleneck_bf16_kernels as B16
+    from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    rng = np.random.RandomState(235)
+    x = _f32(rng, dev, 1, 8, 8, 64)
+    p = [a.float() for a in _bf16_blk(rng, dev, 64, 64, 64, False)]
+    pd = [a.float() for a in _bf16_blk(rng, dev, 64, 64, 128, True)]
+    x8 = torch.as_tensor(rng.randint(0, 128, (1, 8, 8, 64)), device=dev,
+                         dtype=torch.int8)
+    calls = [lambda **k: B16.fused_bottleneck(x, *p, **k),
+             lambda **k: B16.fused_bottleneck_hwnc(x, *p, **k),
+             lambda **k: B16.fused_bottleneck_down(x, *pd, stride=2, **k),
+             lambda **k: BK.fused_bottleneck_i8v2(x8, *p, 0.5, **k),
+             lambda **k: BK.fused_bottleneck_i8v2_down_s2(x8, *pd, **k)]
+    wks = [_wk32(p), _wk32(p), _wk32(pd), _wk32(p), _wk32(pd)]
+    for call, wk in zip(calls, wks):
+        with pytest.raises(ValueError, match='wk='):
+            call()
+        with pytest.raises(ValueError, match='wk='):
+            call(wk=wk[:2])
+        assert call(wk=wk).shape[0] == 1
+    for fn in (B16.fused_bottleneck_stage, B16.fused_bottleneck_stage_stream):
+        with pytest.raises(ValueError, match='wk='):
+            fn(x, [p])
+
+
+@pytest.mark.parametrize('cin,cout', [(64, 64), (256, 128)])
+def test_gemm_f32_int8_segment_equals_f32_integers(dev, cin, cout):
+    """An int8 A segment takes two products (its lo is 0); the same
+    integers held in f32 take the f32 segment's three, whose lo . hi
+    product is 0: the two launches agree on every value, alone and as
+    the K-packed projection's second segment."""
+    from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    from instaorder_tpu_torch.ops.gemm_layout import split_kmajor_f32 as sk
+    rng = np.random.RandomState(240 + cin)
+    x8 = torch.as_tensor(rng.randint(0, 128, (2, 9, 9, cin)), device=dev,
+                         dtype=torch.int8)
+    h2 = torch.relu(_f32(rng, dev, 2, 9, 9, 64))
+    w, w3 = _f32(rng, dev, cin, cout, scale=0.1), _f32(rng, dev, 64, cout)
+    b = _f32(rng, dev, cout)
+    outs = []
+    for x in (x8, x8.float()):
+        o1 = BK._gemm(torch.empty((2, 9, 9, cout), device=dev),
+                      [(x, sk(w), 1, 1)], b, BK._RELU_F32)
+        o2 = BK._gemm(torch.empty((2, 9, 9, cout), device=dev),
+                      [(h2, sk(w3), 1, 1), (x, sk(w), 1, 1)], b,
+                      BK._Q8_F32, bias2=b)
+        outs.append((o1, o2))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    _f32_close(outs[0][0], torch.relu(x8.float() @ w + b))
 
 
 @pytest.mark.parametrize('n,hw', [(1, 7), (3, 10), (2, 13)])
@@ -1072,7 +1148,7 @@ def test_f32_identity_kernel_ragged(dev, n, hw):
     x = _f32(rng, dev, n, hw, hw, 256)
     p = [a.float() for a in _bf16_blk(rng, dev, 256, 64, 256, False)]
     before = B16.fused_bottleneck.launches
-    got = B16.fused_bottleneck(x, *p)
+    got = B16.fused_bottleneck(x, *p, wk=_wk32(p))
     _launched(B16.fused_bottleneck, before)
     _f32_close(got, B16.fused_bottleneck_plain(x, *p))
 
@@ -1084,7 +1160,7 @@ def test_f32_down_kernel_ragged(dev, stride, n, hw):
     x = _f32(rng, dev, n, hw, hw, 64)
     p = [a.float() for a in _bf16_blk(rng, dev, 64, 64, 128, True)]
     before = B16.fused_bottleneck_down.launches
-    got = B16.fused_bottleneck_down(x, *p, stride=stride)
+    got = B16.fused_bottleneck_down(x, *p, stride=stride, wk=_wk32(p))
     _launched(B16.fused_bottleneck_down, before)
     assert got.shape[1] == (hw - 1) // stride + 1
     _f32_close(got, B16.fused_bottleneck_down_plain(x, *p, stride=stride))
@@ -1101,13 +1177,14 @@ def test_f32_stage_and_hwnc_kernels(dev, n, hw, c, cm, k):
     blocks = [[a.float() for a in _bf16_blk(rng, dev, c, cm, c, False)]
               for _ in range(k)]
     want = B16.fused_bottleneck_stage_plain(x, blocks)
+    wks = [_wk32(p) for p in blocks]
     for fn in (B16.fused_bottleneck_stage, B16.fused_bottleneck_stage_stream):
         before = fn.launches
-        got = fn(x, blocks)
+        got = fn(x, blocks, wk=wks)
         _launched(fn, before)
         _f32_close(got, want, 2e-5 * k)
     before = B16.fused_bottleneck_hwnc.launches
-    got = B16.fused_bottleneck_hwnc(x, *blocks[0])
+    got = B16.fused_bottleneck_hwnc(x, *blocks[0], wk=wks[0])
     _launched(B16.fused_bottleneck_hwnc, before)
     _f32_close(got, B16.fused_bottleneck_hwnc_plain(x, *blocks[0]))
 
@@ -1196,19 +1273,21 @@ def test_gemm_f32_int8_segment(dev, n, hw, cin, cout, out_int8):
     relu(x . w + b) in f32 within 2e-5, and the v2 epilogue clip(rint(x
     . w + b + r * res), 0, 127) with an int8 residual, int8 or f32 out."""
     from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    from instaorder_tpu_torch.ops.gemm_layout import split_kmajor_f32
     rng = np.random.RandomState(300 + cin)
     x = torch.as_tensor(rng.randint(-128, 128, (n, hw, hw, cin)), device=dev,
                         dtype=torch.int8)
     w = _f32(rng, dev, cin, cout, scale=0.3 / np.sqrt(cin))
     b = _f32(rng, dev, cout, scale=5.0)
+    wk = split_kmajor_f32(w)
     out = torch.empty((n, hw, hw, cout), dtype=torch.float32, device=dev)
-    got = BK._gemm(out, [(x, w, 1, 1)], b, BK._RELU_F32)
+    got = BK._gemm(out, [(x, wk, 1, 1)], b, BK._RELU_F32)
     _f32_close(got, torch.relu(x.float() @ w + b))
     res = torch.as_tensor(rng.randint(0, 128, (n, hw, hw, cout)), device=dev,
                           dtype=torch.int8)
     out = torch.empty((n, hw, hw, cout), device=dev,
                       dtype=torch.int8 if out_int8 else torch.float32)
-    got = BK._gemm(out, [(x, w, 1, 1)], b,
+    got = BK._gemm(out, [(x, wk, 1, 1)], b,
                    BK._Q8_INT8_F32 if out_int8 else BK._Q8_F32, res=res,
                    r=0.43)
     y = x.float() @ w + b + res.float() * 0.43
@@ -1226,6 +1305,7 @@ def test_gemm_f32_kpacked_int8_second_segment(dev, n, hw, cm, cin, cout,
     in one f32 sum, the v2 epilogue within one int8 LSB; int8 and f32
     out hold the same integers."""
     from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    from instaorder_tpu_torch.ops.gemm_layout import split_kmajor_f32 as sk
     rng = np.random.RandomState(320 + cin)
     ho = (hw - 1) // stride + 1
     h2 = torch.relu(_f32(rng, dev, n, ho, ho, cm))
@@ -1241,8 +1321,8 @@ def test_gemm_f32_kpacked_int8_second_segment(dev, n, hw, cm, cin, cout,
     for dt, mode in ((torch.int8, BK._Q8_INT8_F32),
                      (torch.float32, BK._Q8_F32)):
         out = torch.empty((n, ho, ho, cout), dtype=dt, device=dev)
-        got = BK._gemm(out, [(h2, w3, 1, 1), (x, wd, stride, 1)], b3, mode,
-                       bias2=bd)
+        got = BK._gemm(out, [(h2, sk(w3), 1, 1), (x, sk(wd), stride, 1)],
+                       b3, mode, bias2=bd)
         _close(got, want.to(dt))
         outs.append(got)
     assert torch.equal(outs[0].float(), outs[1])
@@ -1253,9 +1333,10 @@ def test_gemm_f32_refuses_mismatched_v2_output(dev):
     """The f32 mode's int8 output goes with _Q8_INT8_F32 only, and a bf16
     A segment is refused before the launch."""
     from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    from instaorder_tpu_torch.ops.gemm_layout import split_kmajor_f32
     rng = np.random.RandomState(330)
     x = torch.zeros((1, 4, 4, 64), dtype=torch.int8, device=dev)
-    w, b = _f32(rng, dev, 64, 64), _f32(rng, dev, 64)
+    w, b = split_kmajor_f32(_f32(rng, dev, 64, 64)), _f32(rng, dev, 64)
     with pytest.raises(ValueError, match='epilogue mode'):
         BK._gemm(torch.empty((1, 4, 4, 64), dtype=torch.int8, device=dev),
                  [(x, w, 1, 1)], b, BK._Q8_F32)
@@ -1283,7 +1364,7 @@ def test_v2_f32_identity_kernels(dev, n, hw, c, cm, in_dt, out_int8):
     assert want.dtype == (torch.int8 if out_int8 else torch.float32)
     for fn in (BK.fused_bottleneck_i8v2_identity, BK.fused_bottleneck_i8v2):
         before = fn.launches
-        got = fn(x, *p, 0.45, out_int8=out_int8)
+        got = fn(x, *p, 0.45, out_int8=out_int8, wk=_wk32(p))
         _launched(fn, before)
         _close(got, want)
 
@@ -1299,7 +1380,7 @@ def test_v2_f32_down_s2_kernel(dev, hw, cin, cout):
                         dtype=torch.int8)
     p = _blk32(rng, dev, cin, cout // 4, cout, True)
     before = BK.fused_bottleneck_i8v2_down_s2.launches
-    got = BK.fused_bottleneck_i8v2_down_s2(x, *p)
+    got = BK.fused_bottleneck_i8v2_down_s2(x, *p, wk=_wk32(p))
     _launched(BK.fused_bottleneck_i8v2_down_s2, before)
     assert tuple(got.shape) == (2, (hw - 1) // 2 + 1, (hw - 1) // 2 + 1, cout)
     _close(got, BK.fused_bottleneck_i8v2_down_s2_plain(x, *p))
@@ -1322,7 +1403,7 @@ def test_v2_f32_stride1_projection_kernels(dev, n, hw, cin, cm, cout,
                       (BK.fused_bottleneck_down_i8v2,
                        BK.fused_bottleneck_down_i8v2_plain)):
         before = fn.launches
-        got = fn(x, *p, out_int8=out_int8)
+        got = fn(x, *p, out_int8=out_int8, wk=_wk32(p))
         _launched(fn, before)
         _close(got, plain(x, *p, out_int8=out_int8))
 
@@ -1343,8 +1424,9 @@ def test_v2_f32_stage_kernels(dev, kind):
     o = kind != 'run'
     fn = (BK.fused_bottleneck_i8v2_hwncp_stage if kind == 'hwncp'
           else BK.fused_bottleneck_i8v2_stage)
+    wks = [_wk32(p) for p in ([] if down is None else [down]) + blocks]
     before = fn.launches
-    got = fn(x, down, blocks, rs, out_int8=o)
+    got = fn(x, down, blocks, rs, out_int8=o, wk=wks)
     _launched(fn, before)
     k = len(blocks) + (down is not None)
     _close(got, BK.fused_bottleneck_i8v2_stage_plain(x, down, blocks, rs,

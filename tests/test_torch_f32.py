@@ -1,8 +1,10 @@
 """The port's f32 route (`--dtype f32`, the f32 predictor) against the JAX
 package on the CPU: the f32 megastep at directions 1 and 2 with each
 kernel feature set and its prep, kernel 5's f32-output mode, the f32
-folded predictor with kernels, and the host-side layouts of the card's
-f32 kernels (the stem's weights, the GEMM's K step and thread tiles).
+folded predictor with kernels, and the host-side layouts and the
+method of the card's f32 kernels (the stem's weights; the GEMM's K step,
+its split K-major weights, its fragment tiles and a numpy model of its
+3xTF32 sums).
 
 Geometry: ResNet-50 widths at layers (3, 2, 1, 1) (a layer1 identity run
 of two blocks for `stage` / `sstage`), 2 scenes of 96 x 128 with 3
@@ -379,27 +381,239 @@ def test_f32_k_step_rule():
 
 @pytest.mark.parametrize('bn', [64, 128])
 def test_f32_gemm_thread_tile_covers_the_cta_tile(bn):
-    """csrc/bottleneck_f32.cu's micro-tiles: thread (warp, lane) owns rows
-    tm + kNTM * i and columns c0 .. c0 + 3, c1 .. c1 + 3; over the 256
-    threads every (row, column) of the 128 x bn tile is owned once, and
-    the 4 rows a warp reads at one K index lie in 4 banks (pitch 36)."""
-    ntn = bn // 8
-    ntm = 256 // ntn
-    tm_rows = 128 // ntm
-    wn = ntn // 8
+    """csrc/bottleneck_f32.cu's tiles: the wgmma m64nBN accumulators of
+    the two warpgroups (conv_gemm.cuh frag_row / frag_col: element 4 j +
+    e of thread tid holds row 64 (tid / 128) + 16 (warp % 4) + lane / 4
+    + 8 (e / 2), column 8 j + 2 (lane % 4) + e % 2) own every (row,
+    column) of the 128 x bn tile once, and the epilogue's 16-byte
+    copy-out of the staged tile (f32 and int8 output) writes every
+    output byte of the tile once."""
     owned = np.zeros((128, bn), np.int32)
     for tid in range(256):
         lane, warp = tid % 32, tid // 32
-        tn = (warp % wn) * 8 + lane % 8
-        tm = (warp // wn) * 4 + lane // 8
-        c0, c1 = tn * 4, bn // 2 + tn * 4
-        for i in range(tm_rows):
-            for c in (*range(c0, c0 + 4), *range(c1, c1 + 4)):
-                owned[tm + ntm * i, c] += 1
+        for j in range(bn // 8):
+            for e in range(4):
+                row = 64 * (tid // 128) + 16 * (warp % 4) + lane // 4 \
+                    + 8 * (e // 2)
+                owned[row, 8 * j + 2 * (lane % 4) + e % 2] += 1
     assert (owned == 1).all()
-    for warp in range(8):
-        tms = {(warp // wn) * 4 + lane // 8 for lane in range(32)}
-        assert len({(tm * 36) % 32 for tm in tms}) == 4
+    for oes in (4, 1):
+        cpo = bn * oes // 16
+        written = np.zeros((128, bn * oes), np.int32)
+        for tid in range(256):
+            for e in range(tid, 128 * cpo, 256):
+                row, ch = divmod(e, cpo)
+                written[row, 16 * ch:16 * ch + 16] += 1
+        assert (written == 1).all()
+
+
+# ---- the f32 GEMM's 3xTF32 method and its split weights --------------------
+
+
+def _tf32_np(a):
+    """numpy model of cvt.rna.tf32.f32 (10 mantissa bits, ties away from
+    zero), independent of gemm_layout.tf32."""
+    a = np.asarray(a, np.float32)
+    m, e = np.frexp(a.astype(np.float64))          # |m| in [0.5, 1)
+    r = np.sign(m) * np.floor(np.abs(m) * 2.0 ** 11 + 0.5) / 2.0 ** 11
+    return np.ldexp(r, e).astype(np.float32)
+
+
+def test_tf32_rounds_like_cvt_rna():
+    """gemm_layout.tf32: ties away from zero, a carry into the exponent,
+    negative values, zero, and random values against the numpy model."""
+    got = gemm_layout.tf32(torch.tensor(
+        [1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12, 2 - 2 ** -12, 0.0,
+         -3.0, 1 + 3 * 2 ** -11], dtype=torch.float32))
+    assert got.tolist() == [1 + 2 ** -10, -(1 + 2 ** -10), 1.0, 2.0, 0.0,
+                            -3.0, 1 + 2 ** -9]
+    x = (np.random.RandomState(5).randn(10000)
+         * 10.0 ** np.random.RandomState(6).uniform(-6, 6, 10000)
+         ).astype(np.float32)
+    np.testing.assert_array_equal(
+        gemm_layout.tf32(torch.from_numpy(x)).numpy(), _tf32_np(x))
+
+
+@pytest.mark.parametrize('shape', [(1, 1, 64, 128), (3, 3, 64, 64),
+                                   (256, 512)])
+def test_split_kmajor_f32(shape):
+    """split_kmajor_f32: one contiguous (2, Cout, K) tensor [hi, lo] in
+    kmajor's im2col order; hi and lo are TF32 (low 13 mantissa bits 0),
+    hi = tf32(w), w - hi is exact in f32, |lo| <= 2^-11 |w| and hi + lo
+    is within 2^-22 |w| of w (two TF32 halves keep 22 of f32's 24
+    significant bits; the kernel drops lo . lo at the same order)."""
+    rng = np.random.RandomState(len(shape) + shape[-1])
+    w = torch.as_tensor(rng.randn(*shape) * 0.05, dtype=torch.float32)
+    wk = gemm_layout.split_kmajor_f32(w)
+    k = gemm_layout.kmajor(w)
+    cout = shape[-1]
+    assert wk.shape == (2, cout, k.shape[1]) and wk.is_contiguous()
+    assert wk.dtype == torch.float32
+    assert int((wk.view(torch.int32) & 0x1fff).count_nonzero()) == 0
+    hi, lo = wk[0].numpy(), wk[1].numpy()
+    kn = k.numpy()
+    np.testing.assert_array_equal(hi, _tf32_np(kn))
+    r = kn - hi
+    np.testing.assert_array_equal(hi + r, kn)          # exact subtraction
+    np.testing.assert_array_equal(lo, _tf32_np(r))
+    assert (np.abs(lo) <= 2.0 ** -11 * np.abs(kn)).all()
+    err = np.abs(hi.astype(np.float64) + lo - kn)
+    assert (err <= 2.0 ** -22 * np.abs(kn)).all()
+    # im2col order: K index (dy * kw + dx) * Cin + c of output channel n
+    wn = w.numpy().reshape(-1, cout)
+    np.testing.assert_array_equal(hi, _tf32_np(wn.T))
+    with pytest.raises(ValueError, match='f32'):
+        gemm_layout.split_kmajor_f32(w.bfloat16())
+
+
+def _split_np(a):
+    hi = _tf32_np(a)
+    return hi, _tf32_np(a - hi)
+
+
+def _rz_np(x):
+    """f64 values rounded toward zero to f32."""
+    r = x.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(x)
+    return np.where(over, np.nextafter(r, np.float32(0)), r)
+
+
+def _tf32_gemm_np(a, b, products, order='kernel', fresh=True):
+    """numpy model of the f32 kernel's sums. Each wgmma k8 adds its 8
+    TF32 products (exact: 11 x 11 bits) into the f32 accumulator, and
+    the tensor cores truncate that add: rounded toward zero. A
+    32-element K step issues, in the kernel's order, the small products
+    of its four k8s (products 3: lo_a . hi_b then hi_a . lo_b; 2, an
+    int8 A: hi_a . lo_b) and then their four hi_a . hi_b (products 1:
+    hi_a . hi_b alone); order 'interleaved' takes each k8's products in
+    turn instead. fresh: the accumulator starts at zero every step and
+    the step's sum is added into the f32 total rounded to nearest (the
+    kernel); else one accumulator runs over all of K."""
+    ah, al = (t.astype(np.float64) for t in _split_np(a))
+    bh, bl = (t.astype(np.float64) for t in _split_np(b))
+    small = {1: [], 2: [(ah, bl)], 3: [(al, bh), (ah, bl)]}[products]
+    tot = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    acc = tot.copy()
+    for k0 in range(0, a.shape[1], 32):
+        k8s = [slice(k0 + 8 * i, k0 + 8 * i + 8) for i in range(4)]
+        if order == 'kernel':
+            seq = ([(x, y, s) for s in k8s for x, y in small]
+                   + [(ah, bh, s) for s in k8s])
+        else:
+            seq = [(x, y, s) for s in k8s for x, y in small + [(ah, bh)]]
+        if fresh:
+            acc = np.zeros_like(tot)
+        for x, y, s in seq:
+            acc = _rz_np(acc.astype(np.float64) + x[:, s] @ y[s])
+        if fresh:
+            tot = (tot + acc).astype(np.float32)
+    return tot if fresh else acc
+
+
+def _gemm_case(k):
+    """A relu'd h (128, k) times weights of unit output scale, and their
+    f64 product."""
+    rng = np.random.RandomState(k)
+    a = np.maximum(rng.randn(128, k), 0).astype(np.float32)
+    b = (rng.randn(k, 64) / np.sqrt(k)).astype(np.float32)
+    return a, b, a.astype(np.float64) @ b.astype(np.float64)
+
+
+def _bias(got, ref):
+    """Mean signed error relative to ref over outputs above a tenth of
+    max |ref| (negative: a bias toward zero)."""
+    sel = np.abs(ref) > 0.1 * np.abs(ref).max()
+    return float(((got.astype(np.float64) - ref)[sel] / ref[sel]).mean())
+
+
+@pytest.mark.parametrize('k', [64, 576, 1152, 2304, 4608])
+def test_3xtf32_meets_the_f32_bar_and_1xtf32_misses_it(k):
+    """At the trunk's K (layer1's conv1 64 ... layer4's 3x3 4,608) the
+    3xTF32 sums, with the tensor cores' truncated adds, stay within the
+    f32 block bar (2e-5 of max |ref|, ref the f64 product of the f32
+    operands) with a wide margin, while a single TF32 product misses it:
+    why the kernel issues three."""
+    a, b, ref = _gemm_case(k)
+    scale = np.abs(ref).max()
+    err3 = np.abs(_tf32_gemm_np(a, b, 3) - ref).max() / scale
+    err1 = np.abs(_tf32_gemm_np(a, b, 1) - ref).max() / scale
+    assert err3 <= 2e-5 / 10, err3
+    assert err1 > 2e-5, err1
+
+
+@pytest.mark.parametrize('k', [576, 4608])
+def test_3xtf32_truncated_sums_order_and_fresh_accumulator(k):
+    """The truncated adds bias every sum toward zero. The kernel's form
+    (a fresh accumulator a K step, its small products first and its
+    four hi . hi last) keeps that bias near -9e-8 of the output at any
+    K, as measured on the card (-7.4e-8 to -8.8e-8); taking each k8's
+    products in turn (the first build) more than doubles it, and one
+    accumulator over all of K lets it grow with K until, at layer4's
+    K = 4,608, the sums miss the f32 bar."""
+    a, b, ref = _gemm_case(k)
+    scale = np.abs(ref).max()
+    bias = _bias(_tf32_gemm_np(a, b, 3), ref)
+    assert -1.5e-7 < bias < -3e-8, bias
+    inter = _bias(_tf32_gemm_np(a, b, 3, order='interleaved'), ref)
+    assert inter < 2 * bias, (inter, bias)
+    one = _tf32_gemm_np(a, b, 3, fresh=False)
+    assert _bias(one, ref) < 10 * bias
+    if k == 4608:
+        assert np.abs(one - ref).max() / scale > 2e-5
+
+
+def test_int8_a_takes_two_products():
+    """An int8 A is exact in TF32, so lo = 0: its two-product form equals
+    the three-product one bit for bit, truncated adds and all (adding
+    the zero lo . hi products leaves the accumulator as it was)."""
+    rng = np.random.RandomState(9)
+    a = rng.randint(-128, 128, (64, 256)).astype(np.float32)
+    b = rng.randn(256, 64).astype(np.float32)
+    hi, lo = _split_np(a)
+    np.testing.assert_array_equal(hi, a)
+    assert not lo.any()
+    np.testing.assert_array_equal(_tf32_gemm_np(a, b, 2),
+                                  _tf32_gemm_np(a, b, 3))
+
+
+def test_add_f32_block_weights_folded(net):
+    """Every block of the folded f32 tree gets `wk` = the split K-major
+    [w1, w2, w3(, wd)]; the JAX-layout weights stay as they were."""
+    _folded, tf, _cfg = net
+    tree = {k: tf[k] for k in tf}
+    for li in range(4):
+        tree[f'layer{li + 1}'] = [dict(bp) for bp in tf[f'layer{li + 1}']]
+    assert TF.add_f32_block_weights(tree) is tree
+    n = 0
+    for li in range(4):
+        for bp, orig in zip(tree[f'layer{li + 1}'], tf[f'layer{li + 1}']):
+            convs = [c for c in ('conv1', 'conv2', 'conv3', 'down')
+                     if c in bp]
+            assert len(bp['wk']) == len(convs) == (4 if 'down' in bp else 3)
+            for c, wk in zip(convs, bp['wk']):
+                assert bp[c] is orig[c]
+                assert torch.equal(wk,
+                                   gemm_layout.split_kmajor_f32(bp[c]['w']))
+            n += 1
+    assert n == 7 and 'wk' not in tf['layer1'][0]
+
+
+@pytest.mark.parametrize('use_pallas', [KFEATS, ('stage',), ('hwnc',)])
+def test_f32_forward_with_block_weights_unchanged(net, use_pallas):
+    """On the CPU the plain versions do not read `wk`: the forward of a
+    tree carrying it equals the forward without it, at directions 1 and
+    2; tree_to carries it (as OrderPredictor.to does)."""
+    _folded, tf, cfg = net
+    with_wk = TF.add_f32_block_weights(convert.tree_to(tf, 'cpu'))
+    assert all('wk' in bp for bp in with_wk['layer4'])
+    x = torch.as_tensor(np.random.RandomState(4).randn(3, OUT, OUT, 5),
+                        dtype=torch.float32)
+    for fwd in (TF.apply_folded, TF.apply_folded_siamese):
+        got = fwd(with_wk, cfg, x, dtype=torch.float32, use_pallas=use_pallas)
+        want = fwd(tf, cfg, x, dtype=torch.float32, use_pallas=use_pallas)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g, w)
 
 
 def test_f32_stem_thread_tile_covers_the_conv_row():

@@ -1,8 +1,8 @@
 """The host-side layout decisions of the implicit-GEMM block kernels
 (instaorder_tpu_torch/ops/gemm_layout.py) on the CPU: the CTA's output
-width by Cout, the K-step rule of the K-packed projection, and the int8
-weights' K-major (Cout, K) layout, held against a plain x @ w and the
-exact int8 convolution. The kernels themselves run only on the card
+width by Cout (and by K for the f32 kernel), the K-step rule of the
+K-packed projection, and the int8 weights' K-major (Cout, K) layout,
+held against a plain x @ w and the exact int8 convolution. The kernels themselves run only on the card
 (tests/test_torch_cuda.py)."""
 
 import numpy as np
@@ -26,6 +26,17 @@ def test_tile_n(cout, bn):
 def test_tile_n_two_sums(cout):
     """The int8 projection's tile: 64 columns at every width."""
     assert GL.tile_n(cout, two_sums=True) == 64
+
+
+@pytest.mark.parametrize('cout,k,bn', [
+    (64, 576, 64), (256, 64, 64), (256, 128, 64), (512, 128, 64),
+    (128, 512, 128), (512, 384, 128), (1024, 768, 128), (512, 4608, 128)])
+def test_tile_n_f32(cout, k, bn):
+    """The f32 kernel's tile: 64 columns where Cout needs them or the K
+    axis is at most F32_SHORT_K (two 64-wide CTAs an SM), else 128."""
+    assert GL.tile_n_f32(cout, k) == bn
+    with pytest.raises(ValueError, match='multiple of 64'):
+        GL.tile_n_f32(cout + 32, k)
 
 
 @pytest.mark.parametrize('cout', [0, 32, 100, 200])

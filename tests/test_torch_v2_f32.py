@@ -4,8 +4,10 @@ against the Pallas kernels at f32 in interpret mode (int8 and f32
 outputs), the q8 stem at f32 against JAX's `fused_stem(q8=True)`, the
 folded v2 forward at f32 with each kernel feature set (directions 1 and
 2 for the default set and its q8 stem; kernel calls counted against
-JAX's), make_v2_predictor(compute_dtype=torch.float32) against JAX's, and a model of the f32 GEMM's loader and
-widen for int8 segments (csrc/bottleneck_f32.cu) on the host.
+JAX's), make_v2_predictor(compute_dtype=torch.float32) against JAX's,
+the split K-major block weights of the v2 f32 tree (`wk`), and a model
+on the host of the f32 GEMM's swizzled K-major stage: its loader, the
+int8 raw tile and widen, and the TF32 split (csrc/bottleneck_f32.cu).
 
 Bars (the v2 bars of tests/test_torch_variants.py): each block within
 one int8 LSB on under 1% of outputs (f32 sums in another order move rare
@@ -36,6 +38,7 @@ from test_torch_variants import PORT_TO_JAX
 
 from instaorder_tpu_torch import convert
 from instaorder_tpu_torch.eval import pipeline as TPL
+from instaorder_tpu_torch.models import folding as TF
 from instaorder_tpu_torch.models import quantize as TQ
 from instaorder_tpu_torch.ops import bottleneck_kernels as BK
 from instaorder_tpu_torch.ops import gemm_layout
@@ -292,31 +295,101 @@ def test_v2_f32_predictor_matches_jax(interpret, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the f32 GEMM's loader for int8 segments, modelled on the host
+# the v2 f32 tree's split K-major block weights
 # ---------------------------------------------------------------------------
 
-BM, LDA, BK_F32 = 128, 36, gemm_layout.F32_K_STEP
-RAW_OFF = (BK_F32 - 8) * 4      # csrc/bottleneck_f32.cu kRawOff
+
+@pytest.fixture(scope='module')
+def q32(net):
+    """The v2 model of `net` quantized at compute_dtype=f32, and the same
+    tree with the f32 block kernel's weights (add_f32_block_weights)."""
+    _j, q, cfg, _x = net
+    return q, TF.add_f32_block_weights(convert.tree_to(q, 'cpu')), cfg
+
+
+def test_add_f32_block_weights_v2(q32):
+    """Every block of the v2 tree quantized at f32 gets `wk` = the split
+    K-major [w1, w2, w3(, wd)] of its f32 weights; the JAX-layout weights
+    are the same tensors as before."""
+    q, qw, _cfg = q32
+    n = 0
+    for li in range(4):
+        for bp, orig in zip(qw[f'layer{li + 1}'], q[f'layer{li + 1}']):
+            convs = [c for c in ('conv1', 'conv2', 'conv3', 'down')
+                     if c in bp]
+            assert len(bp['wk']) == len(convs)
+            for c, wk in zip(convs, bp['wk']):
+                assert bp[c]['w'] is orig[c]['w']
+                assert bp[c]['w'].dtype == torch.float32
+                assert torch.equal(wk,
+                                   gemm_layout.split_kmajor_f32(bp[c]['w']))
+            n += 1
+            assert 'wk' not in orig
+    assert n == sum(len(q[f'layer{li + 1}']) for li in range(4))
+
+
+@pytest.mark.parametrize('use_pallas', [True, ('identity', 'down1')])
+def test_v2_f32_forward_with_block_weights_unchanged(q32, use_pallas):
+    """On the CPU the plain versions do not read `wk`: the v2 f32 forward
+    of the tree carrying it equals the forward without it, at directions
+    1 and 2."""
+    q, qw, cfg = q32
+    x = torch.as_tensor(np.random.RandomState(8).randn(2, 64, 64, 5),
+                        dtype=torch.float32)
+    for fwd in (TQ.apply_folded_v2, TQ.apply_folded_v2_siamese):
+        got = fwd(qw, cfg, x, use_pallas=use_pallas)
+        want = fwd(q, cfg, x, use_pallas=use_pallas)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# the f32 GEMM's swizzled K-major stage, modelled on the host
+# ---------------------------------------------------------------------------
+
+BM, BK_F32 = 128, gemm_layout.F32_K_STEP
+RAW_ROW = 32                    # csrc/bottleneck_f32.cu kRawRow
+A_F32, A_INT8 = 0, 1
+
+
+def _swz(row, chunk):
+    """conv_gemm.cuh swz128: byte offset of 16-byte chunk `chunk` of
+    128-byte row `row` in a tile with the 128-byte swizzle."""
+    return row * 128 + ((chunk ^ (row & 7)) << 4)
+
+
+def _tf32(a):
+    return gemm_layout.tf32(torch.from_numpy(np.ascontiguousarray(
+        a, np.float32))).numpy()
 
 
 def _stage(segs, m0, M, Ho, Wo, step):
     """The A rows [m0, m0 + 128) of K step `step` as csrc/bottleneck_f32.cu
-    leaves them in the stage before the FMAs: each thread's 16-byte
-    copies (an f32 segment: chunk q of rows tid / 8 + 32 i; an int8 one:
-    raw chunk q % 2 of row tid / 8 + 32 (q / 2) at byte kRawOff + 16 (q
-    % 2) of the row), zero where the loader zero-fills, then the int8
-    widen (every raw read of a warp before its writes). segs: [(x NHWC
-    numpy, stride, ksize)]; returns (128, 32) f32."""
-    st = np.full(BM * LDA * 4, 0xAB, np.uint8)
-    t = gemm_layout.check_k_steps([k * k * x.shape[-1] for x, _s, k in segs],
-                                  step=BK_F32)
+    leaves them in the stage before the MMAs: each thread's 16-byte
+    copies (an f32 segment: chunk q of rows tid / 8 + 32 i into A_hi at
+    swz128(row, q); an int8 one: raw chunk q % 2 of row tid / 8 + 32 (q
+    / 2) into the raw tile at 32 row + 16 (q % 2)), zero where the loader
+    zero-fills; then each thread's `prepare` of the chunks it copied (an
+    int8 chunk widened into A_hi chunks 4 (q % 2) .. + 3; an f32 chunk
+    split, hi in place and lo into A_lo at the same offset). segs: [(x NHWC numpy, stride, ksize, kind)]. Returns
+    (A_hi, A_lo) unswizzled, each (128, 32) f32 (A_lo None where the
+    step takes no lo), and the count of writes to each 16-byte chunk of
+    A_hi."""
+    a_hi = np.full(BM * 128, 0xAB, np.uint8)
+    a_lo = np.full(BM * 128, 0xAB, np.uint8)
+    raw = np.full(BM * RAW_ROW, 0xCD, np.uint8)
+    writes = np.zeros((BM, 8), np.int32)
+    t = gemm_layout.check_k_steps([k * k * x.shape[-1]
+                                   for x, _s, k, _kd in segs], step=BK_F32)
     sg = 0 if step < t[0] else 1
-    x, stride, ks = segs[sg]
+    x, stride, ks, kind = segs[sg]
     j = step - (t[0] if sg else 0)
-    i8 = x.dtype == np.int8
+    i8 = kind == A_INT8
+    assert i8 == (x.dtype == np.int8)
     es, K, C = x.itemsize, ks * ks * x.shape[-1], x.shape[-1]
     pad = 1 if ks == 3 else 0
-    raw = {}
+    copied = {}
     for tid in range(256):
         q = tid & 7
         for i in ([q >> 1] if i8 else range(4)):
@@ -330,16 +403,41 @@ def _stage(segs, m0, M, Ho, Wo, step):
             wi = wo * stride - pad + tap % ks
             ok = (m < M and k < K and 0 <= hi < x.shape[1]
                   and 0 <= wi < x.shape[2])
-            src = (x[n, hi, wi, c:c + 16 // es].tobytes() if ok
-                   else bytes(16))
-            dst = r * LDA * 4 + (RAW_OFF + 16 * (q & 1) if i8 else 16 * q)
-            st[dst:dst + 16] = np.frombuffer(src, np.uint8)
+            src = np.frombuffer(x[n, hi, wi, c:c + 16 // es].tobytes() if ok
+                                else bytes(16), np.uint8)
             if i8:
-                raw[tid] = (r, np.frombuffer(src, np.int8).astype(np.float32))
-    for tid, (r, v) in raw.items():       # the widen, after the warp sync
-        dst = r * LDA * 4 + 64 * (tid & 1)
-        st[dst:dst + 64] = np.frombuffer(v.tobytes(), np.uint8)
-    return st.view(np.float32).reshape(BM, LDA)[:, :BK_F32]
+                d = r * RAW_ROW + 16 * (q & 1)
+                raw[d:d + 16] = src
+            else:
+                d = _swz(r, q)
+                a_hi[d:d + 16] = src
+                writes[r, q] += 1
+            copied.setdefault(tid, []).append((r, q))
+    for tid, chunks in copied.items():      # prepare: its own copies only
+        for r, q in chunks:
+            if i8:
+                d = r * RAW_ROW + 16 * (q & 1)
+                v = raw[d:d + 16].view(np.int8).astype(np.float32)
+                for e in range(4):
+                    o = _swz(r, 4 * (q & 1) + e)
+                    a_hi[o:o + 16] = v[4 * e:4 * e + 4].view(np.uint8)
+                    writes[r, 4 * (q & 1) + e] += 1
+            elif kind == A_F32:
+                o = _swz(r, q)
+                v = a_hi[o:o + 16].view(np.float32).copy()
+                h = _tf32(v)
+                a_hi[o:o + 16] = h.view(np.uint8)
+                a_lo[o:o + 16] = _tf32(v - h).view(np.uint8)
+
+    def unswizzle(tile):
+        f = np.zeros((BM, BK_F32), np.float32)
+        for r in range(BM):
+            for c in range(8):
+                f[r, 4 * c:4 * c + 4] = tile[_swz(r, c):_swz(r, c) + 16].view(
+                    np.float32)
+        return f
+    return (unswizzle(a_hi), unswizzle(a_lo) if kind == A_F32 else None,
+            writes)
 
 
 def _im2col(x, stride, ks, M, m0, Ho, Wo):
@@ -357,66 +455,100 @@ def _im2col(x, stride, ks, M, m0, Ho, Wo):
     return out
 
 
-@pytest.mark.parametrize('n,hw,cm,cin,stride,m0', [
-    (2, 9, 64, 96, 2, 0),        # K-packed, int8 x at stride 2: 3 steps
-    (3, 7, 128, 64, 1, 128),     # the second row tile, M = 147: ragged
-    (1, 5, 64, 256, 1, 0)])      # M = 25 < 128
-def test_f32_ring_kpacked_int8_second_segment(n, hw, cm, cin, stride, m0):
-    """The K-packed projection [h2 | x_s] with an int8 x: every K step of
-    the ring (f32 h2 steps, then x's 32 raw bytes widened to f32) holds
-    the im2col rows' values, the K-packed rule counts both segments in
-    32-element steps, and rows past M are zero."""
+def _check_step(got, want):
+    """A step's (A_hi, A_lo, writes) against the im2col values `want`:
+    every A_hi chunk written once; int8 values land as they are, f32
+    ones as hi = tf32(v), lo = tf32(v - hi)."""
+    hi, lo, writes = got
+    assert (writes == 1).all()
+    if lo is None:
+        np.testing.assert_array_equal(hi, want)
+    else:
+        np.testing.assert_array_equal(hi, _tf32(want))
+        np.testing.assert_array_equal(lo, _tf32(want - hi))
+        assert (np.abs(hi.astype(np.float64) + lo - want)
+                <= 2.0 ** -22 * np.abs(want)).all()
+
+
+@pytest.mark.parametrize('n,hw,cm,cin,stride,m0,kind', [
+    (2, 9, 64, 96, 2, 0, A_INT8),     # K-packed, int8 x at stride 2: 3 steps
+    (3, 7, 128, 64, 1, 128, A_INT8),  # the second row tile, M = 147: ragged
+    (1, 5, 64, 256, 1, 0, A_INT8),    # M = 25 < 128
+    (2, 9, 64, 96, 2, 0, A_F32)],     # x held in f32: split, lo = 0
+    ids=['2-9-64-96-2-0', '3-7-128-64-1-128', '1-5-64-256-1-0',
+         '2-9-64-96-2-0-f32x'])
+def test_f32_ring_kpacked_int8_second_segment(n, hw, cm, cin, stride, m0,
+                                              kind):
+    """The K-packed projection [h2 | x_s] with a v2 x (int8, or f32
+    holding the integers): every K step of the ring (f32 h2 steps split
+    into hi and lo, then x's steps, 32 raw bytes widened, or f32 split
+    with lo = 0) holds the im2col rows' values, each A chunk written
+    once; the K-packed rule counts both segments in 32-element steps,
+    and rows past M are zero."""
     rng = np.random.RandomState(n + hw + cin)
     ho = (hw - 1) // stride + 1
     M = n * ho * ho
     h2 = rng.randn(n, ho, ho, cm).astype(np.float32)
-    x = rng.randint(-128, 128, (n, hw, hw, cin)).astype(np.int8)
-    segs = [(h2, 1, 1), (x, stride, 1)]
+    x = rng.randint(0, 128, (n, hw, hw, cin)).astype(np.int8)
+    if kind == A_F32:
+        x = x.astype(np.float32)
+    segs = [(h2, 1, 1, A_F32), (x, stride, 1, kind)]
     steps = gemm_layout.check_k_steps([cm, cin], step=BK_F32)
     assert steps == [cm // 32, cin // 32]
     want = np.concatenate([_im2col(h2, 1, 1, M, m0, ho, ho),
                            _im2col(x, stride, 1, M, m0, ho, ho)], -1)
     for s in range(sum(steps)):
         got = _stage(segs, m0, M, ho, ho, s)
-        np.testing.assert_array_equal(got, want[:, 32 * s:32 * s + 32])
+        x_step = s >= steps[0]
+        assert (got[1] is None) == (x_step and kind == A_INT8)
+        _check_step(got, want[:, 32 * s:32 * s + 32])
+        if x_step and kind == A_F32:
+            assert not got[1].any()     # integers: hi holds them, lo = 0
+    assert not want[M - m0:].any()
 
 
 @pytest.mark.parametrize('c,ks,stride', [(64, 1, 1), (256, 1, 1),
                                          (32, 3, 2), (64, 3, 1)])
 def test_f32_ring_int8_conv_and_3x3_steps(c, ks, stride):
-    """conv1 on an int8 x (one segment, 32 raw bytes a step) and, for the
-    model's f32 scratch, the 3x3 at the stride-2 edges: each step's A
-    rows equal the im2col view, the halo zero."""
+    """conv1 on an int8 x (one segment, 32 raw bytes a step, widened) and,
+    for the model's f32 scratch, the 3x3 at the stride-2 edges (split
+    into hi and lo): each step's A rows equal the im2col view, the halo
+    zero."""
     rng = np.random.RandomState(c + ks)
     n, hw = 2, 9
     ho = (hw - 1) // stride + 1
     M = n * ho * ho
     x = (rng.randint(-128, 128, (n, hw, hw, c)).astype(np.int8) if ks == 1
          else rng.randn(n, hw, hw, c).astype(np.float32))
+    kind = A_INT8 if ks == 1 else A_F32
     want = _im2col(x, stride, ks, M, 0, ho, ho)
     for s in range(ks * ks * c // 32):
-        got = _stage([(x, stride, ks)], 0, M, ho, ho, s)
-        np.testing.assert_array_equal(got, want[:, 32 * s:32 * s + 32])
+        _check_step(_stage([(x, stride, ks, kind)], 0, M, ho, ho, s),
+                    want[:, 32 * s:32 * s + 32])
 
 
 def test_f32_ring_int8_widen_stays_in_one_warp():
-    """The int8 loader's map: each row's two raw chunks are copied by
-    lanes 2p and 2p + 1 of one warp, which also widen the row (the even
-    lane the first 64 bytes, the odd lane the last 64, over both raw
-    chunks), so the warp's sync orders every raw read before a write
-    over it; every (row, chunk) is copied once."""
+    """The int8 loader's map: each (row, raw chunk) of a K step is copied
+    once, by a thread that widens it itself (its own cp.async, complete
+    after its wait: no barrier before the widen) into the row's f32
+    chunks 4 c .. 4 c + 3, and a row's two raw chunks (its 32 bytes) go
+    to two adjacent lanes of one warp; over the 256 threads every f32
+    chunk of the 128 x 32 A_hi tile is written once, and the swizzle
+    keeps a row's 8 chunks in 8 distinct 16-byte slots of its 128
+    bytes."""
     seen = np.zeros((BM, 2), np.int32)
+    widened = np.zeros((BM, 8), np.int32)
+    by = np.zeros((BM, 2), np.int32)
     for tid in range(256):
         q = tid & 7
         row, chunk = (tid >> 3) + 32 * (q >> 1), q & 1
         seen[row, chunk] += 1
-        partner = tid ^ 1
-        assert partner >> 5 == tid >> 5
-        assert ((partner >> 3) + 32 * ((partner & 7) >> 1)) == row
-        raw = (RAW_OFF + 16 * chunk, RAW_OFF + 16 * chunk + 16)
-        write = (64 * chunk, 64 * chunk + 64)
-        assert raw[1] <= BK_F32 * 4 and write[1] <= BK_F32 * 4
-        # the odd lane's write covers both raw chunks; the even lane's
-        # covers neither
-        assert (write[0] <= raw[0] and raw[1] <= write[1]) == bool(chunk)
-    assert (seen == 1).all()
+        by[row, chunk] = tid
+        for e in range(4):
+            widened[row, 4 * chunk + e] += 1
+    assert (seen == 1).all() and (widened == 1).all()
+    assert (by[:, 0] // 32 == by[:, 1] // 32).all()
+    assert (by[:, 1] - by[:, 0] == 1).all()
+    for row in range(BM):
+        slots = {_swz(row, c) for c in range(8)}
+        assert slots == {row * 128 + 16 * c for c in range(8)}
