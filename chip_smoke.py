@@ -66,8 +66,9 @@ Phases (any failed check raises and the script exits nonzero):
   5. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
      f32 row's share of its 3xTF32 bound (495 TF32 TFLOP/s, three
      products a MAC, two for an int8 A: the row's bound_ms) and of the
-     f32 peak, the `kernels` JSON line, then {"ok": true, "device":
-     {...}}.
+     f32 peak, the f32 stem rows' share of their design's floor (the
+     same method at the K the kernel issues, 288 at C = 5), the
+     `kernels` JSON line, then {"ok": true, "device": {...}}.
 Exits nonzero without a result when no CUDA device is present.
 """
 
@@ -618,6 +619,14 @@ def stem_ops(x, w):
     return 2 * n * hc * wc * w[..., 0].numel() * w.shape[-1]
 
 
+def f32_stem_floor_ops(SK, x, w):
+    """TF32 operations of the f32 stem kernel's own design: three
+    products a MAC at its K (the s2d k8 steps it issues, 288 at C = 5,
+    SK.f32_stem_steps), not the real K = 245 of the row's bound."""
+    k = 8 * len(SK.f32_stem_steps(w.shape[2]))
+    return 3 * stem_ops(x, w) * k // w[..., 0].numel()
+
+
 def phase_stem_q8(torch, SK, FO, q, x, results, f32=False):
     """Row 15': the serving-d2 route's q8 stem (double width, Cout 128)
     vs its plain version, both timed; f32: row 15'[f32], the q8 stem of
@@ -637,15 +646,17 @@ def phase_stem_q8(torch, SK, FO, q, x, results, f32=False):
                 x, c1['w'], c1['b'], q8=True), reps=2), None,
             nbytes(x, want, c1['w'], c1['b']), stem_ops(x, c1['w']),
             rate=H100_F32_PER_S if f32 else H100_BF16_PER_S,
-            tf32_ops=3 * stem_ops(x, c1['w']) if f32 else None)
+            tf32_ops=3 * stem_ops(x, c1['w']) if f32 else None,
+            floor_ops=f32_stem_floor_ops(SK, x, c1['w']) if f32 else None)
 
 
 def add_row(results, name, err, kern, plain, chain, nbytes_, ops,
-            rate=H100_BF16_PER_S, conv_only=None, tf32_ops=None):
+            rate=H100_BF16_PER_S, conv_only=None, tf32_ops=None,
+            floor_ops=None):
     """Add one call's numbers to the kernel's row (chain: the cuDNN
     route's ms, conv_only: conv_only_ms(), tf32_ops: the TF32 operations
-    of the f32 kernels' 3xTF32 method; None where the row has no such
-    column)."""
+    of the f32 kernels' 3xTF32 method, floor_ops: those of the f32 stem
+    kernel at its own K; None where the row has no such column)."""
     r = results.setdefault(name, dict(
         max_abs_err=0.0, ms=0.0, plain_ms=0.0, bytes=0, ops=0,
         ops_rate=rate))
@@ -658,6 +669,8 @@ def add_row(results, name, err, kern, plain, chain, nbytes_, ops,
         r['conv_only_ms'] = r.get('conv_only_ms', 0.0) + conv_only
     if tf32_ops is not None:
         r['tf32_ops'] = r.get('tf32_ops', 0) + tf32_ops
+    if floor_ops is not None:
+        r['floor_ops'] = r.get('floor_ops', 0) + floor_ops
     r['bytes'] += nbytes_
     r['ops'] += ops
 
@@ -784,7 +797,8 @@ def phase_trunk_f32(torch, B16, SK, FO, params, x, results):
                     reps=2),
             cuda_ms(torch, lambda: FO._plain_stem(c1, x), reps=2),
             nbytes(x, want, c1['w'], c1['b']), stem_ops(x, c1['w']),
-            rate=H100_F32_PER_S, tf32_ops=3 * stem_ops(x, c1['w']))
+            rate=H100_F32_PER_S, tf32_ops=3 * stem_ops(x, c1['w']),
+            floor_ops=f32_stem_floor_ops(SK, x, c1['w']))
     h = FO.directions_to_batch(want)
     for li in range(4):
         for bi, bp in enumerate(params[f'layer{li + 1}']):
@@ -1642,6 +1656,13 @@ def main():
             print(f'{name}: kernel {r["ms"]:.4f} ms; 3xTF32 bound '
                   f'{t_ops:.4f} ms ({100 * t_ops / r["ms"]:.1f}% of it), '
                   f'f32 bound {t_f32:.4f} ms ({100 * t_f32 / r["ms"]:.1f}%)')
+        if 'floor_ops' in r:
+            # the f32 stem: its design's floor, the same method at the K
+            # it issues (the row's bound_ms stays at the real K = 245)
+            t_k = r['floor_ops'] / H100_TF32_PER_S * 1e3
+            print(f'{name}: kernel {r["ms"]:.4f} ms; design floor at its '
+                  f'padded K {t_k:.4f} ms ({100 * t_k / r["ms"]:.1f}% of '
+                  f'it)')
         kernels.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches[name],

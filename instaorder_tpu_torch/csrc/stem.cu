@@ -1,8 +1,8 @@
 // Fused ResNet stem, NHWC: conv 7x7 / stride 2 / pad 3, then max-pool
 // 3x3 / stride 2 / pad 1, as one implicit GEMM on Hopper's tensor cores
-// (wgmma) with the pool in its epilogue (and, at f32, on the CUDA cores:
-// `stem_f32_kernel`, described at its definition below). Two kernels
-// share the design:
+// (wgmma) with the pool in its epilogue. Three kernels share the design:
+// the two below and, at f32, `stem_f32_kernel` (3xTF32 with A from
+// registers, described at its definition below):
 //   stem_kernel<COUT, Q8>   bf16 operands, f32 sums: + f32 bias, relu,
 //                           one bf16 rounding, the pool, stored as bf16
 //                           or (q8) as the one-sided int8
@@ -337,13 +337,16 @@ stem_s8_kernel(const uint8_t* __restrict__ xs, const void* __restrict__ wk,
 // which lie wholly on or off the image (W is even), read as C words of
 // two elements (2C * es bytes apart, so aligned); then the pixel's J
 // chunks go to their planes, neighbouring threads on neighbouring
-// chunks. T: the element's bits (uint16_t for bf16, uint8_t for int8).
+// chunks. T: the element's bits (uint32_t for f32, uint16_t for bf16,
+// uint8_t for int8); at f32 the 4C channels are exactly J = C chunks.
 template <typename T, int C>
 __global__ void __launch_bounds__(256)
 stem_pack_kernel(const T* __restrict__ x, uint8_t* __restrict__ xs, int N,
                  int H, int W, int Hs, int Ws) {
-  using Word = std::conditional_t<sizeof(T) == 2, uint32_t, uint16_t>;
-  constexpr int J = sizeof(T) == 2 ? 3 : 2;
+  using Word = std::conditional_t<
+      sizeof(T) == 4, uint2,
+      std::conditional_t<sizeof(T) == 2, uint32_t, uint16_t>>;
+  constexpr int J = sizeof(T) == 4 ? C : sizeof(T) == 2 ? 3 : 2;
   constexpr int kWords = J * 16 / sizeof(Word);
   const int64_t total = (int64_t)N * Hs * Ws;
   for (int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
@@ -353,7 +356,7 @@ stem_pack_kernel(const T* __restrict__ x, uint8_t* __restrict__ xs, int N,
     const int u = (int)(nu % Hs), n = (int)(nu / Hs);
     alignas(16) Word buf[kWords];
 #pragma unroll
-    for (int e = 0; e < kWords; ++e) buf[e] = 0;
+    for (int e = 0; e < kWords; ++e) buf[e] = Word{};
     const int xx = 2 * v - 4;
 #pragma unroll
     for (int sy = 0; sy < 2; ++sy) {
@@ -487,125 +490,249 @@ extern "C" int io_fused_stem_s8(const void* x, void* xs, const void* wk,
 // ---------------------------------------------------------------------------
 // The f32 stem: kernel 15 given f32 activations (the TPU kernel
 // `fused_stem` is dtype-generic), conv 7x7 / stride 2 / pad 3 with f32
-// sums, + f32 bias, relu, max-pool 3x3 / stride 2 / pad 1, stored f32 or
-// (q8: the v2 model's stem at f32 compute, instaorder_tpu/models/
+// accuracy, + f32 bias, relu, max-pool 3x3 / stride 2 / pad 1, stored f32
+// or (q8: the v2 model's stem at f32 compute, instaorder_tpu/models/
 // quantize.py `_stem_v2`) as the one-sided int8 clip(rint(v), 0, 127) of
 // the pooled value, quantised after the pool as the TPU kernel does.
 //
-// Bound on the H100: f32 operations at the double-width siamese stem
-// (Cout 128: 128^2 * 245 * 128 MAC, 1.03 GFLOP per 256^2 image, against
-// ~3.4 MB of f32 input and output). Design: the conv runs direct, on the
-// CUDA cores, at its real K = 7 * 7 * C: no pack pass and no padded taps.
-//  - A CTA owns 64 output channels (half of the double-width stem) and
-//    keeps their (K, 64) weights (ops/stem_kernels `stem_kernel_weights`:
-//    at f32 the HWIO weights as (7 * 7 * C, Cout) rows) and bias in
-//    shared memory. CTAs are persistent and walk the bf16 stem's work
-//    items (image, 8 pooled rows, up to 64 pooled columns) within a
-//    channel half, halves outermost, so a CTA reloads its weights only
-//    when its half changes.
-//  - A conv row of kTM = 128 pixels reads 7 input rows of 2 * 128 + 5
-//    pixels. Input rows reach a ring of kSlotsF rows in shared memory by
-//    4-byte cp.async (a tile's first input column is not 16-byte
-//    aligned), zero-filled off the image, one conv row ahead: a conv row
-//    brings in two new input rows.
-//  - Per conv row each thread sums a 4-pixel x 8-channel micro-tile over
-//    the K taps in (dy, dx, c) order with __fmaf_rn: four A values (four
-//    pixels 2C words apart, so a warp's four pixel rows fall in four
-//    banks) and two 16-byte B vectors per tap.
-//  - The epilogue adds the bias and takes the relu into a one-row conv
-//    buffer; the bf16 stem's separable pool then runs on 16-byte chunks
-//    of four channels with the running vertical max in registers, and a
-//    pooled chunk is stored as four f32 or (q8) four int8 values.
+// Bound on the H100: tensor-core operations at three TF32 products per
+// f32 product (csrc/bottleneck_f32.cu: a . b = lo_a . hi_b + hi_a . lo_b
+// + hi_a . hi_b, each operand split as a = hi + lo, ~2^-22 relative; one
+// TF32 product keeps ~11 bits, outside the stem's 1e-5 bar). At the
+// double-width siamese stem (Cout 128) that is 3 * 128^2 * 245 * 128 MAC
+// per 256^2 image at 495 TFLOP/s, against ~3.4 MB of f32 input and
+// output. Design: `stem_f32_kernel<C>`, a 3xTF32 implicit GEMM on wgmma
+// over the bf16 stem's space-to-depth input.
+//  - The pack (`stem_pack_kernel<uint32_t, C>`) writes the s2d input
+//    chunk-planar, (N, H/2 + 3, J, W/2 + 3, 16 bytes): at f32 a chunk
+//    holds 4 values, so the 4C s2d channels are exactly J = C chunks.
+//  - A k8 step is one (tap row du, tap column pair dxp, chunk j): the
+//    taps dx = 2 dxp + e, e = 0, 1, times the chunk's 4 channels i, K
+//    order (e, i). The du = 0 chunks whose channels all come from the
+//    pad row above (sy = 0: chunks j < C / 2) have zero weights and are
+//    skipped: 8C - 2 (C / 2) k8 steps, K = 288 at C = 5 (of 320; the real
+//    K is 245). The weights come split and K-major, (2, Cout, K) = [hi,
+//    lo], hi = tf32(w) and lo = tf32(w - hi), made once when the model is
+//    built (ops/stem_kernels `stem_kernel_weights`); a CTA keeps its 64
+//    output channels' hi and lo in shared memory with the 128-byte
+//    swizzle (tf32 wgmma reads B only K-major).
+//  - A conv row of kTM = 128 pixels is the M tile (64 rows a
+//    warpgroup). A's hi is the raw f32 of the s2d rows in shared memory,
+//    read in place as the bf16 stem reads its A (core matrices of a
+//    K-major operand without swizzle, LBO 16, SBO 128): tf32 wgmma reads
+//    the top 19 bits of each f32, so hi = trunc(a), a with its low 13
+//    mantissa bits cleared, and a - hi is exact. A's lo = tf32(a - hi)
+//    comes from registers (the RS form of tf32 wgmma): each thread
+//    loads its fragment of a k8 (4 values, two pixels of each of two
+//    pixel rows, one chunk element; a warp's loads are 128 contiguous
+//    bytes) and forms lo. So lo_a . hi_b is RS, hi_a . lo_b and hi_a .
+//    hi_b read both operands from shared memory.
+//  - Shared memory decides the design. At C = 5 the hi and lo weights of
+//    64 channels take 2 * 9 * 64 * 128 = 147,456 B (163,840 at K = 320);
+//    one raw s2d row of a tile 5 * 131 * 16 = 10,480 B; the conv buffer
+//    128 * 72 * 4 = 36,864 B. A lo plane beside each raw row would double
+//    the ring and does not fit with 128-pixel rows; lo in registers, a
+//    ring of kSlotsF = 4 raw rows fits: 227,520 B with the bias and the
+//    alignment slack, of 232,448. Four rows are exactly the rows a conv
+//    row reads: row r + 3 is copied (16-byte cp.async) into the slot of
+//    row r - 1 when conv row r starts, and waited for only before the
+//    k8 steps of du = 3, three quarters of a conv row later.
+//  - Products: a K step is one (du, dxp) with its chunks jlo .. C - 1,
+//    split in two where there are three or more, so at most kG = 3 k8
+//    steps (16 K steps a row at C = 5). Its small products (lo_a . hi_b,
+//    hi_a . lo_b of every k8) go first, then its hi_a . hi_b, into a
+//    fresh accumulator (the tensor cores truncate their sums; see
+//    csrc/bottleneck_f32.cu), and the step's sum is added into f32
+//    registers rounded to nearest. Two accumulators and two fragment
+//    sets alternate, so that a step's lo fragments are formed, and the
+//    previous step's sum added, while the step before it runs.
+//  - CTAs are persistent, each on one channel half (Cout 128 is two) for
+//    all its items, so it loads its weights once; an item is (image, 16
+//    pooled rows, up to 64 pooled columns), 33 conv rows for 32 (the
+//    first conv row of a strip is the last of the one above), and the
+//    two halves' CTAs walk them in step, so an s2d row read from device
+//    memory by one is found in L2 by the other.
+//  - The epilogue adds the bias and takes the relu into the one-row conv
+//    buffer (built with -fmad=false, as the reference adds); the bf16
+//    stem's separable pool then runs on 16-byte chunks of four channels
+//    with the running vertical max in registers, and a pooled chunk is
+//    stored as four f32 or (q8) four int8 values.
 
 namespace {
 
 using namespace convgemm;
 
 constexpr int kChF = 64;                // output channels of a CTA
-constexpr int kInCols = 2 * kTM + 5;    // input pixels a conv row reads
-constexpr int kSlotsF = 9;              // input rows in the ring
-constexpr int kLdcF = kChF + 4;         // conv buffer row, f32
+constexpr int kSlotsF = 4;              // raw s2d rows in the ring
+constexpr int kRPF = 16;                // pooled rows of a work item
+// conv buffer row (f32): a half-warp's 8-byte stores of its accumulator
+// rows (lane / 4) land in 16 distinct bank pairs
+constexpr int kLdcF = kChF + 8;
 
 template <int C>
 struct StemF {
-  static constexpr int kK = 49 * C;
-  static constexpr int kSlot = (kInCols * C + 3) / 4 * 4;  // f32 a ring row
-  static constexpr int kRing = kK * kChF;                   // offsets in f32
+  static constexpr int kJ = C;                       // chunks of a pixel
+  static constexpr int kSkip = C / 2;                // du = 0 zero chunks
+  static constexpr int kN8 = 8 * C - 2 * kSkip;      // k8 steps
+  static constexpr int kK = 8 * kN8;                 // 288 at C = 5
+  static constexpr int kWHalf = (kN8 + 3) / 4 * kChF * kRowBytes;
+  static constexpr int kSlot = kJ * kPlane;
+  static constexpr int kRing = 2 * kWHalf;           // byte offsets
   static constexpr int kConv = kRing + kSlotsF * kSlot;
-  static constexpr int kBias = kConv + kTM * kLdcF;
-  static constexpr int kSmem = (kBias + kChF) * 4;
-  static constexpr int kQC = kChF / 4;                      // chunks a pixel
-  static constexpr int kNI = kTP * kQC / kThreads;          // pool items
+  static constexpr int kBias = kConv + kTM * kLdcF * 4;
+  static constexpr int kSmem = kBias + kChF * 4 + 1024;
+  static constexpr int kQC = kChF / 4;               // chunks a pixel
+  static constexpr int kNI = kTP * kQC / kThreads;   // pool items
+  static_assert(kWHalf % 1024 == 0, "weights keep the swizzle alignment");
   static_assert(kNI * kThreads == kTP * kQC, "pool items");
   static_assert(kSmem <= 232448, "stem tile exceeds shared memory");
-};
 
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
+  // the k8 step of (du, dxp, j) in the weights' K order
+  __host__ __device__ static constexpr int k8(int du, int dxp, int j) {
+    return du == 0 ? dxp * (kJ - kSkip) + j - kSkip
+                   : 2 * (kJ - kSkip) + ((du - 1) * 2 + dxp) * kJ + j;
+  }
+
+  // K steps g = 4 du + 2 dxp + h: the chunks jlo .. C - 1 of (du, dxp),
+  // split in two halves h (the first one larger) where there are three
+  // or more, so that a step has at most kG k8 steps; g is a step where
+  // h < the number of halves
+  static constexpr int kG = 3;
+  __host__ __device__ static constexpr int jlo(int du) {
+    return du == 0 ? kSkip : 0;
+  }
+  __host__ __device__ static constexpr int halves(int du) {
+    return kJ - jlo(du) >= 3 ? 2 : 1;
+  }
+  __host__ __device__ static constexpr bool valid(int g) {
+    return (g & 1) < halves(g >> 2);
+  }
+  __host__ __device__ static constexpr int jmid(int du) {
+    return halves(du) == 2 ? jlo(du) + (kJ - jlo(du) + 1) / 2 : kJ;
+  }
+  __host__ __device__ static constexpr int ja(int g) {
+    return (g & 1) ? jmid(g >> 2) : jlo(g >> 2);
+  }
+  __host__ __device__ static constexpr int jb(int g) {
+    return (g & 1) ? kJ : jmid(g >> 2);
+  }
+  // steps before g (closed forms, so that an unrolled loop folds them),
+  // and the step after g (16: none)
+  __host__ __device__ static constexpr int order(int g) {
+    return (g >= 4 ? 2 * halves(0) + 2 * halves(1) * ((g >> 2) - 1) : 0)
+           + ((g >> 1) & 1) * halves(g >> 2) + (g & 1);
+  }
+  static constexpr int kSteps =
+      2 * (kJ - kSkip >= 3 ? 2 : 1) + 6 * (kJ >= 3 ? 2 : 1);
+  __host__ __device__ static constexpr int next(int g) {
+    return (g & 1) == 0 && halves(g >> 2) == 2 ? g + 1 : (g | 1) + 1;
+  }
+  __host__ __device__ static constexpr bool fits() {
+    int n = 0;
+    for (int g = 0; g < 16; ++g) {
+      if (!valid(g)) continue;
+      if (jb(g) - ja(g) > kG || jb(g) <= ja(g) || order(g) != n++
+          || (next(g) < 16 && !valid(next(g))))
+        return false;
+    }
+    return n == kSteps;
+  }
+};
 
 __device__ __forceinline__ float4 vmax4(float4 a, float4 b) {
   return make_float4(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z),
                      fmaxf(a.w, b.w));
 }
 
+// This thread's lo fragments of the k8 steps (du, dxp, ja .. jb - 1):
+// from `px`, its first pixel's first element in the slot of s2d row r +
+// du, chunk j's values a of pixels m, m + 8 (column e = 0) and m + 1, m
+// + 9 (e = 1), each as tf32(a - trunc(a)), trunc(a) = a with its low 13
+// mantissa bits cleared (A's hi: what tf32 wgmma reads of a in shared
+// memory)
+template <int G>
+__device__ __forceinline__ void load_frags(const uint8_t* px, int dxp,
+                                           int ja, int jb,
+                                           uint32_t (&fl)[G][4]) {
+#pragma unroll
+  for (int jj = 0; jj < G; ++jj) {
+    if (ja + jj >= jb) continue;
+    const float* p = reinterpret_cast<const float*>(
+        px + (ja + jj) * kPlane + dxp * 32);
+    const float a[4] = {p[0], p[32], p[4], p[36]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float h = __uint_as_float(__float_as_uint(a[i]) & 0xffffe000u);
+      fl[jj][i] = __float_as_uint(tf32_rna(__fsub_rn(a[i], h)));
+    }
+  }
+}
+
 template <int C>
 __global__ void __launch_bounds__(kThreads, 1)
-stem_f32_kernel(const float* __restrict__ x, const float* __restrict__ wk,
+stem_f32_kernel(const uint8_t* __restrict__ xs, const float* __restrict__ wk,
                 const float* __restrict__ bias, void* __restrict__ out,
-                int N, int H, int W, int Cout, int Hc, int Wc, int Ho,
-                int Wo, int nstrips, int ntiles, int q8) {
+                int N, int Hc, int Wc, int Ho, int Wo, int nstrips,
+                int ntiles, int Cout, int q8) {
   using S = StemF<C>;
-  extern __shared__ __align__(16) float smf[];
-  float* ws = smf;
-  float* ring = smf + S::kRing;
-  float* conv = smf + S::kConv;
-  float* sb = smf + S::kBias;
-  const int tid = threadIdx.x, lane = tid & 31;
-  // micro-tile: pixels tm + 32 i (i < 4), channels c0.. and c1.. (4 each)
-  const int tm = (tid >> 5) * 4 + (lane >> 3);
-  const int c0 = (lane & 7) * 4, c1 = kChF / 2 + c0;
-  const int per_half = N * nstrips * ntiles;
-  const int items = per_half * (Cout / kChF);
-  int half = -1;
+  static_assert(S::fits(), "a K step holds 1 .. kG k8 steps");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint8_t* ring = smem + S::kRing;
+  float* conv = reinterpret_cast<float*>(smem + S::kConv);
+  float* sb = reinterpret_cast<float*>(smem + S::kBias);
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
+  const int nh = Cout / kChF, hf = blockIdx.x % nh;
+  const int Ws = Wc + 3;
+  const int64_t row_bytes = (int64_t)S::kJ * Ws * 16;
+  const uint32_t sW = smem_addr(smem), sRing = sW + S::kRing;
+  // the thread's A fragment origin: pixel row m = 64 wg + 16 warp + lane
+  // / 4 of the tile, element lane % 4 of a chunk
+  const uint8_t* afrag = ring
+      + ((tid >> 7) * kWgRows + ((tid >> 5) & 3) * 16 + (lane >> 2)) * 16
+      + (lane & 3) * 4;
 
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int hf = item / per_half;
-    const int rest = item - hf * per_half;
-    const int t = rest % ntiles;
-    const int s = (rest / ntiles) % nstrips;
-    const int n = rest / (ntiles * nstrips);
-    if (hf != half) {
-      // the half's weights (in the first cp.async group of the item) and
-      // bias; every reader of the old ones passed the item's last barrier
-      for (int e = tid; e < S::kK * kChF / 4; e += kThreads) {
-        const int k = e / (kChF / 4), cq = e - k * (kChF / 4);
-        cp_async16(smem_addr(ws + k * kChF + cq * 4),
-                   wk + (int64_t)k * Cout + hf * kChF + cq * 4, true);
-      }
-      for (int i = tid; i < kChF; i += kThreads) sb[i] = bias[hf * kChF + i];
-      half = hf;
-    }
-    const int i0 = s * kRP, i1 = min(Ho, i0 + kRP);
+  // once per CTA: its half's hi and lo weights (the first cp.async group),
+  // 128-byte K blocks of 64 rows, and bias
+  constexpr int kCpr = S::kK / 4;                    // 16-byte chunks a row
+  for (int e = tid; e < 2 * kChF * kCpr; e += kThreads) {
+    const int hl = e / (kChF * kCpr), rest = e - hl * kChF * kCpr;
+    const int nr = rest / kCpr, c = rest - nr * kCpr;
+    cp_async16(sW + hl * S::kWHalf + (c >> 3) * kChF * kRowBytes
+                   + swz128(nr, c & 7),
+               wk + ((int64_t)hl * Cout + hf * kChF + nr) * S::kK + c * 4,
+               true);
+  }
+  cp_async_commit();
+  for (int i = tid; i < kChF; i += kThreads) sb[i] = bias[hf * kChF + i];
+
+  uint32_t fl[2][S::kG][4];
+  float acc[2][kChF / 2], tot[kChF / 2];
+#pragma unroll
+  for (int i = 0; i < kChF / 2; ++i) acc[0][i] = acc[1][i] = 0.0f;
+  const int items = N * nstrips * ntiles;
+  for (int item = blockIdx.x / nh; item < items; item += gridDim.x / nh) {
+    const int t = item % ntiles;
+    const int s = (item / ntiles) % nstrips;
+    const int n = item / (ntiles * nstrips);
+    const int i0 = s * kRPF, i1 = min(Ho, i0 + kRPF);
     const int j0 = t == 0 ? 0 : kTP + (t - 1) * (kTP - 1);
     const int j1 = min(Wo, t == 0 ? kTP : j0 + kTP - 1);
     const int cs = t == 0 ? 0 : 2 * j0 - 1;      // first conv column
     const int rlo = max(0, 2 * i0 - 1), rhi = min(Hc - 1, 2 * i1 - 1);
-    const int ic0 = 2 * cs - 3;                  // first input column
-    const float* xn = x + (int64_t)n * H * W * C;
+    const uint8_t* xn = xs + (int64_t)n * (Hc + 3) * row_bytes;
 
-    // input row u (u >= -3; zero off the image) into its ring slot
+    // s2d row u (pixels cs .. cs + 130 of each plane; zero past the
+    // image) into its ring slot; rows past the item's last are skipped
     auto load = [&](int u) {
-      const uint32_t dst = smem_addr(ring + ((u + 2 * kSlotsF) % kSlotsF)
-                                            * S::kSlot);
-      const bool rowok = u >= 0 && u < H;
-      const float* row = xn + ((int64_t)(rowok ? u : 0) * W + ic0) * C;
-      for (int e = tid; e < kInCols * C; e += kThreads) {
-        const int col = ic0 + e / C;
-        const bool ok = rowok && col >= 0 && col < W;
-        cp_async4(dst + e * 4, ok ? row + e : x, ok);
+      if (u > rhi + 3) return;
+      const uint32_t dst = sRing + (u % kSlotsF) * S::kSlot;
+      const uint8_t* row = xn + u * row_bytes;
+      for (int e = tid; e < S::kJ * kCols; e += kThreads) {
+        const int j = e / kCols, v = e - j * kCols;
+        const bool ok = cs + v < Ws;
+        cp_async16(dst + j * kPlane + v * 16,
+                   ok ? row + ((int64_t)j * Ws + cs + v) * 16 : row, ok);
       }
     };
 
@@ -654,64 +781,95 @@ stem_f32_kernel(const float* __restrict__ x, const float* __restrict__ wk,
       }
     };
 
-    for (int d = 0; d < 7; ++d) load(2 * rlo - 3 + d);
+    for (int d = 0; d < 3; ++d) load(rlo + d);
     cp_async_commit();
+    // s2d rows rlo .. rlo + 2 (and, the first time, the weights) landed;
+    // the barrier at the top of the first conv row shows them to all
+    cp_async_wait<0>();
+    fence_async_smem();
+
     for (int r = rlo; r <= rhi; ++r) {
-      // input rows 2r - 3 .. 2r + 3 (and the weights) have landed; the
-      // conv buffer holds conv row r - 1
-      cp_async_wait<0>();
+      // s2d rows r .. r + 2 are in place; every thread is done with conv
+      // row r - 1's fragments (so with the slot of s2d row r - 1), and
+      // the conv buffer holds conv row r - 1
       __syncthreads();
-      // the two input rows conv row r + 1 adds, into the slots of rows
-      // 2r - 5 and 2r - 4, which conv row r - 1 read last
-      if (r < rhi) {
-        load(2 * r + 4);
-        load(2 * r + 5);
-      }
+      load(r + 3);
       cp_async_commit();
-      if (r > rlo) pool(r - 1);
-      float acc[4][8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kChF / 2; ++i) tot[i] = 0.0f;
+      load_frags(afrag + (r % kSlotsF) * S::kSlot, 0, S::ja(0), S::jb(0),
+                 fl[0]);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-#pragma unroll 1
-      for (int dy = 0; dy < 7; ++dy) {
-        const float* rp = ring + ((2 * r - 3 + dy + 2 * kSlotsF) % kSlotsF)
-                                 * S::kSlot + 2 * tm * C;
-        const float* wp = ws + dy * 7 * C * kChF;
+      for (int g = 0; g < 16; ++g) {
+        if (!S::valid(g)) continue;
+        const int du = g >> 2, dxp = (g >> 1) & 1, b = S::order(g) & 1;
+        const int ja = S::ja(g), jb = S::jb(g);
+        wgmma_fence();
+        const uint32_t arow = sRing + ((r + du) % kSlotsF) * S::kSlot
+                              + wg * kWgRows * 16 + dxp * 32;
 #pragma unroll
-        for (int dx = 0; dx < 7; ++dx)
+        for (int jj = 0; jj < S::kG; ++jj) {
+          if (ja + jj >= jb) continue;
+          const int k = S::k8(du, dxp, ja + jj);
+          const uint32_t w = sW + (k >> 2) * kChF * kRowBytes;
+          wgmma_tf32_rs64(acc[b], fl[b][jj], desc_kmajor(w, (k & 3) * 32),
+                          jj > 0);
+          wgmma_tf32<64>(acc[b],
+                         desc_kmajor_noswz(arow + (ja + jj) * kPlane, 16, 128),
+                         desc_kmajor(w + S::kWHalf, (k & 3) * 32), 1);
+        }
 #pragma unroll
-          for (int c = 0; c < C; ++c) {
-            const float* wr = wp + (dx * C + c) * kChF;
-            const float4 u = *reinterpret_cast<const float4*>(wr + c0);
-            const float4 v = *reinterpret_cast<const float4*>(wr + c1);
-            const float b[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+        for (int jj = 0; jj < S::kG; ++jj) {
+          if (ja + jj >= jb) continue;
+          const int k = S::k8(du, dxp, ja + jj);
+          wgmma_tf32<64>(acc[b],
+                         desc_kmajor_noswz(arow + (ja + jj) * kPlane, 16, 128),
+                         desc_kmajor(sW + (k >> 2) * kChF * kRowBytes,
+                                     (k & 3) * 32), 1);
+        }
+        wgmma_commit();
+        // while the step's MMAs run: the pool of conv row r - 1, the sum
+        // of the step before (its group retired), the next step's
+        // fragments (into the set that step read)
+        if (g == 0 && r > rlo) pool(r - 1);
+        if (S::order(g) > 0) {
+          wgmma_wait<1>();
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float a = rp[(64 * i + dx) * C + c];
-#pragma unroll
-              for (int j = 0; j < 8; ++j)
-                acc[i][j] = __fmaf_rn(a, b[j], acc[i][j]);
-            }
+          for (int i = 0; i < kChF / 2; ++i) {
+            reg_fence(acc[b ^ 1][i]);
+            tot[i] = tot[i] + acc[b ^ 1][i];
           }
+        }
+        const int gn = S::next(g);
+        if (gn < 16) {
+          if ((gn >> 2) == 3 && (g >> 2) < 3) {
+            // s2d row r + 3, copied when the row started
+            cp_async_wait<0>();
+            fence_async_smem();
+            __syncthreads();
+          }
+          load_frags(afrag + ((r + (gn >> 2)) % kSlotsF) * S::kSlot,
+                     (gn >> 1) & 1, S::ja(gn), S::jb(gn), fl[b ^ 1]);
+        }
+      }
+      wgmma_wait<0>();
+      constexpr int kLast = (S::kSteps - 1) & 1;
+#pragma unroll
+      for (int i = 0; i < kChF / 2; ++i) {
+        reg_fence(acc[kLast][i]);
+        tot[i] = tot[i] + acc[kLast][i];
       }
       // every thread is done with pool(r - 1): conv row r into the buffer
       __syncthreads();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float* o = conv + (tm + 32 * i) * kLdcF;
+      for (int j = 0; j < kChF / 8; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int c = h ? c1 : c0;
-          float y[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            y[e] = fmaxf(acc[i][4 * h + e] + sb[c + e], 0.0f);
-          *reinterpret_cast<float4*>(o + c) = make_float4(y[0], y[1], y[2],
-                                                          y[3]);
+          const int row = frag_row(tid, h), col = frag_col(tid, j);
+          *reinterpret_cast<float2*>(conv + row * kLdcF + col) = make_float2(
+              fmaxf(tot[4 * j + 2 * h] + sb[col], 0.0f),
+              fmaxf(tot[4 * j + 2 * h + 1] + sb[col + 1], 0.0f));
         }
-      }
     }
     __syncthreads();
     pool(rhi);
@@ -719,8 +877,10 @@ stem_f32_kernel(const float* __restrict__ x, const float* __restrict__ wk,
   cp_async_wait<0>();
 }
 
+// the pack, then the persistent kernel: as many CTAs as fit on the card
+// at once, an even number when Cout = 128 (CTA b on channel half b % 2)
 template <int C>
-int launch_f32(const float* x, const float* wk, const float* bias,
+int launch_f32(const void* x, void* xs, const float* wk, const float* bias,
                void* out, int N, int H, int W, int cout, int q8,
                cudaStream_t st) {
   using S = StemF<C>;
@@ -738,41 +898,49 @@ int launch_f32(const float* x, const float* wk, const float* bias,
       return e;
     grid_cap = sms * (occ > 0 ? occ : 1);
   }
-  const int Hc = (H - 1) / 2 + 1, Wc = (W - 1) / 2 + 1;
-  const int Ho = (Hc - 1) / 2 + 1, Wo = (Wc - 1) / 2 + 1;
-  const int nstrips = (Ho + kRP - 1) / kRP;
+  const int Hc = H / 2, Wc = W / 2, Ho = (Hc - 1) / 2 + 1;
+  const int Wo = (Wc - 1) / 2 + 1, Hs = Hc + 3, Ws = Wc + 3;
+  const int nstrips = (Ho + kRPF - 1) / kRPF;
   const int ntiles = Wo <= kTP ? 1 : 1 + (Wo - kTP + kTP - 2) / (kTP - 1);
-  const int64_t items = (int64_t)N * nstrips * ntiles * (cout / kChF);
-  if (items >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  const int nh = cout / kChF;
+  const int64_t items = (int64_t)N * nstrips * ntiles;
+  const int64_t chunks = (int64_t)N * Hs * S::kJ * Ws;
+  if (items * nh >= ((int64_t)1 << 31) || chunks >= ((int64_t)1 << 40))
+    return (int)cudaErrorInvalidValue;
   if (items == 0) return 0;
-  const int grid = (int)(items < grid_cap ? items : grid_cap);
-  stem_f32_kernel<C><<<grid, kThreads, S::kSmem, st>>>(
-      x, wk, bias, out, N, H, W, cout, Hc, Wc, Ho, Wo, nstrips, ntiles, q8);
+  e = pack<uint32_t, C>(x, xs, N, H, W, Hs, Ws, st);
+  if (e) return e;
+  int64_t grid = items * nh < grid_cap ? items * nh : grid_cap;
+  grid -= grid % nh;
+  stem_f32_kernel<C><<<(int)grid, kThreads, S::kSmem, st>>>(
+      (const uint8_t*)xs, wk, bias, out, N, Hc, Wc, Ho, Wo, nstrips, ntiles,
+      cout, q8);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// f32 stem. x (N, H, W, C) f32 with C <= 5, H, W >= 1; wk (49 C, cout)
-// f32 (ops/stem_kernels `stem_kernel_weights`); bias (cout,) f32; out (N,
-// Ho, Wo, cout) f32, or int8 with q8, Ho = ceil(ceil(H / 2) / 2). cout is
-// 64 or 128; pointers 16-byte aligned (checked by the Python wrapper).
-extern "C" int io_fused_stem_f32(const void* x, const void* wk,
+// f32 stem. x (N, H, W, C) f32 with C <= 5 and H, W even; xs the pack's
+// scratch, (N, H/2 + 3, C, W/2 + 3, 16) bytes; wk (2, cout, K) f32, the
+// split K-major s2d weights (ops/stem_kernels `stem_kernel_weights`, K =
+// 8 (8C - 2 (C / 2))); bias (cout,) f32; out (N, Ho, Wo, cout) f32, or
+// int8 with q8. cout is 64 or 128; pointers 16-byte aligned (checked by
+// the Python wrapper).
+extern "C" int io_fused_stem_f32(const void* x, void* xs, const void* wk,
                                  const void* bias, void* out, int N, int H,
                                  int W, int C, int cout, int q8,
                                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const float* xf = (const float*)x;
   const float* w = (const float*)wk;
   const float* b = (const float*)bias;
-  if (H < 1 || W < 1 || (cout != 64 && cout != 128))
+  if (H % 2 || W % 2 || (cout != 64 && cout != 128))
     return (int)cudaErrorInvalidValue;
   switch (C) {
-    case 1: return launch_f32<1>(xf, w, b, out, N, H, W, cout, q8, s);
-    case 2: return launch_f32<2>(xf, w, b, out, N, H, W, cout, q8, s);
-    case 3: return launch_f32<3>(xf, w, b, out, N, H, W, cout, q8, s);
-    case 4: return launch_f32<4>(xf, w, b, out, N, H, W, cout, q8, s);
-    case 5: return launch_f32<5>(xf, w, b, out, N, H, W, cout, q8, s);
+    case 1: return launch_f32<1>(x, xs, w, b, out, N, H, W, cout, q8, s);
+    case 2: return launch_f32<2>(x, xs, w, b, out, N, H, W, cout, q8, s);
+    case 3: return launch_f32<3>(x, xs, w, b, out, N, H, W, cout, q8, s);
+    case 4: return launch_f32<4>(x, xs, w, b, out, N, H, W, cout, q8, s);
+    case 5: return launch_f32<5>(x, xs, w, b, out, N, H, W, cout, q8, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

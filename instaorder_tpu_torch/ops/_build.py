@@ -27,9 +27,7 @@ BUILD_DIR = _PKG / '_build'
 
 # -fmad=false: the prep weights must equal numpy's f32 values bit for bit
 # (a contracted FMA can flip a bf16 rounding); the bottleneck and stem
-# epilogues follow the unfused f32 order of the reference kernels. The
-# f32 stem's products are written as __fmaf_rn, which the flag leaves
-# fused.
+# epilogues follow the unfused f32 order of the reference kernels.
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-std=c++17', '-Xcompiler', '-fPIC', '-fmad=false',
               '-Xptxas', '-v']
@@ -139,8 +137,9 @@ def library() -> ctypes.CDLL:
            P, I, F,                     # identity residual, its dtype, r
            P, I, P])                    # out, epilogue mode, stream
     lib.io_conv_gemm_f32.restype = I
-    # x, kernel weights, bias, out, N, H, W, C, cout, q8, stream
-    lib.io_fused_stem_f32.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
+    # x, pack scratch, split kernel weights, bias, out, N, H, W, C, cout,
+    # q8, stream
+    lib.io_fused_stem_f32.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
     lib.io_fused_stem_f32.restype = I
     # x, pack scratch, kernel weights, m, b, out, N, H, W, C, cout, stream
     lib.io_fused_stem_s8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P]

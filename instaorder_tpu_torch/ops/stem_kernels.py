@@ -22,16 +22,21 @@ the matching order (`stem_kernel_weights`, laid out once when the model
 is built on the card), and pools in its epilogue.
 
 The f32 mode (`fused_stem` given f32 x and w, which the TPU kernel
-computes in f32): bound by f32 operations (67 TFLOP/s outside the tensor
-cores; TF32 would miss the f32 bar), the conv runs direct on the CUDA
-cores at its real K = 49 C (no pack, no padded taps) against the HWIO
-weights as (49 C, Cout) rows, 64 output channels a CTA, the pool in the
-epilogue as in the bf16 kernel; no rounding below f32. With q8 (the v2
-model's stem at compute_dtype=f32) it stores the pooled values as the
-one-sided int8 clip(rint(v), 0, 127), quantised after the pool.
+computes in f32): bound by tensor-core operations at three TF32 products
+per f32 product (3xTF32, as the f32 block kernel: one TF32 product would
+miss the f32 bar, three keep ~22 bits). The same s2d design: the pack
+writes the s2d input with its 4C f32 channels as exactly C chunks; the
+kernel reads A's hi in place (tf32 wgmma reads the top 19 bits of an
+f32, so hi = trunc(a)) and forms lo = tf32(a - hi) in registers, against
+split K-major weights (`stem_kernel_weights` at f32) that skip the k8
+steps whose weights are all zero (`f32_stem_steps`), 64 output channels
+a CTA, each K step's products in a fresh accumulator, the pool in the
+epilogue; nothing is rounded below f32. With q8 (the v2 model's stem at
+compute_dtype=f32) it stores the pooled values as the one-sided int8
+clip(rint(v), 0, 127), quantised after the pool.
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
-launch the kernel (and the bf16 / int8 pack) or raise, and add one to
+launch the kernel (and its pack) or raise, and add one to
 `launches` per call. The card takes bf16 x and w, or f32 ones, and an
 f32 bias.
 """
@@ -43,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .gemm_layout import split_kmajor_f32
 from .int8_kernels import batch_chunks, conv_int8, requant
 
 
@@ -68,17 +74,31 @@ def s2d_stem_input(x):
         n, (H + 6) // 2, (W + 6) // 2, 4 * C)
 
 
-def stem_chunks(dtype):
-    """(J, CW): the 16-byte chunks of a padded s2d pixel and the elements
-    of a chunk, (3, 8) for bf16 (24 channels), (2, 16) for int8 (32)."""
+def stem_chunks(dtype, c):
+    """(J, CW): the 16-byte chunks of a padded s2d pixel of 4c channels
+    and the elements of a chunk, (3, 8) for bf16 (24 channels), (2, 16)
+    for int8 (32), (c, 4) for f32 (exactly 4c)."""
+    if dtype == torch.float32:
+        return c, 4
     return (2, 16) if dtype == torch.int8 else (3, 8)
+
+
+def f32_stem_steps(c):
+    """The k8 steps of the f32 stem kernel's K axis in its order: (du,
+    dxp, j) for tap row du, tap column pair dxp (taps 2 dxp and 2 dxp +
+    1) and chunk j (s2d channels 4j .. 4j + 3), without the du = 0 chunks
+    whose channels all have sy = 0, i.e. read the pad row above tap row
+    0 (j < c // 2): their weights are zero. 8c - 2 (c // 2) steps of 8,
+    K = 288 at c = 5."""
+    return [(du, dxp, j) for du in range(4) for dxp in range(2)
+            for j in range(c) if du or j >= c // 2]
 
 
 def stem_pack_plain(x):
     """The input the stem kernel reads (csrc/stem.cu `stem_pack_kernel`):
     s2d_stem_input with its 4C channels zero-padded to J * CW, chunk-
     planar: (N, H/2 + 3, J, W/2 + 3, CW)."""
-    J, cw = stem_chunks(x.dtype)
+    J, cw = stem_chunks(x.dtype, x.shape[-1])
     xs = s2d_stem_input(x)
     n, hs, ws, c4 = xs.shape
     xs = F.pad(xs, (0, J * cw - c4))
@@ -87,10 +107,10 @@ def stem_pack_plain(x):
 
 def _wk_shape(w):
     """The shape of stem_kernel_weights(w)."""
-    k = 49 * w.shape[2] if w.dtype == torch.float32 \
-        else 16 * np.prod(stem_chunks(w.dtype))
-    return (w.shape[-1], int(k)) if w.dtype == torch.int8 \
-        else (int(k), w.shape[-1])
+    if w.dtype == torch.float32:
+        return (2, w.shape[-1], 8 * len(f32_stem_steps(w.shape[2])))
+    k = int(16 * np.prod(stem_chunks(w.dtype, w.shape[2])))
+    return (w.shape[-1], k) if w.dtype == torch.int8 else (k, w.shape[-1])
 
 
 def stem_kernel_weights(w):
@@ -99,13 +119,22 @@ def stem_kernel_weights(w):
     zero-padded to J * CW, rows in the kernel's K order k = (((du * 2 +
     dxp) * J + j) * 2 + e) * CW + i for tap (du, 2 dxp + e) and padded
     channel j * CW + i. bf16: (K, Cout), K = 384, read MN-major; int8:
-    (Cout, K), K = 512, since int8 wgmma reads B only K-major. f32 (the
-    direct conv on the CUDA cores): the HWIO weights as (49 C, Cout)
-    rows, K in (dy, dx, c) order. Built once, when the model is built on
-    the card (models/folding `add_stem_kernel_weights`)."""
+    (Cout, K), K = 512, since int8 wgmma reads B only K-major. f32: CW =
+    4 and J = C, the k8 steps (du, dxp, j) of `f32_stem_steps` (the zero
+    ones left out), each in (e, i) order, split and K-major as tf32 wgmma
+    reads them: one (2, Cout, K) tensor [hi, lo], hi = tf32(w), lo =
+    tf32(w - hi) (gemm_layout.split_kmajor_f32), K = 288 at C = 5. Built
+    once, when the model is built on the card (models/folding
+    `add_stem_kernel_weights`)."""
     if w.dtype == torch.float32:
-        return w.reshape(-1, w.shape[-1]).contiguous()
-    J, cw = stem_chunks(w.dtype)
+        c, co = w.shape[2], w.shape[3]
+        # (du, dxp, e, j, i, co) -> (du, dxp, j, e, i, co)
+        w2 = s2d_conv1_w(w).reshape(4, 2, 2, c, 4, co).permute(
+            0, 1, 3, 2, 4, 5)
+        rows = torch.stack([w2[du, dxp, j]
+                            for du, dxp, j in f32_stem_steps(c)])
+        return split_kmajor_f32(rows.reshape(-1, co))
+    J, cw = stem_chunks(w.dtype, w.shape[2])
     co = w.shape[-1]
     w2 = s2d_conv1_w(w)
     w2 = F.pad(w2, (0, 0, 0, J * cw - w2.shape[2]))
@@ -139,8 +168,8 @@ def _check_hw(x, what):
 
 
 def _pack_scratch(x):
-    n, H, W, _ = x.shape
-    J, _ = stem_chunks(x.dtype)
+    n, H, W, c = x.shape
+    J, _ = stem_chunks(x.dtype, c)
     return torch.empty((n, H // 2 + 3, J, W // 2 + 3, 16), dtype=torch.uint8,
                        device=x.device)
 
@@ -165,7 +194,7 @@ def fused_stem(x, w, b, q8=False, wk=None):
     or 128 (the double-width siamese stem); b (Cout,) f32 on the card;
     wk: stem_kernel_weights(w), which the card needs (the CPU ignores it).
     -> (N, ceil(H/4), ceil(W/4), Cout) in x.dtype, or int8 with q8. The
-    card takes bf16 x with even H, W, or f32 x; either with q8."""
+    card takes bf16 or f32 x with even H, W; either with q8."""
     if x.device.type == 'cpu':
         return fused_stem_plain(x, w, b, q8=q8)
     dev = x.device
@@ -186,38 +215,17 @@ def fused_stem(x, w, b, q8=False, wk=None):
     if not x.is_contiguous():
         raise ValueError('fused_stem: x must be contiguous')
     _check_wk(wk, w, dev, 'fused_stem')
-    if x.dtype == torch.float32:
-        return _fused_stem_f32(x, wk, b, q8)
     _check_hw(x, 'fused_stem')
     Hc, Wc = H // 2, W // 2
     out = torch.empty((N, (Hc - 1) // 2 + 1, (Wc - 1) // 2 + 1, cout),
-                      dtype=torch.int8 if q8 else torch.bfloat16,
-                      device=dev)
-    rc = _build.library().io_fused_stem(
-        x.data_ptr(), _pack_scratch(x).data_ptr(), wk.data_ptr(),
-        b.data_ptr(), out.data_ptr(), N, H, W, C, cout, int(bool(q8)),
-        torch.cuda.current_stream(dev).cuda_stream)
+                      dtype=torch.int8 if q8 else x.dtype, device=dev)
+    lib = _build.library()
+    fn = lib.io_fused_stem_f32 if x.dtype == torch.float32 \
+        else lib.io_fused_stem
+    rc = fn(x.data_ptr(), _pack_scratch(x).data_ptr(), wk.data_ptr(),
+            b.data_ptr(), out.data_ptr(), N, H, W, C, cout, int(bool(q8)),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, 'fused_stem')
-    fused_stem.launches += 1
-    return out
-
-
-def _fused_stem_f32(x, wk, b, q8):
-    N, H, W, C = x.shape
-    cout = wk.shape[-1]
-    if H < 1 or W < 1 or x.data_ptr() % 16 or b.data_ptr() % 16:
-        raise ValueError(f'fused_stem: the card takes f32 x of H, W >= 1 '
-                         f'and a bias, both 16-byte aligned, got x '
-                         f'{tuple(x.shape)}')
-    Hc, Wc = (H - 1) // 2 + 1, (W - 1) // 2 + 1
-    out = torch.empty((N, (Hc - 1) // 2 + 1, (Wc - 1) // 2 + 1, cout),
-                      dtype=torch.int8 if q8 else torch.float32,
-                      device=x.device)
-    rc = _build.library().io_fused_stem_f32(
-        x.data_ptr(), wk.data_ptr(), b.data_ptr(), out.data_ptr(), N, H, W,
-        C, cout, int(bool(q8)),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, 'fused_stem (f32)')
     fused_stem.launches += 1
     return out
 

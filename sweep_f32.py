@@ -5,7 +5,15 @@ images): device ms at each tile width it can take (64 and 128 output
 columns) beside the bytes and 3xTF32 bounds, and its error against an
 f64 reference next to cuDNN's f32 convolution (TF32 off).
 
-    python3 sweep_f32.py [--images 360] [--reps 20]
+    python3 sweep_f32.py [--images 360] [--reps 20] [--stem]
+
+--stem times the f32 stem instead (csrc/stem.cu `stem_f32_kernel`, 3xTF32
+on wgmma, its pack included) at the parity f32 route's double-width stem:
+images / 2 inputs of 256 x 256 x 5, Cout 128, f32 out and q8, beside the
+bytes bound, the 3xTF32 bound at the real K = 245 and the design's floor
+at its K (288: the kernel skips the zero k8 steps, not the zero taps
+inside a step), and the pooled output's error against an f64 reference
+next to cuDNN's f32 stem (TF32 off).
 
 One line per shape: M, K, the bounds in ms (bytes at 3.35 TB/s, TF32
 operations at 495 TFLOP/s, three products a MAC), the ms and share of
@@ -26,6 +34,7 @@ from chip_smoke import H100_BYTES_PER_S, H100_TF32_PER_S, cuda_ms
 from instaorder_tpu_torch.device import resolve_device
 from instaorder_tpu_torch.ops import bottleneck_kernels as BK
 from instaorder_tpu_torch.ops import gemm_layout
+from instaorder_tpu_torch.ops import stem_kernels as SK
 from instaorder_tpu_torch.ops.gemm_layout import split_kmajor_f32
 
 # name, input H (= W), Cin, Cout, ksize, stride, the K-packed second
@@ -62,10 +71,47 @@ def _errors(got, ref):
             float((rel ** 2).mean().sqrt()))
 
 
+def _stem_ref(x, w, b):
+    """conv 7x7/2 pad 3 + bias, relu, max-pool 3x3/2 pad 1, NHWC."""
+    h = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=2,
+                 padding=3)
+    h = torch.relu(h + b[:, None, None])
+    return F.max_pool2d(h, 3, 2, 1).permute(0, 2, 3, 1)
+
+
+def stem(n, reps, rnd):
+    """One line: the f32 stem at n double-width 256^2 inputs."""
+    torch.backends.cudnn.allow_tf32 = False
+    c, cout = 5, 128
+    x = rnd(n, 256, 256, c)
+    w = rnd(7, 7, c, cout, scale=(49 * c) ** -0.5)
+    b = rnd(cout, scale=0.1)
+    wk = SK.stem_kernel_weights(w)
+    conv_px = n * 128 * 128
+    t_bytes = (x.numel() + n * 64 * 64 * cout) * 4 / H100_BYTES_PER_S * 1e3
+    tf32 = lambda k: 3 * 2 * conv_px * k * cout / H100_TF32_PER_S * 1e3
+    k_kernel = wk.shape[-1]
+    line = (f'f32 stem {n} x 256^2 x {c} -> {cout}: bound bytes '
+            f'{t_bytes:.3f} 3xTF32 K=245 {tf32(245):.3f} design floor '
+            f'K={k_kernel} {tf32(k_kernel):.3f} |')
+    for q8 in (False, True):
+        t = cuda_ms(torch, lambda q8=q8: SK.fused_stem(x, w, b, q8=q8,
+                                                       wk=wk), reps)
+        line += (f' {"q8" if q8 else "f32"} {t:.3f} ms '
+                 f'({100 * tf32(245) / t:.1f}% of the K=245 bound)')
+    ref = _stem_ref(x.double(), w.double(), b.double())
+    for what, g in (('kernel', SK.fused_stem(x, w, b, wk=wk)),
+                    ('cudnn f32', _stem_ref(x, w, b))):
+        mx, mean, rms = _errors(g, ref)
+        line += f' | {what} max {mx:.2e} mean {mean:.2e} rms {rms:.2e}'
+    print(line, flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument('--images', type=int, default=360)
     ap.add_argument('--reps', type=int, default=20)
+    ap.add_argument('--stem', action='store_true')
     args = ap.parse_args(argv)
     dev = resolve_device()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -73,6 +119,9 @@ def main(argv=None):
                                             device=dev) * scale
     n = args.images
     print(torch.cuda.get_device_name(0))
+    if args.stem:
+        stem(n // 2, args.reps, rnd)
+        return
     for name, h, cin, cout, ks, st, proj, res in SHAPES:
         a0 = torch.relu(rnd(n, h, h, cin))
         w0 = rnd(ks, ks, cin, cout, scale=(ks * ks * cin) ** -0.5)

@@ -261,19 +261,19 @@ def test_bf16_down_kernel_ragged(dev, stride, n, hw):
     _bf16_close(got, B16.fused_bottleneck_down_plain(x, *p, stride=stride))
 
 
+@pytest.mark.parametrize('dt', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('n,hw,cout,q8', [
     (1, 36, 64, False), (3, 50, 128, False), (2, 30, 128, True),
     (3, 64, 64, True)])
-def test_stem_kernel_ragged(dev, n, hw, cout, q8):
+def test_stem_kernel_ragged(dev, n, hw, cout, q8, dt):
     """Pooled sizes 9, 13, 8, 16: tiles of 8 pooled rows that do not
-    divide the output, and odd conv sizes."""
+    divide the output, and odd conv sizes; bf16 and f32, each also q8."""
     from instaorder_tpu_torch.ops import stem_kernels as SK
     rng = np.random.RandomState(hw)
     scale = 30.0 if q8 else 1.0
-    x = torch.as_tensor(rng.randn(n, hw, hw, 5), dtype=torch.bfloat16,
-                        device=dev)
+    x = torch.as_tensor(rng.randn(n, hw, hw, 5), dtype=dt, device=dev)
     w = torch.as_tensor(rng.randn(7, 7, 5, cout) * scale / np.sqrt(245),
-                        dtype=torch.bfloat16, device=dev)
+                        dtype=dt, device=dev)
     b = torch.as_tensor(rng.randn(cout) * 0.1 * scale, dtype=torch.float32,
                         device=dev)
     before = SK.fused_stem.launches
@@ -285,30 +285,38 @@ def test_stem_kernel_ragged(dev, n, hw, cout, q8):
     if q8:
         _close(got, want)
         assert float(((want > 0) & (want < 127)).float().mean()) > 0.2
+    elif dt == torch.float32:
+        _f32_close(got, want, 1e-5)
     else:
         _bf16_close(got, want)
 
 
 @pytest.mark.parametrize('cout', [64, 128])
-@pytest.mark.parametrize('kind', ['q8', 'int8c'])
+@pytest.mark.parametrize('kind', ['q8', 'int8c', 'f32', 'f32-q8'])
 def test_stem_kernels_serving_shape(dev, kind, cout):
     """The serving stems at 256^2 and a batch of 9 (persistent CTAs
     walking several work items each): q8 within one LSB on under 1% of
-    outputs, the int8c stem equal on every value."""
+    outputs, f32 within 1e-5 of max |plain|, the int8c stem equal on
+    every value."""
     from instaorder_tpu_torch.ops import stem_kernels as SK
     rng = np.random.RandomState(cout + len(kind))
     n = 9
-    if kind == 'q8':
-        x = torch.as_tensor(rng.randn(n, 256, 256, 5), dtype=torch.bfloat16,
-                            device=dev)
-        w = torch.as_tensor(rng.randn(7, 7, 5, cout) * 30 / np.sqrt(245),
-                            dtype=torch.bfloat16, device=dev)
-        b = torch.as_tensor(rng.randn(cout) * 3, dtype=torch.float32,
-                            device=dev)
-        got = SK.fused_stem(x, w, b, q8=True, wk=SK.stem_kernel_weights(w))
-        want = SK.fused_stem_plain(x, w, b, q8=True)
-        _close(got, want)
-        assert float(((want > 0) & (want < 127)).float().mean()) > 0.05
+    if kind != 'int8c':
+        dt = torch.float32 if kind.startswith('f32') else torch.bfloat16
+        q8 = kind.endswith('q8')
+        scale = 30.0 if q8 else 1.0
+        x = torch.as_tensor(rng.randn(n, 256, 256, 5), dtype=dt, device=dev)
+        w = torch.as_tensor(rng.randn(7, 7, 5, cout) * scale / np.sqrt(245),
+                            dtype=dt, device=dev)
+        b = torch.as_tensor(rng.randn(cout) * 0.1 * scale,
+                            dtype=torch.float32, device=dev)
+        got = SK.fused_stem(x, w, b, q8=q8, wk=SK.stem_kernel_weights(w))
+        want = SK.fused_stem_plain(x, w, b, q8=q8)
+        if q8:
+            _close(got, want)
+            assert float(((want > 0) & (want < 127)).float().mean()) > 0.05
+        else:
+            _f32_close(got, want, 1e-5)
     else:
         x = torch.as_tensor(rng.randint(-127, 128, (n, 256, 256, 5)),
                             device=dev, dtype=torch.int8)
@@ -320,7 +328,9 @@ def test_stem_kernels_serving_shape(dev, kind, cout):
 
 def test_stem_wrappers_need_kernel_weights(dev):
     """On the card both stems raise without the relaid weights, or with
-    the JAX-layout ones in their place."""
+    the JAX-layout ones in their place; the f32 stem also with its old
+    (49 C, Cout) layout or one half of the split weights, and on odd H or
+    W."""
     from instaorder_tpu_torch.ops import stem_kernels as SK
     rng = np.random.RandomState(2)
     x = torch.zeros((1, 32, 32, 5), dtype=torch.bfloat16, device=dev)
@@ -329,6 +339,15 @@ def test_stem_wrappers_need_kernel_weights(dev):
     for wk in (None, w, SK.stem_kernel_weights(w).t()):
         with pytest.raises(ValueError, match='stem_kernel_weights'):
             SK.fused_stem(x, w, b, wk=wk)
+    x32, w32 = x.float(), w.float()
+    wk32 = SK.stem_kernel_weights(w32)
+    assert tuple(wk32.shape) == (2, 64, 288)
+    for wk in (None, w32, w32.reshape(245, 64), wk32[0], wk32.bfloat16()):
+        with pytest.raises(ValueError, match='stem_kernel_weights'):
+            SK.fused_stem(x32, w32, b, wk=wk)
+    for shape in ((1, 31, 32, 5), (1, 32, 31, 5)):
+        with pytest.raises(ValueError, match='even H, W'):
+            SK.fused_stem(torch.zeros(shape, device=dev), w32, b, wk=wk32)
     x8 = torch.zeros((1, 32, 32, 5), dtype=torch.int8, device=dev)
     w8, m, b8 = _i8_conv(rng, dev, 245, 64, (7, 7, 5, 64))
     for wk in (None, w8, SK.stem_kernel_weights(w8).t()):
@@ -1190,13 +1209,13 @@ def test_f32_stage_and_hwnc_kernels(dev, n, hw, c, cm, k):
 
 
 @pytest.mark.parametrize('n,hw,cout,c', [
-    (1, 36, 64, 5), (3, 50, 128, 5), (2, 31, 128, 3), (9, 256, 128, 5),
-    (1, 47, 64, 1)])
+    (1, 36, 64, 5), (3, 50, 128, 5), (2, 30, 128, 3), (9, 256, 128, 5),
+    (1, 46, 64, 1), (2, 34, 128, 2), (1, 38, 64, 4)])
 def test_f32_stem_kernel(dev, n, hw, cout, c):
-    """Pooled sizes 9, 13, 8, 64 and 12: strips that do not divide the
-    output, odd sizes (the f32 stem takes any H, W), both channel halves,
-    the serving shape with persistent CTAs walking several items, and
-    C = 1 and 3."""
+    """Pooled sizes 9, 13, 8, 64, 12, 9 and 10: strips that do not divide
+    the output, odd conv sizes, both channel halves, the serving shape
+    with persistent CTAs walking several items, and C = 1 to 4 (each its
+    own count of skipped zero k8 steps)."""
     from instaorder_tpu_torch.ops import stem_kernels as SK
     rng = np.random.RandomState(270 + hw)
     x = _f32(rng, dev, n, hw, hw, c)
@@ -1435,11 +1454,11 @@ def test_v2_f32_stage_kernels(dev, kind):
 
 
 @pytest.mark.parametrize('n,hw,cout', [(1, 36, 64), (3, 50, 128),
-                                       (2, 31, 64), (9, 256, 128)])
+                                       (2, 30, 64), (9, 256, 128)])
 def test_f32_q8_stem_kernel(dev, n, hw, cout):
     """Kernel 15'[f32]: the f32 stem with the q8 epilogue (pooled, then
-    clip(rint(v), 0, 127) as int8), Cout 64 and 128, odd sizes and the
-    serving shape, within one LSB on under 1% of outputs."""
+    clip(rint(v), 0, 127) as int8), Cout 64 and 128, odd conv sizes and
+    the serving shape, within one LSB on under 1% of outputs."""
     from instaorder_tpu_torch.ops import stem_kernels as SK
     rng = np.random.RandomState(380 + hw)
     x = _f32(rng, dev, n, hw, hw, 5)

@@ -2,9 +2,9 @@
 package on the CPU: the f32 megastep at directions 1 and 2 with each
 kernel feature set and its prep, kernel 5's f32-output mode, the f32
 folded predictor with kernels, and the host-side layouts and the
-method of the card's f32 kernels (the stem's weights; the GEMM's K step,
-its split K-major weights, its fragment tiles and a numpy model of its
-3xTF32 sums).
+method of the card's f32 GEMM (its K step, its split K-major weights,
+its fragment tiles and a numpy model of its 3xTF32 sums; the f32 stem's
+layout is held in tests/test_torch_stem_layout.py).
 
 Geometry: ResNet-50 widths at layers (3, 2, 1, 1) (a layer1 identity run
 of two blocks for `stage` / `sstage`), 2 scenes of 96 x 128 with 3
@@ -43,7 +43,6 @@ from instaorder_tpu_torch.models import folding as TF
 from instaorder_tpu_torch.ops import gemm_layout
 from instaorder_tpu_torch.ops import pairs as TP
 from instaorder_tpu_torch.ops import prep_kernels as PK
-from instaorder_tpu_torch.ops import stem_kernels as SK
 
 OUT = 64
 LSB = 1.0 / (255 * 0.224) + 1e-6
@@ -313,56 +312,6 @@ def test_folded_f32_kernel_predictor_matches_jax(interpret, use_pallas,
 # ---- the host-side layouts of the f32 kernels -------------------------------
 
 
-def _im2col_7x7(x):
-    """(N, H, W, C) -> (N, Hc, Wc, 49 C) rows of the stride-2 pad-3 7x7
-    conv, K in (dy, dx, c) order: what csrc/stem.cu `stem_f32_kernel`
-    multiplies the kernel weights by."""
-    n, H, W, C = x.shape
-    xp = torch.nn.functional.pad(x, (0, 0, 3, 3, 3, 3))
-    hc, wc = (H - 1) // 2 + 1, (W - 1) // 2 + 1
-    return torch.cat([xp[:, dy:dy + 2 * hc:2, dx:dx + 2 * wc:2, :]
-                      for dy in range(7) for dx in range(7)], dim=-1)
-
-
-@pytest.mark.parametrize('hw,cout,c', [(30, 64, 5), (31, 128, 3),
-                                       (50, 128, 5), (17, 64, 1)])
-def test_f32_stem_layout_equals_plain_stem(hw, cout, c):
-    """The f32 stem kernel's arithmetic on the CPU: im2col rows in its K
-    order times stem_kernel_weights(w) (the HWIO weights as (49 C, Cout)
-    rows), + bias, relu, pool, equals fused_stem_plain within 1e-5 of
-    the output scale (the same products summed in another order)."""
-    rng = np.random.RandomState(hw + cout + c)
-    x = torch.as_tensor(rng.randn(2, hw, hw, c), dtype=torch.float32)
-    w = torch.as_tensor(rng.randn(7, 7, c, cout) / np.sqrt(49 * c),
-                        dtype=torch.float32)
-    b = torch.as_tensor(rng.randn(cout) * 0.1, dtype=torch.float32)
-    wk = SK.stem_kernel_weights(w)
-    assert wk.shape == (49 * c, cout) and wk.is_contiguous()
-    h = torch.relu(_im2col_7x7(x) @ wk + b)
-    got = torch.nn.functional.max_pool2d(h.permute(0, 3, 1, 2), 3, 2, 1)
-    want = SK.fused_stem_plain(x, w, b)
-    got = got.permute(0, 2, 3, 1)
-    assert got.shape == want.shape
-    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
-
-
-def test_add_stem_kernel_weights_f32():
-    """An f32 model built on the card gets f32 kernel weights for both
-    stems; the JAX-layout w stays as it was."""
-    rng = np.random.RandomState(31)
-    conv1 = {'w': torch.as_tensor(rng.randn(7, 7, 5, 64),
-                                  dtype=torch.float32),
-             'b': torch.as_tensor(rng.randn(64), dtype=torch.float32)}
-    w = conv1['w'].clone()
-    TF.add_stem_kernel_weights(conv1)
-    assert torch.equal(conv1['w'], w)
-    assert conv1['wk'].dtype == torch.float32
-    assert torch.equal(conv1['wk'], w.reshape(245, 64))
-    wide = TF.siamese_conv1(conv1)
-    assert wide['wk'].shape == (245, 128)
-    assert torch.equal(wide['wk'], SK.stem_kernel_weights(wide['w']))
-
-
 def test_f32_k_step_rule():
     """The K step counts elements of the operand type: 128 bytes, 64
     bf16 (and int8 widened to bf16) or 32 f32. The K-packed projection's
@@ -614,23 +563,3 @@ def test_f32_forward_with_block_weights_unchanged(net, use_pallas):
         for g, w in zip(got if isinstance(got, tuple) else (got,),
                         want if isinstance(want, tuple) else (want,)):
             assert torch.equal(g, w)
-
-
-def test_f32_stem_thread_tile_covers_the_conv_row():
-    """csrc/stem.cu `stem_f32_kernel`: pixels tm + 32 i (i < 4) and
-    channels c0 .. c0 + 3, 32 + c0 .. of the CTA's 64: every (pixel,
-    channel) of a 128-pixel conv row owned once; a warp's four pixel
-    reads at one tap lie in four banks for every C."""
-    owned = np.zeros((128, 64), np.int32)
-    for tid in range(256):
-        lane = tid % 32
-        tm = (tid // 32) * 4 + lane // 8
-        c0 = (lane % 8) * 4
-        for i in range(4):
-            for c in (*range(c0, c0 + 4), *range(32 + c0, 36 + c0)):
-                owned[tm + 32 * i, c] += 1
-    assert (owned == 1).all()
-    for C in range(1, 6):
-        for warp in range(8):
-            banks = {((2 * (warp * 4 + m)) * C) % 32 for m in range(4)}
-            assert len(banks) == 4, C
