@@ -2,9 +2,9 @@
 """Smoke test of the PyTorch / CUDA port on one GPU: builds the kernels,
 holds each against its plain PyTorch version at the serving paths'
 shapes, drives the serving-d1, parity and serving-d2 megasteps (v2,
-int8c and f32) and the per-image order predictors (eval/pipeline) at
-full ResNet-50 width, and prints one JSON line for the kernels plus a
-final status line.
+int8c and f32), the per-image order predictors (eval/pipeline) and the
+Tester (eval/tester) at full ResNet-50 width, and prints one JSON line
+for the kernels plus a final status line.
 
     python3 chip_smoke.py
 
@@ -63,7 +63,25 @@ Phases (any failed check raises and the script exits nonzero):
      moved to the CPU on the two smallest scenes, and the per-image ms
      of infer_occ_order at each bucket with images/s over the four
      scenes;
-  5. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
+  5. the Tester (eval/tester.py, JAX's tools/test.py counterpart) on
+     fixtures written by the port's data/synthetic.py (InstaOrder: 8
+     images of 480x640, 6 instances each; COCOA and KINS at their default
+     sizes), the native RLE codec loaded: InstaOrderNet_o (pairs all and
+     nbor), OrderNet (3 and 4 classes), InstaOrderNet_d and
+     InstaOrderNet_od on InstaOrder, InstaOrderNet_o on COCOA and KINS,
+     each at full ResNet-50 width from seed 0 (kaiming; its heads
+     centred and scaled on the fixture's pairs, centre_heads), saved
+     with the port's save_state and loaded back through load_model; the
+     heuristics area / yaxis / hull on InstaOrder (occlusion; depth:
+     area, yaxis) and on KINS. Each runs through Tester(device=None)
+     .run() on the card, where it launches no kernel (JAX's Tester
+     reaches none: the unfolded f32 resnet.apply, cuDNN with TF32 off),
+     and through the same Tester on the CPU: ground truth and heuristic
+     matrices equal everywhere, model matrices equal at every sure cell,
+     the metrics equal wherever no cell differs (so wherever every cell
+     is sure); per-image ms on the card for each run, and the
+     prediction's share;
+  6. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
      f32 row's share of its 3xTF32 bound (495 TF32 TFLOP/s, three
      products a MAC, two for an int8 A: the row's bound_ms) and of the
      f32 peak, the f32 stem rows' share of their design's floor (the
@@ -1425,6 +1443,411 @@ def check_int8c_same_input(torch, Q, FO, q, cfg, x, directions, feats,
         check(rel <= 1e-5, 'int8c logits within 1e-5 of the plain forward')
 
 
+# ---- the Tester (eval/tester.py) --------------------------------------------
+# The InstaOrder fixture at the serving scene size: 8 images of 480x640,
+# 6 instances each (15 pairs an image); COCOA and KINS at their defaults
+TESTER_IMAGES = 8
+TESTER_INSTANCES = 6
+# a decision is sure when its reference probability (sigmoid at 0.5) or
+# its argmax (top probability over the runner-up) is more than this away
+# from flipping; the predictor phase's rule
+SURE_MARGIN = 1e-2
+# the standard deviation of the Tester nets' centred logits (centre_heads)
+LOGIT_SPREAD = 4.0
+# the images whose pairs centre the heads
+CENTRE_IMAGES = 2
+# what the Tester reads of the experiment YAMLs, written out because
+# PyYAML may be missing where this runs; tests/test_torch_tester_host.py
+# holds each value against cli/config.load_config of the file
+_O = {'algo': 'InstaOrderNet_o', 'backbone_arch': 'resnet50_cls',
+      'backbone_param': {'in_channels': 5, 'num_classes': 2},
+      'use_rgb': True}
+_PATCH = {'trainval_dataset': 'SupOcclusionOrderDataset', 'input_size': 256,
+          'patch_or_image': 'patch', 'enlarge_box': 3.0,
+          'use_category': False, 'remove_occ_bidirec': 0}
+_TB = {'tensorboard': True, 'wandb': False}
+TESTER_CONFIGS = {
+    'InstaOrder/InstaOrderNet_o': {
+        'model': _O, 'data': dict(_PATCH, dataset='InstaOrder'),
+        'trainer': _TB},
+    'InstaOrder/OrderNet': {
+        'model': dict(_O, algo='OrderNet', backbone_param={
+            'in_channels': 5, 'num_classes': 3}),
+        'data': dict(_PATCH, dataset='InstaOrder'), 'trainer': _TB},
+    'InstaOrder/OrderNet_ext': {
+        'model': dict(_O, algo='OrderNet', backbone_param={
+            'in_channels': 5, 'num_classes': 4}),
+        'data': dict(_PATCH, dataset='InstaOrder'), 'trainer': _TB},
+    'InstaOrder/InstaOrderNet_d': {
+        'model': dict(_O, algo='InstaOrderNet_d', backbone_param={
+            'in_channels': 5, 'num_classes': 3}),
+        'data': {'dataset': 'InstaOrder',
+                 'trainval_dataset': 'SupDepthOrderDataset',
+                 'input_size': 384, 'patch_or_image': 'resize',
+                 'enlarge_box': 3.0, 'use_category': False,
+                 'remove_depth_overlap': 0},
+        'trainer': {'wandb': False}},
+    'InstaOrder/InstaOrderNet_od': {
+        'model': dict(_O, algo='InstaOrderNet_od', backbone_param={
+            'in_channels': 5, 'num_classes': [2, 3]}),
+        'data': {'dataset': 'InstaOrder',
+                 'trainval_dataset': 'SupDepthOccOrderDataset',
+                 'input_size': 384, 'patch_or_image': 'resize',
+                 'enlarge_box': 3.0, 'remove_occ_bidirec': 0,
+                 'remove_depth_overlap': 0},
+        'trainer': {'wandb': False}},
+    'COCOA/InstaOrderNet_o': {
+        'model': _O, 'data': dict(_PATCH, dataset='COCOA'), 'trainer': _TB},
+    'KINS/InstaOrderNet_o': {
+        'model': _O, 'data': dict(_PATCH, dataset='KINS'), 'trainer': _TB},
+}
+# (run name, config, order_method, pairs): every loop, both pair modes,
+# the heuristics on InstaOrder (occlusion and depth) and on KINS
+TESTER_RUNS = [
+    ('InstaOrderNet_o', 'InstaOrder/InstaOrderNet_o', '', 'all'),
+    ('InstaOrderNet_o nbor', 'InstaOrder/InstaOrderNet_o', '', 'nbor'),
+    ('OrderNet', 'InstaOrder/OrderNet', '', 'all'),
+    ('OrderNet_ext', 'InstaOrder/OrderNet_ext', '', 'all'),
+    ('InstaOrderNet_d', 'InstaOrder/InstaOrderNet_d', '', 'all'),
+    ('InstaOrderNet_od', 'InstaOrder/InstaOrderNet_od', '', 'all'),
+    ('COCOA InstaOrderNet_o', 'COCOA/InstaOrderNet_o', '', 'all'),
+    ('KINS InstaOrderNet_o', 'KINS/InstaOrderNet_o', '', 'all'),
+    *((f'occ {m}', 'InstaOrder/InstaOrderNet_o', m, 'all')
+      for m in ('area', 'yaxis', 'hull')),
+    *((f'depth {m}', 'InstaOrder/InstaOrderNet_d', m, 'all')
+      for m in ('area', 'yaxis')),
+    *((f'KINS {m}', 'KINS/InstaOrderNet_o', m, 'all')
+      for m in ('area', 'yaxis', 'hull')),
+]
+
+
+def _host(x):
+    """numpy of a tensor (any device), a jax array, or a tuple of them."""
+    import numpy as np
+    if x is None:
+        return None
+    if isinstance(x, (tuple, list)):
+        return tuple(_host(v) for v in x)
+    if hasattr(x, 'detach'):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def record_tester(t):
+    """Wrap a Tester (the port's or the JAX package's) so that each image
+    leaves a record: its ground truth, its predicted matrices, the
+    predictor's pair outputs (pair_idx, valid, out1, out2, n), the host
+    ms from loading the image to its prediction (`ms`) and of the
+    prediction alone (`predict_ms`). Returns the list of records,
+    filled as t.run() goes."""
+    log = []
+
+    def wrap(obj, name, after, before=None):
+        raw = getattr(obj, name)
+
+        def fn(*a, **kw):
+            if before:
+                before()
+            res = raw(*a, **kw)
+            after(res, *a, **kw)
+            return res
+        setattr(obj, name, fn)
+
+    def mark():
+        log[-1]['t_pred'] = time.perf_counter()
+
+    def load_scene(*a, **kw):
+        log.append({'t0': time.perf_counter()})
+        return raw_load(*a, **kw)
+    raw_load = t._load_scene
+    t._load_scene = load_scene
+
+    def done(key):
+        def after(res, *a, **kw):
+            rec = log[-1]
+            if isinstance(key, tuple):
+                for k, v in zip(key, res):
+                    rec[k] = v
+            else:
+                rec[key] = res
+            rec['ms'] = (time.perf_counter() - rec['t0']) * 1e3
+            rec['predict_ms'] = (time.perf_counter() - rec['t_pred']) * 1e3
+        return after
+
+    def gt(res, i, kind='occlusion', *a, **kw):
+        log[-1]['gt_' + kind] = res
+    wrap(t, '_gt_occ', lambda res, *a, **kw: log[-1].update(
+        gt_occlusion=res))
+    if hasattr(t.data_reader, 'get_gt_ordering'):     # not KINS's reader
+        wrap(t.data_reader, 'get_gt_ordering', gt)
+    wrap(t, '_predict_occ', done('occ'), mark)
+    wrap(t, '_predict_depth', done('depth'), mark)
+    prepare = t.prepare_model
+
+    def prepare_model():
+        prepare()
+        pred = t.predictor
+        if pred is None:
+            return
+        wrap(pred, 'infer_occ_depth_order', done(('occ', 'depth')), mark)
+        name = ('pair_outputs' if hasattr(pred, 'pair_outputs')
+                else '_pair_outputs')
+        wrap(pred, name, lambda res, *a, **kw: log[-1].update(
+            out=_host(res[:4]) + (res[4],)))
+    t.prepare_model = prepare_model
+    return log
+
+
+def sure_cells(out, kind, margin=SURE_MARGIN):
+    """(N, N) bool: the cells of a matrix decoded from `out` = (pair_idx,
+    valid, out1, out2, n) whose decision is sure. kind 'occ' (sigmoid >
+    0.5 of the two-logit head, each cell its own decision), 'ordernet'
+    (argmax of the averaged 3- or 4-class softmax) or 'depth' (argmax of
+    the averaged 3-way softmax; the pair's two cells one decision). The
+    first head of a dual net is its occlusion head, the second its depth
+    head. Padded and filtered pairs decide nothing (their cells are 0)."""
+    import numpy as np
+    pidx, valid, o1, o2, n = out
+    pick = 1 if kind == 'depth' else 0
+    if isinstance(o1, tuple):
+        o1 = o1[pick]
+        o2 = None if o2 is None else o2[pick]
+    o1 = np.asarray(o1, np.float64)
+    o2 = None if o2 is None else np.asarray(o2, np.float64)
+    sure = np.ones((n, n), bool)
+
+    def softmax(o):
+        e = np.exp(o - o.max(axis=1, keepdims=True))
+        return e / e.sum(axis=1, keepdims=True)
+    if kind == 'occ':
+        s1 = 1 / (1 + np.exp(-o1))
+        if o2 is None:
+            p_ij, p_ji = s1[:, 1], s1[:, 0]
+        else:
+            s2 = 1 / (1 + np.exp(-o2))
+            p_ij = (s1[:, 1] + s2[:, 0]) / 2
+            p_ji = (s1[:, 0] + s2[:, 1]) / 2
+        m_ij, m_ji = np.abs(p_ij - 0.5), np.abs(p_ji - 0.5)
+    else:
+        s1 = softmax(o1)
+        # the swapped direction's classes in the (i, j) order
+        swap = ([1, 0, 2, 3] if kind == 'ordernet' else [1, 0, 2])
+        swap = swap[:s1.shape[1]]
+        p = s1 if o2 is None else (s1 + softmax(o2)[:, swap]) / 2
+        top = np.sort(p, axis=1)
+        m_ij = m_ji = top[:, -1] - top[:, -2]
+    for k, (i, j) in enumerate(np.asarray(pidx)):
+        if valid[k]:
+            sure[i, j] = m_ij[k] > margin
+            sure[j, i] = m_ji[k] > margin
+    return sure
+
+
+def compare_tester_runs(name, method, got, want):
+    """Hold one Tester run's records against the reference run's: ground
+    truth and heuristic matrices equal everywhere, model matrices equal
+    at every sure cell of the reference's outputs. Returns the counts of
+    (sure decided cells, unsure cells, differing cells); where no cell
+    differs, the metrics (a function of the matrices and the ground
+    truth) must be equal."""
+    import numpy as np
+    check(len(got) == len(want) and len(got) > 0,
+          f'{name}: {len(got)} images against {len(want)}')
+    n_sure = n_unsure = n_diff = 0
+    for k, (g, w) in enumerate(zip(got, want)):
+        for key in ('gt_occlusion', 'gt_depth'):
+            check((key in g) == (key in w), f'{name} image {k}: {key}')
+            if key in w:
+                for a, b in zip(*((x if isinstance(x, list) else [x])
+                                  for x in (g[key], w[key]))):
+                    check(np.array_equal(a, b), f'{name} image {k}: {key} '
+                          'equal')
+        for key in ('occ', 'depth'):
+            if key not in w:
+                continue
+            a, b = np.asarray(g[key]), np.asarray(w[key])
+            check(a.shape == b.shape, f'{name} image {k}: {key} shape')
+            if 'out' not in w:          # a heuristic: no model
+                check(np.array_equal(a, b), f'{name} image {k}: {key} '
+                      'equal')
+                continue
+            kind = ('depth' if key == 'depth' else
+                    'ordernet' if method == 'OrderNet' else 'occ')
+            sure = sure_cells(w['out'], kind)
+            check((a == b)[sure].all(), f'{name} image {k}: {key} equal at '
+                  f'every sure cell ({int((a != b)[sure].sum())} differ)')
+            # the decided cells: both cells of every valid pair
+            pidx, valid = w['out'][0], np.asarray(w['out'][1], bool)
+            decided = np.zeros_like(sure)
+            decided[pidx[valid, 0], pidx[valid, 1]] = True
+            decided |= decided.T
+            n_sure += int((sure & decided).sum())
+            n_unsure += int((~sure).sum())
+            n_diff += int((a != b).sum())
+    return n_sure, n_unsure, n_diff
+
+
+def head_logits(t, n_images):
+    """{head: (rows, classes) float64 logits} of a Tester's own net over
+    every valid pair of its first n_images images, both directions."""
+    import numpy as np
+    t.prepare_model()
+    out = {}
+    for i in range(min(n_images, t.data_length)):
+        modal, _, bboxes, _, _, image = t._load_scene(i)
+        _, valid, o1, o2 = _host(t.predictor.pair_outputs(
+            image.astype(np.float32), modal.astype(np.float32),
+            bboxes.astype(np.float32))[:4])
+        valid = valid.astype(bool)
+        heads = (('fc_occ', 'fc_depth') if isinstance(o1, tuple)
+                 else ('fc',))
+        for k, h in enumerate(heads):
+            for o in (o1, o2):
+                o = o[k] if isinstance(o, tuple) else o
+                out.setdefault(h, []).append(np.asarray(o, np.float64)[valid])
+    return {h: np.concatenate(v) for h, v in out.items()}
+
+
+def centre_heads(params, logits, spread=LOGIT_SPREAD):
+    """Shift and scale each head of a numpy params tree so that its
+    `logits` (head_logits of the same net) get mean 0 per class and
+    standard deviation `spread`. A random net's logits share one large
+    part across all pairs: scaled up, it saturates every pair and both
+    swap directions to the same class, which leaves the swap-averaged
+    decisions on their thresholds (nothing sure); centred, the logits
+    are the part that depends on the pair and its direction."""
+    out = dict(params)
+    for h, z in logits.items():
+        mu = z.mean(axis=0)
+        g = spread / max(float((z - mu).std()), 1e-30)
+        w, b = params[h]['w'], params[h]['b']
+        out[h] = {'w': (w * g).astype(w.dtype),
+                  'b': ((b - mu) * g).astype(b.dtype)}
+    return out
+
+
+def tester_args(cfg, root, fixtures, method, pairs, load_model):
+    """The config namespace the Tester reads (cli/config.load_config's
+    shape), on the fixture of cfg's dataset; tensorboard switched off
+    (tensorboardX may be missing where this runs)."""
+    import types
+    ann, img = fixtures[cfg['data']['dataset']]
+    a = types.SimpleNamespace()
+    a.model = dict(cfg['model'])
+    a.data = dict(cfg['data'], val_annot_file=ann, val_image_root=img)
+    a.trainer = dict(cfg['trainer'], tensorboard=False)
+    a.order_method = method
+    a.pairs = pairs
+    a.zd = 0
+    a.load_model = load_model
+    a.out_dir = root
+    return a
+
+
+def tester_net(torch, cfg, root, fixtures, step):
+    """The checkpoint of one Tester configuration, written with the
+    port's save_state: the net at full width from seed 0 (kaiming), its
+    heads centred on the card over the fixture's first CENTRE_IMAGES
+    images (centre_heads). Returns the path."""
+    import os
+    import logging
+    from instaorder_tpu_torch.convert import to_numpy
+    from instaorder_tpu_torch.core import checkpoint as CK
+    from instaorder_tpu_torch.eval.tester import Tester
+    from instaorder_tpu_torch.models.registry import get_backbone
+    params, stats, _ = get_backbone(cfg['model']['backbone_arch'])['init'](
+        torch.Generator().manual_seed(0), weight_init='kaiming_out',
+        device='cpu', **cfg['model']['backbone_param'])
+    params, stats = to_numpy(params), to_numpy(stats)
+    raw = CK.save_state(f'{root}/raw', 0, params, stats)
+    t = Tester(tester_args(cfg, root, fixtures, '', 'all', raw),
+               logger=logging.getLogger('chip_smoke.tester'))
+    params = centre_heads(params, head_logits(t, CENTRE_IMAGES))
+    os.remove(raw)
+    return CK.save_state(f'{root}/net', step, params, stats)
+
+
+def phase_tester(torch, dev, card, wrappers):
+    """The Tester on the card and on the CPU: fixtures written by the
+    port's data/synthetic.py, each net from seed 0 (tester_net) saved
+    with the port's save_state and loaded through load_model; card and
+    CPU records compared; per-image ms by run. Returns {run name:
+    (per-image ms, of it the prediction's), medians after one warm-up
+    image}."""
+    import logging
+    import os
+    import tempfile
+    import numpy as np
+    from instaorder_tpu_torch import native
+    from instaorder_tpu_torch.core import checkpoint as CK
+    from instaorder_tpu_torch.data import rle, synthetic
+    from instaorder_tpu_torch.eval.tester import Tester
+
+    t0 = time.perf_counter()
+    check(native.load() is not None and native.registered(),
+          f'the native RLE codec is loaded and registered '
+          f'({native.LOAD_ERROR})')
+    print(f'native RLE codec: {sorted(rle._NATIVE)}')
+    log = logging.getLogger('chip_smoke.tester')
+    log.addHandler(logging.NullHandler())
+    log.propagate = False
+    timing = {}
+    with tempfile.TemporaryDirectory() as root:
+        insta, _, img = synthetic.make_instaorder_fixture(
+            root, n_images=TESTER_IMAGES, n_instances=TESTER_INSTANCES,
+            h=HEIGHT, w=WIDTH)
+        fixtures = {'InstaOrder': (insta, img),
+                    'COCOA': synthetic.make_cocoa_fixture(root),
+                    'KINS': synthetic.make_kins_fixture(root)}
+        net, net_of = None, None
+        for step, (name, cname, method, pairs) in enumerate(TESTER_RUNS):
+            cfg = TESTER_CONFIGS[cname]
+            if not method and net_of != cname:
+                if net:
+                    os.remove(net)
+                net, net_of = tester_net(torch, cfg, root, fixtures,
+                                         1000 + step), cname
+            args = tester_args(cfg, root, fixtures, method, pairs,
+                               None if method else net)
+            recs = {}
+            for where, d in (('card', None), ('cpu', 'cpu')):
+                t = Tester(args, logger=log, device=d)
+                recs[where] = record_tester(t)
+                for w in wrappers.values():
+                    w.launches = 0
+                res = t.run()
+                if where == 'card':
+                    torch.cuda.synchronize()
+                    got = {n: w.launches for n, w in wrappers.items()
+                           if w.launches}
+                    check(not got, f'tester {name}: no kernel launched '
+                          f'(as JAX\'s Tester reaches none): {got}')
+                    check(method or t.predictor.device.type == 'cuda',
+                          f'tester {name}: the predictor is on the card')
+                    check(method or t.curr_step == CK.parse_iter(net),
+                          f'tester {name}: the checkpoint\'s step loaded')
+                recs[where + ' result'] = res
+            sure, unsure, differ = compare_tester_runs(
+                name, cfg['model']['algo'], recs['card'], recs['cpu'])
+            if not differ:
+                check(recs['card result'] == recs['cpu result'],
+                      f'tester {name}: metrics equal ({recs["card result"]} '
+                      f'vs {recs["cpu result"]})')
+            med = lambda k: float(np.median([r[k] for r in
+                                             recs['card'][1:]]))
+            timing[name] = (med('ms'), med('predict_ms'))
+            print(f'  tester {name}: {recs["card result"]}; card vs CPU: '
+                  f'{sure} sure cells equal, {unsure} unsure, {differ} '
+                  f'differ; metrics {"equal" if not differ else "not held"}'
+                  f'; per image {timing[name][0]:.3f} ms (card)')
+    print(f'tester phase: {time.perf_counter() - t0:.1f} s')
+    for name, (ms, pred_ms) in timing.items():
+        print(f'tester {name}: {ms:.3f} ms per image on the card, '
+              f'{pred_ms:.3f} of it the prediction (host clock, median '
+              f'after one warm-up image; {card})')
+    return timing
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1632,7 +2055,10 @@ def main():
                                             *F32_ROWS, *V2F32_ROWS},
           f'every kernel launched on a main path: {sorted(launches)}')
 
-    # ---- 5. report ----------------------------------------------------------
+    # ---- 5. the Tester -----------------------------------------------------
+    phase_tester(torch, dev, card, wrappers)
+
+    # ---- 6. report ----------------------------------------------------------
     kernels = []
     for name, r in results.items():
         t_bytes = r['bytes'] / H100_BYTES_PER_S * 1e3

@@ -8,7 +8,10 @@ hand-written CUDA C++ under `csrc/`, built with nvcc at first use
 (`ops/_build.py`) and bound through ctypes.
 
 The per-image entry point, one image and its instance masks in and the
-order matrices out, is `eval/pipeline.OrderPredictor` and its factories.
+order matrices out, is `eval/pipeline.OrderPredictor` and its factories;
+the evaluation harness over a dataset is `eval/tester.Tester` (`python
+-m instaorder_tpu_torch.cli.test`), with the readers, RLE codec and
+checkpoint I/O under `data/`, `native/` and `core/`.
 
 Layouts follow the JAX package at every public function: activations
 NHWC, conv weights HWIO, parameter trees nested dicts/lists with the JAX

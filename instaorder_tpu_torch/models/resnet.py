@@ -15,9 +15,10 @@ import torch
 from ..convert import tree_to
 from ..core import nn as cnn
 
-# arch name -> (block, layers, groups, width_per_group); the bottleneck
-# family (the basic-block resnet18/34 are not ported)
+# arch name -> (block, layers, groups, width_per_group)
 ARCHS = {
+    'resnet18': ('basic', (2, 2, 2, 2), 1, 64),
+    'resnet34': ('basic', (3, 4, 6, 3), 1, 64),
     'resnet50': ('bottleneck', (3, 4, 6, 3), 1, 64),
     'resnet101': ('bottleneck', (3, 4, 23, 3), 1, 64),
     'resnet152': ('bottleneck', (3, 8, 36, 3), 1, 64),
@@ -27,21 +28,29 @@ ARCHS = {
     'wide_resnet101_2': ('bottleneck', (3, 4, 23, 3), 1, 128),
 }
 
-_EXPANSION = 4
+_EXPANSION = {'basic': 1, 'bottleneck': 4}
 
 
-def _block_init(gen, cin, planes, stride, groups, base_width, init, gain):
-    exp = _EXPANSION
+def _block_init(gen, block, cin, planes, stride, groups, base_width, init,
+                gain):
+    exp = _EXPANSION[block]
     kw = dict(init=init, gain=gain)
     p: Dict[str, Any] = {}
     s: Dict[str, Any] = {}
-    width = int(planes * (base_width / 64.0)) * groups
-    p['conv1'] = cnn.conv_init(gen, 1, 1, cin, width, **kw)
-    p['bn1'], s['bn1'] = cnn.bn_init(width)
-    p['conv2'] = cnn.conv_init(gen, 3, 3, width, width, groups=groups, **kw)
-    p['bn2'], s['bn2'] = cnn.bn_init(width)
-    p['conv3'] = cnn.conv_init(gen, 1, 1, width, planes * exp, **kw)
-    p['bn3'], s['bn3'] = cnn.bn_init(planes * exp)
+    if block == 'bottleneck':
+        width = int(planes * (base_width / 64.0)) * groups
+        p['conv1'] = cnn.conv_init(gen, 1, 1, cin, width, **kw)
+        p['bn1'], s['bn1'] = cnn.bn_init(width)
+        p['conv2'] = cnn.conv_init(gen, 3, 3, width, width, groups=groups,
+                                   **kw)
+        p['bn2'], s['bn2'] = cnn.bn_init(width)
+        p['conv3'] = cnn.conv_init(gen, 1, 1, width, planes * exp, **kw)
+        p['bn3'], s['bn3'] = cnn.bn_init(planes * exp)
+    else:
+        p['conv1'] = cnn.conv_init(gen, 3, 3, cin, planes, **kw)
+        p['bn1'], s['bn1'] = cnn.bn_init(planes)
+        p['conv2'] = cnn.conv_init(gen, 3, 3, planes, planes, **kw)
+        p['bn2'], s['bn2'] = cnn.bn_init(planes)
     if stride != 1 or cin != planes * exp:
         p['down_conv'] = cnn.conv_init(gen, 1, 1, cin, planes * exp, **kw)
         p['down_bn'], s['down_bn'] = cnn.bn_init(planes * exp)
@@ -57,7 +66,7 @@ def init(gen, arch='resnet50', in_channels=3, num_classes=1000,
     block, layers, groups, base_width = ARCHS[arch]
     if layers_override is not None:
         layers = tuple(layers_override)
-    exp = _EXPANSION
+    exp = _EXPANSION[block]
     p: Dict[str, Any] = {}
     s: Dict[str, Any] = {}
     p['conv1'] = cnn.conv_init(gen, 7, 7, in_channels, 64, init=weight_init,
@@ -68,7 +77,7 @@ def init(gen, arch='resnet50', in_channels=3, num_classes=1000,
         stage_p, stage_s = [], []
         for bi in range(blocks):
             stride = 2 if (li > 0 and bi == 0) else 1
-            bp, bs = _block_init(gen, cin, planes, stride, groups,
+            bp, bs = _block_init(gen, block, cin, planes, stride, groups,
                                  base_width, weight_init, gain)
             cin = planes * exp
             stage_p.append(bp)
@@ -106,21 +115,31 @@ def _vmask(x, valid_hw):
                                                    device=x.device))
 
 
-def _block_apply(p, s, x, stride, groups, valid_hw=None):
+def _block_apply(p, s, x, block, stride, groups, valid_hw=None):
     """valid_hw: the (vh, vw) valid region of x for padded-bucket eval
-    (see `apply`); x is zero beyond it. The input of the 3x3 conv and the
-    block output are masked, as in the JAX package."""
+    (see `apply`); x is zero beyond it. The input of the second 3x3 conv
+    (the bottleneck's conv2, the basic block's conv2) and the block
+    output are masked, as in the JAX package."""
     relu = torch.relu
     identity = x
     out_hw = (None if valid_hw is None
               else (valid_hw[0] // stride, valid_hw[1] // stride))
-    out = relu(cnn.batch_norm_eval(p['bn1'], s['bn1'],
-                                   cnn.conv2d(p['conv1'], x)))
-    out = relu(cnn.batch_norm_eval(
-        p['bn2'], s['bn2'],
-        cnn.conv2d(p['conv2'], _vmask(out, valid_hw), stride=stride,
-                   padding=1, groups=groups)))
-    out = cnn.batch_norm_eval(p['bn3'], s['bn3'], cnn.conv2d(p['conv3'], out))
+    if block == 'bottleneck':
+        out = relu(cnn.batch_norm_eval(p['bn1'], s['bn1'],
+                                       cnn.conv2d(p['conv1'], x)))
+        out = relu(cnn.batch_norm_eval(
+            p['bn2'], s['bn2'],
+            cnn.conv2d(p['conv2'], _vmask(out, valid_hw), stride=stride,
+                       padding=1, groups=groups)))
+        out = cnn.batch_norm_eval(p['bn3'], s['bn3'],
+                                  cnn.conv2d(p['conv3'], out))
+    else:
+        out = relu(cnn.batch_norm_eval(
+            p['bn1'], s['bn1'],
+            cnn.conv2d(p['conv1'], x, stride=stride, padding=1)))
+        out = cnn.batch_norm_eval(
+            p['bn2'], s['bn2'],
+            cnn.conv2d(p['conv2'], _vmask(out, out_hw), padding=1))
     if 'down_conv' in p:
         identity = cnn.batch_norm_eval(
             p['down_bn'], s['down_bn'],
@@ -154,8 +173,8 @@ def apply(params, stats, cfg, x, valid_hw=None):
         name = f'layer{li + 1}'
         for bi, (bp, bs) in enumerate(zip(params[name], stats[name])):
             stride = 2 if (li > 0 and bi == 0) else 1
-            out = _block_apply(bp, bs, out, stride, cfg['groups'],
-                               valid_hw=vhw)
+            out = _block_apply(bp, bs, out, cfg['block'], stride,
+                               cfg['groups'], valid_hw=vhw)
             if vhw is not None:
                 vhw = (vhw[0] // stride, vhw[1] // stride)
     if vhw is None:
