@@ -2,9 +2,10 @@
 """Smoke test of the PyTorch / CUDA port on one GPU: builds the kernels,
 holds each against its plain PyTorch version at the serving paths'
 shapes, drives the serving-d1, parity and serving-d2 megasteps (v2,
-int8c and f32), the per-image order predictors (eval/pipeline) and the
-Tester (eval/tester) at full ResNet-50 width, and prints one JSON line
-for the kernels plus a final status line.
+int8c and f32), the per-image order predictors (eval/pipeline), the
+Tester (eval/tester) and the Trainer (train/trainer) at full ResNet-50
+width, and prints one JSON line for the kernels plus a final status
+line.
 
     python3 chip_smoke.py
 
@@ -81,7 +82,25 @@ Phases (any failed check raises and the script exits nonzero):
      the metrics equal wherever no cell differs (so wherever every cell
      is sure); per-image ms on the card for each run, and the
      prediction's share;
-  6. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
+  6. training (train/trainer.py, JAX's trainer.py counterpart) on the
+     same InstaOrder fixture, every step autograd over cuDNN f32 (TF32
+     off; JAX's training reaches no Pallas kernel, so no kernel launches
+     here, checked): InstaOrderNet_o at its YAML's settings (TRAIN_CONFIGS:
+     ResNet-50, 256^2 patches, batch 32, SGD lr 1e-3, wd 1e-4, fused
+     siamese) through Trainer(device=None).train() for 4 steps, a
+     checkpoint at 4, a new Trainer resuming it (start_iter 4, params
+     equal) to 6, validate() finite, and the Tester on the step-6
+     checkpoint; each of InstaOrderNet_o, OrderNet, OrderNet_ext,
+     InstaOrderNet_d and _od (384^2 resize) 3 steps at its own settings,
+     finite losses, every param leaf moved; one SGD step of _o and _od
+     at full width on 4 pairs of the port's dataset on the card against
+     the CPU (the card following the CPU run's ReLU branch, the sign
+     disagreements counted): loss within 1e-5 relative, each leaf's
+     update within 1e-3 of its max |update on the CPU|, the new
+     statistics within 1e-5; the device step ms on a fixed batch
+     (median of 10 after 3), the Trainer's loader-fed batch and data
+     ms, pairs/s and peak memory, for _o at 256^2 and _od at 384^2;
+  7. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
      f32 row's share of its 3xTF32 bound (495 TF32 TFLOP/s, three
      products a MAC, two for an int8 A: the row's bound_ms) and of the
      f32 peak, the f32 stem rows' share of their design's floor (the
@@ -1848,6 +1867,387 @@ def phase_tester(torch, dev, card, wrappers):
     return timing
 
 
+# ---- training (train/trainer.py, JAX's trainer.py counterpart) ---------------
+# The experiment YAMLs' training settings, written out because PyYAML may
+# be missing where this runs; tests/test_torch_trainer.py holds each value
+# against cli/config.load_config of the file (all but TRAIN_PATH_KEYS,
+# which point at the fixture here)
+TRAIN_PATH_KEYS = ('train_image_root', 'train_annot_file', 'val_image_root',
+                   'val_annot_file')
+_SCHED = {'lr_steps': [32000, 48000], 'lr_mults': [0.1, 0.1],
+          'weight_decay': 0.0001, 'optim': 'SGD', 'warmup_lr': [],
+          'warmup_steps': [], 'backbone_arch': 'resnet50_cls',
+          'use_rgb': True}
+_AUG = {'flip': True, 'shift': [-0.2, 0.2], 'scale': [0.8, 1.2]}
+_DATA = {'dataset': 'InstaOrder', 'enlarge_box': 3.0, 'base_aug': _AUG,
+         'load_rgb': True, 'batch_size': 32, 'batch_size_val': 32}
+_OCC = dict(_DATA, trainval_dataset='SupOcclusionOrderDataset',
+            input_size=256, patch_or_image='patch', use_category=False,
+            remove_occ_bidirec=0)
+_TRAINER = {'val_freq': 2000, 'val_iter': 10, 'print_freq': 100,
+            'save_freq': 2000, 'loss_record': ['loss']}
+TRAIN_CONFIGS = {
+    'InstaOrderNet_o': {
+        'model': dict(_SCHED, algo='InstaOrderNet_o', total_iter=86000,
+                      lr=0.001, backbone_param={'in_channels': 5,
+                                                'num_classes': 2}),
+        'data': dict(_OCC, workers=4),
+        'trainer': dict(_TRAINER, initial_val=True, tensorboard=True,
+                        exp_name='InstaOrderNet_o')},
+    'OrderNet': {
+        'model': dict(_SCHED, algo='OrderNet', total_iter=60000, lr=0.001,
+                      backbone_param={'in_channels': 5, 'num_classes': 3}),
+        'data': dict(_OCC, workers=0, extend_bidirec=0),
+        'trainer': dict(_TRAINER, initial_val=True, tensorboard=True,
+                        exp_name='OrderNet')},
+    'OrderNet_ext': {
+        'model': dict(_SCHED, algo='OrderNet', total_iter=60000, lr=0.001,
+                      backbone_param={'in_channels': 5, 'num_classes': 4}),
+        'data': dict(_OCC, workers=4, extend_bidirec=1),
+        'trainer': dict(_TRAINER, initial_val=True, tensorboard=True,
+                        exp_name='OrderNet_ext')},
+    'InstaOrderNet_d': {
+        'model': dict(_SCHED, algo='InstaOrderNet_d', total_iter=60000,
+                      lr=0.0001, overlap_weight=0.1, distinct_weight=0.9,
+                      backbone_param={'in_channels': 5, 'num_classes': 3}),
+        'data': dict(_DATA, trainval_dataset='SupDepthOrderDataset',
+                     input_size=384, patch_or_image='resize',
+                     use_category=False, remove_depth_overlap=0,
+                     workers=4),
+        'trainer': dict(_TRAINER, initial_val=False,
+                        exp_name='InstaOrderNet_d')},
+    'InstaOrderNet_od': {
+        'model': dict(_SCHED, algo='InstaOrderNet_od', total_iter=60000,
+                      lr=0.0001, overlap_weight=0.1, distinct_weight=0.9,
+                      backbone_param={'in_channels': 5,
+                                      'num_classes': [2, 3]}),
+        'data': dict(_DATA, trainval_dataset='SupDepthOccOrderDataset',
+                     input_size=384, patch_or_image='resize',
+                     remove_occ_bidirec=0, remove_depth_overlap=0,
+                     workers=8),
+        'trainer': dict(_TRAINER, initial_val=True,
+                        exp_name='InstaOrderNet_od')},
+}
+# the card-vs-CPU step: pairs, and the bars (against the CPU's f64 step)
+XDEV_PAIRS = 4
+XDEV_LOSS_BAR = 1e-5        # relative
+XDEV_UPDATE_BAR = 1e-3      # of each leaf's max |update on the CPU|
+XDEV_STATS_BAR = 1e-4       # of each leaf's max |stat on the CPU|; the
+#                             card's f32 measured 9.5e-6 (layer4 var)
+TIMING_WARMUP, TIMING_REPS = 3, 10
+
+
+def train_args(name, fixture, total_iter, **trainer):
+    """A training configuration namespace (cli/config.load_config's
+    shape): TRAIN_CONFIGS[name] on the fixture, total_iter and the
+    trainer keys replaced, telemetry off (tensorboardX may be missing
+    where this runs), seed 0. The occlusion datasets iterate images, and
+    the fixture has TESTER_IMAGES of them: their validation batch is cut
+    to that, so that validate() sees a batch (a depth dataset iterates
+    the 15 pairs of each image)."""
+    import types
+    insta, img = fixture
+    cfg = TRAIN_CONFIGS[name]
+    a = types.SimpleNamespace()
+    a.model = dict(cfg['model'], total_iter=total_iter)
+    a.data = dict(cfg['data'], train_annot_file=insta, val_annot_file=insta,
+                  train_image_root=img, val_image_root=img)
+    if a.data['trainval_dataset'] == 'SupOcclusionOrderDataset':
+        a.data['batch_size_val'] = min(a.data['batch_size_val'],
+                                       TESTER_IMAGES)
+    a.trainer = dict(cfg['trainer'], tensorboard=False, wandb=False,
+                     initial_val=False, **trainer)
+    a.seed = 0
+    return a
+
+
+def quiet_logger(t):
+    """Route a Trainer's log lines to its file only."""
+    import logging
+    for h in list(t.logger.handlers):
+        if type(h) is logging.StreamHandler:
+            t.logger.removeHandler(h)
+
+
+def on_branch(torch, masks, flips):
+    """A torch.relu that keeps the ReLU branch of `masks` (the CPU run's
+    x > 0, in call order) and counts in flips[0] the inputs whose own
+    sign disagrees: the gradient of a ReLU net jumps where an input
+    crosses zero, and two f32 forwards put a few of its ~10^8 inputs on
+    opposite sides."""
+    real = torch.relu
+    it = iter(masks)
+
+    def relu(x):
+        m = next(it).to(x.device)
+        flips[0] += int(((x > 0) != m).sum())
+        return torch.where(m, x, torch.zeros((), dtype=x.dtype,
+                                             device=x.device))
+    return real, relu
+
+
+def train_step_on(torch, T, ST, CV, net, cfg, name, params, stats, batch,
+                  dev, masks=None, dtype=None):
+    """One SGD step of `name`'s loss on `dev` from numpy params/stats and
+    a numpy batch, in f32 (dtype None) or in `dtype` (params, stats and
+    the batch's float fields cast). masks None: record the ReLU masks of
+    the forward into a new list (returned); else follow them. Returns
+    (loss, new params, new stats (numpy), masks, flips)."""
+    from instaorder_tpu_torch.core.nn import tree_map
+    from instaorder_tpu_torch.train import algos, optim
+    m = TRAIN_CONFIGS[name]['model']
+    loss_fn = algos.make_loss(m['algo'], net, cfg, m)
+    opt = optim.make_optimizer('SGD', weight_decay=m['weight_decay'])
+    step = ST.build_train_step(loss_fn, opt)
+    cast = (lambda t: t) if dtype is None else \
+        (lambda t: t.to(dtype) if t.is_floating_point() else t)
+    p = tree_map(cast, CV.tree_to(CV.to_torch(params), dev))
+    s = tree_map(cast, CV.tree_to(CV.to_torch(stats), dev))
+    xb = {k: cast(v) for k, v in T.batch_to_device(batch, dev).items()}
+    flips = [0]
+    real = torch.relu
+    if masks is None:
+        masks = []
+
+        def relu(x):
+            masks.append((x > 0).cpu())
+            return real(x)
+    else:
+        _, relu = on_branch(torch, masks, flips)
+    torch.relu = relu
+    try:
+        p, s, _, logs = step(p, s, opt.init(p), xb, m['lr'])
+    finally:
+        torch.relu = real
+    return (float(logs['loss']), CV.to_numpy(p), CV.to_numpy(s), masks,
+            flips[0])
+
+
+def leaf_worst(got, want, base, what):
+    """(worst relative error, leaf path) over a tree's leaves: max |got -
+    want| over max |want - base| (base None: over max |want|); for
+    updates (base given) one f32 spacing of the value is allowed, the
+    rounding of p - lr * buf."""
+    import numpy as np
+    out = (0.0, '')
+
+    def walk(g, w, b, path):
+        nonlocal out
+        if isinstance(w, dict):
+            for k in w:
+                walk(g[k], w[k], None if b is None else b[k], f'{path}.{k}')
+        elif isinstance(w, (list, tuple)):
+            for i in range(len(w)):
+                walk(g[i], w[i], None if b is None else b[i], f'{path}[{i}]')
+        else:
+            g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+            err = np.abs(g - w)
+            if b is None:
+                scale = np.abs(w).max()
+            else:
+                scale = np.abs(w - np.asarray(b, np.float64)).max()
+                err = err - np.spacing(np.abs(w).astype(np.float32))
+            out = max(out, (float(err.max()) / max(float(scale), 1e-30),
+                            path))
+    walk(got, want, base, what)
+    return out
+
+
+def phase_train_xdev(torch, T, ST, CV, get_backbone, fixture, dev, card):
+    """One SGD step of InstaOrderNet_o and of InstaOrderNet_od at full
+    width on the card and on the CPU: the same params (seed 0, kaiming),
+    the same batch of XDEV_PAIRS pairs from the port's dataset. The CPU
+    runs the step in f32 and in f64; the card's f32 step is held against
+    the CPU's f64 one (the CPU's f32 convolutions, oneDNN's, are the
+    less exact of the two f32 runs: its step is printed beside, with
+    its own distance from f64). Every run follows the CPU f32 run's
+    ReLU branch (on_branch); the number of ReLU inputs whose sign
+    differs on the card is printed."""
+    import numpy as np
+    from instaorder_tpu_torch.data.datasets import DATASETS, collate
+    from instaorder_tpu_torch.data.loader import sample_rng
+    cpu = torch.device('cpu')
+    for name in ('InstaOrderNet_o', 'InstaOrderNet_od'):
+        args = train_args(name, fixture, 1)
+        net = get_backbone('resnet50_cls')
+        params, stats, cfg = net['init'](
+            torch.Generator().manual_seed(0), weight_init='kaiming_out',
+            device='cpu', **args.model['backbone_param'])
+        params, stats = CV.to_numpy(params), CV.to_numpy(stats)
+        ds = DATASETS[args.data['trainval_dataset']](args.data, 'train',
+                                                     args.model['algo'])
+        batch = collate([ds.sample(i % len(ds), sample_rng(0, i))
+                         for i in range(XDEV_PAIRS)])
+        run = lambda d, masks=None, dtype=None: train_step_on(  # noqa: E731
+            torch, T, ST, CV, net, cfg, name, params, stats, batch, d,
+            masks, dtype)
+        l32, p32, s32, masks, _ = run(cpu)
+        l64, p64, s64, _, _ = run(cpu, masks, torch.float64)
+        lg, pg, sg, _, flips = run(dev, masks)
+        out = {}
+        for who, (l, p, s) in (('card f32', (lg, pg, sg)),
+                               ('CPU f32', (l32, p32, s32))):
+            out[who] = (abs(l - l64) / abs(l64),
+                        leaf_worst(p, p64, params, 'params'),
+                        leaf_worst(s, s64, None, 'stats'))
+            lrel, upd, sts = out[who]
+            print(f'train one SGD step {name} ({XDEV_PAIRS} pairs, '
+                  f'{args.data["input_size"]}^2; {card}): {who} vs CPU '
+                  f'f64: loss {l:.6f} vs {l64:.6f} (rel {lrel:.3e}); worst '
+                  f'update {upd[1]} {upd[0]:.3e} of its max |update|; '
+                  f'worst stats {sts[1]} {sts[0]:.3e}')
+        print(f'train {name}: {flips} of '
+              f'{sum(int(m.numel()) for m in masks)} ReLU inputs on the '
+              f'other side of zero on the card (every run follows the CPU '
+              f'f32 run\'s branch); card vs CPU f32: worst update '
+              f'{leaf_worst(pg, p32, params, "params")}')
+        lrel, upd, sts = out['card f32']
+        check(np.isfinite(lg) and lrel <= XDEV_LOSS_BAR,
+              f'{name}: card loss within {XDEV_LOSS_BAR} of the CPU\'s')
+        check(upd[0] <= XDEV_UPDATE_BAR,
+              f'{name}: every update within {XDEV_UPDATE_BAR} ({upd})')
+        check(sts[0] <= XDEV_STATS_BAR,
+              f'{name}: the new statistics within {XDEV_STATS_BAR} ({sts})')
+
+
+def time_train_step(torch, T, t, batch):
+    """Device ms of the Trainer's train step on a fixed batch already on
+    the card: median of TIMING_REPS after TIMING_WARMUP, each
+    synchronised; and the peak memory of those steps (GiB)."""
+    import numpy as np
+    xb = T.batch_to_device(batch, t.device)
+    p, s, o = t.params, t.stats, t.opt_state
+    lr = t.lr_fn(0)
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TIMING_WARMUP + TIMING_REPS):
+        t0 = time.perf_counter()
+        p, s, o, logs = t.train_step(p, s, o, xb, lr)
+        torch.cuda.synchronize()
+        if i >= TIMING_WARMUP:
+            times.append((time.perf_counter() - t0) * 1e3)
+    check(np.isfinite(float(logs['loss'])), 'timed steps: finite loss')
+    return (float(np.median(times)),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def phase_train(torch, dev, card, wrappers):
+    """Training on the card (module docstring, phase 6). Returns {run:
+    numbers}."""
+    import os
+    import tempfile
+    import numpy as np
+    from instaorder_tpu_torch import convert as CV
+    from instaorder_tpu_torch.core.nn import tree_leaves
+    from instaorder_tpu_torch.data import synthetic
+    from instaorder_tpu_torch.eval.tester import Tester
+    from instaorder_tpu_torch.models.registry import get_backbone
+    from instaorder_tpu_torch.train import step as ST
+    from instaorder_tpu_torch.train import trainer as T
+
+    t0 = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    numbers = {}
+    with tempfile.TemporaryDirectory() as root:
+        insta, _, img = synthetic.make_instaorder_fixture(
+            root, n_images=TESTER_IMAGES, n_instances=TESTER_INSTANCES,
+            h=HEIGHT, w=WIDTH)
+        fixture = (insta, img)
+        # the full flow: train 4, checkpoint, resume to 6, validate, test
+        flow = dict(print_freq=2, save_freq=4, val_iter=2)
+        t = T.Trainer(train_args('InstaOrderNet_o', fixture, 4, **flow),
+                      out_dir=f'{root}/o')
+        quiet_logger(t)
+        check(t.device.type == 'cuda', 'the Trainer runs on the card')
+        t.train()
+        ck4 = f'{root}/o/checkpoints/ckpt_iter_4.ckpt'
+        check(t.curr_step == 4 and os.path.isfile(ck4),
+              'InstaOrderNet_o: 4 steps and a checkpoint at 4')
+        t2 = T.Trainer(train_args('InstaOrderNet_o', fixture, 6, **flow),
+                       out_dir=f'{root}/o2')
+        quiet_logger(t2)
+        t2.load(ck4, resume=True)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(t.params), tree_leaves(t2.params)))
+        check(t2.start_iter == 4 and same,
+              'resume: start_iter 4 and the params equal')
+        t2.train()
+        val = t2.validate()
+        check(t2.curr_step == 6 and np.isfinite(val['loss']),
+              f'resumed to 6 and validate() is finite ({val})')
+        numbers['o loader-fed'] = (t2.btime.avg * 1e3, t2.dtime.avg * 1e3)
+        targs = tester_args(TESTER_CONFIGS['InstaOrder/InstaOrderNet_o'],
+                            root, {'InstaOrder': fixture}, '', 'all',
+                            f'{root}/o2/checkpoints/ckpt_iter_6.ckpt')
+        tester = Tester(targs, logger=t2.logger)
+        res = tester.run()
+        check(tester.curr_step == 6 and np.isfinite(res['f1']),
+              f'the Tester on the step-6 checkpoint ({res})')
+        print(f'train flow InstaOrderNet_o (ResNet-50, '
+              f'{t2.args.data["input_size"]}^2, batch '
+              f'{t2.args.data["batch_size"]}): 4 steps, checkpoint, '
+              f'resume, 6 steps, validate loss '
+              f'{val["loss"]:.4f}, Tester {res}')
+        batch_o = next(iter(t2._make_loader('train')))
+        numbers['o step'] = time_train_step(torch, T, t2, batch_o)
+        del t, t2, tester
+
+        # every ported algorithm at its own settings: 3 finite steps that
+        # move the params
+        for name in TRAIN_CONFIGS:
+            ta = T.Trainer(train_args(name, fixture, 3, print_freq=1,
+                                      val_iter=1), out_dir=f'{root}/{name}')
+            quiet_logger(ta)
+            before = [x.clone() for x in tree_leaves(ta.params)]
+            seen = []
+            real = ta.train_step
+
+            def step(*a, real=real, seen=seen):
+                out = real(*a)
+                seen.append(out[3]['loss'])
+                return out
+            ta.train_step = step
+            ta.train()
+            losses = [float(v) for v in seen]
+            moved = sum(not torch.equal(a, b) for a, b in zip(
+                before, tree_leaves(ta.params)))
+            check(len(losses) == 3 and np.isfinite(losses).all(),
+                  f'{name}: 3 finite steps ({losses})')
+            check(moved == len(before),
+                  f'{name}: every param leaf moved ({moved} of '
+                  f'{len(before)})')
+            print(f'train {name} ({ta.args.data["input_size"]}^2, '
+                  f'{ta.args.data["patch_or_image"]}): losses {losses}')
+            if name == 'InstaOrderNet_od':
+                numbers['od loader-fed'] = (ta.btime.avg * 1e3,
+                                            ta.dtime.avg * 1e3)
+                batch_od = next(iter(ta._make_loader('train')))
+                numbers['od step'] = time_train_step(torch, T, ta, batch_od)
+            del ta
+
+        phase_train_xdev(torch, T, ST, CV, get_backbone, fixture, dev, card)
+    torch.cuda.synchronize()
+    got = {n: w.launches for n, w in wrappers.items() if w.launches}
+    check(not got, f'training launched no hand-written kernel: {got}')
+    print(f'train phase: {time.perf_counter() - t0:.1f} s')
+    for run in ('o', 'od'):
+        data = TRAIN_CONFIGS[f'InstaOrderNet_{run}']['data']
+        size, batch = data['input_size'], data['batch_size']
+        ms, peak = numbers[f'{run} step']
+        bt, dt = numbers[f'{run} loader-fed']
+        print(f'train InstaOrderNet_{run} {size}^2 batch {batch} pairs: '
+              f'device step {ms:.2f} ms (median of {TIMING_REPS} after '
+              f'{TIMING_WARMUP}, fixed batch on the card) = '
+              f'{batch / ms * 1e3:.1f} pairs/s, peak memory {peak:.2f} GiB; '
+              f'Trainer loader-fed batch time {bt:.2f} ms = '
+              f'{batch / bt * 1e3:.1f} pairs/s, data time {dt:.2f} ms '
+              f'(host clock, last steps of the run; {card})')
+    return numbers
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2058,7 +2458,10 @@ def main():
     # ---- 5. the Tester -----------------------------------------------------
     phase_tester(torch, dev, card, wrappers)
 
-    # ---- 6. report ----------------------------------------------------------
+    # ---- 6. training ---------------------------------------------------------
+    phase_train(torch, dev, card, wrappers)
+
+    # ---- 7. report ----------------------------------------------------------
     kernels = []
     for name, r in results.items():
         t_bytes = r['bytes'] / H100_BYTES_PER_S * 1e3

@@ -6,7 +6,9 @@ arrays). `to_torch` turns it into the same tree of tensors on a chosen
 device, `to_numpy` turns a port tree back. Layouts are unchanged on both
 sides (NHWC/HWIO), so the bridge is a leaf-wise copy. It covers the
 resnet `params`/`stats` trees, the folded tree and the v2 `qparams`
-tree, whose scalar leaves (`r`, `s_feat`) become Python floats.
+tree, whose scalar leaves (`r`, `s_feat`) become Python floats, and the
+optimizer state (train/optim.py), whose integer scalar (Adam's step
+count `t`, int32) stays a 0-d tensor of its dtype.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 def _leaf_to_torch(a, device):
     a = np.asarray(a)
-    if a.ndim == 0:
+    if a.ndim == 0 and not np.issubdtype(a.dtype, np.integer):
         return float(a)
     if a.dtype.name == 'bfloat16':
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
@@ -27,8 +29,8 @@ def _leaf_to_torch(a, device):
 
 
 def to_torch(tree, device='cpu'):
-    """numpy tree -> tensor tree on `device`; 0-d leaves become Python
-    floats."""
+    """numpy tree -> tensor tree on `device`; 0-d float leaves become
+    Python floats, 0-d integer leaves 0-d tensors."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -89,6 +89,42 @@ def batch_norm_eval(params, stats, x, eps=1e-5):
     return out.to(x.dtype)
 
 
+def batch_norm(params, stats, x, train, momentum=0.1, eps=1e-5):
+    """BatchNorm over (N, H, W) of NHWC input; returns (y, new_stats).
+
+    train=True: normalise with the batch statistics (f32, biased
+    variance) and return running statistics updated with the unbiased
+    variance, n / max(n - 1, 1), as the JAX package's `batch_norm`.
+    Functional: `stats` is never written; the new statistics are fresh
+    f32 tensors outside the autograd graph, so a recomputed
+    (checkpointed) forward or a second siamese pass cannot update them
+    twice. The batch statistics come from `F.batch_norm` on fresh
+    copies of the running ones (cuDNN's fused batch norm on the card,
+    f32 statistics for a bf16 input, f64 ones for an f64 input); a
+    single value per channel, which it refuses, takes the same formula
+    written out.
+    train=False: `batch_norm_eval`, stats returned as given."""
+    if not train:
+        return batch_norm_eval(params, stats, x, eps), stats
+    n = x.numel() // x.shape[-1]
+    ct = torch.promote_types(x.dtype, torch.float32)    # f64 stays f64
+    mean = stats['mean'].detach().to(ct).clone()
+    var = stats['var'].detach().to(ct).clone()
+    scale, bias = params['scale'].to(ct), params['bias'].to(ct)
+    if n > 1:
+        y = F.batch_norm(x.permute(0, 3, 1, 2), mean, var, scale, bias,
+                         training=True, momentum=momentum, eps=eps)
+        return y.permute(0, 2, 3, 1), {'mean': mean, 'var': var}
+    xf = x.to(ct)
+    axes = tuple(range(x.ndim - 1))
+    bm = xf.mean(axes)
+    bv = xf.var(axes, unbiased=False)
+    out = (xf - bm) * torch.rsqrt(bv + eps) * scale + bias
+    return out.to(x.dtype), {
+        'mean': (1 - momentum) * mean + momentum * bm.detach(),
+        'var': (1 - momentum) * var + momentum * bv.detach()}
+
+
 def max_pool(x, window=3, stride=2, padding=1):
     """torch nn.MaxPool2d parity on NHWC float input (-inf padding)."""
     y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding)
@@ -112,3 +148,36 @@ def tree_cast(tree, dtype):
     if isinstance(tree, (list, tuple)):
         return [tree_cast(v, dtype) for v in tree]
     return tree.to(dtype) if isinstance(tree, torch.Tensor) else tree
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict/list tree, dicts in their key order
+    (`tree_map` visits them in the same order)."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of `tree` and of the trees of the same structure
+    in `rest` (dicts matched by key), in a new tree of that structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of `tree`'s structure holding `leaves` in `tree_leaves`
+    order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def param_count(tree) -> int:
+    return sum(int(x.numel()) for x in tree_leaves(tree))

@@ -8,7 +8,9 @@ Each entry returns a dict with:
        gen: a torch.Generator (the JAX package takes a PRNG key);
        device None is the card (device.resolve_device), 'cpu' the CPU;
   apply(params, stats, cfg, x, valid_hw=None) -> logits (the port's
-       eval-only resnet.apply; the JAX package's returns (out, stats)).
+       eval resnet.apply; the JAX package's returns (out, stats));
+  apply_train(params, stats, cfg, x) -> (out, new_stats) (the JAX
+       package's apply with train=True).
 
 The UNet names (PCNet-M) and MidasNet / InstaDepthNet_d /
 InstaDepthNet_od are registered so that they resolve by name, but their
@@ -52,7 +54,8 @@ def _resnet_entry(arch):
                                num_classes=num_classes,
                                weight_init=weight_init,
                                device=resolve_device(device), **kw)
-        return {'init': init, 'apply': resnet.apply}
+        return {'init': init, 'apply': resnet.apply,
+                'apply_train': resnet.apply_train}
     return factory
 
 

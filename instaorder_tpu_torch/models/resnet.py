@@ -1,7 +1,10 @@
-"""ResNet classifier family: init and eval-mode forward, NHWC.
+"""ResNet classifier family: init, the eval forward and the train
+forward, NHWC.
 
-Counterpart of instaorder_tpu/models/resnet.py (`init` and `apply` with
-train=False). The eval forward is the f32 oracle that calibration runs
+Counterpart of instaorder_tpu/models/resnet.py: `init`; `apply` is its
+`apply` with train=False (logits only), `apply_train` its `apply` with
+train=True ((out, new_stats)); both share `_block_apply`. The eval
+forward is the f32 oracle that calibration runs
 (models/quantize.calibrate_folded_resnet works on its folded form).
 Parameter and statistics trees carry the same keys as the JAX pytrees.
 """
@@ -115,36 +118,80 @@ def _vmask(x, valid_hw):
                                                    device=x.device))
 
 
-def _block_apply(p, s, x, block, stride, groups, valid_hw=None):
-    """valid_hw: the (vh, vw) valid region of x for padded-bucket eval
-    (see `apply`); x is zero beyond it. The input of the second 3x3 conv
-    (the bottleneck's conv2, the basic block's conv2) and the block
-    output are masked, as in the JAX package."""
+def _block_apply(p, s, x, block, stride, groups, valid_hw=None,
+                 train=False):
+    """One residual block; returns (out, new_stats). train: batch
+    statistics and updated running ones (core/nn.batch_norm); else the
+    running statistics, returned as given. valid_hw: the (vh, vw) valid
+    region of x for padded-bucket eval (see `apply`); x is zero beyond
+    it. The input of the second 3x3 conv (the bottleneck's conv2, the
+    basic block's conv2) and the block output are masked, as in the JAX
+    package."""
     relu = torch.relu
+    new_s = {}
+
+    def bn(name, y):
+        y, new_s[name] = cnn.batch_norm(p[name], s[name], y, train)
+        return y
+
     identity = x
     out_hw = (None if valid_hw is None
               else (valid_hw[0] // stride, valid_hw[1] // stride))
     if block == 'bottleneck':
-        out = relu(cnn.batch_norm_eval(p['bn1'], s['bn1'],
-                                       cnn.conv2d(p['conv1'], x)))
-        out = relu(cnn.batch_norm_eval(
-            p['bn2'], s['bn2'],
-            cnn.conv2d(p['conv2'], _vmask(out, valid_hw), stride=stride,
-                       padding=1, groups=groups)))
-        out = cnn.batch_norm_eval(p['bn3'], s['bn3'],
-                                  cnn.conv2d(p['conv3'], out))
+        out = relu(bn('bn1', cnn.conv2d(p['conv1'], x)))
+        out = relu(bn('bn2', cnn.conv2d(p['conv2'], _vmask(out, valid_hw),
+                                        stride=stride, padding=1,
+                                        groups=groups)))
+        out = bn('bn3', cnn.conv2d(p['conv3'], out))
     else:
-        out = relu(cnn.batch_norm_eval(
-            p['bn1'], s['bn1'],
-            cnn.conv2d(p['conv1'], x, stride=stride, padding=1)))
-        out = cnn.batch_norm_eval(
-            p['bn2'], s['bn2'],
-            cnn.conv2d(p['conv2'], _vmask(out, out_hw), padding=1))
+        out = relu(bn('bn1', cnn.conv2d(p['conv1'], x, stride=stride,
+                                        padding=1)))
+        out = bn('bn2', cnn.conv2d(p['conv2'], _vmask(out, out_hw),
+                                   padding=1))
     if 'down_conv' in p:
-        identity = cnn.batch_norm_eval(
-            p['down_bn'], s['down_bn'],
-            cnn.conv2d(p['down_conv'], x, stride=stride))
-    return _vmask(relu(out + identity), out_hw)
+        identity = bn('down_bn', cnn.conv2d(p['down_conv'], x,
+                                            stride=stride))
+    return _vmask(relu(out + identity), out_hw), new_s
+
+
+def _forward(params, stats, cfg, x, train, valid_hw):
+    """(logits or (occ, depth), new_stats); see `apply`, `apply_train`."""
+    new_stats = {}
+    vhw = None
+    if valid_hw is not None:
+        vh, vw = int(valid_hw[0]), int(valid_hw[1])
+        assert vh % 32 == 0 and vw % 32 == 0, valid_hw
+    out = cnn.conv2d(params['conv1'], x, stride=2, padding=3)
+    out, new_stats['bn1'] = cnn.batch_norm(params['bn1'], stats['bn1'], out,
+                                           train)
+    out = torch.relu(out)
+    if valid_hw is not None:
+        # post-relu values are >= 0, so zeroed pad rows cannot win the
+        # max-pool over a valid window
+        out = _vmask(out, (vh // 2, vw // 2))
+        vhw = (vh // 4, vw // 4)
+    out = _vmask(cnn.max_pool(out, 3, 2, 1), vhw)
+    for li in range(4):
+        name = f'layer{li + 1}'
+        stage_new = []
+        for bi, (bp, bs) in enumerate(zip(params[name], stats[name])):
+            stride = 2 if (li > 0 and bi == 0) else 1
+            out, bns = _block_apply(bp, bs, out, cfg['block'], stride,
+                                    cfg['groups'], valid_hw=vhw,
+                                    train=train)
+            stage_new.append(bns)
+            if vhw is not None:
+                vhw = (vhw[0] // stride, vhw[1] // stride)
+        new_stats[name] = stage_new
+    if vhw is None:
+        pooled = cnn.avg_pool_global(out)
+    else:
+        pooled = (out.float().sum(dim=(1, 2)) / float(vhw[0] * vhw[1])
+                  ).to(out.dtype)
+    if cfg['dual_head']:
+        return (cnn.linear(params['fc_occ'], pooled),
+                cnn.linear(params['fc_depth'], pooled)), new_stats
+    return cnn.linear(params['fc'], pooled), new_stats
 
 
 def apply(params, stats, cfg, x, valid_hw=None):
@@ -157,32 +204,13 @@ def apply(params, stats, cfg, x, valid_hw=None):
     re-zeroed after the stem relu, after the max-pool (whose pad row taps
     the last valid row), before every 3x3 conv and on every block
     output, and the global pool averages the valid region only."""
-    vhw = None
-    if valid_hw is not None:
-        vh, vw = int(valid_hw[0]), int(valid_hw[1])
-        assert vh % 32 == 0 and vw % 32 == 0, valid_hw
-    out = cnn.conv2d(params['conv1'], x, stride=2, padding=3)
-    out = torch.relu(cnn.batch_norm_eval(params['bn1'], stats['bn1'], out))
-    if valid_hw is not None:
-        # post-relu values are >= 0, so zeroed pad rows cannot win the
-        # max-pool over a valid window
-        out = _vmask(out, (vh // 2, vw // 2))
-        vhw = (vh // 4, vw // 4)
-    out = _vmask(cnn.max_pool(out, 3, 2, 1), vhw)
-    for li in range(4):
-        name = f'layer{li + 1}'
-        for bi, (bp, bs) in enumerate(zip(params[name], stats[name])):
-            stride = 2 if (li > 0 and bi == 0) else 1
-            out = _block_apply(bp, bs, out, cfg['block'], stride,
-                               cfg['groups'], valid_hw=vhw)
-            if vhw is not None:
-                vhw = (vhw[0] // stride, vhw[1] // stride)
-    if vhw is None:
-        pooled = cnn.avg_pool_global(out)
-    else:
-        pooled = (out.float().sum(dim=(1, 2)) / float(vhw[0] * vhw[1])
-                  ).to(out.dtype)
-    if cfg['dual_head']:
-        return (cnn.linear(params['fc_occ'], pooled),
-                cnn.linear(params['fc_depth'], pooled))
-    return cnn.linear(params['fc'], pooled)
+    return _forward(params, stats, cfg, x, False, valid_hw)[0]
+
+
+def apply_train(params, stats, cfg, x):
+    """Train-mode forward (the JAX package's `apply(..., train=True)`):
+    every BatchNorm normalises with its batch statistics. x: (N, H, W,
+    C) -> (logits or an (occ, depth) tuple, new_stats), new_stats the
+    running statistics updated as core/nn.batch_norm updates them, in a
+    new tree (`stats` is not written)."""
+    return _forward(params, stats, cfg, x, True, None)

@@ -177,7 +177,10 @@ def test_port_imports_without_jax():
     for m in ('ops.bottleneck_bf16_kernels', 'ops.stem_kernels',
               'ops.int8_kernels',
               'ops.prep_kernels', 'models.folding', 'models.quantize',
-              'serving', 'bench', 'trace'):
+              'serving', 'bench', 'trace', 'train.trainer', 'train.step',
+              'train.algos', 'train.optim', 'losses', 'core.schedule',
+              'data.datasets', 'data.loader', 'data.sampler',
+              'cli.train'):
         assert 'instaorder_tpu_torch.' + m in mods, m
     code = ('import sys; sys.modules["jax"] = None; '
             'sys.modules["instaorder_tpu"] = None; import importlib\n'
