@@ -85,7 +85,8 @@ Phases (any failed check raises and the script exits nonzero):
   6. training (train/trainer.py, JAX's trainer.py counterpart) on the
      same InstaOrder fixture, every step autograd over cuDNN f32 (TF32
      off; JAX's training reaches no Pallas kernel, so no kernel launches
-     here, checked): InstaOrderNet_o at its YAML's settings (TRAIN_CONFIGS:
+     here, checked): InstaOrderNet_o at its config.yaml's settings
+     (experiments/InstaOrder/, read by cli/config.load_config:
      ResNet-50, 256^2 patches, batch 32, SGD lr 1e-3, wd 1e-4, fused
      siamese) through Trainer(device=None).train() for 4 steps, a
      checkpoint at 4, a new Trainer resuming it (start_iter 4, params
@@ -97,9 +98,11 @@ Phases (any failed check raises and the script exits nonzero):
      the CPU (the card following the CPU run's ReLU branch, the sign
      disagreements counted): loss within 1e-5 relative, each leaf's
      update within 1e-3 of its max |update on the CPU|, the new
-     statistics within 1e-5; the device step ms on a fixed batch
-     (median of 10 after 3), the Trainer's loader-fed batch and data
-     ms, pairs/s and peak memory, for _o at 256^2 and _od at 384^2;
+     statistics within 1e-5; for _o at 256^2 and _od at 384^2, the
+     Trainer's loader-fed batch and data ms over a steady window (20
+     steps after 10) and its loader's ms a batch alone (10 after 2; _o
+     also with process workers), the device step ms on a fixed batch
+     (median of 10 after 3), pairs/s and peak memory;
   7. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
      f32 row's share of its 3xTF32 bound (495 TF32 TFLOP/s, three
      products a MAC, two for an int8 A: the row's bound_ms) and of the
@@ -1868,94 +1871,46 @@ def phase_tester(torch, dev, card, wrappers):
 
 
 # ---- training (train/trainer.py, JAX's trainer.py counterpart) ---------------
-# The experiment YAMLs' training settings, written out because PyYAML may
-# be missing where this runs; tests/test_torch_trainer.py holds each value
-# against cli/config.load_config of the file (all but TRAIN_PATH_KEYS,
-# which point at the fixture here)
-TRAIN_PATH_KEYS = ('train_image_root', 'train_annot_file', 'val_image_root',
-                   'val_annot_file')
-_SCHED = {'lr_steps': [32000, 48000], 'lr_mults': [0.1, 0.1],
-          'weight_decay': 0.0001, 'optim': 'SGD', 'warmup_lr': [],
-          'warmup_steps': [], 'backbone_arch': 'resnet50_cls',
-          'use_rgb': True}
-_AUG = {'flip': True, 'shift': [-0.2, 0.2], 'scale': [0.8, 1.2]}
-_DATA = {'dataset': 'InstaOrder', 'enlarge_box': 3.0, 'base_aug': _AUG,
-         'load_rgb': True, 'batch_size': 32, 'batch_size_val': 32}
-_OCC = dict(_DATA, trainval_dataset='SupOcclusionOrderDataset',
-            input_size=256, patch_or_image='patch', use_category=False,
-            remove_occ_bidirec=0)
-_TRAINER = {'val_freq': 2000, 'val_iter': 10, 'print_freq': 100,
-            'save_freq': 2000, 'loss_record': ['loss']}
-TRAIN_CONFIGS = {
-    'InstaOrderNet_o': {
-        'model': dict(_SCHED, algo='InstaOrderNet_o', total_iter=86000,
-                      lr=0.001, backbone_param={'in_channels': 5,
-                                                'num_classes': 2}),
-        'data': dict(_OCC, workers=4),
-        'trainer': dict(_TRAINER, initial_val=True, tensorboard=True,
-                        exp_name='InstaOrderNet_o')},
-    'OrderNet': {
-        'model': dict(_SCHED, algo='OrderNet', total_iter=60000, lr=0.001,
-                      backbone_param={'in_channels': 5, 'num_classes': 3}),
-        'data': dict(_OCC, workers=0, extend_bidirec=0),
-        'trainer': dict(_TRAINER, initial_val=True, tensorboard=True,
-                        exp_name='OrderNet')},
-    'OrderNet_ext': {
-        'model': dict(_SCHED, algo='OrderNet', total_iter=60000, lr=0.001,
-                      backbone_param={'in_channels': 5, 'num_classes': 4}),
-        'data': dict(_OCC, workers=4, extend_bidirec=1),
-        'trainer': dict(_TRAINER, initial_val=True, tensorboard=True,
-                        exp_name='OrderNet_ext')},
-    'InstaOrderNet_d': {
-        'model': dict(_SCHED, algo='InstaOrderNet_d', total_iter=60000,
-                      lr=0.0001, overlap_weight=0.1, distinct_weight=0.9,
-                      backbone_param={'in_channels': 5, 'num_classes': 3}),
-        'data': dict(_DATA, trainval_dataset='SupDepthOrderDataset',
-                     input_size=384, patch_or_image='resize',
-                     use_category=False, remove_depth_overlap=0,
-                     workers=4),
-        'trainer': dict(_TRAINER, initial_val=False,
-                        exp_name='InstaOrderNet_d')},
-    'InstaOrderNet_od': {
-        'model': dict(_SCHED, algo='InstaOrderNet_od', total_iter=60000,
-                      lr=0.0001, overlap_weight=0.1, distinct_weight=0.9,
-                      backbone_param={'in_channels': 5,
-                                      'num_classes': [2, 3]}),
-        'data': dict(_DATA, trainval_dataset='SupDepthOccOrderDataset',
-                     input_size=384, patch_or_image='resize',
-                     remove_occ_bidirec=0, remove_depth_overlap=0,
-                     workers=8),
-        'trainer': dict(_TRAINER, initial_val=True,
-                        exp_name='InstaOrderNet_od')},
-}
+# the nets of experiments/InstaOrder/ that the port trains (each at its
+# config.yaml's settings)
+TRAIN_NETS = ('InstaOrderNet_o', 'OrderNet', 'OrderNet_ext',
+              'InstaOrderNet_d', 'InstaOrderNet_od')
 # the card-vs-CPU step: pairs, and the bars (against the CPU's f64 step)
 XDEV_PAIRS = 4
 XDEV_LOSS_BAR = 1e-5        # relative
 XDEV_UPDATE_BAR = 1e-3      # of each leaf's max |update on the CPU|
-XDEV_STATS_BAR = 1e-4       # of each leaf's max |stat on the CPU|; the
-#                             card's f32 measured 9.5e-6 (layer4 var)
+XDEV_STATS_BAR = 1e-5       # of each leaf's max |stat on the CPU|
 TIMING_WARMUP, TIMING_REPS = 3, 10
+# the loader-fed window: steps after a warm-up (the first batch waits for
+# the whole prefetch), the logs read every LOADER_WARMUP steps; and the
+# loader alone: batches after a warm-up (with no consumer beside it, its
+# prefetch queue stays empty after the first batch)
+LOADER_WARMUP, LOADER_WINDOW = 10, 20
+ALONE_WARMUP, ALONE_WINDOW = 2, 10
 
 
-def train_args(name, fixture, total_iter, **trainer):
-    """A training configuration namespace (cli/config.load_config's
-    shape): TRAIN_CONFIGS[name] on the fixture, total_iter and the
-    trainer keys replaced, telemetry off (tensorboardX may be missing
-    where this runs), seed 0. The occlusion datasets iterate images, and
-    the fixture has TESTER_IMAGES of them: their validation batch is cut
-    to that, so that validate() sees a batch (a depth dataset iterates
-    the 15 pairs of each image)."""
-    import types
+def train_args(name, fixture, total_iter, data=None, **trainer):
+    """cli/config.load_config of experiments/InstaOrder/<name>/config.yaml
+    with the annotation and image paths on the fixture, total_iter, the
+    `data` and trainer keys replaced, telemetry and the initial
+    validation off (tensorboardX may be missing where this runs), seed
+    0. The occlusion datasets iterate images, and the fixture has
+    TESTER_IMAGES of them: their validation batch is cut to that, so
+    that validate() sees a batch (a depth dataset iterates the 15 pairs
+    of each image)."""
+    import os
+    from instaorder_tpu_torch.cli.config import load_config
     insta, img = fixture
-    cfg = TRAIN_CONFIGS[name]
-    a = types.SimpleNamespace()
-    a.model = dict(cfg['model'], total_iter=total_iter)
-    a.data = dict(cfg['data'], train_annot_file=insta, val_annot_file=insta,
-                  train_image_root=img, val_image_root=img)
+    a = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 'experiments', 'InstaOrder', name,
+                                 'config.yaml'))
+    a.model = dict(a.model, total_iter=total_iter)
+    a.data = dict(a.data, train_annot_file=insta, val_annot_file=insta,
+                  train_image_root=img, val_image_root=img, **(data or {}))
     if a.data['trainval_dataset'] == 'SupOcclusionOrderDataset':
         a.data['batch_size_val'] = min(a.data['batch_size_val'],
                                        TESTER_IMAGES)
-    a.trainer = dict(cfg['trainer'], tensorboard=False, wandb=False,
+    a.trainer = dict(a.trainer, tensorboard=False, wandb=False,
                      initial_val=False, **trainer)
     a.seed = 0
     return a
@@ -1986,16 +1941,16 @@ def on_branch(torch, masks, flips):
     return real, relu
 
 
-def train_step_on(torch, T, ST, CV, net, cfg, name, params, stats, batch,
+def train_step_on(torch, T, ST, CV, net, cfg, m, params, stats, batch,
                   dev, masks=None, dtype=None):
-    """One SGD step of `name`'s loss on `dev` from numpy params/stats and
+    """One SGD step of the loss of model settings `m` (a configuration's
+    `model` section) on `dev` from numpy params/stats and
     a numpy batch, in f32 (dtype None) or in `dtype` (params, stats and
     the batch's float fields cast). masks None: record the ReLU masks of
     the forward into a new list (returned); else follow them. Returns
     (loss, new params, new stats (numpy), masks, flips)."""
     from instaorder_tpu_torch.core.nn import tree_map
     from instaorder_tpu_torch.train import algos, optim
-    m = TRAIN_CONFIGS[name]['model']
     loss_fn = algos.make_loss(m['algo'], net, cfg, m)
     opt = optim.make_optimizer('SGD', weight_decay=m['weight_decay'])
     step = ST.build_train_step(loss_fn, opt)
@@ -2079,8 +2034,8 @@ def phase_train_xdev(torch, T, ST, CV, get_backbone, fixture, dev, card):
         batch = collate([ds.sample(i % len(ds), sample_rng(0, i))
                          for i in range(XDEV_PAIRS)])
         run = lambda d, masks=None, dtype=None: train_step_on(  # noqa: E731
-            torch, T, ST, CV, net, cfg, name, params, stats, batch, d,
-            masks, dtype)
+            torch, T, ST, CV, net, cfg, args.model, params, stats, batch,
+            d, masks, dtype)
         l32, p32, s32, masks, _ = run(cpu)
         l64, p64, s64, _, _ = run(cpu, masks, torch.float64)
         lg, pg, sg, _, flips = run(dev, masks)
@@ -2132,6 +2087,53 @@ def time_train_step(torch, T, t, batch):
             torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
+def time_loader_fed(T, name, fixture, out_dir, data=None):
+    """The loader-fed Trainer over a steady window, and its loader alone.
+
+    A Trainer of `name` at its YAML's settings (the `data` keys
+    replaced) trains LOADER_WARMUP + LOADER_WINDOW steps, its logs read
+    (the card synchronised) every LOADER_WARMUP steps; its own meters,
+    btime and dtime, are reset and unwindowed as the loader hands over
+    the first batch after the warm-up. A print_freq read lands in the
+    next step's data time, so the window's batch times sum to its wall
+    time. Then a fresh pass of the same loader, with nothing beside it:
+    ms a batch over ALONE_WINDOW batches after ALONE_WARMUP. Returns
+    (batch ms, data ms, loader-alone ms, the Trainer, a batch)."""
+    args = train_args(name, fixture, LOADER_WARMUP + LOADER_WINDOW, data,
+                      print_freq=LOADER_WARMUP, val_iter=1)
+    t = T.Trainer(args, out_dir=out_dir)
+    quiet_logger(t)
+    make = t._make_loader
+
+    def windowed(phase):
+        loader = make(phase)
+        if phase != 'train':
+            return loader
+
+        def batches():
+            for i, b in enumerate(loader):
+                if i == LOADER_WARMUP:
+                    for m in (t.btime, t.dtime):
+                        m.length = 0
+                        m.reset()
+                yield b
+        return batches()
+    t._make_loader = windowed
+    t.train()
+    check(t.curr_step == LOADER_WARMUP + LOADER_WINDOW and
+          t.btime.count == LOADER_WINDOW == t.dtime.count,
+          f'{name}: a loader-fed window of {LOADER_WINDOW} steps')
+    it = iter(make('train'))
+    for _ in range(ALONE_WARMUP):
+        next(it)
+    t0 = time.perf_counter()
+    for _ in range(ALONE_WINDOW):
+        batch = next(it)
+    alone = (time.perf_counter() - t0) / ALONE_WINDOW * 1e3
+    it.close()
+    return t.btime.avg * 1e3, t.dtime.avg * 1e3, alone, t, batch
+
+
 def phase_train(torch, dev, card, wrappers):
     """Training on the card (module docstring, phase 6). Returns {run:
     numbers}."""
@@ -2177,7 +2179,6 @@ def phase_train(torch, dev, card, wrappers):
         val = t2.validate()
         check(t2.curr_step == 6 and np.isfinite(val['loss']),
               f'resumed to 6 and validate() is finite ({val})')
-        numbers['o loader-fed'] = (t2.btime.avg * 1e3, t2.dtime.avg * 1e3)
         targs = tester_args(TESTER_CONFIGS['InstaOrder/InstaOrderNet_o'],
                             root, {'InstaOrder': fixture}, '', 'all',
                             f'{root}/o2/checkpoints/ckpt_iter_6.ckpt')
@@ -2190,13 +2191,11 @@ def phase_train(torch, dev, card, wrappers):
               f'{t2.args.data["batch_size"]}): 4 steps, checkpoint, '
               f'resume, 6 steps, validate loss '
               f'{val["loss"]:.4f}, Tester {res}')
-        batch_o = next(iter(t2._make_loader('train')))
-        numbers['o step'] = time_train_step(torch, T, t2, batch_o)
         del t, t2, tester
 
         # every ported algorithm at its own settings: 3 finite steps that
         # move the params
-        for name in TRAIN_CONFIGS:
+        for name in TRAIN_NETS:
             ta = T.Trainer(train_args(name, fixture, 3, print_freq=1,
                                       val_iter=1), out_dir=f'{root}/{name}')
             quiet_logger(ta)
@@ -2220,32 +2219,48 @@ def phase_train(torch, dev, card, wrappers):
                   f'{len(before)})')
             print(f'train {name} ({ta.args.data["input_size"]}^2, '
                   f'{ta.args.data["patch_or_image"]}): losses {losses}')
-            if name == 'InstaOrderNet_od':
-                numbers['od loader-fed'] = (ta.btime.avg * 1e3,
-                                            ta.dtime.avg * 1e3)
-                batch_od = next(iter(ta._make_loader('train')))
-                numbers['od step'] = time_train_step(torch, T, ta, batch_od)
             del ta
 
         phase_train_xdev(torch, T, ST, CV, get_backbone, fixture, dev, card)
+
+        # the numbers: the loader-fed Trainer over a steady window and its
+        # loader alone (_o also with process workers), and the device step
+        # on a fixed batch, for _o at 256^2 and _od at 384^2
+        for run, name, data in (
+                ('o', 'InstaOrderNet_o', None),
+                ('o process', 'InstaOrderNet_o', {'loader_mode': 'process'}),
+                ('od', 'InstaOrderNet_od', None)):
+            bt, dt, alone, ta, batch = time_loader_fed(
+                T, name, fixture, f'{root}/{run}', data)
+            d = ta.args.data
+            numbers[run] = {'size': d['input_size'], 'batch': d['batch_size'],
+                            'workers': d['workers'],
+                            'mode': d.get('loader_mode', 'thread'),
+                            'batch_ms': bt, 'data_ms': dt, 'alone_ms': alone}
+            if data is None:
+                ms, peak = time_train_step(torch, T, ta, batch)
+                numbers[run].update(step_ms=ms, peak_gib=peak)
+            del ta
     torch.cuda.synchronize()
     got = {n: w.launches for n, w in wrappers.items() if w.launches}
     check(not got, f'training launched no hand-written kernel: {got}')
     print(f'train phase: {time.perf_counter() - t0:.1f} s')
-    for run in ('o', 'od'):
-        data = TRAIN_CONFIGS[f'InstaOrderNet_{run}']['data']
-        size, batch = data['input_size'], data['batch_size']
-        ms, peak = numbers[f'{run} step']
-        bt, dt = numbers[f'{run} loader-fed']
-        print(f'train InstaOrderNet_{run} {size}^2 batch {batch} pairs: '
-              f'device step {ms:.2f} ms (median of {TIMING_REPS} after '
-              f'{TIMING_WARMUP}, fixed batch on the card) = '
-              f'{batch / ms * 1e3:.1f} pairs/s, peak memory {peak:.2f} GiB; '
-              f'Trainer loader-fed batch time {bt:.2f} ms = '
-              f'{batch / bt * 1e3:.1f} pairs/s, data time {dt:.2f} ms '
-              f'(host clock, last steps of the run; {card})')
+    for run, n in numbers.items():
+        head = f'train InstaOrderNet_{run.split()[0]} {n["size"]}^2 batch ' \
+               f'{n["batch"]} pairs'
+        if 'step_ms' in n:
+            print(f'{head}: device step {n["step_ms"]:.2f} ms (median of '
+                  f'{TIMING_REPS} after {TIMING_WARMUP}, fixed batch on the '
+                  f'card) = {n["batch"] / n["step_ms"] * 1e3:.1f} pairs/s, '
+                  f'peak memory {n["peak_gib"]:.2f} GiB ({card})')
+        print(f'{head}, {n["workers"]} {n["mode"]} workers: Trainer '
+              f'loader-fed batch time {n["batch_ms"]:.2f} ms = '
+              f'{n["batch"] / n["batch_ms"] * 1e3:.1f} pairs/s, data time '
+              f'{n["data_ms"]:.2f} ms (host clock, steps '
+              f'{LOADER_WARMUP + 1}-{LOADER_WARMUP + LOADER_WINDOW}); the '
+              f'loader alone {n["alone_ms"]:.2f} ms a batch (batches '
+              f'{ALONE_WARMUP + 1}-{ALONE_WARMUP + ALONE_WINDOW}; {card})')
     return numbers
-
 
 
 def main():

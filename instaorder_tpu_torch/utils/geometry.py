@@ -14,14 +14,16 @@ Behavioral parity with the reference's `utils/data_utils.py`
   get_closest_int_multiple_of <- utils/data_utils.py:13-17
 
 These run in the CPU ingest path (annotation -> fixed-shape batch), so
-they stay numpy. The readers use `mask_to_bbox`; the eraser and
-augmentation helpers wait for the training slice. All bboxes are xywh
+they stay numpy. The readers use `mask_to_bbox`; the training
+datasets the eraser and augmentation helpers. All bboxes are xywh
 unless stated otherwise.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..ops.resize import resize_nearest_np
 
 
 def get_closest_int_multiple_of(n: int, m: int) -> int:
@@ -176,14 +178,6 @@ def scissor_mask_force(inst, eraser, min_overlap, max_overlap,
     return erased, shifted
 
 
-def _resize_nearest_np(img, new_w, new_h):
-    """cv2.INTER_NEAREST-compatible numpy resize (sx = floor(dx*scale))."""
-    H, W = img.shape[:2]
-    xs = np.minimum((np.arange(new_w) * (W / new_w)).astype(np.int64), W - 1)
-    ys = np.minimum((np.arange(new_h) * (H / new_h)).astype(np.int64), H - 1)
-    return img[ys][:, xs]
-
-
 def mask_aug(mask, config, rng=None):
     """Flip/scale aug of an uint8 mask (0/128/255), reference :199-213."""
     rng = np.random if rng is None else rng
@@ -195,7 +189,7 @@ def mask_aug(mask, config, rng=None):
     if not (lo == 1 and hi == 1):
         scale = rng.uniform(lo, hi)
         newh, neww = int(scale * oldh), int(scale * oldw)
-        mask = _resize_nearest_np(mask, neww, newh)
+        mask = resize_nearest_np(mask, newh, neww)
         roi = [(neww - oldw) // 2, (newh - oldh) // 2, oldw, oldh]
         mask = crop_padding(mask, roi, pad_value=(0,))
     return mask
@@ -215,8 +209,9 @@ def base_aug(img, scis_img, config, rng=None):
     offx = int(oldw * rng.uniform(config['shift'][0], config['shift'][1]))
     offy = int(oldh * rng.uniform(config['shift'][0], config['shift'][1]))
     roi = [(neww - oldw) // 2 - offx, (newh - oldh) // 2 - offy, oldw, oldh]
-    img = crop_padding(_resize_nearest_np(img, neww, newh), roi, pad_value=(0,))
-    scis_img = crop_padding(_resize_nearest_np(scis_img, neww, newh), roi,
+    img = crop_padding(resize_nearest_np(img, newh, neww), roi,
+                       pad_value=(0,))
+    scis_img = crop_padding(resize_nearest_np(scis_img, newh, neww), roi,
                             pad_value=(0,))
     return img, scis_img
 

@@ -7,8 +7,7 @@ with the JAX package's Trainer.
     step-6 checkpoint;
   * checkpoint interop with JAX's Trainer: test_torch_trainer_interop.py;
   * the failure paths: a non-finite loss, no GPU, the CLI's refusals;
-  * chip_smoke.py's training configurations against the experiment
-    YAMLs.
+  * chip_smoke.py's training configurations: the experiment YAMLs'.
 """
 
 import os
@@ -195,20 +194,23 @@ def test_cli(config_file, tmp_path):
             cli_train.main(['--config', config_file, '--out-dir', out])
 
 
-@pytest.mark.parametrize('name', sorted(CS.TRAIN_CONFIGS))
-def test_chip_smoke_train_configs(name):
-    """chip_smoke.py's training settings are the experiment YAML's
-    (written out there because PyYAML may be missing on the card's
-    machine), apart from the paths and what TRAIN_OVERRIDES says."""
+@pytest.mark.parametrize('name', CS.TRAIN_NETS)
+def test_chip_smoke_train_args(name, fixture):
+    """chip_smoke.py trains each net at its experiment YAML's settings:
+    only the paths (on the fixture), total_iter, the asked keys, the
+    telemetry and initial validation and the occlusion datasets'
+    validation batch differ."""
+    insta, img = fixture['insta'], fixture['img']
     cfg = load_config(str(REPO / 'experiments' / 'InstaOrder' / name /
                           'config.yaml'))
-    mine = CS.TRAIN_CONFIGS[name]
-    for section in ('model', 'data', 'trainer'):
-        want = getattr(cfg, section)
-        for k, v in mine[section].items():
-            if k in CS.TRAIN_PATH_KEYS:
-                continue
-            assert k in want, (section, k)
-            if isinstance(v, tuple):
-                v = list(v)
-            assert v == want[k], (section, k, v, want[k])
+    a = CS.train_args(name, (insta, img), 3, {'loader_mode': 'process'},
+                      print_freq=1)
+    paths = {'train_annot_file': insta, 'val_annot_file': insta,
+             'train_image_root': img, 'val_image_root': img}
+    assert a.model == dict(cfg.model, total_iter=3)
+    assert a.trainer == dict(cfg.trainer, print_freq=1, tensorboard=False,
+                             wandb=False, initial_val=False)
+    want = dict(cfg.data, **paths, loader_mode='process')
+    if want['trainval_dataset'] == 'SupOcclusionOrderDataset':
+        want['batch_size_val'] = CS.TESTER_IMAGES
+    assert a.data == want and a.seed == 0
