@@ -4,8 +4,9 @@ holds each against its plain PyTorch version at the serving paths'
 shapes, drives the serving-d1, parity and serving-d2 megasteps (v2,
 int8c and f32), the per-image order predictors (eval/pipeline), the
 Tester (eval/tester) and the Trainer (train/trainer) at full ResNet-50
-width, and prints one JSON line for the kernels plus a final status
-line.
+width, the MiDaS / InstaDepthNet evaluation (models/midas, eval/disp) at
+full ResNeXt-101 width, and prints one JSON line for the kernels plus a
+final status line.
 
     python3 chip_smoke.py
 
@@ -103,7 +104,34 @@ Phases (any failed check raises and the script exits nonzero):
      steps after 10) and its loader's ms a batch alone (10 after 2; _o
      also with process workers), the device step ms on a fixed batch
      (median of 10 after 3), pairs/s and peak memory;
-  7. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
+  7. the MiDaS family (models/midas.py, eval/disp.py; JAX's path reaches
+     no Pallas kernel, so no kernel launches here, checked): MidasNet,
+     InstaDepthNet_d and _od at full width (ResNeXt-101 32x8d trunk,
+     features 256, ResNet-50 order branches) from seed 0 through
+     get_backbone, out_conv3's bias raised so that the disparity is
+     positive on >= 99% of the pixels (positive_disparity); (a) the
+     disparity at 384^2 (a fixture image as DisparityOrderPredictor
+     prepares it) and of a 352x1216 KITTI crop, and the _d / _od depth
+     and occlusion logits on 4 mask pairs, card against CPU on the same
+     trees within 1e-5 of max |CPU|; (b) Tester.run()'s disparity route
+     on the InstaOrder fixture (midas_pretrained; InstaDepthNet_d with
+     disp_select_method median, pairs all and nbor, and mean), each net
+     loaded through load_model from the port's save_state: the card's
+     first 2 images against the CPU's, matrices equal at every sure cell
+     (region depths more than 1e-3 apart, relative), metrics equal where
+     no cell differs; (c) cli/test_disp on DIW (8 images), KITTI (4,
+     375x1242) and NYU (2) fixtures on the card and on the CPU: WHDR equal
+     where no annotated pair's disparities lie within 1e-4, the dense
+     metrics within 1e-4 relative; (d) the MidasNet forward at 384^2 and
+     352x1216 (median of 10 after 3, CUDA events, and their range; one
+     traced forward's device-busy ms and idle share) and the _od forward
+     at batch 12, peak memory, the head's first conv on its two routes
+     (models/midas._conv_without_cudnn and cuDNN) at 1x192^2, 12x96^2
+     and 12x192x608, the Tester's per-image ms and the prediction's
+     share, eval_diw's and the dense evals' ms an image; (e) no
+     hand-written kernel launched; (f) the phase's seconds. Its configs
+     are the experiment YAMLs' (cli/config.load_config), on fixtures;
+  8. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
      f32 row's share of its 3xTF32 bound (495 TF32 TFLOP/s, three
      products a MAC, two for an int8 A: the row's bound_ms) and of the
      f32 peak, the f32 stem rows' share of their design's floor (the
@@ -1609,7 +1637,9 @@ def record_tester(t):
     def prepare_model():
         prepare()
         pred = t.predictor
-        if pred is None:
+        # a DisparityOrderPredictor has neither: it orders by region
+        # depths (record_region_depths), not by pair outputs
+        if not hasattr(pred, 'infer_occ_depth_order'):
             return
         wrap(pred, 'infer_occ_depth_order', done(('occ', 'depth')), mark)
         name = ('pair_outputs' if hasattr(pred, 'pair_outputs')
@@ -2263,6 +2293,520 @@ def phase_train(torch, dev, card, wrappers):
     return numbers
 
 
+# ---- the MiDaS family (models/midas.py, eval/disp.py) ------------------------
+# the InstaDepthNet order heads at their config's batch (batch_size 12)
+MIDAS_OD_BATCH = 12
+# mask pairs of the card-vs-CPU forward of _d / _od
+MIDAS_PAIRS = 4
+# the bar of a card forward against the CPU's, of max |CPU output|
+MIDAS_BAR = 1e-5
+# the share of positive disparity pixels below which out_conv3's bias is
+# raised (positive_disparity)
+POSITIVE_SHARE = 0.99
+# a region-depth comparison is sure when the two depths are more than
+# this apart, relative; a DIW point pair when its two disparities are
+DEPTH_SURE = 1e-3
+DIW_SURE = 1e-4
+DENSE_BAR = 1e-4            # the 8 dense metrics, card vs CPU, relative
+DIW_IMAGES, KITTI_IMAGES, NYU_IMAGES = 8, 4, 2
+# the Tester images whose matrices the CPU's are held against
+MIDAS_CPU_IMAGES = 2
+# the head's first conv (out_conv1) at the maps that chose its route
+# (models/midas._conv_without_cudnn): (batch, height, width); 1x192^2 is
+# a 384^2 input's, 12x192x608 a KITTI batch's
+HEAD_CONV_SHAPES = ((1, 192, 192), (12, 96, 96), (12, 192, 608))
+# (run name, config, disp_select_method, pairs) of the Tester's
+# disparity route
+DISP_RUNS = [
+    ('midas_pretrained', 'InstaOrder/midas_pretrained', '', 'all'),
+    ('InstaDepthNet_d median', 'InstaOrder/InstaDepthNet_d', 'median',
+     'all'),
+    ('InstaDepthNet_d median nbor', 'InstaOrder/InstaDepthNet_d', 'median',
+     'nbor'),
+    ('InstaDepthNet_d mean', 'InstaOrder/InstaDepthNet_d', 'mean', 'all'),
+]
+
+
+def median_ms(torch, fn, warmup=TIMING_WARMUP, reps=TIMING_REPS):
+    """Median device ms of fn() (CUDA events around each call) over reps
+    calls after warmup."""
+    import numpy as np
+    return float(np.median(event_ms(torch, fn, warmup, reps)))
+
+
+def event_ms(torch, fn, warmup=TIMING_WARMUP, reps=TIMING_REPS):
+    """The ms of each of reps calls of fn() after warmup, CUDA events
+    around each call."""
+    times = []
+    for i in range(warmup + reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(a.elapsed_time(b))
+    return times
+
+
+def midas_image(torch, fixture_image, dev):
+    """The DisparityOrderPredictor's input of one fixture image: cubic to
+    384^2, rounded, ImageNet-normalised; (1, 384, 384, 3) on dev."""
+    import numpy as np
+    from instaorder_tpu_torch.ops.pairs import _normalize
+    from instaorder_tpu_torch.ops.resize import resize
+    img = torch.as_tensor(np.asarray(fixture_image, np.float32), device=dev)
+    rgb = resize(img.permute(2, 0, 1), 384, 384, 'cubic').permute(1, 2, 0)
+    return _normalize(torch.clamp(torch.round(rgb), 0, 255))[None]
+
+
+def positive_disparity(torch, M, p, s, cfg, xs):
+    """Raise out_conv3's bias of p (in place) so that the disparity of
+    each input of xs is positive on at least POSITIVE_SHARE of its
+    pixels (the shift puts each one's 0.2% quantile above zero). The head
+    ends in ReLUs: a random net's disparity is 0 on much of the image,
+    where every region depth is 1e6 and every pair is "equal", which
+    would leave the card-vs-CPU checks vacuous (as centre_heads does for
+    the order heads). Returns (the least share before, after, the
+    shift)."""
+    def shares():
+        with torch.no_grad():
+            return [M.apply_disp(p, s, dict(cfg, non_negative=False), x)
+                    for x in xs]
+    pre = shares()
+    before = min(float((v > 0).float().mean()) for v in pre)
+    shift = 0.0
+    if before < POSITIVE_SHARE:
+        shift = max(float(-torch.quantile(v.reshape(-1), 0.002) +
+                          0.05 * v.std()) for v in pre)
+        p['out_conv3']['b'] = p['out_conv3']['b'] + shift
+    after = min(float((v > 0).float().mean()) for v in shares())
+    return before, after, shift
+
+
+def worst_rel(got, want):
+    """max |got - want| over max |want| (want on the CPU)."""
+    return float((got.cpu() - want).abs().max() / want.abs().max())
+
+
+def record_region_depths(TD, log):
+    """Wrap eval/decode.region_depths so that each Tester image's record
+    (record_tester's log) gets the region depths of its instances.
+    Returns a function that removes the wrap."""
+    raw = TD.region_depths
+
+    def fn(*a, **kw):
+        out = raw(*a, **kw)
+        log[-1]['depths'] = out.detach().cpu().numpy()
+        return out
+    TD.region_depths = fn
+    return lambda: setattr(TD, 'region_depths', raw)
+
+
+def sure_depth_cells(depths, pairs_matrix, margin=DEPTH_SURE):
+    """(N, N) bool: the cells whose decision the region depths make
+    surely: both finite and more than `margin` apart, relative, or both
+    NaN (a vanished instance: "equal" either way)."""
+    import numpy as np
+    d = np.asarray(depths, np.float64)
+    a, b = d[:, None], d[None, :]
+    nan = np.isnan(a) | np.isnan(b)
+    sure = np.where(nan, np.isnan(a) & np.isnan(b),
+                    np.abs(a - b) > margin * np.maximum(np.abs(a),
+                                                        np.abs(b)))
+    return sure | (pairs_matrix == 0) & (pairs_matrix.T == 0)
+
+
+def compare_disp_runs(name, got, want):
+    """The card's first images against the CPU's: ground truth equal,
+    region-depth NaNs at the same instances, matrices equal at every sure
+    cell (of the CPU's depths). Returns (sure cells, unsure, differing)."""
+    import numpy as np
+    check(len(want) == MIDAS_CPU_IMAGES and len(got) >= len(want),
+          f'{name}: {len(got)} card images against {len(want)}')
+    n_sure = n_unsure = n_diff = 0
+    for k, (g, w) in enumerate(zip(got, want)):
+        for a, b in zip(g['gt_depth'], w['gt_depth']):
+            check(np.array_equal(a, b), f'{name} image {k}: gt equal')
+        check(np.array_equal(np.isnan(g['depths']), np.isnan(w['depths'])),
+              f'{name} image {k}: the same instances vanish')
+        a, b = np.asarray(g['depth']), np.asarray(w['depth'])
+        sure = sure_depth_cells(w['depths'], b)
+        check((a == b)[sure].all(), f'{name} image {k}: matrices equal at '
+              f'every sure cell ({int((a != b)[sure].sum())} differ)')
+        off = ~np.eye(len(a), dtype=bool)
+        n_sure += int((sure & off).sum())
+        n_unsure += int((~sure).sum())
+        n_diff += int((a != b).sum())
+    return n_sure, n_unsure, n_diff
+
+
+def first_metrics(t, recs, n):
+    """The Tester's WHDR metrics over its first n images' records (as its
+    eval_depth_order would give them on n images)."""
+    import collections
+    from instaorder_tpu_torch.eval.metrics import eval_depth_order_whdr
+    acc = collections.defaultdict(list)
+    for r in recs[:n]:
+        for k, v in eval_depth_order_whdr(r['depth'], r['gt_depth']).items():
+            acc[k].append(v[0])
+    return t._finish_whdr(acc)
+
+
+def disp_config(cname):
+    """cli/config.load_config of experiments/<cname>/config.yaml, read by
+    PyYAML as cli/test_disp reads it."""
+    import os
+    from instaorder_tpu_torch.cli.config import load_config
+    return load_config(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), 'experiments', *cname.split('/'), 'config.yaml'))
+
+
+def tester_disp_config(cname):
+    """disp_config(cname) as the {model, data, trainer} dict that
+    tester_args reads."""
+    a = disp_config(cname)
+    return {'model': a.model, 'data': a.data, 'trainer': a.trainer}
+
+
+def disp_config_file(root, cname, ann, img, dataset):
+    """A config file for cli/test_disp: experiments/<cname>/config.yaml
+    with its annotation and image paths on a fixture of `dataset`,
+    base_dir '' and tensorboard off. Returns its path."""
+    import os
+    import yaml
+    raw = disp_config(cname).raw
+    raw = dict(raw, trainer=dict(raw['trainer'], tensorboard=False),
+               data=dict(raw['data'], base_dir='', val_annot_file=ann,
+                         val_image_root=img, dataset=dataset))
+    path = os.path.join(root, f'{dataset}.yaml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def traced_forward(torch, fn, out_dir):
+    """One fn() call (after a warm one) under torch.profiler, CUDA
+    activity: (device-busy ms, the ms from its first device op's start to
+    its last one's end, device ops), from the kernels, memcpys and
+    memsets of its chrome trace; (None, None, 0) where the trace holds
+    none. The busy time is the union of their intervals."""
+    import os
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(out_dir, 'midas_trace.json')
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    spans = sorted((e['ts'], e['ts'] + e['dur'])
+                   for e in trace.get('traceEvents', [])
+                   if e.get('ph') == 'X' and e.get('cat') in
+                   ('kernel', 'gpu_memcpy', 'gpu_memset'))
+    if not spans:
+        return None, None, 0
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3, (end - spans[0][0]) / 1e3, len(spans)
+
+
+def head_conv_routes(torch, M, cnn, p, dev, card, numbers):
+    """The head's first conv (p: out_conv1, features -> 128, 3x3, padding
+    1) on the port's route (M._conv_without_cudnn) and through cuDNN
+    (core/nn.conv2d, TF32 off) at HEAD_CONV_SHAPES: ms of each (median of
+    5 after 2, CUDA events), the port's within MIDAS_BAR of max |cuDNN|."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    for b, h, w in HEAD_CONV_SHAPES:
+        x = torch.randn(b, h, w, p['w'].shape[2], device=dev, generator=g)
+        want = cnn.conv2d(p, x, padding=1)
+        err = worst_rel(M._conv_without_cudnn(p, x), want.cpu())
+        check(err <= MIDAS_BAR, f'head conv {b}x{h}x{w}: the port\'s route '
+              f'within {MIDAS_BAR} of max |cuDNN| ({err:.3g})')
+        port = median_ms(torch, lambda: M._conv_without_cudnn(p, x), 2, 5)
+        cudnn = median_ms(torch, lambda: cnn.conv2d(p, x, padding=1), 2, 5)
+        numbers[f'head conv {b}x{h}x{w}'] = (port, cudnn)
+        print(f'  head conv {b}x{h}x{w}: port route {port:.3f} ms, cuDNN '
+              f'{cudnn:.3f} ms (median of 5 after 2), port within '
+              f'{err:.3g} of max |cuDNN| ({card})')
+        del x, want
+    torch.cuda.empty_cache()
+
+
+def phase_midas_forward(torch, M, nets, cpu, x384, xk, pair_masks, card,
+                        numbers, out_dir):
+    """(a) and the forward timings of (d): each net's outputs on the card
+    against the CPU's on the same trees, one traced MidasNet forward of
+    each shape, and the head conv's two routes."""
+    import numpy as np
+    from instaorder_tpu_torch.core import nn as cnn
+    with torch.no_grad():
+        p, s, cfg = nets['MidasNet']
+        cp, cs, _ = cpu['MidasNet']
+        for what, x in (('384^2', x384), ('352x1216', xk)):
+            got = M.apply_disp(p, s, cfg, x)
+            want = M.apply_disp(cp, cs, cfg, x.cpu())
+            err = worst_rel(got, want)
+            share = float((want > 0).float().mean())
+            check(err <= MIDAS_BAR, f'MidasNet {what}: card within '
+                  f'{MIDAS_BAR} of max |CPU| ({err:.3g})')
+            check(share >= POSITIVE_SHARE, f'MidasNet {what}: positive '
+                  f'disparity on {share:.4f} of the pixels')
+            times = event_ms(torch, lambda: M.apply_disp(p, s, cfg, x))
+            ms = float(np.median(times))
+            numbers[f'MidasNet {what}'] = ms
+            print(f'  MidasNet {what}: disparity card vs CPU {err:.3g} of '
+                  f'max |CPU| (bar {MIDAS_BAR}), {100 * share:.2f}% '
+                  f'positive; forward {ms:.3f} ms (batch 1, median of '
+                  f'{TIMING_REPS} after {TIMING_WARMUP}, range '
+                  f'{min(times):.3f}-{max(times):.3f}; {card})')
+            busy, span, n_ops = traced_forward(
+                torch, lambda: M.apply_disp(p, s, cfg, x), out_dir)
+            if busy is None:
+                print(f'  MidasNet {what} traced: the trace shows no device '
+                      f'time; idle share not measured')
+            else:
+                numbers[f'MidasNet {what} device'] = (busy, span)
+                print(f'  MidasNet {what} traced (torch.profiler): {n_ops} '
+                      f'device ops, busy {busy:.3f} ms of a {span:.3f} ms '
+                      f'device span (idle {100 * (1 - busy / span):.1f}%); '
+                      f'busy against the untraced median: idle '
+                      f'{100 * (1 - busy / ms):.1f}% ({card})')
+        img = x384.expand(MIDAS_PAIRS, -1, -1, -1).contiguous()
+        m1, m2 = pair_masks
+        for name in ('InstaDepthNet_d', 'InstaDepthNet_od'):
+            p, s, cfg = nets[name]
+            cp, cs, _ = cpu[name]
+            got = M.apply(p, s, cfg, img, m1, m2)
+            want = M.apply(cp, cs, cfg, img.cpu(), m1.cpu(), m2.cpu())
+            errs = []
+            for what, g, w in zip(('disparity', 'depth', 'occlusion'), got,
+                                  want):
+                if w is None:
+                    check(g is None, f'{name}: no {what} head')
+                    continue
+                errs.append((what, worst_rel(g, w)))
+                check(errs[-1][1] <= MIDAS_BAR, f'{name} {what}: card within '
+                      f'{MIDAS_BAR} of max |CPU| ({errs[-1][1]:.3g})')
+                check(bool(torch.isfinite(w).all()), f'{name} {what} finite')
+            print(f'  {name} on {MIDAS_PAIRS} mask pairs, card vs CPU of max '
+                  f'|CPU|: ' + ', '.join(f'{w} {e:.3g}' for w, e in errs))
+        p, s, cfg = nets['InstaDepthNet_od']
+        idx = np.arange(MIDAS_OD_BATCH) % MIDAS_PAIRS
+        img = x384.expand(MIDAS_OD_BATCH, -1, -1, -1).contiguous()
+        b1, b2 = m1[idx], m2[idx]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = median_ms(torch, lambda: M.apply(p, s, cfg, img, b1, b2))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        numbers['InstaDepthNet_od batch 12'] = ms
+        numbers['peak GiB'] = peak
+        print(f'  InstaDepthNet_od batch {MIDAS_OD_BATCH} at 384^2 with '
+              f'masks: {ms:.3f} ms ({MIDAS_OD_BATCH / ms * 1e3:.1f} pairs/s)'
+              f', peak memory {peak:.2f} GiB ({card})')
+        head_conv_routes(torch, M, cnn, nets['MidasNet'][0]['out_conv1'],
+                         x384.device, card, numbers)
+
+
+def phase_midas_tester(dev, root, fixture, nets_ck, log, card, numbers):
+    """(b): the Tester's disparity route on the card (every fixture image)
+    and on the CPU (the first MIDAS_CPU_IMAGES)."""
+    import numpy as np
+    from instaorder_tpu_torch.eval import decode as TD
+    from instaorder_tpu_torch.eval.pipeline import DisparityOrderPredictor
+    from instaorder_tpu_torch.eval.tester import Tester
+    for name, cname, select, pairs in DISP_RUNS:
+        cfg = tester_disp_config(cname)
+        args = tester_args(cfg, root, {'InstaOrder': fixture}, '', pairs,
+                           nets_ck[cfg['model']['backbone_arch']])
+        args.disp_select_method = select
+        recs, res = {}, {}
+        for where, d, n in (('card', None, -1),
+                            ('cpu', 'cpu', MIDAS_CPU_IMAGES)):
+            t = Tester(args, logger=log, device=d, n_images=n)
+            recs[where] = record_tester(t)
+            undo = record_region_depths(TD, recs[where])
+            try:
+                res[where] = t.run()
+            finally:
+                undo()
+            check(isinstance(t.predictor, DisparityOrderPredictor) and
+                  t.predictor.device.type == (dev.type if d is None else d),
+                  f'tester {name}: the disparity predictor on {where}')
+            check(t.predictor.select == (select or 'median'),
+                  f'tester {name}: select {select or "median"}')
+            if where == 'card':
+                card_t = t
+        sure, unsure, differ = compare_disp_runs(name, recs['card'],
+                                                 recs['cpu'])
+        first = first_metrics(card_t, recs['card'], MIDAS_CPU_IMAGES)
+        if not differ:
+            check(first == res['cpu'], f'tester {name}: metrics on the first '
+                  f'{MIDAS_CPU_IMAGES} images equal ({first} vs '
+                  f'{res["cpu"]})')
+        check(all(np.isfinite(v) for v in res['card'].values()),
+              f'tester {name}: finite metrics')
+        med = lambda k: float(np.median([r[k] for r in recs['card'][1:]]))
+        numbers[f'tester {name}'] = (med('ms'), med('predict_ms'))
+        print(f'  tester {name}: {res["card"]}; card vs CPU (first '
+              f'{MIDAS_CPU_IMAGES} images): {sure} sure cells equal, '
+              f'{unsure} unsure, {differ} differ; metrics '
+              f'{"equal" if not differ else "not held"}; per image '
+              f'{med("ms"):.3f} ms, {med("predict_ms"):.3f} of it the '
+              f'prediction (host clock, median after one warm-up image; '
+              f'{card})')
+
+
+def phase_midas_disp(torch, root, fixtures, nets_ck, card, numbers):
+    """(c): cli/test_disp on the DIW, KITTI and NYU fixtures, on the card
+    and on the CPU, and eval_diw / eval_dense_depth timed a image on the
+    card."""
+    import contextlib
+    import io
+    from instaorder_tpu_torch.cli import test_disp
+    from instaorder_tpu_torch.data import readers as R
+    from instaorder_tpu_torch.eval import disp as TDISP
+    for name, cname in (('diw', 'DIW/midas_pretrained'),
+                        ('kitti', 'kitti/InstaDepthNet_d'),
+                        ('nyu', 'kitti/InstaDepthNet_d')):
+        ann, img = fixtures[name]
+        # NYU has no config of its own: the kitti one, read as NYU's
+        path = disp_config_file(root, cname, ann, img, name)
+        cfg = disp_config(cname)
+        algo = cfg.model['algo']
+        ck = nets_ck[cfg.model['backbone_arch']]
+        with contextlib.redirect_stdout(io.StringIO()):     # its logs
+            res = {where: test_disp.main(['--config', path, '--load_model',
+                                          ck, '--device', where])
+                   for where in ('cuda', 'cpu')}
+        n = {'diw': DIW_IMAGES, 'kitti': KITTI_IMAGES, 'nyu': NYU_IMAGES}
+        check(res['cuda']['n'] == res['cpu']['n'] == n[name],
+              f'{name}: every image evaluated ({res})')
+        fwd = TDISP.make_disp_forward(algo, ck)
+        cls = {'diw': R.DIWReader, 'kitti': R.KITTIReader,
+               'nyu': R.NYUReader}[name]
+        reader = cls(ann, img, cfg.data['data_mean'], cfg.data['data_std'])
+        if name == 'diw':
+            close = 0
+            for i in range(len(reader)):
+                orig, chw, (a, b, _), _ = reader[i]
+                d = TDISP._upsample_half_pixel_np(
+                    TDISP._host(fwd(chw.transpose(1, 2, 0)[None]))[0],
+                    orig.shape[0], orig.shape[1])
+                da, db = d[a[0], a[1]], d[b[0], b[1]]
+                close += abs(da - db) <= DIW_SURE * max(abs(da), abs(db))
+            if not close:
+                check(res['cuda'] == res['cpu'], f'diw: WHDR equal {res}')
+            run = lambda: TDISP.eval_diw(fwd, reader, log=lambda *a: None)
+            verdict = ('equal' if not close else
+                       f'not held ({close} near-tied pairs)')
+        else:
+            for k, v in res['cpu'].items():
+                check(abs(res['cuda'][k] - v) <= DENSE_BAR * abs(v),
+                      f'{name} {k}: card within {DENSE_BAR} of the CPU '
+                      f'({res["cuda"][k]} vs {v})')
+            run = lambda: TDISP.eval_dense_depth(fwd, reader, name,
+                                                 log=lambda *a: None)
+            verdict = f'within {DENSE_BAR}'
+        run()                   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        ms = (time.perf_counter() - t0) * 1e3 / n[name]
+        numbers[f'{name} per image'] = ms
+        print(f'  cli/test_disp {name}: card {res["cuda"]}, CPU '
+              f'{res["cpu"]}: {verdict}; {ms:.3f} ms an image on the card '
+              f'(host clock, the eval loop warm; {card})')
+
+
+def phase_midas(torch, dev, card, wrappers):
+    """The MiDaS family on the card (module docstring, phase 7). Returns
+    {measurement: number}."""
+    import logging
+    import os
+    import tempfile
+    import numpy as np
+    from instaorder_tpu_torch.convert import to_numpy, tree_to
+    from instaorder_tpu_torch.core import checkpoint as CK
+    from instaorder_tpu_torch.data import readers as R
+    from instaorder_tpu_torch.data import synthetic
+    from instaorder_tpu_torch.data.image_io import read_rgb
+    from instaorder_tpu_torch.models import midas as M
+    from instaorder_tpu_torch.models.registry import get_backbone
+    from instaorder_tpu_torch.ops.resize import resize_nearest
+
+    t0 = time.perf_counter()
+    log = logging.getLogger('chip_smoke.midas')
+    log.addHandler(logging.NullHandler())
+    log.propagate = False
+    numbers = {}
+    for w in wrappers.values():
+        w.launches = 0
+    with tempfile.TemporaryDirectory() as root:
+        insta, _, img_root = synthetic.make_instaorder_fixture(
+            root, n_images=TESTER_IMAGES, n_instances=TESTER_INSTANCES,
+            h=HEIGHT, w=WIDTH)
+        fixtures = {
+            'diw': synthetic.make_diw_fixture(root + '/diw', DIW_IMAGES),
+            'kitti': synthetic.make_kitti_fixture(root + '/kitti',
+                                                  KITTI_IMAGES),
+            'nyu': synthetic.make_nyu_fixture(root + '/nyu', NYU_IMAGES)}
+        # the three nets at full width from seed 0, drawn on the CPU
+        cpu = {name: get_backbone(name)['init'](
+            torch.Generator().manual_seed(0), device='cpu')
+            for name in ('MidasNet', 'InstaDepthNet_d', 'InstaDepthNet_od')}
+        reader = R.InstaOrderReader(insta)
+        modal, _, _, _, fn = reader.get_image_instances(0, with_gt=False)[:5]
+        x384 = midas_image(torch, read_rgb(os.path.join(img_root, fn)), dev)
+        norm = disp_config('kitti/InstaDepthNet_d').data
+        kitti = R.KITTIReader(*fixtures['kitti'], norm['data_mean'],
+                              norm['data_std'])
+        xk = torch.as_tensor(kitti[0][0].transpose(1, 2, 0)[None],
+                             dtype=torch.float32, device=dev)
+        mp, ms_, mcfg = cpu['MidasNet']
+        check(all(torch.equal(mp['out_conv3']['w'], p['out_conv3']['w'])
+                  for p, _, _ in cpu.values()),
+              'the three nets share their trunk and decoder (seed 0)')
+        before, after, shift = positive_disparity(
+            torch, M, tree_to(mp, dev), tree_to(ms_, dev), mcfg, (x384, xk))
+        # every variant draws the same trunk and decoder from seed 0: one
+        # shift serves the three
+        for name, (p, s, cfg) in cpu.items():
+            p['out_conv3']['b'] = p['out_conv3']['b'] + shift
+        print(f'  positive disparity pixels (the least of 384^2 and '
+              f'352x1216): {100 * before:.2f}% at init; out_conv3 bias '
+              f'+{shift:.5g} -> {100 * after:.2f}%')
+        nets = {name: (tree_to(p, dev), tree_to(s, dev), cfg)
+                for name, (p, s, cfg) in cpu.items()}
+        pidx = [(0, 1), (0, 2), (1, 2), (2, 3)][:MIDAS_PAIRS]
+        mk = torch.as_tensor(modal.astype(np.float32), device=dev)
+        mk = resize_nearest(mk, 384, 384)
+        pair_masks = (mk[[i for i, _ in pidx]], mk[[j for _, j in pidx]])
+        phase_midas_forward(torch, M, nets, cpu, x384, xk, pair_masks, card,
+                            numbers, root)
+        nets_ck = {name: CK.save_state(f'{root}/{name}', 1, to_numpy(p),
+                                       to_numpy(s))
+                   for name, (p, s, _) in cpu.items()
+                   if name != 'InstaDepthNet_od'}
+        del nets, cpu
+        phase_midas_tester(dev, root, (insta, img_root), nets_ck, log, card,
+                           numbers)
+        phase_midas_disp(torch, root, fixtures, nets_ck, card, numbers)
+    torch.cuda.synchronize()
+    got = {n: w.launches for n, w in wrappers.items() if w.launches}
+    check(not got, f'midas: no kernel launched (JAX\'s MiDaS path reaches '
+          f'none): {got}')
+    numbers['seconds'] = time.perf_counter() - t0
+    print(f'midas phase: {numbers["seconds"]:.1f} s; hand-written kernel '
+          f'launches 0 ({card})')
+    return numbers
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2476,7 +3020,10 @@ def main():
     # ---- 6. training ---------------------------------------------------------
     phase_train(torch, dev, card, wrappers)
 
-    # ---- 7. report ----------------------------------------------------------
+    # ---- 7. the MiDaS family -----------------------------------------------
+    phase_midas(torch, dev, card, wrappers)
+
+    # ---- 8. report ----------------------------------------------------------
     kernels = []
     for name, r in results.items():
         t_bytes = r['bytes'] / H100_BYTES_PER_S * 1e3

@@ -8,8 +8,9 @@ reference's tools/test.py flags, plus --device.
 --device: 'cuda' (the default) runs on the card; 'cpu' runs the plain
 versions (as the tests do). Reading the YAML needs PyYAML; a config with
 `tensorboard: true` needs tensorboardX (see utils/telemetry.py).
---save_pngs and --disp_select_method are not ported yet and raise
-(ROADMAP.md queue 1 item 4).
+--disp_select_method (median | mean) evaluates an InstaDepthNet through
+its disparity, as midas_pretrained is evaluated. --save_pngs is not
+ported yet and raises (ROADMAP.md queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -41,13 +41,18 @@ def kaiming_normal_fan_out(gen, shape):
 
 
 def conv_init(gen, kh, kw, cin, cout, groups=1, init='kaiming_out',
-              gain=0.02):
+              gain=0.02, bias=False):
+    """{'w': HWIO weights[, 'b': zeros (cout,)]}."""
     shape = (kh, kw, cin // groups, cout)
     if init == 'kaiming_out':
-        return {'w': kaiming_normal_fan_out(gen, shape)}
-    if init == 'xavier':
-        return {'w': xavier_normal(gen, shape, gain)}
-    raise ValueError(init)
+        p = {'w': kaiming_normal_fan_out(gen, shape)}
+    elif init == 'xavier':
+        p = {'w': xavier_normal(gen, shape, gain)}
+    else:
+        raise ValueError(init)
+    if bias:
+        p['b'] = torch.zeros((cout,))
+    return p
 
 
 def linear_init(gen, cin, cout, init='torch_default', gain=0.02):

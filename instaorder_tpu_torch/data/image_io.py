@@ -7,11 +7,16 @@ RGBA and palette) with zlib and numpy, all five row filters, and
 returns what PIL's `.convert('RGB')` gives: alpha dropped, gray and
 palette expanded. Every other file (JPEG, 16-bit or interlaced PNG, ...)
 goes through PIL, imported at call time, so a machine without PIL still
-reads PNG. `write_png` writes RGB or gray with filter 0.
+reads PNG. `read_depth_png` reads a depth map as the JAX package's
+`cv2.imread(name, -1) / 256` gives it (the KITTI convention,
+instaorder_tpu/eval/disp.py:88-92): 8- and 16-bit gray PNG decode here,
+anything else through cv2 at call time. `write_png` writes RGB or gray
+(uint8, or uint16 as 16-bit gray) with filter 0.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -90,9 +95,8 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def _decode_png(data: bytes):
-    """-> (H, W, 3) uint8, or None for a PNG this decoder does not cover
-    (bit depth other than 8, interlaced)."""
+def _png_parts(data: bytes):
+    """-> (IHDR fields, palette or None, the joined IDAT bytes)."""
     header = palette = None
     idat = []
     for kind, body in _chunks(data):
@@ -104,11 +108,17 @@ def _decode_png(data: bytes):
             idat.append(body)
     if header is None:
         raise ValueError('PNG without IHDR')
-    w, h, depth, ctype, _, _, interlace = header
+    return header, palette, b''.join(idat)
+
+
+def _decode_png(data: bytes):
+    """-> (H, W, 3) uint8, or None for a PNG this decoder does not cover
+    (bit depth other than 8, interlaced)."""
+    (w, h, depth, ctype, _, _, interlace), palette, idat = _png_parts(data)
     if depth != 8 or interlace != 0 or ctype not in _CHANNELS:
         return None
     ch = _CHANNELS[ctype]
-    pix = _unfilter(zlib.decompress(b''.join(idat)), h, w * ch, ch)
+    pix = _unfilter(zlib.decompress(idat), h, w * ch, ch)
     pix = pix.reshape(h, w, ch)
     if ctype == 3:
         if palette is None:
@@ -138,28 +148,59 @@ def read_rgb(path) -> np.ndarray:
         return np.array(im.convert('RGB'))
 
 
+def read_depth_png(path):
+    """(H, W) float32 depth of a depth-map file, as the JAX package's
+    `cv2.imread(path, -1).astype(np.float32) / 256` gives it (uint16 / 256
+    for KITTI's 16-bit PNGs), or None where the file does not exist (as
+    cv2.imread gives None)."""
+    if not os.path.exists(path):
+        return None
+    with open(path, 'rb') as f:
+        data = f.read()
+    raw = None
+    if data.startswith(_SIGNATURE):
+        (w, h, depth, ctype, _, _, interlace), _, idat = _png_parts(data)
+        if ctype == 0 and depth in (8, 16) and interlace == 0:
+            nb = depth // 8
+            pix = _unfilter(zlib.decompress(idat), h, w * nb, nb)
+            raw = pix.view('>u2' if nb == 2 else np.uint8).reshape(h, w)
+    if raw is None:
+        try:
+            import cv2
+        except ImportError as e:
+            raise ImportError(
+                f'image_io.read_depth_png: {path} is not an 8- or 16-bit '
+                'gray non-interlaced PNG, and reading it needs cv2') from e
+        raw = cv2.imread(path, -1)
+        if raw is None:
+            return None
+    return raw.astype(np.float32) / 256.0
+
+
 def _chunk(kind: bytes, body: bytes) -> bytes:
     return (struct.pack('>I', len(body)) + kind + body
             + struct.pack('>I', zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
 def write_png(path, arr) -> None:
-    """Write an (H, W, 3) RGB or (H, W) gray uint8 array as a PNG (every
-    row filter 0, zlib level 6)."""
-    a = np.ascontiguousarray(arr, dtype=np.uint8)
+    """Write an (H, W, 3) RGB or (H, W) gray uint8 array, or an (H, W)
+    uint16 array as 16-bit gray, as a PNG (every row filter 0, zlib level
+    6)."""
+    depth = 16 if np.asarray(arr).dtype == np.uint16 else 8
+    a = np.ascontiguousarray(arr, dtype='>u2' if depth == 16 else np.uint8)
     if a.ndim == 2:
         ctype = 0
-    elif a.ndim == 3 and a.shape[2] == 3:
+    elif a.ndim == 3 and a.shape[2] == 3 and depth == 8:
         ctype = 2
     else:
-        raise ValueError(f'write_png takes (H, W) or (H, W, 3), got '
-                         f'{a.shape}')
+        raise ValueError(f'write_png takes (H, W) or (H, W, 3) uint8 or '
+                         f'(H, W) uint16, got {a.shape} {a.dtype}')
     h, w = a.shape[:2]
-    rows = a.reshape(h, -1)
+    rows = a.view(np.uint8).reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
     with open(path, 'wb') as f:
         f.write(_SIGNATURE)
-        f.write(_chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, ctype,
+        f.write(_chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, depth, ctype,
                                             0, 0, 0)))
         f.write(_chunk(b'IDAT', zlib.compress(raw.tobytes(), 6)))
         f.write(_chunk(b'IEND', b''))

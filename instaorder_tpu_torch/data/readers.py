@@ -7,8 +7,14 @@ Capability parity with the reference's `datasets/reader.py`:
   COCOAReader                         <- reader.py:209-291
   KINSLVISReader                      <- reader.py:460-539
 
-MapillaryReader, KITTIReader, NYUReader and DIWReader (the disparity
-eval and training readers) are not ported yet (ROADMAP.md queue 1).
+  KITTIReader / NYUReader / DIWReader <- reader.py:69-206 (the dense
+                                         disparity eval, eval/disp.py)
+
+MapillaryReader (a training reader) is not ported yet (ROADMAP.md queue
+1). The disparity readers read images with `image_io.read_rgb` (PNG
+without PIL; other formats through PIL at call time) and resize to 384^2
+with `ops/resize.resize_linear_u8`, equal to cv2.INTER_LINEAR on every
+value.
 
 Masks decode through the port's data/rle.py (pycocotools-compatible);
 order strings ("i<j", "i<j & j<i", "i=j", "1-2,...") parse into the
@@ -21,12 +27,15 @@ reference's matrix conventions:
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 
 import numpy as np
 
 from . import rle
+from .image_io import read_rgb
+from ..ops.resize import resize_linear_u8
 from ..utils.geometry import mask_to_bbox
 
 
@@ -344,3 +353,90 @@ READERS = {
     'KINS': lambda fn: KINSLVISReader('KINS', fn),
     'LVIS': lambda fn: KINSLVISReader('LVIS', fn),
 }
+
+
+# ---------------------------------------------------------------------------
+# dense-depth eval readers (KITTI / NYU / DIW)
+# ---------------------------------------------------------------------------
+
+def _normalize_chw(image, mean, std):
+    """(H, W, 3) uint8 -> (3, H, W) normalised; float64 when mean / std
+    are Python lists, as the JAX package's (the YAMLs' data_mean)."""
+    x = image.transpose(2, 0, 1).astype(np.float32) / 255.0
+    return ((x - np.asarray(mean)[:, None, None])
+            / np.asarray(std)[:, None, None])
+
+
+class KITTIReader:
+    """Eval only: bottom-centre crop to 352x1216 + normalise
+    (reader.py:69-96). Yields (image CHW, image path, depth path)."""
+
+    def __init__(self, annot_file, image_root, data_mean, data_std):
+        with open(annot_file) as f:
+            self.filenames = f.readlines()
+        self.image_root = image_root
+        self.mean, self.std = data_mean, data_std
+
+    def __len__(self):
+        return len(self.filenames)
+
+    def __getitem__(self, idx):
+        parts = self.filenames[idx].split()
+        img_name = f"{self.image_root}/rawdata/{parts[0]}"
+        image = read_rgb(img_name)
+        top = int(image.shape[0] - 352)
+        left = int((image.shape[1] - 1216) / 2)
+        image = image[top:top + 352, left:left + 1216, :]
+        image = _normalize_chw(image, self.mean, self.std)
+        depth_name = f"{self.image_root}/data_depth_annotated/{parts[1]}"
+        return image, img_name, depth_name
+
+
+class NYUReader:
+    """Eval only: the image resized to 384x384 (cv2 INTER_LINEAR) +
+    normalise. Yields (image CHW, image path, depth path)."""
+
+    def __init__(self, annot_file, image_root, data_mean, data_std):
+        with open(annot_file) as f:
+            self.filenames = f.readlines()
+        self.image_root = image_root
+        self.mean, self.std = data_mean, data_std
+
+    def __len__(self):
+        return len(self.filenames)
+
+    def __getitem__(self, idx):
+        parts = self.filenames[idx].split()
+        img_name = f"{self.image_root}/{parts[0]}"
+        image = resize_linear_u8(read_rgb(img_name), 384, 384)
+        image = _normalize_chw(image, self.mean, self.std)
+        return image, img_name, f"{self.image_root}/{parts[1]}"
+
+
+class DIWReader:
+    """DIW csv of (image, A point, B point, ordinal) rows
+    (reader.py:126-206). Yields (raw img, normalised 384x384 CHW,
+    [[Ay, Ax], [By, Bx], ordinal], filename); the csv's 1-indexed points
+    come out 0-indexed."""
+
+    def __init__(self, annot_file, image_root, data_mean, data_std):
+        with open(annot_file) as f:
+            self.rows = list(csv.reader(f))
+        self.image_root = image_root
+        self.mean, self.std = data_mean, data_std
+        self.n = len(self.rows) // 2
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, idx):
+        fn = self.rows[2 * idx][0]
+        fn = f"{self.image_root}/{fn[1:]}" if fn.startswith('.') else fn
+        img = read_rgb(fn)
+        image = resize_linear_u8(img, 384, 384)
+        image = _normalize_chw(image, self.mean, self.std)
+        line = self.rows[2 * idx + 1]
+        a_yx = [int(line[0]) - 1, int(line[1]) - 1]
+        b_yx = [int(line[2]) - 1, int(line[3]) - 1]
+        ordinal = line[4][0]
+        return img, image, [a_yx, b_yx, ordinal], fn

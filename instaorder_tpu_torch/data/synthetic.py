@@ -1,5 +1,6 @@
 """Synthetic-annotation fixtures (counterpart of
-instaorder_tpu/data/synthetic.py: the three fixture writers).
+instaorder_tpu/data/synthetic.py: the three fixture writers), and the
+dense-disparity eval's (DIW, KITTI, NYU; the JAX package has none).
 
 Generates a tiny, fully-valid InstaOrder/COCO dataset on disk — images,
 `instances_val2017.json`, `InstaOrder_val2017.json` with coherent
@@ -27,6 +28,9 @@ import numpy as np
 
 from . import rle
 from .image_io import write_png
+
+# KITTI's image size (the eval crops 352x1216 from its bottom centre)
+KITTI_HW = (375, 1242)
 from ..utils.geometry import mask_to_bbox
 
 
@@ -217,3 +221,110 @@ def make_kins_fixture(root, n_images=3, n_instances=3, h=80, w=120, seed=2,
                    'categories': [{'id': i, 'name': f'c{i}'}
                                   for i in range(1, 5)]}, f)
     return path, img_dir
+
+
+# ---------------------------------------------------------------------------
+# dense-disparity eval fixtures (data/readers.DIWReader / KITTIReader /
+# NYUReader): the tests' and chip_smoke's data, not a user feature
+# ---------------------------------------------------------------------------
+
+def _scene_rgb(rng, h, w):
+    """A uint8 RGB image: a vertical ramp per channel under noise, so a
+    resize has structure to interpolate."""
+    ramp = np.linspace(0, 200, h, dtype=np.float32)[:, None, None]
+    tint = rng.uniform(0.3, 1.0, 3).astype(np.float32)
+    noise = rng.randint(0, 56, (h, w, 3)).astype(np.float32)
+    return np.clip(ramp * tint + noise, 0, 255).astype(np.uint8)
+
+
+def _depth_png(rng, h, w, max_depth, keep):
+    """A uint16 (depth * 256) map: a ground plane whose depth grows toward
+    a horizon at 40% of the height (nothing above it), up to max_depth
+    metres, with a share `keep` of its pixels kept (0 = no measurement,
+    as in KITTI's projected LiDAR)."""
+    y = np.arange(h, dtype=np.float64)[:, None] - 0.4 * h
+    depth = np.where(y > 0, np.minimum(max_depth, 0.02 * h * max_depth
+                                       / np.maximum(y, 1e-9)), 0.0)
+    depth = np.broadcast_to(depth, (h, w)) * rng.uniform(0.9, 1.1, (h, w))
+    depth = np.where(rng.rand(h, w) < keep, depth, 0.0)
+    return np.clip(np.rint(depth * 256.0), 0, 65535).astype(np.uint16)
+
+
+def make_diw_fixture(root, n_images=8, seed=3):
+    """DIW: PNG images of mixed sizes under {root}/DIW_test/ and
+    {root}/DIW_Annotations/DIW_test.csv in the reference's two-row layout
+    (a row with the image path, './DIW_test/<name>', relative to the
+    image root; then 'yA,xA,yB,xB,ordinal,width,height', 1-indexed, the
+    ordinal '<' when A is closer, else '>', drawn at random). Returns
+    (csv path, image root)."""
+    rng = np.random.RandomState(seed)
+    sizes = ((240, 320), (480, 640), (300, 400), (500, 333))
+    os.makedirs(os.path.join(root, 'DIW_test'), exist_ok=True)
+    os.makedirs(os.path.join(root, 'DIW_Annotations'), exist_ok=True)
+    rows = []
+    for i in range(n_images):
+        h, w = sizes[i % len(sizes)]
+        name = f'DIW_test/diw_{i:04d}.png'
+        write_png(os.path.join(root, name), _scene_rgb(rng, h, w))
+        ya, yb = rng.choice(np.arange(1, h + 1), 2, replace=False)
+        xa, xb = rng.randint(1, w + 1, 2)
+        rows.append(f'./{name}\n')
+        rows.append(f'{ya},{xa},{yb},{xb},{"<>"[rng.randint(2)]},'
+                    f'{w},{h}\n')
+    path = os.path.join(root, 'DIW_Annotations', 'DIW_test.csv')
+    with open(path, 'w') as f:
+        f.writelines(rows)
+    return path, root
+
+
+def make_kitti_fixture(root, n_images=4, seed=4, keep=0.3):
+    """KITTI (Eigen split layout): RGB PNGs of KITTI_HW under
+    {root}/rawdata/, 16-bit depth PNGs (depth * 256, 0 where LiDAR has
+    no return: a share 1 - keep of the pixels) under
+    {root}/data_depth_annotated/, and the file list
+    {root}/train_test_inputs/eigen_test_files_with_gt.txt ('image depth
+    focal' lines). Returns (file list path, image root)."""
+    rng = np.random.RandomState(seed)
+    h, w = KITTI_HW
+    drive = '2011_09_26_drive_0002_sync'
+    lines = []
+    for i in range(n_images):
+        img = f'2011_09_26/{drive}/image_02/data/{i:010d}.png'
+        dep = f'{drive}/proj_depth/groundtruth/image_02/{i:010d}.png'
+        for sub, rel, arr in (
+                ('rawdata', img, _scene_rgb(rng, h, w)),
+                ('data_depth_annotated', dep,
+                 _depth_png(rng, h, w, 80.0, keep))):
+            full = os.path.join(root, sub, rel)
+            os.makedirs(os.path.dirname(full), exist_ok=True)
+            write_png(full, arr)
+        lines.append(f'{img} {dep} 721.5377\n')
+    path = os.path.join(root, 'train_test_inputs',
+                        'eigen_test_files_with_gt.txt')
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, 'w') as f:
+        f.writelines(lines)
+    return path, root
+
+
+def make_nyu_fixture(root, n_images=2, h=480, w=640, seed=5):
+    """NYU: RGB PNGs of h x w and 16-bit depth PNGs (depth * 256, up to
+    10 m, 5% holes) under {root}/nyu/, and the file list
+    {root}/nyu_test_files_with_gt.txt ('image depth focal' lines). The
+    depth maps are 384x384, the size NYUReader resizes the image to:
+    eval_dense_depth compares the prediction with the ground truth
+    pixel for pixel, with no resize (as the JAX package's). Returns
+    (file list path, image root)."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, 'nyu'), exist_ok=True)
+    lines = []
+    for i in range(n_images):
+        img, dep = f'nyu/rgb_{i:05d}.png', f'nyu/depth_{i:05d}.png'
+        write_png(os.path.join(root, img), _scene_rgb(rng, h, w))
+        write_png(os.path.join(root, dep),
+                  _depth_png(rng, 384, 384, 10.0, 0.95))
+        lines.append(f'{img} {dep} 518.8579\n')
+    path = os.path.join(root, 'nyu_test_files_with_gt.txt')
+    with open(path, 'w') as f:
+        f.writelines(lines)
+    return path, root

@@ -1,6 +1,6 @@
 """Batched order decoding (counterpart of instaorder_tpu/eval/decode.py:
 `occ_pair_probs`, `decode_occ`, `decode_ordernet`, `decode_depth`,
-`occ_matrix`, `depth_matrix`).
+`occ_matrix`, `depth_matrix`, `midas_region_depth_order`).
 
   occlusion (InstaOrderNet_o): prob_i_over_j = (sig(out1)[:, 1] +
   sig(out2)[:, 0]) / 2 > 0.5 — out1 column 0 is "j over i", column 1 is
@@ -8,6 +8,10 @@
   OrderNet: argmax of the averaged (p_1over2, p_2over1, p_none, p_both),
   p_both = 0 for the 3-class head.
   depth: argmax of the averaged (closer, farther, equal).
+
+  disparity (the MiDaS baseline): each instance's region depth, the
+  median or mean of the per-pixel depth inside its mask clipped to its
+  own [q05, q95] (`region_depths`); 0 closer / 1 farther / 2 equal.
 
 Matrices: occ[i, j] = 1 iff i over j; depth closer -> [i,j]=1, [j,i]=0,
 farther -> [i,j]=0, [j,i]=1, equal -> both 2. Cells of padded or
@@ -95,3 +99,34 @@ def depth_matrix(n, pair_idx, argidx, valid):
     flat.scatter_reduce_(0, pair_idx[:, 1] * n + pair_idx[:, 0],
                          torch.where(valid, ji, zero).to(torch.int32), 'amax')
     return m
+
+
+def region_depths(pixel_depth, masks, method='median'):
+    """(N,) region depth of each mask over an (H, W) per-pixel depth
+    (reference inference.py:79-104): the depths inside the mask (NaN
+    outside) clipped to their own [q05, q95], then their median or mean.
+    masks: (N, H, W) bool. Quantiles interpolate linearly, like
+    jnp.nanquantile (the median is nanquantile 0.5, the mean of the two
+    middle values; torch.nanmedian would take the lower). An empty mask
+    gives NaN, which compares unequal to everything (the pair comes out
+    equal). One row is one instance: torch.nanquantile takes at most
+    2^24 elements along the reduced dim."""
+    n = masks.shape[0]
+    nan = torch.full((), float('nan'), dtype=pixel_depth.dtype,
+                     device=pixel_depth.device)
+    vals = torch.where(masks, pixel_depth, nan).reshape(n, -1)
+    lo = torch.nanquantile(vals, 0.05, dim=1, keepdim=True)
+    hi = torch.nanquantile(vals, 0.95, dim=1, keepdim=True)
+    c = torch.minimum(torch.maximum(vals, lo), hi)     # NaN stays NaN
+    if method == 'median':
+        return torch.nanquantile(c, 0.5, dim=1)
+    return torch.nanmean(c, dim=1)
+
+
+def midas_region_depth_order(pixel_depth, mask1, mask2, method='median'):
+    """Pretrained-MiDaS baseline decode of one pair: 0 when mask1's region
+    is closer, 1 farther, 2 equal (or either region empty).
+    pixel_depth: (H, W); masks: (H, W), nonzero inside."""
+    d1, d2 = region_depths(pixel_depth, torch.stack(
+        [mask1.bool(), mask2.bool()]), method)
+    return torch.where(d1 < d2, 0, torch.where(d1 > d2, 1, 2))

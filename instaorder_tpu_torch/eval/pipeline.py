@@ -1,6 +1,7 @@
 """Batched per-image order inference (counterpart of
 instaorder_tpu/eval/pipeline.py: `OrderPredictor` and its factories
-`make_folded_predictor`, `make_int8_predictor`, `make_v2_predictor`).
+`make_folded_predictor`, `make_int8_predictor`, `make_v2_predictor`, and
+`DisparityOrderPredictor`).
 
 One image plus its N instance masks in, the (N, N) occlusion and/or
 depth matrices out:
@@ -16,8 +17,10 @@ the next HW_BUCKET_STEP multiple, as in the JAX package, so the card sees
 a handful of shapes and the padded pairs (index (0, 0)) are computed and
 then dropped through `valid`. There is no jit: PyTorch runs eagerly.
 
-The JAX package's `mesh=` pair sharding and `DisparityOrderPredictor`
-are not ported (ROADMAP.md queue 1).
+`DisparityOrderPredictor` orders the instances by a disparity map
+(MiDaS): one forward an image, the region depths on the device, the pair
+loop on the host. The JAX package's `mesh=` pair sharding is not ported
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -386,3 +389,65 @@ def make_v2_predictor(params, stats, cfg, method, calib_batches,
 
     return OrderPredictor(apply_fn, cfg, qp, stats, method,
                           siamese_fn=siamese_fn, device=dev, **kw)
+
+
+class DisparityOrderPredictor:
+    """Depth order from a disparity map (reference net_forward_midas_
+    pretrained and the disp_select_method branch of infer_order_sup_depth,
+    inference.py:79-104, 582-605): the disparity once per image, each
+    instance's region depth (decode.region_depths of 1 / (disp + 1e-6)
+    inside its mask), then every pair compared.
+
+    forward: a (1, sz, sz, 3) normalised NHWC f32 tensor on `device` ->
+    (1, h', w') disparity tensor (eval/disp.make_disp_forward). device:
+    None is the card (device.resolve_device), 'cpu' the CPU. It has no
+    infer_occ_depth_order, as the JAX package's has none.
+    """
+
+    def __init__(self, forward, select_method='median', input_size=384,
+                 device=None):
+        assert select_method in ('mean', 'median')
+        self.forward = forward
+        self.select = select_method
+        self.input_size = input_size
+        self.device = resolve_device(device)
+
+    def infer_depth_order(self, image, masks, bboxes=None, pairs='all',
+                          return_disp=False):
+        """image (H, W, 3) in [0, 255], masks (N, H, W) {0, 1} (numpy) ->
+        the (N, N) depth matrix (numpy int). return_disp: also the
+        disparity clipped to its [q05, q95] (numpy; the reference's
+        second return, inference.py:588,601,624). bboxes are unused (the
+        signature of OrderPredictor.infer_depth_order)."""
+        dev, sz = self.device, self.input_size
+        img = torch.as_tensor(np.asarray(image, np.float32), device=dev)
+        rgb = resize(img.permute(2, 0, 1), sz, sz, 'cubic').permute(1, 2, 0)
+        rgb = _normalize(torch.clamp(torch.round(rgb), 0.0, 255.0))
+        with torch.no_grad():
+            disp = self.forward(rgb[None])[0]
+        disp_clipped = None
+        if return_disp:
+            flat = disp.reshape(-1)
+            lo, hi = torch.quantile(flat, 0.05), torch.quantile(flat, 0.95)
+            disp_clipped = torch.clamp(disp, lo, hi).cpu().numpy()
+        m = torch.as_tensor(np.asarray(masks, np.uint8), device=dev)
+        masks_r = resize_nearest(m.float(), disp.shape[0], disp.shape[1])
+        depths = D.region_depths(1.0 / (disp + 1e-6), masks_r > 0.5,
+                                 self.select).cpu().numpy()
+        n = masks.shape[0]
+        order = np.zeros((n, n), int)
+        if pairs == 'nbor' and n > 1:
+            border = bordering_matrix(m).cpu().numpy()
+        for i in range(n):
+            for j in range(i + 1, n):
+                if pairs == 'nbor' and not border[i, j]:
+                    continue
+                if depths[i] < depths[j]:
+                    order[i, j], order[j, i] = 1, 0
+                elif depths[i] > depths[j]:
+                    order[i, j], order[j, i] = 0, 1
+                else:
+                    order[i, j] = order[j, i] = 2
+        if return_disp:
+            return order, disp_clipped
+        return order

@@ -9,13 +9,22 @@ and the heuristic order methods.
 
 The model is the unfolded `resnet.apply` at f32, as in the JAX package:
 on the card that is the cuDNN f32 route with TF32 off
-(`device.resolve_device`), and no hand-written kernel is reached.
-Images are read with `data.image_io.read_rgb` (PNG without PIL).
+(`device.resolve_device`), and no hand-written kernel is reached. The
+disparity route (`midas_pretrained`, or an InstaDepthNet with
+`disp_select_method`) orders by a MiDaS disparity map
+(`pipeline.DisparityOrderPredictor` over `disp.make_disp_forward`, cuDNN
+f32 as well). Images are read with `data.image_io.read_rgb` (PNG without
+PIL).
+
+Where the JAX package's Tester fails, this one raises ValueError: an
+InstaDepthNet through the model route (JAX's OrderPredictor feeds its
+5-channel pair batch to the 3-channel trunk) and the disparity route
+under SupDepthOccOrderDataset (JAX's DisparityOrderPredictor has no
+infer_occ_depth_order).
 
 Not ported yet (ROADMAP.md queue 1 item 4; each raises
-NotImplementedError): the PartialCompletionMask (amodal) method, the
-disparity route (`midas_pretrained`, `disp_select_method`) and the PNG
-dumps (`save_pngs`).
+NotImplementedError): the PartialCompletionMask (amodal) method and the
+PNG dumps (`save_pngs`).
 """
 
 from __future__ import annotations
@@ -121,15 +130,29 @@ class Tester:
         args = self.args
         if self.order_method in H_METHODS:
             return  # heuristics need no model
-        if (args.model['algo'] == 'midas_pretrained' or
+        algo = args.model['algo']
+        if (algo == 'midas_pretrained' or
                 getattr(args, 'disp_select_method', '')):
-            raise NotImplementedError(
-                f'Tester disparity route (midas_pretrained / '
-                f'disp_select_method): {_QUEUE}')
+            if args.data['trainval_dataset'] == 'SupDepthOccOrderDataset':
+                raise ValueError(
+                    f'{algo}: the disparity route orders depth only, and '
+                    'SupDepthOccOrderDataset evaluates occlusion too (the '
+                    "JAX package's DisparityOrderPredictor has no "
+                    'infer_occ_depth_order either); evaluate a '
+                    'SupDepthOrderDataset config')
+            self.predictor = make_disparity_tester_predictor(args,
+                                                             self.device)
+            return
+        if algo in DISP_ONLY_ALGOS:
+            raise ValueError(
+                f'{algo} is evaluated through the disparity route only: '
+                'pass disp_select_method (median or mean) on a '
+                "SupDepthOrderDataset config. The JAX package's model route "
+                'fails for it too (its OrderPredictor feeds the 5-channel '
+                'pair batch to the 3-channel MiDaS trunk)')
         if self.order_method == 'PartialCompletionMask':
             raise NotImplementedError(
                 f'Tester PartialCompletionMask: {_QUEUE}')
-        algo = args.model['algo']
         bb = get_backbone(args.model.get('backbone_arch', algo))
         params, stats, cfg = bb['init'](
             torch.Generator().manual_seed(0), device='cpu',
@@ -317,6 +340,8 @@ class Tester:
 
 
 H_METHODS = ('area', 'yaxis', 'hull')
+# the nets whose order heads the Tester cannot score (see the module doc)
+DISP_ONLY_ALGOS = ('InstaDepthNet_d', 'InstaDepthNet_od')
 
 
 def _print_logger():
@@ -328,3 +353,19 @@ def _print_logger():
         logger.addHandler(h)
         logger.setLevel(logging.INFO)
     return logger
+
+
+def make_disparity_tester_predictor(args, device=None):
+    """The DisparityOrderPredictor of midas_pretrained / InstaDepthNet-with-
+    disp_select_method evaluation, on `device` (None: the card)."""
+    from .disp import make_disp_forward
+    from .pipeline import DisparityOrderPredictor
+    dev = resolve_device(device)
+    return DisparityOrderPredictor(
+        make_disp_forward(args.model['algo'],
+                          getattr(args, 'load_model', None),
+                          features=args.model.get('features', 256),
+                          device=dev),
+        select_method=getattr(args, 'disp_select_method', 'median')
+        or 'median',
+        input_size=args.data['input_size'], device=dev)

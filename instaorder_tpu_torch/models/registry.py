@@ -12,16 +12,19 @@ Each entry returns a dict with:
   apply_train(params, stats, cfg, x) -> (out, new_stats) (the JAX
        package's apply with train=True).
 
-The UNet names (PCNet-M) and MidasNet / InstaDepthNet_d /
-InstaDepthNet_od are registered so that they resolve by name, but their
-networks are not ported yet: get_backbone raises NotImplementedError
-for them (ROADMAP.md queue 1 item 4).
+MidasNet / InstaDepthNet_d / InstaDepthNet_od (models/midas.py) take
+`init(gen, device=None, **kw)` (in_channels and num_classes dropped, as
+in the JAX package) and `apply(params, stats, cfg, img, mask1=None,
+mask2=None)`; they are eval-only (no apply_train: their training is
+not ported). The UNet names (PCNet-M) are registered so that they
+resolve by name, but their network is not ported yet: get_backbone
+raises NotImplementedError for them (ROADMAP.md queue 1 item 4).
 """
 
 from __future__ import annotations
 
 from ..device import resolve_device
-from . import resnet
+from . import midas, resnet
 
 BACKBONES = {}
 
@@ -59,11 +62,22 @@ def _resnet_entry(arch):
     return factory
 
 
+def _midas_entry(variant):
+    def factory():
+        def init(gen, device=None, **kw):
+            kw.pop('in_channels', None)
+            kw.pop('num_classes', None)
+            return midas.init(gen, variant=variant,
+                              device=resolve_device(device), **kw)
+        return {'init': init, 'apply': midas.apply}
+    return factory
+
+
 def _not_ported(name):
     def factory():
         raise NotImplementedError(
             f"backbone '{name}' is not ported to instaorder_tpu_torch yet "
-            '(ROADMAP.md queue 1 item 4: the UNet and MiDaS networks)')
+            '(ROADMAP.md queue 1 item 4: the UNet network)')
     return factory
 
 
@@ -81,5 +95,9 @@ for _name, _arch in [
 ]:
     register(_name)(_resnet_entry(_arch))
 
-for _name in UNET_NAMES + MIDAS_NAMES:
+for _name in UNET_NAMES:
     register(_name)(_not_ported(_name))
+
+# MiDaS family (midas/midas_net.py)
+for _name, _variant in zip(MIDAS_NAMES, midas.VARIANTS):
+    register(_name)(_midas_entry(_variant))

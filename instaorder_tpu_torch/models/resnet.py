@@ -2,8 +2,11 @@
 forward, NHWC.
 
 Counterpart of instaorder_tpu/models/resnet.py: `init`; `apply` is its
-`apply` with train=False (logits only), `apply_train` its `apply` with
-train=True ((out, new_stats)); both share `_block_apply`. The eval
+`apply` with train=False (logits only, or with features=True the dict of
+stage outputs), `apply_train` its `apply` with train=True ((out,
+new_stats)); both share `_block_apply`, and so do `run_stem` and
+`run_stage`, which the MiDaS order branches interleave with the trunk's
+features (models/midas.py). The eval
 forward is the f32 oracle that calibration runs
 (models/quantize.calibrate_folded_resnet works on its folded form).
 Parameter and statistics trees carry the same keys as the JAX pytrees.
@@ -61,11 +64,12 @@ def _block_init(gen, block, cin, planes, stride, groups, base_width, init,
 
 
 def init(gen, arch='resnet50', in_channels=3, num_classes=1000,
-         weight_init='kaiming_out', gain=0.02,
+         weight_init='kaiming_out', gain=0.02, with_head=True,
          layers_override=None, device='cpu'):
     """Build (params, stats, static_cfg). gen: torch.Generator on the
     CPU (weights are drawn there and moved to `device`, so a seed gives
-    the same tree on every device)."""
+    the same tree on every device). with_head=False: no fc (the headless
+    trunks of models/midas.py)."""
     block, layers, groups, base_width = ARCHS[arch]
     if layers_override is not None:
         layers = tuple(layers_override)
@@ -90,12 +94,12 @@ def init(gen, arch='resnet50', in_channels=3, num_classes=1000,
     feat_dim = 512 * exp
     dual = isinstance(num_classes, (list, tuple))
     head_init = weight_init if weight_init == 'xavier' else 'torch_default'
-    if dual:
+    if with_head and dual:
         p['fc_occ'] = cnn.linear_init(gen, feat_dim, num_classes[0],
                                       init=head_init, gain=gain)
         p['fc_depth'] = cnn.linear_init(gen, feat_dim, num_classes[1],
                                         init=head_init, gain=gain)
-    else:
+    elif with_head:
         p['fc'] = cnn.linear_init(gen, feat_dim, num_classes,
                                   init=head_init, gain=gain)
     cfg = {'arch': arch, 'block': block, 'layers': layers, 'groups': groups,
@@ -154,8 +158,10 @@ def _block_apply(p, s, x, block, stride, groups, valid_hw=None,
     return _vmask(relu(out + identity), out_hw), new_s
 
 
-def _forward(params, stats, cfg, x, train, valid_hw):
-    """(logits or (occ, depth), new_stats); see `apply`, `apply_train`."""
+def _forward(params, stats, cfg, x, train, valid_hw, features=False):
+    """(logits or (occ, depth), new_stats); with features=True the dict
+    of stage outputs {stem, layer1..4, pooled} in place of the logits;
+    see `apply`, `apply_train`."""
     new_stats = {}
     vhw = None
     if valid_hw is not None:
@@ -171,6 +177,7 @@ def _forward(params, stats, cfg, x, train, valid_hw):
         out = _vmask(out, (vh // 2, vw // 2))
         vhw = (vh // 4, vw // 4)
     out = _vmask(cnn.max_pool(out, 3, 2, 1), vhw)
+    feats = {'stem': out}
     for li in range(4):
         name = f'layer{li + 1}'
         stage_new = []
@@ -183,20 +190,26 @@ def _forward(params, stats, cfg, x, train, valid_hw):
             if vhw is not None:
                 vhw = (vhw[0] // stride, vhw[1] // stride)
         new_stats[name] = stage_new
+        feats[name] = out
     if vhw is None:
         pooled = cnn.avg_pool_global(out)
     else:
         pooled = (out.float().sum(dim=(1, 2)) / float(vhw[0] * vhw[1])
                   ).to(out.dtype)
+    if features:
+        feats['pooled'] = pooled
+        return feats, new_stats
     if cfg['dual_head']:
         return (cnn.linear(params['fc_occ'], pooled),
                 cnn.linear(params['fc_depth'], pooled)), new_stats
     return cnn.linear(params['fc'], pooled), new_stats
 
 
-def apply(params, stats, cfg, x, valid_hw=None):
+def apply(params, stats, cfg, x, valid_hw=None, features=False):
     """Eval-mode forward. x: (N, H, W, C) -> logits (or an (occ, depth)
-    tuple for dual heads).
+    tuple for dual heads); features=True: the dict of stage outputs
+    {stem, layer1..4, pooled} (NHWC; pooled (N, C)), which a headless
+    tree (init with_head=False) gives as well.
 
     valid_hw: (vh, vw), Python ints, multiples of 32, for padded-bucket
     eval (eval/pipeline.py 'orig' mode): x is zero beyond [:vh, :vw] and
@@ -204,7 +217,7 @@ def apply(params, stats, cfg, x, valid_hw=None):
     re-zeroed after the stem relu, after the max-pool (whose pad row taps
     the last valid row), before every 3x3 conv and on every block
     output, and the global pool averages the valid region only."""
-    return _forward(params, stats, cfg, x, False, valid_hw)[0]
+    return _forward(params, stats, cfg, x, False, valid_hw, features)[0]
 
 
 def apply_train(params, stats, cfg, x):
@@ -214,3 +227,23 @@ def apply_train(params, stats, cfg, x):
     running statistics updated as core/nn.batch_norm updates them, in a
     new tree (`stats` is not written)."""
     return _forward(params, stats, cfg, x, True, None)
+
+
+def run_stage(params, stats, cfg, stage_idx, x):
+    """One residual stage (1-indexed, eval mode) on x -> out. The MiDaS
+    order branches interleave trunk features between stages (reference
+    midas/midas_net.py:91-99, 193-206)."""
+    name = f'layer{stage_idx}'
+    out = x
+    for bi, (bp, bs) in enumerate(zip(params[name], stats[name])):
+        stride = 2 if (stage_idx > 1 and bi == 0) else 1
+        out, _ = _block_apply(bp, bs, out, cfg['block'], stride,
+                              cfg['groups'], train=False)
+    return out
+
+
+def run_stem(params, stats, x):
+    """conv1 + bn + relu + max-pool (eval mode) -> out."""
+    out = cnn.conv2d(params['conv1'], x, stride=2, padding=3)
+    out, _ = cnn.batch_norm(params['bn1'], stats['bn1'], out, False)
+    return cnn.max_pool(torch.relu(out), 3, 2, 1)

@@ -1,6 +1,8 @@
 """Image resize with OpenCV index semantics (counterpart of
 instaorder_tpu/ops/resize.py: `nearest_indices`, `resize_weights_linear`,
-`_cubic_kernel`, `resize_weights_cubic`, `resize_nearest`, `resize`).
+`_cubic_kernel`, `resize_weights_cubic`,
+`resize_weights_linear_align_corners`, `upsample_bilinear_align_corners`,
+`resize_nearest`, `resize`).
 
 Linear and cubic resizes over a fixed (src -> dst) size pair are
 separable linear maps: the row and column interpolation matrices are
@@ -73,6 +75,42 @@ def resize_weights_cubic(src: int, dst: int) -> np.ndarray:
     return W
 
 
+@functools.lru_cache(maxsize=256)
+def resize_weights_linear_align_corners(src: int, dst: int) -> np.ndarray:
+    """(dst, src) bilinear weights with torch's align_corners=True mapping
+    (src = dst * (src - 1) / (dst - 1)); the MiDaS fusion blocks' x2
+    upsample (reference midas/blocks.py:191-193)."""
+    if dst == 1 or src == 1:
+        W = np.zeros((dst, src), np.float32)
+        W[:, 0] = 1.0
+        return W
+    fx = np.arange(dst) * ((src - 1) / (dst - 1))
+    x0 = np.floor(fx).astype(np.int64)
+    t = (fx - x0).astype(np.float32)
+    W = np.zeros((dst, src), dtype=np.float32)
+    rows = np.arange(dst)
+    np.add.at(W, (rows, np.clip(x0, 0, src - 1)), 1.0 - t)
+    np.add.at(W, (rows, np.clip(x0 + 1, 0, src - 1)), t)
+    return W
+
+
+def _separable(x, wy, wx):
+    """Wy @ x @ Wx^T over the trailing two dims of x (two f32 matmuls)."""
+    wy = torch.as_tensor(wy, device=x.device).to(x.dtype)
+    wx = torch.as_tensor(wx, device=x.device).to(x.dtype)
+    out = torch.einsum('Hh,...hw->...Hw', wy, x)
+    return torch.einsum('Ww,...Hw->...HW', wx, out)
+
+
+def upsample_bilinear_align_corners(x, out_h: int, out_w: int):
+    """torch F.interpolate(mode='bilinear', align_corners=True) on the
+    trailing two dims of a (..., H, W) float tensor, as the separable map
+    of `resize_weights_linear_align_corners`."""
+    h, w = x.shape[-2], x.shape[-1]
+    return _separable(x, resize_weights_linear_align_corners(h, out_h),
+                      resize_weights_linear_align_corners(w, out_w))
+
+
 def resize_nearest(img, out_h: int, out_w: int):
     """Nearest resize of the trailing two dims of a (..., H, W) tensor."""
     h, w = img.shape[-2], img.shape[-1]
@@ -94,10 +132,7 @@ def resize(img, out_h: int, out_w: int, method: str = 'linear'):
     make = resize_weights_linear if method == 'linear' \
         else resize_weights_cubic
     dtype = img.dtype if img.is_floating_point() else torch.float32
-    wy = torch.as_tensor(make(h, out_h), device=img.device).to(dtype)
-    wx = torch.as_tensor(make(w, out_w), device=img.device).to(dtype)
-    out = torch.einsum('Hh,...hw->...Hw', wy, img.to(dtype))
-    return torch.einsum('Ww,...Hw->...HW', wx, out)
+    return _separable(img.to(dtype), make(h, out_h), make(w, out_w))
 
 
 # ---------------------------------------------------------------------------
@@ -108,20 +143,23 @@ def resize(img, out_h: int, out_w: int, method: str = 'linear'):
 _COEF_SCALE = 2048          # cv2's INTER_RESIZE_COEF_SCALE (11 bits)
 
 
-def _linear_taps_u8(src: int, dst: int):
+def _linear_taps_u8(src: int, dst: int, clamp_weights: bool = True):
     """cv2.INTER_LINEAR's taps and 11-bit weights for 8-bit images: the
-    source coordinate in f32, clamped at both edges, each weight rounded
-    on its own (so a pair may not sum to 2048)."""
+    source coordinate in f32, each weight rounded on its own (so a pair
+    may not sum to 2048). clamp_weights (cv2's horizontal pass): a tap
+    off either edge moves to the edge with weights (2048, 0). Else (its
+    vertical pass) the weights stay and only the rows clamp, so an edge
+    row gets the rounded pair's sum."""
     fx = ((np.arange(dst) + 0.5) * (src / dst) - 0.5).astype(np.float32)
     x0 = np.floor(fx).astype(np.int64)
     t = fx - x0.astype(np.float32)
-    edge = (x0 < 0) | (x0 >= src - 1)
-    t = np.where(edge, np.float32(0), t)
-    x0 = np.clip(x0, 0, src - 1)
+    if clamp_weights:
+        edge = (x0 < 0) | (x0 >= src - 1)
+        t = np.where(edge, np.float32(0), t)
     one = np.float32(_COEF_SCALE)
     a0 = np.rint((np.float32(1) - t) * one).astype(np.int64)
     a1 = np.rint(t * one).astype(np.int64)
-    return x0, np.minimum(x0 + 1, src - 1), a0, a1
+    return (np.clip(x0, 0, src - 1), np.clip(x0 + 1, 0, src - 1), a0, a1)
 
 
 def resize_linear_u8(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
@@ -131,10 +169,10 @@ def resize_linear_u8(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     rounds as cv2's vector kernel does ((S >> 4) * b >> 16 per tap, then
     (t0 + t1 + 2) >> 2, saturated). A float resize rounded to uint8
     differs from cv2 by one on ~10% of the values; this one agrees with
-    cv2 on every value at the datasets' sizes."""
+    cv2 on every value, upscaling (edge rows) included."""
     h, w = img.shape[:2]
     x0, x1, a0, a1 = _linear_taps_u8(w, out_w)
-    y0, y1, b0, b1 = _linear_taps_u8(h, out_h)
+    y0, y1, b0, b1 = _linear_taps_u8(h, out_h, clamp_weights=False)
     extra = (None,) * (img.ndim - 2)
     a0, a1 = a0[(None, slice(None)) + extra], a1[(None, slice(None)) + extra]
     b0, b1 = b0[(slice(None), None) + extra], b1[(slice(None), None) + extra]

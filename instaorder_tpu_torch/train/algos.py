@@ -24,9 +24,11 @@ the autograd graph, so the gradients reach the f32 master params in
 f32; BatchNorm statistics in f32) and `remat` (the forward recomputed in
 the backward pass, torch.utils.checkpoint without reentrancy).
 
-InstaDepthNet_d / _od and PartialCompletionMask belong to the MiDaS and
-UNet networks, not ported yet: their factories raise
-NotImplementedError (ROADMAP.md queue 1 item 4).
+The training of InstaDepthNet_d / _od (the MiDaS networks: their dorder
+/ smooth / inmask losses and the MiDaS weight ingest) and of
+PartialCompletionMask (the UNet) is not ported yet: their factories
+raise NotImplementedError (ROADMAP.md queue 1 item 4), and so does
+`check_ported`, which the Trainer calls before it builds the net.
 
 Batch convention (NHWC, fixed shapes, tensors on the training device):
   rgb (N,H,W,3) float32 | modal1, modal2 (N,H,W) float32 {0,1}
@@ -198,11 +200,20 @@ def make_insta_order_od(net, cfg, hyper):
     return loss_fn
 
 
+NOT_PORTED = ('InstaDepthNet_d', 'InstaDepthNet_od', 'PartialCompletionMask')
+
+
+def check_ported(algo):
+    if algo in NOT_PORTED:
+        raise NotImplementedError(
+            f"training algo '{algo}' is not ported to instaorder_tpu_torch "
+            'yet (ROADMAP.md queue 1 item 4: MiDaS / InstaDepthNet training '
+            'and the UNet)')
+
+
 def _not_ported(algo):
     def factory(net, cfg, hyper):
-        raise NotImplementedError(
-            f"algo '{algo}' is not ported to instaorder_tpu_torch yet "
-            '(ROADMAP.md queue 1 item 4: the MiDaS and UNet networks)')
+        check_ported(algo)
     return factory
 
 

@@ -38,7 +38,7 @@ from ..data.sampler import (DistributedGivenIterationSampler,
 from ..device import resolve_device
 from ..models.registry import get_backbone
 from ..utils.telemetry import make_summary_logger
-from .algos import make_loss
+from .algos import check_ported, make_loss
 from .optim import make_optimizer
 from .step import build_eval_step, build_train_step
 
@@ -164,6 +164,7 @@ class Trainer:
 
         algo = model_cfg['algo']
         self.algo = algo
+        check_ported(algo)      # before a full-width net is drawn
         seed = getattr(args, 'seed', 131)
         gen = torch.Generator().manual_seed(seed)
         self.net = get_backbone(model_cfg.get('backbone_arch', algo))
@@ -192,7 +193,7 @@ class Trainer:
         """`load_pretrain` (a torch state_dict merged onto the init,
         reference single_stage_model.py:63-64) needs the compat
         converters, not ported yet. `pretrained_weight` only applies to
-        the MiDaS family, which the registry refuses."""
+        the MiDaS family, whose training `check_ported` refuses."""
         lp = model_cfg.get('load_pretrain') or getattr(
             self.args, 'load_pretrain', None)
         if isinstance(lp, str) and lp:

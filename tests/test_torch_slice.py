@@ -180,7 +180,8 @@ def test_port_imports_without_jax():
               'serving', 'bench', 'trace', 'train.trainer', 'train.step',
               'train.algos', 'train.optim', 'losses', 'core.schedule',
               'data.datasets', 'data.loader', 'data.sampler',
-              'cli.train'):
+              'cli.train', 'models.midas', 'eval.disp', 'utils.midas_io',
+              'cli.test_disp'):
         assert 'instaorder_tpu_torch.' + m in mods, m
     code = ('import sys; sys.modules["jax"] = None; '
             'sys.modules["instaorder_tpu"] = None; import importlib\n'

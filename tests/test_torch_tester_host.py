@@ -45,9 +45,12 @@ from instaorder_tpu_torch.data import image_io
 from instaorder_tpu_torch.data import readers as TR
 from instaorder_tpu_torch.data import rle as TRLE
 from instaorder_tpu_torch.data import synthetic as TS
+from instaorder_tpu_torch.eval import disp as TDISP
 from instaorder_tpu_torch.eval import heuristics as TH
 from instaorder_tpu_torch.eval import metrics as TM
+from instaorder_tpu_torch.eval import pipeline as TPL
 from instaorder_tpu_torch.eval import tester as TT
+from instaorder_tpu_torch.models import midas as tmidas
 from instaorder_tpu_torch.models import registry as TREG
 from instaorder_tpu_torch.models import resnet as tresnet
 from instaorder_tpu_torch.utils import geometry as TG
@@ -732,9 +735,12 @@ def test_basic_resnet_matches_jax(arch, layers):
 
 def test_registry_matches_jax():
     assert sorted(TREG.BACKBONES) == sorted(JREG.BACKBONES)
-    for name in list(TREG.UNET_NAMES) + list(TREG.MIDAS_NAMES):
+    for name in TREG.UNET_NAMES:
         with pytest.raises(NotImplementedError, match='queue 1 item 4'):
             TREG.get_backbone(name)
+    # the MiDaS family resolves (tests/test_torch_midas.py holds its trees)
+    for name in TREG.MIDAS_NAMES:
+        assert TREG.get_backbone(name)['apply'] is tmidas.apply
     with pytest.raises(KeyError):
         TREG.get_backbone('resnet9000')
     for name in ('resnet18_cls', 'resnet50_cls'):
@@ -819,12 +825,41 @@ def test_cli_test_matches_jax(tmp_path, monkeypatch, capsys):
     got = tcli.main(argv + ['--device', 'cpu'])
     assert capsys.readouterr().out.strip().splitlines()[-1] == str(got)
     assert str(got) == want
-    for flag in (['--save_pngs', '1'], ['--disp_select_method', 'median']):
-        with pytest.raises(NotImplementedError, match='queue 1 item 4'):
-            tcli.main(argv + ['--device', 'cpu'] + flag)
+    with pytest.raises(NotImplementedError, match='queue 1 item 4'):
+        tcli.main(argv + ['--device', 'cpu', '--save_pngs', '1'])
+    # --disp_select_method runs the disparity route (an InstaDepthNet_d
+    # YAML; a trimmed net in place of the full-width one)
+    monkeypatch.setattr(TDISP, 'make_disp_forward', tiny_disp_forward)
+    raw = yaml.safe_load(open(REPO / 'experiments' / 'InstaOrder' /
+                              'InstaDepthNet_d' / 'config.yaml'))
+    raw['data'].update(base_dir='', val_annot_file=insta,
+                       val_image_root=img, input_size=64)
+    raw['trainer']['tensorboard'] = False
+    cfg_path.write_text(yaml.safe_dump(raw))
+    for method in ('median', 'mean'):
+        got = tcli.main(['--config', str(cfg_path), '--test_num', '2',
+                         '--disp_select_method', method, '--device', 'cpu'])
+        assert sorted(got) == sorted(f'WHDR_{o}_{e}' for o in (
+            'ovlX', 'ovlO', 'ovlOX') for e in ('all', 'eq', 'neq'))
 
 
-def test_tester_unported_routes_raise(tmp_path):
+def tiny_disp_forward(algo, load_model=None, features=256, device=None):
+    """eval/disp.make_disp_forward on a trimmed net (features 8, one block
+    a stage; out_conv3's bias 0.5, so the disparity is positive)."""
+    p, s, cfg = tmidas.init(torch.Generator().manual_seed(0), features=8,
+                            variant=TDISP.ALGO_VARIANTS[algo],
+                            trunk_layers=(1, 1, 1, 1),
+                            branch_layers=(1, 1, 1, 1))
+    p['out_conv3']['b'] += 0.5
+
+    def forward(x):
+        x = torch.as_tensor(x, dtype=torch.float32)
+        with torch.no_grad():
+            return tmidas.apply_disp(p, s, cfg, x)
+    return forward
+
+
+def test_tester_unported_routes_raise(tmp_path, monkeypatch):
     insta, _, img = JS.make_instaorder_fixture(str(tmp_path), n_images=1,
                                                n_instances=2)
 
@@ -843,14 +878,21 @@ def test_tester_unported_routes_raise(tmp_path):
         return a
     with pytest.raises(NotImplementedError, match='queue 1 item 4'):
         TT.Tester(args(save_pngs=1), device='cpu')
-    for kw in ({'order_method': 'PartialCompletionMask'},
-               {'disp_select_method': 'median'}):
-        with pytest.raises(NotImplementedError, match='queue 1 item 4'):
-            TT.Tester(args(**kw), device='cpu').run()
-    a = args()
-    a.model = dict(a.model, algo='midas_pretrained')
     with pytest.raises(NotImplementedError, match='queue 1 item 4'):
-        TT.Tester(a, device='cpu').run()
+        TT.Tester(args(order_method='PartialCompletionMask'),
+                  device='cpu').run()
+    # the disparity route now runs: midas_pretrained, and InstaDepthNet_d
+    # with disp_select_method (a trimmed net; a depth-order config)
+    monkeypatch.setattr(TDISP, 'make_disp_forward', tiny_disp_forward)
+    for algo, kw in (('midas_pretrained', {}),
+                     ('InstaDepthNet_d', {'disp_select_method': 'median'})):
+        a = args(**kw)
+        a.model = dict(a.model, algo=algo, backbone_arch=None)
+        a.data = dict(a.data, trainval_dataset='SupDepthOrderDataset')
+        t = TT.Tester(a, device='cpu')
+        out = t.run()
+        assert isinstance(t.predictor, TPL.DisparityOrderPredictor)
+        assert all(k.startswith('WHDR_') for k in out) and len(out) == 9
 
 
 def test_telemetry_matches_jax(tmp_path):
