@@ -5,8 +5,9 @@ shapes, drives the serving-d1, parity and serving-d2 megasteps (v2,
 int8c and f32), the per-image order predictors (eval/pipeline), the
 Tester (eval/tester) and the Trainer (train/trainer) at full ResNet-50
 width, the MiDaS / InstaDepthNet evaluation (models/midas, eval/disp) at
-full ResNeXt-101 width, and prints one JSON line for the kernels plus a
-final status line.
+full ResNeXt-101 width, PCNet-M (models/unet, eval/amodal, its Tester
+method and training) at full unet2 width, and prints one JSON line for
+the kernels plus a final status line.
 
     python3 chip_smoke.py
 
@@ -131,7 +132,40 @@ Phases (any failed check raises and the script exits nonzero):
      share, eval_diw's and the dense evals' ms an image; (e) no
      hand-written kernel launched; (f) the phase's seconds. Its configs
      are the experiment YAMLs' (cli/config.load_config), on fixtures;
-  8. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
+  8. PCNet-M (models/unet.py, eval/amodal.py, the Tester's
+     PartialCompletionMask method, its training; JAX's path reaches no
+     Pallas kernel, so no kernel launches here, checked), on the phase 5
+     fixtures and the three experiments/*/pcnet_m configs: (a) unet2 at
+     full width from seed 0 (xavier gain sqrt(2), so that every depth
+     reaches the output), its outc moved so that the completion
+     probabilities of the first image's eraser pixels straddle th = 0.1
+     (centre_outc; a random UNet's are ~0.5 everywhere, every patch
+     would complete to all ones), its logits on that image's 30 patches
+     of 256^2 card vs CPU within 1e-5 of max |CPU| and the probabilities
+     within a tenth of the sure margin (1e-4), the shares of eraser
+     pixels above th and within the margin; a unet2res forward at batch
+     2 (1e-5); (b) Tester.run() with PartialCompletionMask on InstaOrder
+     (pairs all and nbor), COCOA and KINS, the net saved with the port's
+     save_state and loaded through load_model, on the card and on the CPU
+     (first 2 images): the same patches, matrices equal at every sure
+     cell (pcnet_sure: a pair whose votes cannot cross with every eraser
+     pixel within the margin flipped), the metrics equal where no cell
+     differs; per-image ms and the prediction's share; (c) the InstaOrder
+     config (unet2, 256^2, batch 32, SGD) through Trainer(device=None)
+     .train(): 4 steps, a checkpoint, a new Trainer resuming it to 6,
+     validate() finite, the Tester on the step-6 checkpoint; COCOA and
+     KINS 3 steps each, finite losses, every leaf moved; (d) one SGD step
+     at full width on 4 patches of the port's dataset, card against the
+     CPU's f64 step, every run on the CPU f32 run's ReLU branch and pool
+     argmaxes (the flips counted: exact ties, near ties, others): loss
+     within 1e-5 relative, each leaf's update within 1e-3 of its max (a
+     conv bias feeding a train-mode BatchNorm, gradient 0, on the tree's
+     max), statistics within 1e-5; the step ms on a fixed batch of 32
+     (median of 10 after 3), patches/s, peak memory, and the Trainer's
+     loader-fed batch and data ms over a steady window (20 steps after
+     10) and its loader alone; (e) no hand-written kernel launched, the
+     phase's seconds;
+  9. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
      f32 row's share of its 3xTF32 bound (495 TF32 TFLOP/s, three
      products a MAC, two for an int8 A: the row's bound_ms) and of the
      f32 peak, the f32 stem rows' share of their design's floor (the
@@ -1919,8 +1953,9 @@ LOADER_WARMUP, LOADER_WINDOW = 10, 20
 ALONE_WARMUP, ALONE_WINDOW = 2, 10
 
 
-def train_args(name, fixture, total_iter, data=None, **trainer):
-    """cli/config.load_config of experiments/InstaOrder/<name>/config.yaml
+def train_args(name, fixture, total_iter, data=None, dataset='InstaOrder',
+               **trainer):
+    """cli/config.load_config of experiments/<dataset>/<name>/config.yaml
     with the annotation and image paths on the fixture, total_iter, the
     `data` and trainer keys replaced, telemetry and the initial
     validation off (tensorboardX may be missing where this runs), seed
@@ -1932,7 +1967,7 @@ def train_args(name, fixture, total_iter, data=None, **trainer):
     from instaorder_tpu_torch.cli.config import load_config
     insta, img = fixture
     a = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                 'experiments', 'InstaOrder', name,
+                                 'experiments', dataset, name,
                                  'config.yaml'))
     a.model = dict(a.model, total_iter=total_iter)
     a.data = dict(a.data, train_annot_file=insta, val_annot_file=insta,
@@ -1972,14 +2007,18 @@ def on_branch(torch, masks, flips):
 
 
 def train_step_on(torch, T, ST, CV, net, cfg, m, params, stats, batch,
-                  dev, masks=None, dtype=None):
+                  dev, branch=None, dtype=None):
     """One SGD step of the loss of model settings `m` (a configuration's
     `model` section) on `dev` from numpy params/stats and
     a numpy batch, in f32 (dtype None) or in `dtype` (params, stats and
-    the batch's float fields cast). masks None: record the ReLU masks of
-    the forward into a new list (returned); else follow them. Returns
-    (loss, new params, new stats (numpy), masks, flips)."""
+    the batch's float fields cast). branch None: record the forward's
+    ReLU masks, the UNet's pool argmaxes and its count of tied pool
+    windows into a new branch (masks, indices, [ties]), returned; else
+    follow them. Returns (loss, new params, new stats (numpy), branch,
+    (ReLU flips, pool argmax flips, of them not exact ties, of them
+    beyond 1e-5; pool_recorder))."""
     from instaorder_tpu_torch.core.nn import tree_map
+    from instaorder_tpu_torch.models import unet as U
     from instaorder_tpu_torch.train import algos, optim
     loss_fn = algos.make_loss(m['algo'], net, cfg, m)
     opt = optim.make_optimizer('SGD', weight_decay=m['weight_decay'])
@@ -1989,32 +2028,54 @@ def train_step_on(torch, T, ST, CV, net, cfg, m, params, stats, batch,
     p = tree_map(cast, CV.tree_to(CV.to_torch(params), dev))
     s = tree_map(cast, CV.tree_to(CV.to_torch(stats), dev))
     xb = {k: cast(v) for k, v in T.batch_to_device(batch, dev).items()}
-    flips = [0]
-    real = torch.relu
-    if masks is None:
-        masks = []
+    relu_flips, pool_flips = [0], [0, 0, 0]
+    real_relu, real_pool = torch.relu, U._max_pool2
+    if branch is None:
+        branch = ([], [], [0])
 
         def relu(x):
-            masks.append((x > 0).cpu())
-            return real(x)
+            branch[0].append((x > 0).cpu())
+            return real_relu(x)
+        pool = pool_recorder(torch, branch[1], ties=branch[2])
     else:
-        _, relu = on_branch(torch, masks, flips)
-    torch.relu = relu
+        _, relu = on_branch(torch, branch[0], relu_flips)
+        pool = pool_recorder(torch, branch[1], pool_flips)
+    torch.relu, U._max_pool2 = relu, pool
     try:
         p, s, _, logs = step(p, s, opt.init(p), xb, m['lr'])
     finally:
-        torch.relu = real
-    return (float(logs['loss']), CV.to_numpy(p), CV.to_numpy(s), masks,
-            flips[0])
+        torch.relu, U._max_pool2 = real_relu, real_pool
+    return (float(logs['loss']), CV.to_numpy(p), CV.to_numpy(s), branch,
+            (relu_flips[0], *pool_flips))
 
 
-def leaf_worst(got, want, base, what):
+def leaf_worst(got, want, base, what, on_tree_max=()):
     """(worst relative error, leaf path) over a tree's leaves: max |got -
     want| over max |want - base| (base None: over max |want|); for
     updates (base given) one f32 spacing of the value is allowed, the
-    rounding of p - lr * buf."""
+    rounding of p - lr * buf. A leaf whose path ends in one of
+    `on_tree_max` is held on the largest such scale of the whole tree
+    instead of its own (a conv bias that feeds a train-mode BatchNorm:
+    its gradient is 0, its update rounding)."""
     import numpy as np
     out = (0.0, '')
+    tree_max = [0.0]
+
+    def scale_of(w, b):
+        w = np.asarray(w, np.float64)
+        return float(np.abs(w if b is None else
+                            w - np.asarray(b, np.float64)).max())
+
+    def walk_max(w, b):
+        if isinstance(w, dict):
+            for k in w:
+                walk_max(w[k], None if b is None else b[k])
+        elif isinstance(w, (list, tuple)):
+            for i in range(len(w)):
+                walk_max(w[i], None if b is None else b[i])
+        else:
+            tree_max[0] = max(tree_max[0], scale_of(w, b))
+    walk_max(want, base)
 
     def walk(g, w, b, path):
         nonlocal out
@@ -2027,11 +2088,11 @@ def leaf_worst(got, want, base, what):
         else:
             g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
             err = np.abs(g - w)
-            if b is None:
-                scale = np.abs(w).max()
-            else:
-                scale = np.abs(w - np.asarray(b, np.float64)).max()
+            scale = scale_of(w, b)
+            if b is not None:
                 err = err - np.spacing(np.abs(w).astype(np.float32))
+            if path.endswith(tuple(on_tree_max)):
+                scale = tree_max[0]
             out = max(out, (float(err.max()) / max(float(scale), 1e-30),
                             path))
     walk(got, want, base, what)
@@ -2063,12 +2124,12 @@ def phase_train_xdev(torch, T, ST, CV, get_backbone, fixture, dev, card):
                                                      args.model['algo'])
         batch = collate([ds.sample(i % len(ds), sample_rng(0, i))
                          for i in range(XDEV_PAIRS)])
-        run = lambda d, masks=None, dtype=None: train_step_on(  # noqa: E731
+        run = lambda d, branch=None, dtype=None: train_step_on(  # noqa: E731
             torch, T, ST, CV, net, cfg, args.model, params, stats, batch,
-            d, masks, dtype)
-        l32, p32, s32, masks, _ = run(cpu)
-        l64, p64, s64, _, _ = run(cpu, masks, torch.float64)
-        lg, pg, sg, _, flips = run(dev, masks)
+            d, branch, dtype)
+        l32, p32, s32, branch, _ = run(cpu)
+        l64, p64, s64, _, _ = run(cpu, branch, torch.float64)
+        lg, pg, sg, _, flips = run(dev, branch)
         out = {}
         for who, (l, p, s) in (('card f32', (lg, pg, sg)),
                                ('CPU f32', (l32, p32, s32))):
@@ -2081,8 +2142,8 @@ def phase_train_xdev(torch, T, ST, CV, get_backbone, fixture, dev, card):
                   f'f64: loss {l:.6f} vs {l64:.6f} (rel {lrel:.3e}); worst '
                   f'update {upd[1]} {upd[0]:.3e} of its max |update|; '
                   f'worst stats {sts[1]} {sts[0]:.3e}')
-        print(f'train {name}: {flips} of '
-              f'{sum(int(m.numel()) for m in masks)} ReLU inputs on the '
+        print(f'train {name}: {flips[0]} of '
+              f'{sum(int(m.numel()) for m in branch[0])} ReLU inputs on the '
               f'other side of zero on the card (every run follows the CPU '
               f'f32 run\'s branch); card vs CPU f32: worst update '
               f'{leaf_worst(pg, p32, params, "params")}')
@@ -2164,16 +2225,87 @@ def time_loader_fed(T, name, fixture, out_dir, data=None):
     return t.btime.avg * 1e3, t.dtime.avg * 1e3, alone, t, batch
 
 
+def train_flow(torch, T, name, fixture, out, tester_cfg,
+               dataset='InstaOrder'):
+    """The Trainer's full flow at experiments/<dataset>/<name>'s settings
+    on the card: 4 steps, a checkpoint, a new Trainer resuming it
+    (start_iter 4, params equal) to 6, validate() finite, and the Tester
+    (tester_cfg) on the step-6 checkpoint."""
+    import os
+    import numpy as np
+    from instaorder_tpu_torch.core.nn import tree_leaves
+    from instaorder_tpu_torch.eval.tester import Tester
+    flow = dict(print_freq=2, save_freq=4, val_iter=2)
+    t = T.Trainer(train_args(name, fixture, 4, dataset=dataset, **flow),
+                  out_dir=out)
+    quiet_logger(t)
+    check(t.device.type == 'cuda', f'{name}: the Trainer runs on the card')
+    t.train()
+    ck4 = f'{out}/checkpoints/ckpt_iter_4.ckpt'
+    check(t.curr_step == 4 and os.path.isfile(ck4),
+          f'{name}: 4 steps and a checkpoint at 4')
+    t2 = T.Trainer(train_args(name, fixture, 6, dataset=dataset, **flow),
+                   out_dir=f'{out}2')
+    quiet_logger(t2)
+    t2.load(ck4, resume=True)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(t.params),
+                                                 tree_leaves(t2.params)))
+    check(t2.start_iter == 4 and same,
+          f'{name} resume: start_iter 4 and the params equal')
+    t2.train()
+    val = t2.validate()
+    check(t2.curr_step == 6 and np.isfinite(val['loss']),
+          f'{name}: resumed to 6 and validate() is finite ({val})')
+    root = os.path.dirname(out)
+    tester = Tester(tester_args(tester_cfg, root, {dataset: fixture}, '',
+                                'all', f'{out}2/checkpoints/ckpt_iter_6.ckpt'),
+                    logger=t2.logger)
+    res = tester.run()
+    check(tester.curr_step == 6 and np.isfinite(res['f1']),
+          f'{name}: the Tester on the step-6 checkpoint ({res})')
+    d = t2.args.data
+    print(f'train flow {dataset}/{name} ({t2.args.model["backbone_arch"]}, '
+          f'{d["input_size"]}^2, batch {d["batch_size"]}): 4 steps, '
+          f'checkpoint, resume, 6 steps, validate loss {val["loss"]:.4f}, '
+          f'Tester {res}')
+
+
+def three_steps(torch, T, name, fixture, out, dataset='InstaOrder'):
+    """experiments/<dataset>/<name> at its own settings on the card: 3
+    finite steps that move every param leaf."""
+    import numpy as np
+    from instaorder_tpu_torch.core.nn import tree_leaves
+    ta = T.Trainer(train_args(name, fixture, 3, dataset=dataset,
+                              print_freq=1, val_iter=1), out_dir=out)
+    quiet_logger(ta)
+    before = [x.clone() for x in tree_leaves(ta.params)]
+    seen = []
+    real = ta.train_step
+
+    def step(*a):
+        out = real(*a)
+        seen.append(out[3]['loss'])
+        return out
+    ta.train_step = step
+    ta.train()
+    losses = [float(v) for v in seen]
+    moved = sum(not torch.equal(a, b) for a, b in zip(
+        before, tree_leaves(ta.params)))
+    check(len(losses) == 3 and np.isfinite(losses).all(),
+          f'{dataset}/{name}: 3 finite steps ({losses})')
+    check(moved == len(before), f'{dataset}/{name}: every param leaf moved '
+          f'({moved} of {len(before)})')
+    print(f'train {dataset}/{name} ({ta.args.data["input_size"]}^2, '
+          f'{ta.args.data["patch_or_image"]}, batch '
+          f'{ta.args.data["batch_size"]}): losses {losses}')
+
+
 def phase_train(torch, dev, card, wrappers):
     """Training on the card (module docstring, phase 6). Returns {run:
     numbers}."""
-    import os
     import tempfile
-    import numpy as np
     from instaorder_tpu_torch import convert as CV
-    from instaorder_tpu_torch.core.nn import tree_leaves
     from instaorder_tpu_torch.data import synthetic
-    from instaorder_tpu_torch.eval.tester import Tester
     from instaorder_tpu_torch.models.registry import get_backbone
     from instaorder_tpu_torch.train import step as ST
     from instaorder_tpu_torch.train import trainer as T
@@ -2187,69 +2319,12 @@ def phase_train(torch, dev, card, wrappers):
             root, n_images=TESTER_IMAGES, n_instances=TESTER_INSTANCES,
             h=HEIGHT, w=WIDTH)
         fixture = (insta, img)
-        # the full flow: train 4, checkpoint, resume to 6, validate, test
-        flow = dict(print_freq=2, save_freq=4, val_iter=2)
-        t = T.Trainer(train_args('InstaOrderNet_o', fixture, 4, **flow),
-                      out_dir=f'{root}/o')
-        quiet_logger(t)
-        check(t.device.type == 'cuda', 'the Trainer runs on the card')
-        t.train()
-        ck4 = f'{root}/o/checkpoints/ckpt_iter_4.ckpt'
-        check(t.curr_step == 4 and os.path.isfile(ck4),
-              'InstaOrderNet_o: 4 steps and a checkpoint at 4')
-        t2 = T.Trainer(train_args('InstaOrderNet_o', fixture, 6, **flow),
-                       out_dir=f'{root}/o2')
-        quiet_logger(t2)
-        t2.load(ck4, resume=True)
-        same = all(torch.equal(a, b) for a, b in zip(
-            tree_leaves(t.params), tree_leaves(t2.params)))
-        check(t2.start_iter == 4 and same,
-              'resume: start_iter 4 and the params equal')
-        t2.train()
-        val = t2.validate()
-        check(t2.curr_step == 6 and np.isfinite(val['loss']),
-              f'resumed to 6 and validate() is finite ({val})')
-        targs = tester_args(TESTER_CONFIGS['InstaOrder/InstaOrderNet_o'],
-                            root, {'InstaOrder': fixture}, '', 'all',
-                            f'{root}/o2/checkpoints/ckpt_iter_6.ckpt')
-        tester = Tester(targs, logger=t2.logger)
-        res = tester.run()
-        check(tester.curr_step == 6 and np.isfinite(res['f1']),
-              f'the Tester on the step-6 checkpoint ({res})')
-        print(f'train flow InstaOrderNet_o (ResNet-50, '
-              f'{t2.args.data["input_size"]}^2, batch '
-              f'{t2.args.data["batch_size"]}): 4 steps, checkpoint, '
-              f'resume, 6 steps, validate loss '
-              f'{val["loss"]:.4f}, Tester {res}')
-        del t, t2, tester
-
+        train_flow(torch, T, 'InstaOrderNet_o', fixture, f'{root}/o',
+                   TESTER_CONFIGS['InstaOrder/InstaOrderNet_o'])
         # every ported algorithm at its own settings: 3 finite steps that
         # move the params
         for name in TRAIN_NETS:
-            ta = T.Trainer(train_args(name, fixture, 3, print_freq=1,
-                                      val_iter=1), out_dir=f'{root}/{name}')
-            quiet_logger(ta)
-            before = [x.clone() for x in tree_leaves(ta.params)]
-            seen = []
-            real = ta.train_step
-
-            def step(*a, real=real, seen=seen):
-                out = real(*a)
-                seen.append(out[3]['loss'])
-                return out
-            ta.train_step = step
-            ta.train()
-            losses = [float(v) for v in seen]
-            moved = sum(not torch.equal(a, b) for a, b in zip(
-                before, tree_leaves(ta.params)))
-            check(len(losses) == 3 and np.isfinite(losses).all(),
-                  f'{name}: 3 finite steps ({losses})')
-            check(moved == len(before),
-                  f'{name}: every param leaf moved ({moved} of '
-                  f'{len(before)})')
-            print(f'train {name} ({ta.args.data["input_size"]}^2, '
-                  f'{ta.args.data["patch_or_image"]}): losses {losses}')
-            del ta
+            three_steps(torch, T, name, fixture, f'{root}/{name}')
 
         phase_train_xdev(torch, T, ST, CV, get_backbone, fixture, dev, card)
 
@@ -2807,6 +2882,536 @@ def phase_midas(torch, dev, card, wrappers):
     return numbers
 
 
+# ---- PCNet-M (models/unet.py, eval/amodal.py, its Tester method, training) --
+# the experiments/<dataset>/pcnet_m configs
+PCNET_DATASETS = ('InstaOrder', 'COCOA', 'KINS')
+# the Tester's order_th (its getattr default: the test CLI does not set it)
+PCNET_TH = 0.1
+# the eval nets' xavier gain: at the configs' 0.02 each conv scales its
+# input by ~0.02 and the bottleneck's share of the logits is ~1e-25; at
+# sqrt(2) every depth reaches the output
+PCNET_GAIN = 2 ** 0.5
+# the standard deviation of the moved class-1 logit margin over the
+# eraser pixels (centre_outc)
+PCNET_SPREAD = 2.0
+# a pixel's completion is sure when its probability lies more than this
+# from the threshold; the card-vs-CPU probability error must stay below
+# a tenth of it (checked in (a); measured 4.53e-6 on an H100 at 700 W)
+PCNET_SURE = 2e-4
+# the InstaOrder fixture's image size here: on phase 5's 480x640 the 6
+# rectangles rarely meet (10 of the 240 ordered pairs' patches hold an
+# eraser pixel, 3 cells of the ground truth are occlusions), so nearly
+# every vote would be 0; at 128x160, 124 and 39
+PCNET_HW = (128, 160)
+PCNET_CPU_IMAGES = 2        # the Tester images the CPU's are held against
+PCNET_XDEV = 4              # patches of the card-vs-CPU SGD step
+PCNET_RES_BATCH = 2         # the unet2res forward
+# a conv bias that feeds a train-mode BatchNorm: its gradient is 0
+PCNET_ZERO_GRAD = ('conv1.b', 'conv2.b', 'reduce_conv.b')
+# (run name, dataset, pairs) of the Tester
+PCNET_RUNS = [('InstaOrder', 'InstaOrder', 'all'),
+              ('InstaOrder nbor', 'InstaOrder', 'nbor'),
+              ('COCOA', 'COCOA', 'all'), ('KINS', 'KINS', 'all')]
+
+
+def pcnet_config(dataset):
+    """cli/config.load_config of experiments/<dataset>/pcnet_m/config.yaml
+    as the {model, data, trainer} dict that tester_args reads."""
+    a = disp_config(f'{dataset}/pcnet_m')
+    return {'model': a.model, 'data': a.data, 'trainer': a.trainer}
+
+
+def pcnet_net(torch, name, gain=PCNET_GAIN, seed=0):
+    """(params, stats, cfg) of UNet `name` (in 2, out 2 channels, the
+    configs' backbone_param) from seed, on the CPU, at xavier `gain`."""
+    from instaorder_tpu_torch.models import unet
+    return unet.init(torch.Generator().manual_seed(seed), in_channels=2,
+                     n_classes=2, gain=gain, device='cpu',
+                     **unet.UNET_FACTORIES[name])
+
+
+def pair_index(inmodal, pairs):
+    """The (t, e) patch order of AmodalCompleter.infer_order: both
+    directions of each pair i < j, adjacent (the nbor filter through the
+    port's bordering_matrix on the CPU, exact)."""
+    import torch
+    from instaorder_tpu_torch.ops.morphology import bordering_matrix
+    num = inmodal.shape[0]
+    if pairs == 'nbor':
+        border = bordering_matrix(torch.as_tensor(inmodal)).numpy()
+    ind = []
+    for i in range(num):
+        for j in range(i + 1, num):
+            if pairs != 'nbor' or border[i, j]:
+                ind += [(i, j), (j, i)]
+    return ind
+
+
+def record_completer(c, log):
+    """Wrap an AmodalCompleter (the port's or the JAX package's) so that
+    each infer_order call appends a record to `log`: its pair order,
+    resize ratios, patches (modal, eraser), the completion
+    probabilities, the host ms of the forwards that gave them (the
+    patches' batch in and the probabilities out included:
+    `forward_ms`) and the order matrix; any other forward (infer_amodal)
+    a record of its patches and probabilities."""
+    import numpy as np
+    raw_order, raw_prob = c.infer_order, c._predict_prob
+
+    def predict_prob(modal_ps, eraser_ps, rgb_ps):
+        t0 = time.perf_counter()
+        prob = raw_prob(modal_ps, eraser_ps, rgb_ps)
+        ms = (time.perf_counter() - t0) * 1e3
+        if not log or 'prob' in log[-1]:
+            log.append({})
+        log[-1].update(modal=np.stack(modal_ps), eraser=np.stack(eraser_ps),
+                       prob=np.asarray(prob), forward_ms=ms)
+        return prob
+
+    def infer_order(image, inmodal, category, bboxes, pairs='all', *a,
+                    input_size=None, **kw):
+        ind = pair_index(np.asarray(inmodal, np.uint8), pairs)
+        log.append({'num': inmodal.shape[0], 'ind': ind,
+                    'ratios': [bboxes[t][2] / float(input_size)
+                               for t, _ in ind]})
+        out = raw_order(image, inmodal, category, bboxes, pairs, *a,
+                        input_size=input_size, **kw)
+        log[-1]['order'] = out
+        return out
+    c._predict_prob = predict_prob
+    c.infer_order = infer_order
+    return log
+
+
+def pcnet_sure(rec, th=PCNET_TH, margin=PCNET_SURE):
+    """(sure (N, N) bool, {kind: pairs}) of one infer_order record. A
+    patch's vote counts its eraser pixels whose completion probability
+    exceeds th (the modal is 0 there), times its resize ratio^2; pixels
+    within `margin` of th may go either way. A pair is 'empty' when
+    neither patch has an eraser pixel (both votes 0 on any device),
+    'exact' when neither has a pixel within the margin (both votes are
+    the same integers on any device), 'sure' when the two votes'
+    intervals (each +- its unsure pixels x ratio^2) do not meet, else
+    'unsure' (its two cells are not held)."""
+    import numpy as np
+    num = rec['num']
+    sure = np.ones((num, num), bool)
+    kinds = dict.fromkeys(('empty', 'exact', 'sure', 'unsure'), 0)
+    votes = []
+    for k in range(len(rec['ind'])):
+        p = rec['prob'][k][rec['eraser'][k] == 1]
+        r2 = rec['ratios'][k] ** 2
+        votes.append((p.size, float((p > th).sum()) * r2,
+                      float((np.abs(p - th) <= margin).sum()) * r2))
+    for k in range(0, len(rec['ind']), 2):
+        (n1, v1, u1), (n2, v2, u2) = votes[k], votes[k + 1]
+        t, e = rec['ind'][k]
+        if n1 == n2 == 0:
+            kinds['empty'] += 1
+        elif u1 == 0 and u2 == 0:
+            kinds['exact'] += 1
+        elif abs(v1 - v2) > u1 + u2:
+            kinds['sure'] += 1
+        else:
+            kinds['unsure'] += 1
+            sure[t, e] = sure[e, t] = False
+    return sure, kinds
+
+
+def eraser_shares(recs, th=PCNET_TH, margin=PCNET_SURE):
+    """(share of the eraser pixels completed, i.e. above th; share within
+    margin of th) over infer_order records."""
+    import numpy as np
+    p = np.concatenate([r['prob'][r['eraser'] == 1] for r in recs
+                        if 'prob' in r])
+    return float((p > th).mean()), float((np.abs(p - th) <= margin).mean())
+
+
+def centre_outc(params, d, th=PCNET_TH, spread=PCNET_SPREAD):
+    """Move outc of a numpy-or-tensor UNet tree so that the class-1 logit
+    margin d (class 1 minus class 0, over the eraser pixels of a forward
+    of this net; outc_margins) gets median logit(th) and standard
+    deviation `spread`: class 1's column becomes class 0's plus the
+    scaled difference. A random UNet's margins are ~0 on every pixel
+    (probability ~0.5, above th everywhere: every patch completes to
+    all ones and the votes are set by the masks alone)."""
+    import numpy as np
+    g = spread / max(float(np.std(d)), 1e-30)
+    shift = float(np.log(th / (1 - th))) - g * float(np.median(d))
+    w, b = params['outc']['w'], params['outc']['b']
+    w1 = w[..., 0] + g * (w[..., 1] - w[..., 0])
+    b1 = b[0] + g * (b[1] - b[0]) + shift
+    out = dict(params)
+    if hasattr(w, 'detach'):
+        import torch
+        out['outc'] = {'w': torch.stack([w[..., 0], w1], -1),
+                       'b': torch.stack([b[0], b1])}
+    else:
+        out['outc'] = {'w': np.stack([w[..., 0], w1], -1).astype(w.dtype),
+                       'b': np.stack([b[0], b1]).astype(b.dtype)}
+    return out
+
+
+def outc_margins(logits, eraser):
+    """The class-1 logit margins (class 1 minus class 0) of NHWC logits at
+    the eraser pixels, float64 numpy."""
+    import numpy as np
+    lg = _host(logits).astype(np.float64)
+    return (lg[..., 1] - lg[..., 0])[np.asarray(eraser) == 1]
+
+
+def compare_pcnet_runs(name, got, want):
+    """The card's first Tester images against the CPU's: ground truth
+    equal, the same pairs, matrices equal at every sure cell
+    (pcnet_sure of the CPU's record). Returns ({pair kind: count},
+    differing cells)."""
+    import collections
+    import numpy as np
+    check(len(want) == PCNET_CPU_IMAGES and len(got) >= len(want),
+          f'{name}: {len(got)} card images against {len(want)}')
+    n = collections.Counter()
+    differ = 0
+    for k, (g, w) in enumerate(zip(got, want)):
+        check(np.array_equal(g['gt_occlusion'], w['gt_occlusion']),
+              f'{name} image {k}: gt equal')
+        gp, wp = g['pcnet'], w['pcnet']
+        check(gp['ind'] == wp['ind'] and np.array_equal(gp['modal'],
+                                                         wp['modal'])
+              and np.array_equal(gp['eraser'], wp['eraser']),
+              f'{name} image {k}: the same patches')
+        sure, kinds = pcnet_sure(wp)
+        a, b = np.asarray(g['occ']), np.asarray(w['occ'])
+        check((a == b)[sure].all(), f'{name} image {k}: matrices equal at '
+              f'every sure cell ({int((a != b)[sure].sum())} differ)')
+        n.update(kinds)
+        differ += int((a != b).sum())
+    return dict(n), differ
+
+
+def first_occ_metrics(recs, n):
+    """The Tester's occlusion metrics over its first n images' records (as
+    its eval_occ_order gives them on n images)."""
+    import numpy as np
+    from instaorder_tpu_torch.eval.metrics import \
+        eval_order_recall_precision_f1
+    rpf = np.array([eval_order_recall_precision_f1(r['occ'],
+                                                   r['gt_occlusion'], 0)
+                    for r in recs[:n]])
+    return {'recall': float(np.mean(rpf[:, 0])),
+            'precision': float(np.mean(rpf[:, 1])),
+            'f1': float(np.mean(rpf[:, 2])), 'n': n}
+
+
+def record_pcnet_tester(t):
+    """record_tester(t), and each image's completer record (pair order,
+    patches, probabilities) under 'pcnet'."""
+    log = record_tester(t)
+    prepare = t.prepare_model
+
+    def prepare_model():
+        prepare()
+        comp = []
+        record_completer(t.completer, comp)
+        raw = t.completer.infer_order
+
+        def infer_order(*a, **kw):
+            out = raw(*a, **kw)
+            log[-1]['pcnet'] = comp[-1]
+            return out
+        t.completer.infer_order = infer_order
+    t.prepare_model = prepare_model
+    return log
+
+
+def pool_recorder(torch, indices, flips=None, ties=None):
+    """A unet._max_pool2 that records each window's argmax (torch's flat
+    H*W index, in call order) into `indices` (and into ties[0], when
+    given, the windows whose maximum is not unique); with flips given,
+    one that
+    follows `indices` instead and counts in flips[0] the windows whose
+    own argmax differs, in flips[1] those of them whose two candidates
+    differ in value (not an exact tie), in flips[2] those whose values
+    differ by more than 1e-5 of the maximum (not a near-tie either: a
+    tie's flip keeps the value and moves only the gradient)."""
+    import torch.nn.functional as F
+    it = iter(indices)
+
+    def pool(x):
+        y, idx = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2, 0,
+                              return_indices=True)
+        if flips is None:
+            indices.append(idx.detach().cpu())
+            if ties is not None:
+                h, w = 2 * y.shape[2], 2 * y.shape[3]
+                win = x.detach().permute(0, 3, 1, 2)[..., :h, :w]
+                hits = F.avg_pool2d((win == F.interpolate(
+                    y.detach(), scale_factor=2)).float(), 2) * 4
+                ties[0] += int((hits > 1.5).sum())
+            return y.permute(0, 2, 3, 1)
+        want = next(it).to(x.device)
+        n, c, ho, wo = want.shape
+        plane = x.permute(0, 3, 1, 2).reshape(n, c, -1)
+        out = torch.gather(plane, 2, want.reshape(n, c, -1)).reshape(
+            n, c, ho, wo)
+        moved = idx != want
+        gap = (y - out).detach().abs()
+        flips[0] += int(moved.sum())
+        flips[1] += int((moved & (gap > 0)).sum())
+        flips[2] += int((moved & (gap > 1e-5 * y.detach().abs())).sum())
+        return out.permute(0, 2, 3, 1)
+    return pool
+
+
+def phase_pcnet_forward(torch, U, AM, dev, fixture, card, numbers):
+    """(a): unet2 at full width from seed 0 (PCNET_GAIN), its outc moved
+    on the InstaOrder fixture's first image (centre_outc); its logits on
+    that image's 256^2 patches card vs CPU; a unet2res forward at batch
+    PCNET_RES_BATCH. Returns the moved (params, stats, cfg), numpy."""
+    import os
+    import numpy as np
+    from instaorder_tpu_torch.convert import to_numpy, tree_to
+    from instaorder_tpu_torch.core.nn import param_count
+    from instaorder_tpu_torch.data import readers as R
+    from instaorder_tpu_torch.data.image_io import read_rgb
+    from instaorder_tpu_torch.eval.tester import expand_bbox
+    from instaorder_tpu_torch.ops.resize import resize_cubic_u8
+    from instaorder_tpu_torch.utils.geometry import crop_padding
+    insta, img_root = fixture
+    modal, cat, bboxes, _, fn = R.InstaOrderReader(insta).\
+        get_image_instances(0, with_gt=False)[:5]
+    image = read_rgb(os.path.join(img_root, fn))
+    ebb = expand_bbox(bboxes)
+    size = pcnet_config('InstaOrder')['data']['input_size']
+    p, s, cfg = pcnet_net(torch, 'unet2')
+    log = []
+    cpu = AM.AmodalCompleter(U.apply, cfg, p, s, device='cpu')
+    record_completer(cpu, log)
+    cpu.infer_order(image, modal.astype(np.uint8), cat, ebb, th=PCNET_TH,
+                    input_size=size)
+    x = torch.from_numpy(np.stack([log[0]['modal'], log[0]['eraser']],
+                                  -1).astype(np.float32))
+    n_pix = int((log[0]['eraser'] == 1).sum())
+    check(n_pix > 0, 'pcnet: the first image\'s patches hold eraser pixels')
+    with torch.no_grad():
+        d = outc_margins(U.apply(p, s, cfg, x), log[0]['eraser'])
+        p = centre_outc(p, d)
+        want = U.apply(p, s, cfg, x)
+        got = U.apply(tree_to(p, dev), tree_to(s, dev), cfg, x.to(dev))
+        torch.cuda.synchronize()
+        err = worst_rel(got, want)
+        perr = float((torch.softmax(got, -1)[..., 1].cpu() -
+                      torch.softmax(want, -1)[..., 1]).abs().max())
+    check(err <= MIDAS_BAR, f'pcnet unet2 logits card vs CPU within '
+          f'{MIDAS_BAR} of max |CPU| ({err:.3e})')
+    check(perr <= PCNET_SURE / 10, f'pcnet: the card-vs-CPU probability '
+          f'error {perr:.3e} within a tenth of the sure margin {PCNET_SURE}')
+    prob = torch.softmax(want, -1)[..., 1].numpy()
+    above, near = eraser_shares([{'prob': prob, 'eraser': log[0]['eraser']}])
+    check(0.05 < above < 0.95, f'pcnet: a real share of the eraser pixels '
+          f'on each side of th ({above:.3f} above)')
+    print(f'  pcnet unet2 ({param_count(p)} params, '
+          f'{x.shape[0]} patches of {size}^2): card vs CPU logits '
+          f'{err:.3e} of max |CPU|, probabilities {perr:.3e}; outc moved '
+          f'(margin median {np.median(d):.4g}, std {np.std(d):.4g} -> '
+          f'logit({PCNET_TH}), {PCNET_SPREAD}); of {n_pix} eraser pixels '
+          f'{100 * above:.2f}% above th {PCNET_TH}, {100 * near:.4f}% '
+          f'within {PCNET_SURE} of it')
+    numbers['forward err'] = err
+    numbers['prob err'] = perr
+    # the *res variant: the RGB patches as the completer feeds them
+    rp, rs, rcfg = pcnet_net(torch, 'unet2res')
+    k = PCNET_RES_BATCH
+    xr = x[:k]
+    rgb = torch.from_numpy(np.stack([
+        resize_cubic_u8(crop_padding(image, ebb[t], (0, 0, 0)), size, size)
+        for t, _ in log[0]['ind'][:k]]).astype(np.float32))
+    with torch.no_grad():
+        want = U.apply(rp, rs, rcfg, xr, rgb=rgb)
+        got = U.apply(tree_to(rp, dev), tree_to(rs, dev), rcfg, xr.to(dev),
+                      rgb=rgb.to(dev))
+    err = worst_rel(got, want)
+    check(err <= MIDAS_BAR, f'pcnet unet2res logits card vs CPU within '
+          f'{MIDAS_BAR} ({err:.3e})')
+    print(f'  pcnet unet2res ({k} patches of {size}^2 and their RGB): card '
+          f'vs CPU logits {err:.3e} of max |CPU|')
+    return to_numpy(p), to_numpy(s), cfg
+
+
+def phase_pcnet_tester(torch, root, fixtures, net, dev, card, numbers):
+    """(b): Tester.run() with the PartialCompletionMask method on the card
+    (every fixture image) and on the CPU (the first PCNET_CPU_IMAGES), the
+    net saved with the port's save_state and loaded through load_model."""
+    import logging
+    import numpy as np
+    from instaorder_tpu_torch.core import checkpoint as CK
+    from instaorder_tpu_torch.eval.tester import Tester
+    log = logging.getLogger('chip_smoke.pcnet')
+    log.addHandler(logging.NullHandler())
+    log.propagate = False
+    ck = CK.save_state(f'{root}/pcnet', 7, net[0], net[1])
+    for name, dataset, pairs in PCNET_RUNS:
+        cfg = pcnet_config(dataset)
+        args = tester_args(cfg, root, fixtures, '', pairs, ck)
+        recs, res = {}, {}
+        for where, d, n in (('card', None, -1),
+                            ('cpu', 'cpu', PCNET_CPU_IMAGES)):
+            t = Tester(args, logger=log, device=d, n_images=n)
+            recs[where] = record_pcnet_tester(t)
+            res[where] = t.run()
+            check(t.order_method == 'PartialCompletionMask' and
+                  t.completer.device.type == (dev.type if d is None else d)
+                  and t.curr_step == 7,
+                  f'pcnet tester {name}: the completer on {where}, step 7')
+        kinds, differ = compare_pcnet_runs(name, recs['card'], recs['cpu'])
+        first = first_occ_metrics(recs['card'], PCNET_CPU_IMAGES)
+        if not differ:
+            check(first == res['cpu'], f'pcnet tester {name}: metrics on the '
+                  f'first {PCNET_CPU_IMAGES} images equal ({first} vs '
+                  f'{res["cpu"]})')
+        check(all(np.isfinite(v) for v in res['card'].values()),
+              f'pcnet tester {name}: finite metrics')
+        above, near = eraser_shares([r['pcnet'] for r in recs['card']])
+        med = lambda k: float(np.median([r[k] for r in  # noqa: E731
+                                         recs['card'][1:]]))
+        fwd = float(np.median([r['pcnet']['forward_ms']
+                               for r in recs['card'][1:]]))
+        numbers[f'tester {name}'] = (med('ms'), med('predict_ms'), fwd)
+        print(f'  pcnet tester {name}: {res["card"]}; card vs CPU (first '
+              f'{PCNET_CPU_IMAGES} images): pairs {kinds}, {differ} cells '
+              f'differ; metrics '
+              f'{"equal" if not differ else "not held"}; eraser pixels '
+              f'{100 * above:.2f}% above th, {100 * near:.4f}% within '
+              f'{PCNET_SURE}; per image {med("ms"):.3f} ms, '
+              f'{med("predict_ms"):.3f} of it the prediction, {fwd:.3f} of '
+              f'that the forwards with the patches in and the probabilities '
+              f'out (host clock, median after one warm-up image; {card})')
+
+
+def phase_pcnet_train(torch, root, fixtures):
+    """(c): the InstaOrder config's full flow (train_flow); COCOA and KINS
+    3 steps each (three_steps)."""
+    from instaorder_tpu_torch.train import trainer as T
+    train_flow(torch, T, 'pcnet_m', fixtures['InstaOrder'], f'{root}/p',
+               pcnet_config('InstaOrder'))
+    for dataset in ('COCOA', 'KINS'):
+        three_steps(torch, T, 'pcnet_m', fixtures[dataset],
+                    f'{root}/p_{dataset}', dataset)
+
+
+def phase_pcnet_xdev(torch, fixture, dev, card, numbers):
+    """(d): one SGD step of the InstaOrder config at full width on
+    PCNET_XDEV patches of the port's dataset, on the card and on the CPU
+    (f32 and f64), every run on the CPU f32 run's ReLU branch and pool
+    argmaxes, the card's flips counted; the card's step against the CPU's
+    f64 one."""
+    import numpy as np
+    from instaorder_tpu_torch import convert as CV
+    from instaorder_tpu_torch.data.datasets import DATASETS, collate
+    from instaorder_tpu_torch.data.loader import sample_rng
+    from instaorder_tpu_torch.models.registry import get_backbone
+    from instaorder_tpu_torch.train import step as ST
+    from instaorder_tpu_torch.train import trainer as T
+    cpu = torch.device('cpu')
+    args = train_args('pcnet_m', fixture, 1)
+    net = get_backbone(args.model['backbone_arch'])
+    params, stats, cfg = net['init'](torch.Generator().manual_seed(0),
+                                     device='cpu',
+                                     **args.model['backbone_param'])
+    params, stats = CV.to_numpy(params), CV.to_numpy(stats)
+    ds = DATASETS[args.data['trainval_dataset']](args.data, 'train',
+                                                 args.model['algo'])
+    batch = collate([ds.sample(i % len(ds), sample_rng(0, i))
+                     for i in range(PCNET_XDEV)])
+    run = lambda d, branch=None, dtype=None: train_step_on(  # noqa: E731
+        torch, T, ST, CV, net, cfg, args.model, params, stats, batch, d,
+        branch, dtype)
+    l32, p32, s32, branch, _ = run(cpu)
+    l64, p64, s64, _, _ = run(cpu, branch, torch.float64)
+    lg, pg, sg, _, flips = run(dev, branch)
+    out = {}
+    for who, (l, p, s) in (('card f32', (lg, pg, sg)),
+                           ('CPU f32', (l32, p32, s32))):
+        out[who] = (abs(l - l64) / abs(l64),
+                    leaf_worst(p, p64, params, 'params', PCNET_ZERO_GRAD),
+                    leaf_worst(s, s64, None, 'stats'))
+        lrel, upd, sts = out[who]
+        print(f'  pcnet one SGD step ({PCNET_XDEV} patches, '
+              f'{args.data["input_size"]}^2; {card}): {who} vs CPU f64: loss '
+              f'{l:.6f} vs {l64:.6f} (rel {lrel:.3e}); worst update '
+              f'{upd[1]} {upd[0]:.3e} of its max |update|; worst stats '
+              f'{sts[1]} {sts[0]:.3e}')
+    n_relu = sum(int(m.numel()) for m in branch[0])
+    n_pool = sum(int(i.numel()) for i in branch[1])
+    print(f'  pcnet step: {flips[0]} of {n_relu} ReLU inputs on the other '
+          f'side of zero on the card; of {n_pool} pool windows '
+          f'{branch[2][0]} tied on the CPU (the maximum not unique), '
+          f'{flips[1]} with another argmax on the card, {flips[2]} of them '
+          f'not exact ties, {flips[3]} beyond 1e-5 of the max (every run '
+          f'follows the CPU f32 run\'s branch and argmaxes)')
+    numbers['xdev'] = out['card f32']
+    numbers['flips'] = flips
+    numbers['pool ties'] = branch[2][0]
+    lrel, upd, sts = out['card f32']
+    check(np.isfinite(lg) and lrel <= XDEV_LOSS_BAR,
+          f'pcnet: card loss within {XDEV_LOSS_BAR} of the CPU\'s f64')
+    check(upd[0] <= XDEV_UPDATE_BAR,
+          f'pcnet: every update within {XDEV_UPDATE_BAR} ({upd})')
+    check(sts[0] <= XDEV_STATS_BAR,
+          f'pcnet: the new statistics within {XDEV_STATS_BAR} ({sts})')
+
+
+def phase_pcnet(torch, dev, card, wrappers):
+    """PCNet-M on the card (module docstring, phase 8). Returns
+    {measurement: number}."""
+    import tempfile
+    from instaorder_tpu_torch.data import synthetic
+    from instaorder_tpu_torch.eval import amodal as AM
+    from instaorder_tpu_torch.models import unet as U
+    from instaorder_tpu_torch.train import trainer as T
+
+    t0 = time.perf_counter()
+    numbers = {}
+    for w in wrappers.values():
+        w.launches = 0
+    with tempfile.TemporaryDirectory() as root:
+        insta, _, img = synthetic.make_instaorder_fixture(
+            root, n_images=TESTER_IMAGES, n_instances=TESTER_INSTANCES,
+            h=PCNET_HW[0], w=PCNET_HW[1])
+        fixtures = {'InstaOrder': (insta, img),
+                    'COCOA': synthetic.make_cocoa_fixture(root),
+                    'KINS': synthetic.make_kins_fixture(root)}
+        net = phase_pcnet_forward(torch, U, AM, dev, fixtures['InstaOrder'],
+                                  card, numbers)
+        phase_pcnet_tester(torch, root, fixtures, net, dev, card, numbers)
+        phase_pcnet_train(torch, root, fixtures)
+        phase_pcnet_xdev(torch, fixtures['InstaOrder'], dev, card, numbers)
+        # the step on a fixed batch and the loader-fed window
+        bt, dt, alone, ta, batch = time_loader_fed(
+            T, 'pcnet_m', fixtures['InstaOrder'], f'{root}/w')
+        ms, peak = time_train_step(torch, T, ta, batch)
+        n, d = ta.args.data['batch_size'], ta.args.data
+        numbers.update(step_ms=ms, peak_gib=peak, batch_ms=bt, data_ms=dt,
+                       alone_ms=alone)
+        print(f'  pcnet train {ta.args.model["backbone_arch"]} '
+              f'{d["input_size"]}^2 batch {n}: device step {ms:.2f} ms '
+              f'(median of {TIMING_REPS} after {TIMING_WARMUP}, fixed batch '
+              f'on the card) = {n / ms * 1e3:.1f} patches/s, peak memory '
+              f'{peak:.2f} GiB; {ta.args.data["workers"]} thread workers: '
+              f'Trainer loader-fed batch time {bt:.2f} ms = '
+              f'{n / bt * 1e3:.1f} patches/s, data time {dt:.2f} ms (steps '
+              f'{LOADER_WARMUP + 1}-{LOADER_WARMUP + LOADER_WINDOW}); the '
+              f'loader alone {alone:.2f} ms a batch ({card})')
+        del ta
+    torch.cuda.synchronize()
+    got = {n: w.launches for n, w in wrappers.items() if w.launches}
+    check(not got, f'pcnet: no kernel launched (JAX\'s PCNet-M path reaches '
+          f'none): {got}')
+    numbers['seconds'] = time.perf_counter() - t0
+    print(f'pcnet phase: {numbers["seconds"]:.1f} s; hand-written kernel '
+          f'launches 0 ({card})')
+    return numbers
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3023,7 +3628,10 @@ def main():
     # ---- 7. the MiDaS family -----------------------------------------------
     phase_midas(torch, dev, card, wrappers)
 
-    # ---- 8. report ----------------------------------------------------------
+    # ---- 8. PCNet-M ----------------------------------------------------------
+    phase_pcnet(torch, dev, card, wrappers)
+
+    # ---- 9. report ----------------------------------------------------------
     kernels = []
     for name, r in results.items():
         t_bytes = r['bytes'] / H100_BYTES_PER_S * 1e3

@@ -9,7 +9,10 @@ reference's tools/test.py flags, plus --device.
 versions (as the tests do). Reading the YAML needs PyYAML; a config with
 `tensorboard: true` needs tensorboardX (see utils/telemetry.py).
 --disp_select_method (median | mean) evaluates an InstaDepthNet through
-its disparity, as midas_pretrained is evaluated. --save_pngs is not
+its disparity, as midas_pretrained is evaluated. A PCNet-M config
+(experiments/*/pcnet_m: the UNet, PartialCompletionMask) orders by the
+amodal completer's votes at the Tester's order_th, 0.1: --order_th is
+parsed and, as in the JAX package, not passed on. --save_pngs is not
 ported yet and raises (ROADMAP.md queue 1 item 4).
 """
 

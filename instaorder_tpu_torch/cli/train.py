@@ -12,7 +12,10 @@ one; 'cpu' trains on the CPU. One process trains on one device:
 NotImplementedError until the `parallel/` slice is ported (ROADMAP.md).
 --load_pretrain raises too (ROADMAP.md queue 1 item 5: compat).
 --extract, --evaluate and --evaluate-save are accepted and inert, as in
-the reference (main.py:55-58). Reading the YAML needs PyYAML.
+the reference (main.py:55-58). Reading the YAML needs PyYAML. Every
+experiment config trains but the InstaDepthNet ones (ROADMAP.md queue 1
+item 4) and midas_pretrained (no training algorithm in either package);
+experiments/*/pcnet_m trains the UNet on PartialCompDataset.
 """
 
 from __future__ import annotations

@@ -4,6 +4,7 @@
   SupOcclusionOrderDataset  <- datasets/occ_order_dataset.py
   SupDepthOrderDataset      <- datasets/depth_order_dataset.py
   SupDepthOccOrderDataset   <- datasets/depth_occ_order_dataset.py
+  PartialCompDataset        <- datasets/partial_comp_dataset.py
 
 Each `sample(idx, rng)` returns a dict in train/algos.py's batch
 convention (NHWC rgb, (H, W) float masks, label fields). Randomness
@@ -18,9 +19,9 @@ the f32 cubic resize rounded and saturated to uint8) and INTER_LINEAR
 (image and resize modes: `ops.resize.resize_linear_u8`, cv2's
 fixed-point arithmetic).
 
-`PartialCompDataset` (PCNet-M's self-supervised erasing) belongs to the
-UNet network, which is not ported yet: it raises NotImplementedError
-(ROADMAP.md queue 1 item 4).
+`PartialCompDataset` (PCNet-M's self-supervised erasing) draws one
+instance and an eraser instance a sample; its shrink of the eraser is
+cv2.dilate's square window (`utils.geometry.dilate_square`).
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ from . import readers as R
 from .image_io import read_rgb
 from ..ops.resize import (resize_cubic_u8, resize_linear_u8,
                           resize_nearest_np)
-from ..utils.geometry import crop_padding, pair_crop_bbox
+from ..utils.geometry import (EraserSetter, crop_padding, dilate_square,
+                              pair_crop_bbox)
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -321,14 +323,79 @@ class SupDepthOccOrderDataset(_DepthPairBase):
                                                     np.float32))
 
 
-class PartialCompDataset:
-    """PCNet-M self-supervised erasing (partial_comp_dataset.py): not
-    ported yet."""
+class PartialCompDataset(_PairDatasetBase):
+    """PCNet-M self-supervised erasing (partial_comp_dataset.py): an
+    instance's square crop, a second instance placed over it as the
+    eraser, the erased mask (or the eraser cut behind the instance) as
+    input and the un-erased mask as the target."""
 
     def __init__(self, config, phase, algo=None):
-        raise NotImplementedError(
-            'PartialCompDataset is not ported to instaorder_tpu_torch yet '
-            '(ROADMAP.md queue 1 item 4: the UNet network)')
+        super().__init__(config, phase)
+        self.eraser_setter = EraserSetter(config['eraser_setter'])
+        self.eraser_front_prob = config['eraser_front_prob']
+
+    def __len__(self):
+        return self.data_reader.get_instance_length()
+
+    def _get_inst(self, idx, rng, load_rgb=False, randshift=False):
+        modal, bbox, category, imgfn, _ = self.data_reader.get_instance(idx)
+        cx = bbox[0] + bbox[2] / 2.0
+        cy = bbox[1] + bbox[3] / 2.0
+        size = max(np.sqrt(bbox[2] * bbox[3] * self.config['enlarge_box']),
+                   bbox[2] * 1.1, bbox[3] * 1.1)
+        if size < 5 or np.all(modal == 0):
+            return self._get_inst(rng.choice(len(self)), rng,
+                                  load_rgb=load_rgb, randshift=randshift)
+        if self.phase == 'train':
+            if randshift:
+                cx += rng.uniform(*self.config['base_aug']['shift']) * size
+                cy += rng.uniform(*self.config['base_aug']['shift']) * size
+            size /= rng.uniform(*self.config['base_aug']['scale'])
+        roi = [int(cx - size / 2.0), int(cy - size / 2.0), int(size),
+               int(size)]
+        sz = self.sz
+        modal = resize_nearest_np(crop_padding(modal, roi, (0,)), sz, sz)
+        flip = self.config['base_aug']['flip'] and rng.rand() > 0.5
+        if flip:
+            modal = modal[:, ::-1].copy()
+        rgb = None
+        if load_rgb:
+            img = self._load_image(imgfn)
+            rgb = resize_cubic_u8(crop_padding(img, roi, (0, 0, 0)), sz, sz)
+            if flip:
+                rgb = rgb[:, ::-1].copy()
+            rgb = _normalize(rgb)
+        return modal, category, rgb
+
+    def sample(self, idx, rng):
+        randidx = rng.choice(len(self))
+        modal, category, rgb = self._get_inst(
+            idx, rng, load_rgb=self.config['load_rgb'], randshift=True)
+        if not self.config.get('use_category', True):
+            category = 1
+        eraser, _, _ = self._get_inst(randidx, rng, load_rgb=False,
+                                      randshift=False)
+        eraser = self.eraser_setter(modal, eraser, rng)
+        erased_modal = modal.astype(np.float32).copy()
+        if rng.rand() < self.eraser_front_prob:
+            erased_modal[eraser == 1] = 0
+        else:
+            eraser = eraser.copy()
+            eraser[modal == 1] = 0
+        erased_modal = erased_modal * category
+        max_shrink = self.config.get('max_eraser_shrink', 0)
+        if max_shrink > 0:
+            shrink = rng.choice(np.arange(max_shrink + 1))
+            if shrink > 0:
+                eraser = 1 - dilate_square(
+                    (1 - eraser).astype(np.uint8), shrink * 2 + 1)
+        eraser_f = eraser.astype(np.float32)
+        if rgb is None:
+            rgb = self._zero_rgb()
+        else:
+            rgb = rgb * (1.0 - eraser_f)[..., None]
+        return {'rgb': rgb, 'modal': erased_modal, 'eraser': eraser_f,
+                'target': modal.astype(np.int32)}
 
 
 DATASETS = {

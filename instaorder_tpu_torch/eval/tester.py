@@ -22,9 +22,10 @@ InstaDepthNet through the model route (JAX's OrderPredictor feeds its
 under SupDepthOccOrderDataset (JAX's DisparityOrderPredictor has no
 infer_occ_depth_order).
 
-Not ported yet (ROADMAP.md queue 1 item 4; each raises
-NotImplementedError): the PartialCompletionMask (amodal) method and the
-PNG dumps (`save_pngs`).
+The PartialCompletionMask method (PCNet-M) votes each pair's order
+with the UNet's amodal completions (`amodal.AmodalCompleter.infer_order`,
+cuDNN f32 as well). Not ported yet: the PNG dumps (`save_pngs` raises
+NotImplementedError, ROADMAP.md queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from ..models.folding import swap_conv1_w
 from ..models.registry import get_backbone
 from ..utils.telemetry import make_summary_logger
 from . import heuristics as H
+from .amodal import AmodalCompleter
 from .metrics import (eval_depth_order_whdr,
                       eval_order_recall_precision_f1)
 from .pipeline import OrderPredictor
@@ -150,9 +152,6 @@ class Tester:
                 "SupDepthOrderDataset config. The JAX package's model route "
                 'fails for it too (its OrderPredictor feeds the 5-channel '
                 'pair batch to the 3-channel MiDaS trunk)')
-        if self.order_method == 'PartialCompletionMask':
-            raise NotImplementedError(
-                f'Tester PartialCompletionMask: {_QUEUE}')
         bb = get_backbone(args.model.get('backbone_arch', algo))
         params, stats, cfg = bb['init'](
             torch.Generator().manual_seed(0), device='cpu',
@@ -163,6 +162,13 @@ class Tester:
                 load, to_numpy(params), to_numpy(stats),
                 warn=self.logger.info)
             params, stats = to_torch(params), to_torch(stats)
+        if self.order_method == 'PartialCompletionMask':
+            self.completer = AmodalCompleter(
+                bb['apply'], cfg, params, stats,
+                use_rgb=args.model.get('use_rgb', False),
+                input_size=args.data['input_size'], device=self.device)
+            self.predictor = None
+            return
         # resnet_cls-family nets expose a top-level conv1: both swap
         # directions then run from the un-swapped pair batch, the second
         # through the conv1 with its mask rows exchanged (mask channels
@@ -227,6 +233,15 @@ class Tester:
                                            device=self.device)
         if m == 'hull':
             return H.infer_order_hull(modal)
+        if m == 'PartialCompletionMask':
+            cat = (category if category is not None
+                   else np.ones(modal.shape[0]))
+            return self.completer.infer_order(
+                image, modal.astype(np.uint8), cat, bboxes,
+                pairs=self.pairs,
+                th=getattr(self.args, 'order_th', 0.1),
+                input_size=self.args.data['input_size'],
+                interp='nearest')
         return self.predictor.infer_occ_order(
             image.astype(np.float32), modal.astype(np.float32),
             bboxes.astype(np.float32), pairs=self.pairs)

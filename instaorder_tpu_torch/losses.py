@@ -1,6 +1,7 @@
-"""The order nets' losses (counterpart of instaorder_tpu/losses.py: `bce`,
-`bce_with_logits`, `cross_entropy`, `cross_entropy_masked` and the label
-swaps).
+"""The order nets' and PCNet-M's losses (counterpart of
+instaorder_tpu/losses.py: `bce`, `bce_with_logits`, `cross_entropy`,
+`cross_entropy_masked`, the label swaps and
+`mask_weighted_cross_entropy`).
 
 Every order model in the reference applies its criterion to *already
 activated* outputs: nn.CrossEntropyLoss on softmaxed logits and
@@ -13,10 +14,9 @@ The masked variant keeps the reference's `if mask.sum() > 0` guard with
 fixed shapes: sum(per_sample * mask) / max(count, 1), and 0 when the
 mask is empty. All math is f32.
 
-The disparity and inpainting losses (`min_max_norm`,
-`edge_aware_smoothness`, `disparity_order_violations`,
-`mask_weighted_cross_entropy`) belong to the MiDaS and UNet networks and
-are not ported yet (ROADMAP.md queue 1 item 4).
+The disparity losses (`min_max_norm`, `edge_aware_smoothness`,
+`disparity_order_violations`) belong to InstaDepthNet training, which
+is not ported yet (ROADMAP.md queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -85,3 +85,18 @@ def swap_ordernet_labels(labels):
     return torch.where(labels == 0, torch.ones_like(labels),
                        torch.where(labels == 1, torch.zeros_like(labels),
                                    labels))
+
+
+def mask_weighted_cross_entropy(logits, target, mask, inmask_weight=5.0,
+                                outmask_weight=1.0):
+    """PCNet-M's per-pixel CE weighted in / out of the eraser (reference
+    models/losses.py:60-88): the pixels' CEs (log-softmax in f32) times
+    `inmask_weight` where `mask` is set and `outmask_weight` elsewhere,
+    summed and divided by N*H*W. logits: (N, H, W, C); target, mask:
+    (N, H, W)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    pix = -torch.gather(logp, -1, target.long()[..., None])[..., 0]
+    w = torch.where(mask.bool(), torch.full_like(pix, inmask_weight),
+                    torch.full_like(pix, outmask_weight))
+    n, h, wd = target.shape
+    return torch.sum(pix * w) / (n * h * wd)

@@ -16,22 +16,21 @@ MidasNet / InstaDepthNet_d / InstaDepthNet_od (models/midas.py) take
 `init(gen, device=None, **kw)` (in_channels and num_classes dropped, as
 in the JAX package) and `apply(params, stats, cfg, img, mask1=None,
 mask2=None)`; they are eval-only (no apply_train: their training is
-not ported). The UNet names (PCNet-M) are registered so that they
-resolve by name, but their network is not ported yet: get_backbone
-raises NotImplementedError for them (ROADMAP.md queue 1 item 4).
+not ported). The UNet family (PCNet-M, models/unet.py) takes
+`init(gen, in_channels=3, n_classes=2, device=None, **extra)` (the rest
+of backbone_param ignored, as in the JAX package), `apply(params,
+stats, cfg, x, rgb=None)` and `apply_train(params, stats, cfg, x,
+rgb=None)`.
 """
 
 from __future__ import annotations
 
 from ..device import resolve_device
-from . import midas, resnet
+from . import midas, resnet, unet
 
 BACKBONES = {}
 
-# the keys of the JAX package's unet.UNET_FACTORIES (models/unet.py:158)
-UNET_NAMES = ('unet025', 'unet05', 'unet1', 'unet2', 'unet4', 'unet1d2',
-              'unet2d2', 'unet4d2', 'unet1d3', 'unet2d3', 'unet4d3',
-              'unet025res', 'unet05res', 'unet1res', 'unet2res', 'unet4res')
+UNET_NAMES = tuple(unet.UNET_FACTORIES)
 MIDAS_NAMES = ('MidasNet', 'InstaDepthNet_d', 'InstaDepthNet_od')
 
 
@@ -73,11 +72,16 @@ def _midas_entry(variant):
     return factory
 
 
-def _not_ported(name):
+def _unet_entry(name):
     def factory():
-        raise NotImplementedError(
-            f"backbone '{name}' is not ported to instaorder_tpu_torch yet "
-            '(ROADMAP.md queue 1 item 4: the UNet network)')
+        kw = unet.UNET_FACTORIES[name]
+
+        def init(gen, in_channels=3, n_classes=2, device=None, **extra):
+            return unet.init(gen, in_channels=in_channels,
+                             n_classes=n_classes,
+                             device=resolve_device(device), **kw)
+        return {'init': init, 'apply': unet.apply,
+                'apply_train': unet.apply_train}
     return factory
 
 
@@ -95,8 +99,9 @@ for _name, _arch in [
 ]:
     register(_name)(_resnet_entry(_arch))
 
+# UNet family (PCNet-M backbones, unet_model.py:78-109 + the *res variants)
 for _name in UNET_NAMES:
-    register(_name)(_not_ported(_name))
+    register(_name)(_unet_entry(_name))
 
 # MiDaS family (midas/midas_net.py)
 for _name, _variant in zip(MIDAS_NAMES, midas.VARIANTS):

@@ -220,13 +220,15 @@ def apply(params, stats, cfg, x, valid_hw=None, features=False):
     return _forward(params, stats, cfg, x, False, valid_hw, features)[0]
 
 
-def apply_train(params, stats, cfg, x):
+def apply_train(params, stats, cfg, x, features=False):
     """Train-mode forward (the JAX package's `apply(..., train=True)`):
     every BatchNorm normalises with its batch statistics. x: (N, H, W,
     C) -> (logits or an (occ, depth) tuple, new_stats), new_stats the
     running statistics updated as core/nn.batch_norm updates them, in a
-    new tree (`stats` is not written)."""
-    return _forward(params, stats, cfg, x, True, None)
+    new tree (`stats` is not written); features=True: the dict of stage
+    outputs in place of the logits, as in `apply` (the UNet's RGB
+    encoder, models/unet.py)."""
+    return _forward(params, stats, cfg, x, True, None, features)
 
 
 def run_stage(params, stats, cfg, stage_idx, x):

@@ -192,8 +192,21 @@ def resize_cubic_u8(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return np.clip(np.rint(out.numpy()), 0, 255).astype(np.uint8)
 
 
+def cv2_nearest_indices(src: int, dst: int) -> np.ndarray:
+    """cv2.resize's INTER_NEAREST source index for each dst position:
+    floor(x * (1 / (dst / src))), the scale inverted in double as cv2
+    inverts it. `nearest_indices` (floor(x * (src / dst)), the JAX
+    package's on-device rule, which the preps keep) takes the index
+    below where x * src / dst is an integer that the other rounding
+    leaves just under it (at 114 of the 2,796 pairs src 1-699 x dst 36,
+    48, 64, 256)."""
+    idx = np.floor(np.arange(dst) * (1.0 / (dst / src))).astype(np.int64)
+    return np.minimum(idx, src - 1)
+
+
 def resize_nearest_np(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     """cv2.resize(..., interpolation=cv2.INTER_NEAREST) of an (H, W[, C])
-    array (`nearest_indices` on both axes)."""
+    array (`cv2_nearest_indices` on both axes)."""
     h, w = img.shape[:2]
-    return img[nearest_indices(h, out_h)][:, nearest_indices(w, out_w)]
+    return img[cv2_nearest_indices(h, out_h)][:, cv2_nearest_indices(w,
+                                                                      out_w)]

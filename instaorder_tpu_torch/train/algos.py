@@ -24,16 +24,19 @@ the autograd graph, so the gradients reach the f32 master params in
 f32; BatchNorm statistics in f32) and `remat` (the forward recomputed in
 the backward pass, torch.utils.checkpoint without reentrancy).
 
-The training of InstaDepthNet_d / _od (the MiDaS networks: their dorder
-/ smooth / inmask losses and the MiDaS weight ingest) and of
-PartialCompletionMask (the UNet) is not ported yet: their factories
-raise NotImplementedError (ROADMAP.md queue 1 item 4), and so does
-`check_ported`, which the Trainer calls before it builds the net.
+PartialCompletionMask (PCNet-M) trains the UNet over [modal, eraser]
+(+ the RGB patch for the *res variants) against the un-erased mask,
+with the eraser-weighted pixel CE. The training of InstaDepthNet_d / _od
+(the MiDaS networks: their dorder / smooth losses and the MiDaS weight
+ingest) is not ported yet: their factories raise NotImplementedError
+(ROADMAP.md queue 1 item 4), and so does `check_ported`, which the
+Trainer calls before it builds the net.
 
 Batch convention (NHWC, fixed shapes, tensors on the training device):
   rgb (N,H,W,3) float32 | modal1, modal2 (N,H,W) float32 {0,1}
   occ_order (N,2) float | depth_order (N,) int | is_overlap (N,) int
   count (N,) int | label (N,) int (OrderNet)
+  PCNet-M: modal, eraser (N,H,W) float32 | target (N,H,W) int | rgb
 """
 
 from __future__ import annotations
@@ -200,15 +203,40 @@ def make_insta_order_od(net, cfg, hyper):
     return loss_fn
 
 
-NOT_PORTED = ('InstaDepthNet_d', 'InstaDepthNet_od', 'PartialCompletionMask')
+def make_partial_completion_mask(net, cfg, hyper):
+    """PartialCompletionMask (PCNet-M, reference models/partial_completion_
+    mask.py:116-126): the UNet over stack(modal, eraser) [+ the RGB
+    encoder's input for the *res variants], the mask-weighted pixel CE
+    against the un-erased modal."""
+    use_rgb = hyper.get('use_rgb', False)
+    inmask_weight = hyper.get('inmask_weight', 5.0)
+
+    def loss_fn(params, stats, batch, train=True):
+        x = torch.stack([batch['modal'], batch['eraser']], dim=-1)
+        kw = {'rgb': batch['rgb']} if use_rgb else {}
+        if train:
+            logits, new_stats = net['apply_train'](params, stats, cfg, x,
+                                                   **kw)
+        else:
+            logits, new_stats = net['apply'](params, stats, cfg, x,
+                                             **kw), stats
+        loss = L.mask_weighted_cross_entropy(
+            logits, batch['target'], batch['eraser'],
+            inmask_weight=inmask_weight, outmask_weight=1.0)
+        return loss, (new_stats, _detached({'loss': loss}))
+
+    return loss_fn
+
+
+NOT_PORTED = ('InstaDepthNet_d', 'InstaDepthNet_od')
 
 
 def check_ported(algo):
     if algo in NOT_PORTED:
         raise NotImplementedError(
             f"training algo '{algo}' is not ported to instaorder_tpu_torch "
-            'yet (ROADMAP.md queue 1 item 4: MiDaS / InstaDepthNet training '
-            'and the UNet)')
+            'yet (ROADMAP.md queue 1 item 4: MiDaS / InstaDepthNet '
+            'training)')
 
 
 def _not_ported(algo):
@@ -225,7 +253,7 @@ ALGOS = {
     'InstaOrderNet_od': make_insta_order_od,
     'InstaDepthNet_d': _not_ported('InstaDepthNet_d'),
     'InstaDepthNet_od': _not_ported('InstaDepthNet_od'),
-    'PartialCompletionMask': _not_ported('PartialCompletionMask'),
+    'PartialCompletionMask': make_partial_completion_mask,
 }
 
 

@@ -12,6 +12,7 @@ Behavioral parity with the reference's `utils/data_utils.py`
   mask_aug / base_aug     <- utils/data_utils.py:199-235
   EraserSetter            <- utils/data_utils.py:238-249
   get_closest_int_multiple_of <- utils/data_utils.py:13-17
+  dilate_square           <- cv2.dilate(m, np.ones((k, k)))
 
 These run in the CPU ingest path (annotation -> fixed-shape batch), so
 they stay numpy. The readers use `mask_to_bbox`; the training
@@ -89,6 +90,25 @@ def crop_padding(img: np.ndarray, roi, pad_value) -> np.ndarray:
             img[max(y, 0):min(y + h, H), max(x, 0):min(x + w, W), :]
         )
     return out[:, :, 0] if squeeze else out
+
+
+def dilate_square(mask: np.ndarray, k: int) -> np.ndarray:
+    """cv2.dilate(mask, np.ones((k, k), np.uint8), iterations=1) of a
+    non-negative (H, W) array: the max over a k x k window anchored at
+    (k // 2, k // 2), out-of-image taps ignored (cv2's default border
+    for dilation). Two passes of k shifted maxima, one per axis."""
+    a = k // 2
+    out = np.asarray(mask)
+    for axis in (0, 1):
+        n = out.shape[axis]
+        pad = [(0, 0), (0, 0)]
+        pad[axis] = (a, k - 1 - a)
+        padded = np.pad(out, pad)
+        acc = padded.take(np.arange(n), axis)
+        for o in range(1, k):
+            acc = np.maximum(acc, padded.take(np.arange(o, o + n), axis))
+        out = acc
+    return out
 
 
 def pair_crop_bbox(bbox1, bbox2, shift_aug=None, scale_aug=None, rng=None):

@@ -45,6 +45,7 @@ from instaorder_tpu_torch.data import image_io
 from instaorder_tpu_torch.data import readers as TR
 from instaorder_tpu_torch.data import rle as TRLE
 from instaorder_tpu_torch.data import synthetic as TS
+from instaorder_tpu_torch.eval import amodal as TAM
 from instaorder_tpu_torch.eval import disp as TDISP
 from instaorder_tpu_torch.eval import heuristics as TH
 from instaorder_tpu_torch.eval import metrics as TM
@@ -53,6 +54,7 @@ from instaorder_tpu_torch.eval import tester as TT
 from instaorder_tpu_torch.models import midas as tmidas
 from instaorder_tpu_torch.models import registry as TREG
 from instaorder_tpu_torch.models import resnet as tresnet
+from instaorder_tpu_torch.models import unet as tunet
 from instaorder_tpu_torch.utils import geometry as TG
 from instaorder_tpu_torch.utils import telemetry as TTEL
 
@@ -735,9 +737,11 @@ def test_basic_resnet_matches_jax(arch, layers):
 
 def test_registry_matches_jax():
     assert sorted(TREG.BACKBONES) == sorted(JREG.BACKBONES)
+    # the UNet family resolves (tests/test_torch_unet.py holds its trees)
     for name in TREG.UNET_NAMES:
-        with pytest.raises(NotImplementedError, match='queue 1 item 4'):
-            TREG.get_backbone(name)
+        bb = TREG.get_backbone(name)
+        assert bb['apply'] is tunet.apply
+        assert bb['apply_train'] is tunet.apply_train
     # the MiDaS family resolves (tests/test_torch_midas.py holds its trees)
     for name in TREG.MIDAS_NAMES:
         assert TREG.get_backbone(name)['apply'] is tmidas.apply
@@ -878,9 +882,16 @@ def test_tester_unported_routes_raise(tmp_path, monkeypatch):
         return a
     with pytest.raises(NotImplementedError, match='queue 1 item 4'):
         TT.Tester(args(save_pngs=1), device='cpu')
-    with pytest.raises(NotImplementedError, match='queue 1 item 4'):
-        TT.Tester(args(order_method='PartialCompletionMask'),
-                  device='cpu').run()
+    # the PartialCompletionMask method now runs (a UNet; its parity with
+    # JAX's Tester is in tests/test_torch_amodal.py)
+    a = args(order_method='PartialCompletionMask')
+    a.model = {'algo': 'PartialCompletionMask', 'backbone_arch': 'unet1d2',
+               'backbone_param': {'in_channels': 2, 'n_classes': 2}}
+    a.data = dict(a.data, trainval_dataset='PartialCompDataset')
+    t = TT.Tester(a, device='cpu')
+    out = t.run()
+    assert isinstance(t.completer, TAM.AmodalCompleter)
+    assert sorted(out) == ['f1', 'n', 'precision', 'recall']
     # the disparity route now runs: midas_pretrained, and InstaDepthNet_d
     # with disp_select_method (a trimmed net; a depth-order config)
     monkeypatch.setattr(TDISP, 'make_disp_forward', tiny_disp_forward)

@@ -92,8 +92,19 @@ def test_datasets_match_jax(fixture, name, algo, mode, phase):
 
 
 def test_partial_comp_dataset_refused(fixture):
-    with pytest.raises(NotImplementedError, match='queue 1 item 4'):
-        TD.DATASETS['PartialCompDataset'](config(fixture, 'patch'), 'train')
+    """PartialCompDataset is no longer refused: it builds and its samples
+    equal JAX's (tests/test_torch_pcnet_train.py holds it across the
+    configs, phases and options)."""
+    cfg = config(fixture, 'patch', eraser_front_prob=0.8, eraser_setter={
+        'min_overlap': 0.4, 'max_overlap': 1.0, 'min_cut_ratio': 0.001,
+        'max_cut_ratio': 0.9})
+    tds = TD.DATASETS['PartialCompDataset'](cfg, 'train')
+    jds = JD.DATASETS['PartialCompDataset'](cfg, 'train')
+    assert len(tds) == len(jds)
+    for i in range(2):
+        assert_samples_match(tds.sample(i, np.random.RandomState(i)),
+                             jds.sample(i, np.random.RandomState(i)),
+                             f'PartialCompDataset {i}')
     assert sorted(TD.DATASETS) == sorted(JD.DATASETS)
 
 

@@ -292,10 +292,16 @@ def test_remat(nets, fused):
 
 
 def test_not_ported_algos():
-    for algo in ('InstaDepthNet_d', 'InstaDepthNet_od',
-                 'PartialCompletionMask'):
+    for algo in ('InstaDepthNet_d', 'InstaDepthNet_od'):
         with pytest.raises(NotImplementedError, match='queue 1 item 4'):
             TA.make_loss(algo, NET, {}, {})
+        with pytest.raises(NotImplementedError, match='queue 1 item 4'):
+            TA.check_ported(algo)
+    # PartialCompletionMask is ported (tests/test_torch_unet.py holds its
+    # loss and gradients against JAX's)
+    TA.check_ported('PartialCompletionMask')
+    assert TA.NOT_PORTED == ('InstaDepthNet_d', 'InstaDepthNet_od')
+    assert callable(TA.make_loss('PartialCompletionMask', NET, {}, {}))
     with pytest.raises(KeyError):
         TA.make_loss('nope', NET, {}, {})
     assert sorted(TA.ALGOS) == sorted(JA.ALGOS)
