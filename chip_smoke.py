@@ -6,7 +6,8 @@ int8c and f32), the per-image order predictors (eval/pipeline), the
 Tester (eval/tester) and the Trainer (train/trainer) at full ResNet-50
 width, the MiDaS / InstaDepthNet evaluation (models/midas, eval/disp) at
 full ResNeXt-101 width, PCNet-M (models/unet, eval/amodal, its Tester
-method and training) at full unet2 width, and prints one JSON line for
+method and training) at full unet2 width, InstaDepthNet training
+(train/algos, compat/) at full width, and prints one JSON line for
 the kernels plus a final status line.
 
     python3 chip_smoke.py
@@ -97,10 +98,12 @@ Phases (any failed check raises and the script exits nonzero):
      InstaOrderNet_d and _od (384^2 resize) 3 steps at its own settings,
      finite losses, every param leaf moved; one SGD step of _o and _od
      at full width on 4 pairs of the port's dataset on the card against
-     the CPU (the card following the CPU run's ReLU branch, the sign
-     disagreements counted): loss within 1e-5 relative, each leaf's
-     update within 1e-3 of its max |update on the CPU|, the new
-     statistics within 1e-5; for _o at 256^2 and _od at 384^2, the
+     the CPU's f64 step (every run following the CPU f64 run's ReLU
+     branch and stem-pool argmaxes, the disagreements counted): loss
+     within 1e-5 relative, each leaf's update within 1e-3 of its max
+     |update on the CPU|, the new statistics within max(1e-5, 2x the
+     CPU f32 run's own error) on each leaf (check_stats); for _o at
+     256^2 and _od at 384^2, the
      Trainer's loader-fed batch and data ms over a steady window (20
      steps after 10) and its loader's ms a batch alone (10 after 2; _o
      also with process workers), the device step ms on a fixed batch
@@ -156,16 +159,43 @@ Phases (any failed check raises and the script exits nonzero):
      validate() finite, the Tester on the step-6 checkpoint; COCOA and
      KINS 3 steps each, finite losses, every leaf moved; (d) one SGD step
      at full width on 4 patches of the port's dataset, card against the
-     CPU's f64 step, every run on the CPU f32 run's ReLU branch and pool
+     CPU's f64 step, every run on the CPU f64 run's ReLU branch and pool
      argmaxes (the flips counted: exact ties, near ties, others): loss
      within 1e-5 relative, each leaf's update within 1e-3 of its max (a
      conv bias feeding a train-mode BatchNorm, gradient 0, on the tree's
-     max), statistics within 1e-5; the step ms on a fixed batch of 32
+     max), statistics as in phase 6; the step ms on a fixed batch of 32
      (median of 10 after 3), patches/s, peak memory, and the Trainer's
      loader-fed batch and data ms over a steady window (20 steps after
      10) and its loader alone; (e) no hand-written kernel launched, the
      phase's seconds;
-  9. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
+  9. InstaDepthNet training (train/algos.make_insta_depth_net, the
+     disparity losses, ops/morphology.binary_erosion, models/midas
+     .apply_train, compat/; JAX's path reaches no Pallas kernel, so no
+     kernel launches here, checked) on the phase 5 InstaOrder fixture
+     and experiments/InstaOrder/InstaDepthNet_{d,od} (ResNeXt-101 32x8d
+     trunk, features 256, ResNet-50 order branches, 384^2 resize, batch
+     12, SGD lr 1e-5, wd 1e-4): (a) a full-width MidasNet state dict of
+     seeded weights in the reference's names (tests/torch_ref.py's
+     TorchMidasOracle, torch only) written with torch.save and given to
+     the _od Trainer as pretrained_weight: every trunk and decoder leaf
+     the file's, the branches at their init; (b) one SGD step of _d and
+     of _od at full width on 2 samples of 384^2, card against the CPU's
+     f64 step (the CPU f64 run's ReLU branch and pool argmaxes): loss
+     within 1e-5 relative (without the violation count where a pixel
+     lies within 1e-5 of its threshold), updates within 1e-3, the
+     statistics as in phase 6, the violation count equal where no pixel
+     is near a threshold (else the flipped pixels printed), the CPU f32
+     run's distances beside, the host's peak RSS; (c) the _d YAML through
+     Trainer(device=None).train() at batch 12 (its pretrained_weight
+     missing: the warning checked), 4 steps, a checkpoint, a new Trainer
+     resuming to 6, validate() finite, the Tester's disparity route and
+     eval_diw on the step-6 checkpoint, make_disp_forward on the oracle's
+     .pt (compat) within 1e-5 of the torch module, _od 3 finite steps;
+     (d) the _d step on a fixed batch of 12 (median of 10 after 3), peak
+     memory, the Trainer's loader-fed batch and data ms over a steady
+     window (10 steps after 5) and its loader alone; no hand-written
+     kernel launched; the phase's seconds;
+ 10. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
      f32 row's share of its 3xTF32 bound (495 TF32 TFLOP/s, three
      products a MAC, two for an int8 A: the row's bound_ms) and of the
      f32 peak, the f32 stem rows' share of their design's floor (the
@@ -1944,6 +1974,10 @@ XDEV_PAIRS = 4
 XDEV_LOSS_BAR = 1e-5        # relative
 XDEV_UPDATE_BAR = 1e-3      # of each leaf's max |update on the CPU|
 XDEV_STATS_BAR = 1e-5       # of each leaf's max |stat on the CPU|
+# ... or this many times the CPU f32 run's own error on that leaf, where
+# that is larger: the statistics of every phase (check_stats), phase 9's
+# updates
+XDEV_CPU_FACTOR = 2
 TIMING_WARMUP, TIMING_REPS = 3, 10
 # the loader-fed window: steps after a warm-up (the first batch waits for
 # the whole prefetch), the logs read every LOADER_WARMUP steps; and the
@@ -2006,19 +2040,53 @@ def on_branch(torch, masks, flips):
     return real, relu
 
 
+def minmax_recorder(torch, TL, sets, flips=None):
+    """A losses.min_max_norm that records, per image, the pixels that
+    hold its min and its max (every tied pixel) into `sets`; with flips
+    given, one that follows `sets` instead (each extremum the mean of the
+    recorded pixels, so that its gradient splits over them as amin /
+    amax split it over ties) and counts in flips[0] the extrema whose
+    own pixels differ: the gradient of the normalisation goes to the
+    extremal pixel, and two forwards can put a near-tie's maximum on
+    different pixels."""
+    real = TL.min_max_norm
+    it = iter(sets)
+
+    def mmn(disp, eps=1e-7):
+        dims = (-2, -1)
+        own = (disp == torch.amin(disp, dim=dims, keepdim=True),
+               disp == torch.amax(disp, dim=dims, keepdim=True))
+        if flips is None:
+            sets.append(tuple(m.cpu() for m in own))
+            return real(disp, eps)
+        lo, hi = (m.to(disp.device) for m in next(it))
+        for a, b in zip(own, (lo, hi)):
+            flips[0] += int((a != b).flatten(1).any(1).sum())
+
+        def ext(m):
+            return (disp * m).sum(dim=dims, keepdim=True) / m.sum(
+                dim=dims, keepdim=True)
+        return (disp - ext(lo)) / (ext(hi) + eps)
+    return mmn
+
+
 def train_step_on(torch, T, ST, CV, net, cfg, m, params, stats, batch,
-                  dev, branch=None, dtype=None):
+                  dev, branch=None, dtype=None, record=None):
     """One SGD step of the loss of model settings `m` (a configuration's
     `model` section) on `dev` from numpy params/stats and
     a numpy batch, in f32 (dtype None) or in `dtype` (params, stats and
     the batch's float fields cast). branch None: record the forward's
-    ReLU masks, the UNet's pool argmaxes and its count of tied pool
+    ReLU masks, its max-pools' argmaxes (core/nn.max_pool: the UNet's 2x2
+    pools, the ResNet stems' 3x3) and its count of tied pool
     windows into a new branch (masks, indices, [ties]), returned; else
-    follow them. Returns (loss, new params, new stats (numpy), branch,
-    (ReLU flips, pool argmax flips, of them not exact ties, of them
-    beyond 1e-5; pool_recorder))."""
+    follow them. record: a callback wrapped around the step (a context
+    manager factory), or None. Returns (loss, new params, new stats
+    (numpy), branch, (ReLU flips, pool argmax flips, of them not exact
+    ties, of them beyond 1e-5; pool_recorder), the logs as floats)."""
+    import contextlib
+    from instaorder_tpu_torch import losses as TL
+    from instaorder_tpu_torch.core import nn as CN
     from instaorder_tpu_torch.core.nn import tree_map
-    from instaorder_tpu_torch.models import unet as U
     from instaorder_tpu_torch.train import algos, optim
     loss_fn = algos.make_loss(m['algo'], net, cfg, m)
     opt = optim.make_optimizer('SGD', weight_decay=m['weight_decay'])
@@ -2028,35 +2096,40 @@ def train_step_on(torch, T, ST, CV, net, cfg, m, params, stats, batch,
     p = tree_map(cast, CV.tree_to(CV.to_torch(params), dev))
     s = tree_map(cast, CV.tree_to(CV.to_torch(stats), dev))
     xb = {k: cast(v) for k, v in T.batch_to_device(batch, dev).items()}
-    relu_flips, pool_flips = [0], [0, 0, 0]
-    real_relu, real_pool = torch.relu, U._max_pool2
+    relu_flips, pool_flips, mm_flips = [0], [0, 0, 0], [0]
+    real = torch.relu, CN.max_pool, TL.min_max_norm
     if branch is None:
-        branch = ([], [], [0])
+        branch = ([], [], [0], [])
 
         def relu(x):
             branch[0].append((x > 0).cpu())
-            return real_relu(x)
+            return real[0](x)
         pool = pool_recorder(torch, branch[1], ties=branch[2])
+        mmn = minmax_recorder(torch, TL, branch[3])
     else:
         _, relu = on_branch(torch, branch[0], relu_flips)
         pool = pool_recorder(torch, branch[1], pool_flips)
-    torch.relu, U._max_pool2 = relu, pool
+        mmn = minmax_recorder(torch, TL, branch[3], mm_flips)
+    torch.relu, CN.max_pool, TL.min_max_norm = relu, pool, mmn
     try:
-        p, s, _, logs = step(p, s, opt.init(p), xb, m['lr'])
+        with (record() if record else contextlib.nullcontext()):
+            p, s, _, logs = step(p, s, opt.init(p), xb, m['lr'])
     finally:
-        torch.relu, U._max_pool2 = real_relu, real_pool
+        torch.relu, CN.max_pool, TL.min_max_norm = real
     return (float(logs['loss']), CV.to_numpy(p), CV.to_numpy(s), branch,
-            (relu_flips[0], *pool_flips))
+            (relu_flips[0], *pool_flips, mm_flips[0]),
+            {k: float(v) for k, v in logs.items()})
 
 
-def leaf_worst(got, want, base, what, on_tree_max=()):
+def leaf_worst(got, want, base, what, on_tree_max=(), leaves=None):
     """(worst relative error, leaf path) over a tree's leaves: max |got -
     want| over max |want - base| (base None: over max |want|); for
     updates (base given) one f32 spacing of the value is allowed, the
     rounding of p - lr * buf. A leaf whose path ends in one of
     `on_tree_max` is held on the largest such scale of the whole tree
     instead of its own (a conv bias that feeds a train-mode BatchNorm:
-    its gradient is 0, its update rounding)."""
+    its gradient is 0, its update rounding). leaves: a dict that gets
+    {path: (error, scale)} of every leaf."""
     import numpy as np
     out = (0.0, '')
     tree_max = [0.0]
@@ -2093,10 +2166,51 @@ def leaf_worst(got, want, base, what, on_tree_max=()):
                 err = err - np.spacing(np.abs(w).astype(np.float32))
             if path.endswith(tuple(on_tree_max)):
                 scale = tree_max[0]
-            out = max(out, (float(err.max()) / max(float(scale), 1e-30),
-                            path))
+            rel = float(err.max()) / max(float(scale), 1e-30)
+            if leaves is not None:
+                leaves[path] = (rel, float(scale))
+            out = max(out, (rel, path))
     walk(got, want, base, what)
     return out
+
+
+def leaf_errors(got, want):
+    """{leaf path: max |got - want| / max |want|} over a tree's leaves."""
+    import numpy as np
+    out = {}
+
+    def walk(g, w, path):
+        if isinstance(w, dict):
+            for k in w:
+                walk(g[k], w[k], f'{path}.{k}')
+        elif isinstance(w, (list, tuple)):
+            for i in range(len(w)):
+                walk(g[i], w[i], f'{path}[{i}]')
+        else:
+            g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+            out[path] = float(np.abs(g - w).max()) / max(
+                float(np.abs(w).max()), 1e-30)
+    walk(got, want, 'stats')
+    return out
+
+
+def check_stats(name, sg, s32, s64, card):
+    """The card's new statistics (sg) against the CPU's f64 ones (s64):
+    each leaf within max(XDEV_STATS_BAR, XDEV_CPU_FACTOR x the CPU f32
+    run's own error on that leaf), the CPU f32 run (s32) being exact in
+    JAX's sense; prints the worst leaf's two errors."""
+    e_card, e_cpu = leaf_errors(sg, s64), leaf_errors(s32, s64)
+    bar = {k: max(XDEV_STATS_BAR, XDEV_CPU_FACTOR * e_cpu[k]) for k in e_card}
+    worst = max(e_card, key=lambda k: e_card[k] / bar[k])
+    over = sum(e_card[k] > XDEV_STATS_BAR for k in e_card)
+    print(f'  {name} new statistics vs CPU f64: worst card leaf {worst} '
+          f'{e_card[worst]:.3e} (the CPU f32 run {e_cpu[worst]:.3e}, bar '
+          f'{bar[worst]:.3e}); the card\'s worst {max(e_card.values()):.3e}'
+          f', the CPU f32 run\'s worst {max(e_cpu.values()):.3e}; {over} of '
+          f'{len(e_card)} card leaves above {XDEV_STATS_BAR} ({card})')
+    check(e_card[worst] <= bar[worst],
+          f'{name}: every new statistic within max({XDEV_STATS_BAR}, '
+          f'{XDEV_CPU_FACTOR} x the CPU f32 run\'s error) of f64 ({worst})')
 
 
 def phase_train_xdev(torch, T, ST, CV, get_backbone, fixture, dev, card):
@@ -2106,9 +2220,10 @@ def phase_train_xdev(torch, T, ST, CV, get_backbone, fixture, dev, card):
     runs the step in f32 and in f64; the card's f32 step is held against
     the CPU's f64 one (the CPU's f32 convolutions, oneDNN's, are the
     less exact of the two f32 runs: its step is printed beside, with
-    its own distance from f64). Every run follows the CPU f32 run's
-    ReLU branch (on_branch); the number of ReLU inputs whose sign
-    differs on the card is printed."""
+    its own distance from f64). Every run follows the ReLU branch and the
+    stem pool's argmaxes of the CPU's f64 run (on_branch, pool_recorder),
+    so that no f32 rounding picks the branch; the number of ReLU inputs
+    and pool windows whose own choice differs is printed."""
     import numpy as np
     from instaorder_tpu_torch.data.datasets import DATASETS, collate
     from instaorder_tpu_torch.data.loader import sample_rng
@@ -2127,9 +2242,9 @@ def phase_train_xdev(torch, T, ST, CV, get_backbone, fixture, dev, card):
         run = lambda d, branch=None, dtype=None: train_step_on(  # noqa: E731
             torch, T, ST, CV, net, cfg, args.model, params, stats, batch,
             d, branch, dtype)
-        l32, p32, s32, branch, _ = run(cpu)
-        l64, p64, s64, _, _ = run(cpu, branch, torch.float64)
-        lg, pg, sg, _, flips = run(dev, branch)
+        l64, p64, s64, branch, _, _ = run(cpu, None, torch.float64)
+        l32, p32, s32, _, cflips, _ = run(cpu, branch)
+        lg, pg, sg, _, flips, _ = run(dev, branch)
         out = {}
         for who, (l, p, s) in (('card f32', (lg, pg, sg)),
                                ('CPU f32', (l32, p32, s32))):
@@ -2142,18 +2257,19 @@ def phase_train_xdev(torch, T, ST, CV, get_backbone, fixture, dev, card):
                   f'f64: loss {l:.6f} vs {l64:.6f} (rel {lrel:.3e}); worst '
                   f'update {upd[1]} {upd[0]:.3e} of its max |update|; '
                   f'worst stats {sts[1]} {sts[0]:.3e}')
-        print(f'train {name}: {flips[0]} of '
-              f'{sum(int(m.numel()) for m in branch[0])} ReLU inputs on the '
-              f'other side of zero on the card (every run follows the CPU '
-              f'f32 run\'s branch); card vs CPU f32: worst update '
+        print(f'train {name}: {flips[0]} (CPU f32 {cflips[0]}) of '
+              f'{sum(int(m.numel()) for m in branch[0])} ReLU inputs and '
+              f'{flips[1]} (CPU f32 {cflips[1]}) of '
+              f'{sum(int(i.numel()) for i in branch[1])} pool argmaxes on '
+              f'the other side on the card (every run follows the CPU f64 '
+              f'run\'s branch); card vs CPU f32: worst update '
               f'{leaf_worst(pg, p32, params, "params")}')
         lrel, upd, sts = out['card f32']
         check(np.isfinite(lg) and lrel <= XDEV_LOSS_BAR,
               f'{name}: card loss within {XDEV_LOSS_BAR} of the CPU\'s')
         check(upd[0] <= XDEV_UPDATE_BAR,
               f'{name}: every update within {XDEV_UPDATE_BAR} ({upd})')
-        check(sts[0] <= XDEV_STATS_BAR,
-              f'{name}: the new statistics within {XDEV_STATS_BAR} ({sts})')
+        check_stats(name, sg, s32, s64, card)
 
 
 def time_train_step(torch, T, t, batch):
@@ -2178,20 +2294,22 @@ def time_train_step(torch, T, t, batch):
             torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
-def time_loader_fed(T, name, fixture, out_dir, data=None):
+def time_loader_fed(T, name, fixture, out_dir, data=None,
+                    warmup=LOADER_WARMUP, window=LOADER_WINDOW):
     """The loader-fed Trainer over a steady window, and its loader alone.
 
     A Trainer of `name` at its YAML's settings (the `data` keys
-    replaced) trains LOADER_WARMUP + LOADER_WINDOW steps, its logs read
-    (the card synchronised) every LOADER_WARMUP steps; its own meters,
+    replaced) trains warmup + window steps (LOADER_WARMUP and
+    LOADER_WINDOW by default), its logs read (the card synchronised)
+    every `warmup` steps; its own meters,
     btime and dtime, are reset and unwindowed as the loader hands over
     the first batch after the warm-up. A print_freq read lands in the
     next step's data time, so the window's batch times sum to its wall
     time. Then a fresh pass of the same loader, with nothing beside it:
     ms a batch over ALONE_WINDOW batches after ALONE_WARMUP. Returns
     (batch ms, data ms, loader-alone ms, the Trainer, a batch)."""
-    args = train_args(name, fixture, LOADER_WARMUP + LOADER_WINDOW, data,
-                      print_freq=LOADER_WARMUP, val_iter=1)
+    args = train_args(name, fixture, warmup + window, data,
+                      print_freq=warmup, val_iter=1)
     t = T.Trainer(args, out_dir=out_dir)
     quiet_logger(t)
     make = t._make_loader
@@ -2203,7 +2321,7 @@ def time_loader_fed(T, name, fixture, out_dir, data=None):
 
         def batches():
             for i, b in enumerate(loader):
-                if i == LOADER_WARMUP:
+                if i == warmup:
                     for m in (t.btime, t.dtime):
                         m.length = 0
                         m.reset()
@@ -2211,9 +2329,9 @@ def time_loader_fed(T, name, fixture, out_dir, data=None):
         return batches()
     t._make_loader = windowed
     t.train()
-    check(t.curr_step == LOADER_WARMUP + LOADER_WINDOW and
-          t.btime.count == LOADER_WINDOW == t.dtime.count,
-          f'{name}: a loader-fed window of {LOADER_WINDOW} steps')
+    check(t.curr_step == warmup + window and
+          t.btime.count == window == t.dtime.count,
+          f'{name}: a loader-fed window of {window} steps')
     it = iter(make('train'))
     for _ in range(ALONE_WARMUP):
         next(it)
@@ -2270,9 +2388,13 @@ def train_flow(torch, T, name, fixture, out, tester_cfg,
           f'Tester {res}')
 
 
-def three_steps(torch, T, name, fixture, out, dataset='InstaOrder'):
+def three_steps(torch, T, name, fixture, out, dataset='InstaOrder',
+                every_leaf=True):
     """experiments/<dataset>/<name> at its own settings on the card: 3
-    finite steps that move every param leaf."""
+    finite steps that move every param leaf (every_leaf False: the leaves
+    moved are counted, not held: InstaDepthNet_od's YAML trains little
+    but the disparity path, and at its lr an update below half an f32
+    spacing leaves a weight as it was)."""
     import numpy as np
     from instaorder_tpu_torch.core.nn import tree_leaves
     ta = T.Trainer(train_args(name, fixture, 3, dataset=dataset,
@@ -2293,11 +2415,13 @@ def three_steps(torch, T, name, fixture, out, dataset='InstaOrder'):
         before, tree_leaves(ta.params)))
     check(len(losses) == 3 and np.isfinite(losses).all(),
           f'{dataset}/{name}: 3 finite steps ({losses})')
-    check(moved == len(before), f'{dataset}/{name}: every param leaf moved '
-          f'({moved} of {len(before)})')
+    check(moved == len(before) or not every_leaf,
+          f'{dataset}/{name}: every param leaf moved ({moved} of '
+          f'{len(before)})')
     print(f'train {dataset}/{name} ({ta.args.data["input_size"]}^2, '
           f'{ta.args.data["patch_or_image"]}, batch '
-          f'{ta.args.data["batch_size"]}): losses {losses}')
+          f'{ta.args.data["batch_size"]}): losses {losses}; {moved} of '
+          f'{len(before)} param leaves moved')
 
 
 def phase_train(torch, dev, card, wrappers):
@@ -3124,33 +3248,36 @@ def record_pcnet_tester(t):
 
 
 def pool_recorder(torch, indices, flips=None, ties=None):
-    """A unet._max_pool2 that records each window's argmax (torch's flat
-    H*W index, in call order) into `indices` (and into ties[0], when
-    given, the windows whose maximum is not unique); with flips given,
-    one that
-    follows `indices` instead and counts in flips[0] the windows whose
-    own argmax differs, in flips[1] those of them whose two candidates
-    differ in value (not an exact tie), in flips[2] those whose values
-    differ by more than 1e-5 of the maximum (not a near-tie either: a
-    tie's flip keeps the value and moves only the gradient)."""
+    """A core/nn.max_pool of NHWC x (its window, stride and padding: the
+    UNet's 2x2 / 2, the ResNet stems' 3x3 / 2) that records each window's
+    argmax (torch's flat H*W index, in call order) into `indices` (and
+    into ties[0], when given, the windows whose maximum is not unique);
+    with flips given, one that follows `indices` instead and counts in
+    flips[0] the windows whose own argmax differs, in flips[1] those of
+    them whose two candidates differ in value (not an exact tie), in
+    flips[2] those whose values differ by more than 1e-5 of the maximum
+    (not a near-tie either: a tie's flip keeps the value and moves only
+    the gradient)."""
     import torch.nn.functional as F
     it = iter(indices)
 
-    def pool(x):
-        y, idx = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2, 0,
+    def pool(x, window=2, stride=2, padding=0):
+        xc = x.permute(0, 3, 1, 2)
+        y, idx = F.max_pool2d(xc, window, stride, padding,
                               return_indices=True)
         if flips is None:
             indices.append(idx.detach().cpu())
             if ties is not None:
-                h, w = 2 * y.shape[2], 2 * y.shape[3]
-                win = x.detach().permute(0, 3, 1, 2)[..., :h, :w]
-                hits = F.avg_pool2d((win == F.interpolate(
-                    y.detach(), scale_factor=2)).float(), 2) * 4
-                ties[0] += int((hits > 1.5).sum())
+                n, c, ho, wo = y.shape
+                win = F.unfold(F.pad(xc.detach(), (padding,) * 4,
+                                     value=float('-inf')), window,
+                               stride=stride).view(n, c, window * window, -1)
+                hits = (win == y.detach().reshape(n, c, 1, -1)).sum(2)
+                ties[0] += int((hits > 1).sum())
             return y.permute(0, 2, 3, 1)
         want = next(it).to(x.device)
         n, c, ho, wo = want.shape
-        plane = x.permute(0, 3, 1, 2).reshape(n, c, -1)
+        plane = xc.reshape(n, c, -1)
         out = torch.gather(plane, 2, want.reshape(n, c, -1)).reshape(
             n, c, ho, wo)
         moved = idx != want
@@ -3301,7 +3428,7 @@ def phase_pcnet_train(torch, root, fixtures):
 def phase_pcnet_xdev(torch, fixture, dev, card, numbers):
     """(d): one SGD step of the InstaOrder config at full width on
     PCNET_XDEV patches of the port's dataset, on the card and on the CPU
-    (f32 and f64), every run on the CPU f32 run's ReLU branch and pool
+    (f32 and f64), every run on the CPU f64 run's ReLU branch and pool
     argmaxes, the card's flips counted; the card's step against the CPU's
     f64 one."""
     import numpy as np
@@ -3325,9 +3452,9 @@ def phase_pcnet_xdev(torch, fixture, dev, card, numbers):
     run = lambda d, branch=None, dtype=None: train_step_on(  # noqa: E731
         torch, T, ST, CV, net, cfg, args.model, params, stats, batch, d,
         branch, dtype)
-    l32, p32, s32, branch, _ = run(cpu)
-    l64, p64, s64, _, _ = run(cpu, branch, torch.float64)
-    lg, pg, sg, _, flips = run(dev, branch)
+    l64, p64, s64, branch, _, _ = run(cpu, None, torch.float64)
+    l32, p32, s32, _, _, _ = run(cpu, branch)
+    lg, pg, sg, _, flips, _ = run(dev, branch)
     out = {}
     for who, (l, p, s) in (('card f32', (lg, pg, sg)),
                            ('CPU f32', (l32, p32, s32))):
@@ -3347,7 +3474,7 @@ def phase_pcnet_xdev(torch, fixture, dev, card, numbers):
           f'{branch[2][0]} tied on the CPU (the maximum not unique), '
           f'{flips[1]} with another argmax on the card, {flips[2]} of them '
           f'not exact ties, {flips[3]} beyond 1e-5 of the max (every run '
-          f'follows the CPU f32 run\'s branch and argmaxes)')
+          f'follows the CPU f64 run\'s branch and argmaxes)')
     numbers['xdev'] = out['card f32']
     numbers['flips'] = flips
     numbers['pool ties'] = branch[2][0]
@@ -3356,8 +3483,7 @@ def phase_pcnet_xdev(torch, fixture, dev, card, numbers):
           f'pcnet: card loss within {XDEV_LOSS_BAR} of the CPU\'s f64')
     check(upd[0] <= XDEV_UPDATE_BAR,
           f'pcnet: every update within {XDEV_UPDATE_BAR} ({upd})')
-    check(sts[0] <= XDEV_STATS_BAR,
-          f'pcnet: the new statistics within {XDEV_STATS_BAR} ({sts})')
+    check_stats('pcnet', sg, s32, s64, card)
 
 
 def phase_pcnet(torch, dev, card, wrappers):
@@ -3409,6 +3535,415 @@ def phase_pcnet(torch, dev, card, wrappers):
     numbers['seconds'] = time.perf_counter() - t0
     print(f'pcnet phase: {numbers["seconds"]:.1f} s; hand-written kernel '
           f'launches 0 ({card})')
+    return numbers
+
+
+# ---- InstaDepthNet training (train/algos.make_insta_depth_net, compat/) -----
+# the card-vs-CPU SGD step: samples at the YAMLs' 384^2
+DEPTH_XDEV = 2
+# the loader-fed window of the _d Trainer (steps after a warm-up)
+DEPTH_LOADER_WARMUP, DEPTH_LOADER_WINDOW = 5, 10
+# a pixel whose disparity lies within this share of max |disparity| of
+# the threshold it is compared with can count on one device and not on
+# the other (disparity_order_violations)
+VIOLATION_NEAR = 1e-5
+# the MiDaS trunk's stages (ResNeXt-101 32x8d)
+MIDAS_TRUNK = (3, 4, 23, 3)
+
+
+def midas_oracle_file(torch, root, x, dev):
+    """A full-width MidasNet state dict of seeded weights in the
+    reference's names (tests/torch_ref.TorchMidasOracle, torch only), its
+    last bias set so that the disparity of x (NHWC, on dev) is positive
+    on about half of its pixels; written with torch.save to
+    {root}/model-f6b98070.pt. Returns (the path, the module on dev, in
+    eval mode)."""
+    import os
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), 'tests'))
+    from torch_ref import TorchMidasOracle
+    torch.manual_seed(0)
+    oracle = TorchMidasOracle(trunk_layers=MIDAS_TRUNK, features=256,
+                              variant='midas').eval().to(dev)
+    last = oracle.scratch.output_conv[4]
+    pre = []
+    hook = last.register_forward_hook(lambda m, i, o: pre.append(o))
+    with torch.no_grad():
+        oracle(x.permute(0, 3, 1, 2))
+        hook.remove()
+        last.bias -= pre[0].median()
+    path = os.path.join(root, 'model-f6b98070.pt')
+    torch.save({k: v.cpu() for k, v in oracle.state_dict().items()}, path)
+    return path, oracle
+
+
+def same_leaves(torch, got, want):
+    """(leaves equal, leaves) of two trees of one structure (got on any
+    device)."""
+    from instaorder_tpu_torch.core.nn import tree_leaves
+    g, w = tree_leaves(got), tree_leaves(want)
+    return (sum(torch.equal(a.cpu(), b.cpu()) for a, b in zip(g, w)),
+            len(w) if len(g) == len(w) else -1)
+
+
+def phase_depth_ingest(torch, T, fixture, root, path, card):
+    """(a): the _od YAML's Trainer with pretrained_weight at the oracle's
+    file: every trunk and decoder leaf (and the trunk's statistics) the
+    file's, the order branches at the init of the same seed."""
+    from instaorder_tpu_torch.compat.torch_convert_midas import \
+        midas_base_from_torch_state_dict
+    from instaorder_tpu_torch.models.registry import get_backbone
+    args = train_args('InstaDepthNet_od', fixture, 1)
+    args.model['pretrained_weight'] = path
+    t = T.Trainer(args, out_dir=f'{root}/ingest')
+    quiet_logger(t)
+    sd = torch.load(path, map_location='cpu', weights_only=True)
+    base, base_s = midas_base_from_torch_state_dict(sd, t.net_cfg)
+    fresh, fresh_s, _ = get_backbone('InstaDepthNet_od')['init'](
+        torch.Generator().manual_seed(0), device='cpu')
+    out = {}
+    for k in t.params:
+        want = (base[k], base_s.get(k)) if k in base else \
+            (fresh[k], fresh_s.get(k))
+        out[k] = [same_leaves(torch, t.params[k], want[0])]
+        if want[1] is not None:
+            out[k].append(same_leaves(torch, t.stats[k], want[1]))
+    log = open(f'{root}/ingest/logs/log_train.txt').read()
+    check(set(base) | {'do', 'oo'} == set(t.params) and
+          all(a == b for v in out.values() for a, b in v) and
+          '=> loaded pretrained_weight' in log,
+          f'ingest: the trunk and decoder from the file, the branches at '
+          f'their init ({out})')
+    n = sum(b for k, v in out.items() if k not in ('do', 'oo')
+            for _, b in v)
+    print(f'  depth ingest ({card}): pretrained_weight {path} into the '
+          f'InstaDepthNet_od Trainer on the card: {n} trunk and decoder '
+          f'leaves equal to the file\'s, the do / oo branches equal to '
+          f'the seed-0 init')
+    del t
+
+
+def violation_pixels(torch, d1, d2, e1, e2, order, distinct):
+    """The pixels that losses.disparity_order_violations counts, as a bool
+    tensor (4 terms, N, H, W): its comparisons, unsummed."""
+    def terms(d, flip):
+        d = d.float()
+        max2 = torch.amax(torch.where(e2, d, torch.tensor(-3.4e38)),
+                          dim=(-2, -1), keepdim=True)
+        min1 = torch.amin(torch.where(e1, d, torch.tensor(3.4e38)),
+                          dim=(-2, -1), keepdim=True)
+        if not flip:
+            return torch.stack([(d <= max2) & e1, (min1 <= d) & e2])
+        return torch.stack([(d >= max2) & e1, (min1 >= d) & e2])
+    sel = lambda v: v.view(1, -1, 1, 1)     # noqa: E731
+    o0 = torch.cat([terms(d1, False), terms(d2, True)])
+    o1 = torch.cat([terms(d1, True), terms(d2, False)])
+    out = torch.where(sel(order == 0), o0,
+                      torch.where(sel(order == 1), o1, torch.tensor(False)))
+    return out & sel(distinct.bool())
+
+
+def violation_near(torch, d1, d2, e1, e2, distinct):
+    """The pixels of the eroded masks of distinct pairs within
+    VIOLATION_NEAR of max |d| of the threshold they are compared with
+    (mask 1's pixels against the max over mask 2, mask 2's against the
+    min over mask 1, on either pass's disparity); left out, as exact on
+    every device: a ReLU'd 0 against a threshold of 0, and a pixel of
+    both masks that is the threshold itself."""
+    n = 0
+    for d in (d1.double(), d2.double()):
+        scale = float(d.abs().max())
+        for i in range(d.shape[0]):
+            if not bool(distinct[i]) or not (e1[i].any() and e2[i].any()):
+                continue
+            both = (e1[i] & e2[i])
+            for thr, m in ((d[i][e2[i]].max(), e1[i]),
+                           (d[i][e1[i]].min(), e2[i])):
+                v, own = d[i][m], both[m]
+                near = ((v - thr).abs() <= VIOLATION_NEAR * scale) & \
+                    ~((v == 0) & (thr == 0)) & ~(own & (v == thr))
+                n += int(near.sum())
+    return n
+
+
+def depth_batch(ds, n):
+    """n samples of a depth dataset: the first distinct pair of order 0
+    or 1 (the violation count's case), then the first others."""
+    from instaorder_tpu_torch.data.datasets import collate
+    from instaorder_tpu_torch.data.loader import sample_rng
+    picked, rest = [], []
+    for i in range(len(ds)):
+        smp = ds.sample(i, sample_rng(0, i))
+        distinct = int(smp['is_overlap']) == 0 and \
+            int(smp['depth_order']) in (0, 1)
+        (picked if distinct and not picked else rest).append(smp)
+        if picked and len(rest) >= n - 1:
+            break
+    return collate((picked + rest)[:n])
+
+
+def phase_depth_xdev(torch, fixture, dev, card, numbers):
+    """(b): one SGD step of the _d and _od YAMLs at full width on
+    DEPTH_XDEV samples of 384^2, on the card and on the CPU (f32 and
+    f64), every run on the CPU f64 run's ReLU branch and pool argmaxes;
+    the card's step against the CPU's f64 one, and the violation count
+    against its count."""
+    import contextlib
+    import resource
+    import numpy as np
+    from instaorder_tpu_torch import convert as CV
+    from instaorder_tpu_torch import losses as TL
+    from instaorder_tpu_torch.data.datasets import DATASETS
+    from instaorder_tpu_torch.models.registry import get_backbone
+    from instaorder_tpu_torch.train import step as ST
+    from instaorder_tpu_torch.train import trainer as T
+    cpu = torch.device('cpu')
+    for name in ('InstaDepthNet_d', 'InstaDepthNet_od'):
+        t0 = time.perf_counter()
+        args = train_args(name, fixture, 1)
+        net = get_backbone(name)
+        params, stats, cfg = net['init'](torch.Generator().manual_seed(0),
+                                         device='cpu')
+        params, stats = CV.to_numpy(params), CV.to_numpy(stats)
+        ds = DATASETS[args.data['trainval_dataset']](args.data, 'train',
+                                                     args.model['algo'])
+        batch = depth_batch(ds, DEPTH_XDEV)
+        seen = {}
+
+        def recorder(who):
+            @contextlib.contextmanager
+            def rec():
+                real = TL.disparity_order_violations
+
+                def wrapped(*a):
+                    seen[who] = [v.detach().cpu() for v in a]
+                    return real(*a)
+                TL.disparity_order_violations = wrapped
+                try:
+                    yield
+                finally:
+                    TL.disparity_order_violations = real
+            return rec
+        run = lambda d, who, branch=None, dtype=None: train_step_on(  # noqa
+            torch, T, ST, CV, net, cfg, args.model, params, stats, batch, d,
+            branch, dtype, record=recorder(who))
+        l64, p64, s64, branch, _, lg64 = run(cpu, 'cpu f64', None,
+                                             torch.float64)
+        l32, p32, s32, _, cflips, lg32 = run(cpu, 'cpu f32', branch)
+        lg, pg, sg, _, flips, lgc = run(dev, 'card', branch)
+        maps = {k: violation_pixels(torch, *v) for k, v in seen.items()}
+        counts = {k: int(m.sum()) for k, m in maps.items()}
+        hw = seen['card'][0].shape[-2] * seen['card'][0].shape[-1]
+        check(all(abs(counts[k] * args.model['dorder_weight'] / hw -
+                      lgs['loss_disp_order']) <= 1e-6 * max(1.0, counts[k])
+                  for k, lgs in (('card', lgc), ('cpu f64', lg64))),
+              f'{name}: the violation pixels sum to the logged count')
+        near = violation_near(torch, *[seen['cpu f64'][i]
+                                       for i in (0, 1, 2, 3, 5)])
+        flipped = int((maps['card'] != maps['cpu f64']).sum())
+        flipped32 = int((maps['cpu f32'] != maps['cpu f64']).sum())
+        dorder = lambda lgs: lgs['loss_disp_order']  # noqa: E731
+        out, upd_leaves = {}, {}
+        for who, (l, lgs, p, s) in (('card f32', (lg, lgc, pg, sg)),
+                                    ('CPU f32', (l32, lg32, p32, s32))):
+            smooth = l - dorder(lgs)        # the differentiable terms
+            upd_leaves[who] = {}
+            out[who] = (abs(l - l64) / abs(l64),
+                        abs(smooth - (l64 - dorder(lg64))) /
+                        abs(l64 - dorder(lg64)),
+                        leaf_worst(p, p64, params, 'params',
+                                   leaves=upd_leaves[who]),
+                        leaf_worst(s, s64, None, 'stats'))
+            lrel, srel, upd, sts = out[who]
+            print(f'  depth one SGD step {name} ({DEPTH_XDEV} samples, '
+                  f'{args.data["input_size"]}^2; {card}): {who} vs CPU f64: '
+                  f'loss {l:.7f} vs {l64:.7f} (rel {lrel:.3e}; without the '
+                  f'count {srel:.3e}); worst update {upd[1]} {upd[0]:.3e} of '
+                  f'its max |update|; worst stats {sts[1]} {sts[0]:.3e}')
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+        print(f'  depth step {name}: violation count card {counts["card"]}, '
+              f'CPU f64 {counts["cpu f64"]}, CPU f32 {counts["cpu f32"]}; '
+              f'{near} pixels within {VIOLATION_NEAR} of a threshold on the '
+              f'CPU f64 run; {flipped} pixels counted on one of card and '
+              f'CPU f64 only (CPU f32: {flipped32}); {flips[0]} (CPU f32 '
+              f'{cflips[0]}) of {sum(int(m.numel()) for m in branch[0])} '
+              f'ReLU inputs and {flips[1]} (CPU f32 {cflips[1]}) of '
+              f'{sum(int(i.numel()) for i in branch[1])} pool windows on '
+              f'the other side on the card, {flips[2]} of them not exact '
+              f'ties, {flips[3]} beyond 1e-5 ({branch[2][0]} windows tied '
+              f'on the CPU f64 run); {flips[4]} (CPU f32 {cflips[4]}) of '
+              f'{sum(2 * int(m[0].shape[0]) for m in branch[3])} min / max '
+              f'of min_max_norm on other pixels; host peak RSS {rss:.1f} '
+              f'GiB; {time.perf_counter() - t0:.1f} s')
+        top = sorted(upd_leaves['card f32'].items(), key=lambda kv: -kv[1][0])
+        print(f'  depth step {name}: the worst card updates (error over the '
+              f'leaf\'s max |f64 update|, that max; the CPU f32 run\'s '
+              f'error): ' + '; '.join(
+                  f'{k} {e:.3e} ({sc:.3e}; {upd_leaves["CPU f32"][k][0]:.3e})'
+                  for k, (e, sc) in top[:4]))
+        numbers[f'xdev {name}'] = out['card f32']
+        numbers[f'violations {name}'] = (counts, near, flipped)
+        lrel, srel, upd, sts = out['card f32']
+        check(np.isfinite(lg) and (lrel if near == 0 else srel)
+              <= XDEV_LOSS_BAR,
+              f'{name}: card loss within {XDEV_LOSS_BAR} of the CPU\'s f64 '
+              f'({"with" if near == 0 else "without"} the count)')
+        check(near > 0 or counts['card'] == counts['cpu f64'],
+              f'{name}: the violation count equal where no pixel is near a '
+              f'threshold ({counts})')
+        bar = {k: max(XDEV_UPDATE_BAR, XDEV_CPU_FACTOR * e)
+               for k, (e, _) in upd_leaves['CPU f32'].items()}
+        worst = max(bar, key=lambda k: upd_leaves['card f32'][k][0] / bar[k])
+        check(upd_leaves['card f32'][worst][0] <= bar[worst],
+              f'{name}: every update within max({XDEV_UPDATE_BAR}, '
+              f'{XDEV_CPU_FACTOR} x the CPU f32 run\'s error) of its max '
+              f'({worst}: {upd_leaves["card f32"][worst][0]:.3e}, bar '
+              f'{bar[worst]:.3e})')
+        check_stats(name, sg, s32, s64, card)
+
+
+def phase_depth_flow(torch, T, fixture, root, oracle_path, oracle, x384,
+                     card):
+    """(c): the _d YAML through the Trainer on the card (its
+    pretrained_weight missing: a warning), 4 steps, a checkpoint, a new
+    Trainer resuming to 6, validate() finite; the Tester's disparity
+    route and eval_diw on the step-6 checkpoint; make_disp_forward on the
+    oracle's .pt (compat) against the oracle; _od 3 steps."""
+    import os
+    import numpy as np
+    from instaorder_tpu_torch.core.nn import tree_leaves
+    from instaorder_tpu_torch.data import readers as R
+    from instaorder_tpu_torch.data import synthetic
+    from instaorder_tpu_torch.eval import disp as TDISP
+    from instaorder_tpu_torch.eval.pipeline import DisparityOrderPredictor
+    from instaorder_tpu_torch.eval.tester import Tester
+    name, out = 'InstaDepthNet_d', f'{root}/d'
+    flow = dict(print_freq=2, save_freq=4, val_iter=2)
+    t = T.Trainer(train_args(name, fixture, 4, **flow), out_dir=out)
+    quiet_logger(t)
+    check(t.device.type == 'cuda', f'{name}: the Trainer runs on the card')
+    t.train()
+    ck4 = f'{out}/checkpoints/ckpt_iter_4.ckpt'
+    log = open(f'{out}/logs/log_train.txt').read()
+    check(t.curr_step == 4 and os.path.isfile(ck4) and
+          'caution: pretrained_weight' in log and 'not found' in log,
+          f'{name}: the missing pretrained_weight warned; 4 steps and a '
+          f'checkpoint at 4')
+    t2 = T.Trainer(train_args(name, fixture, 6, **flow), out_dir=f'{out}2')
+    quiet_logger(t2)
+    t2.load(ck4, resume=True)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(t.params),
+                                                 tree_leaves(t2.params)))
+    check(t2.start_iter == 4 and same,
+          f'{name} resume: start_iter 4 and the params equal')
+    del t
+    t2.train()
+    val = t2.validate()
+    check(t2.curr_step == 6 and all(np.isfinite(v) for v in val.values()),
+          f'{name}: resumed to 6 and validate() is finite ({val})')
+    ck6 = f'{out}2/checkpoints/ckpt_iter_6.ckpt'
+    del t2
+    cfg = tester_disp_config('InstaOrder/InstaDepthNet_d')
+    args = tester_args(cfg, root, {'InstaOrder': fixture}, '', 'all', ck6)
+    args.disp_select_method = 'median'
+    tester = Tester(args, logger=quiet_log())
+    res = tester.run()
+    check(isinstance(tester.predictor, DisparityOrderPredictor) and
+          tester.predictor.device.type == 'cuda' and
+          all(np.isfinite(v) for v in res.values()),
+          f'{name}: the Tester\'s disparity route on the card, on the '
+          f'step-6 checkpoint ({res})')
+    diw = synthetic.make_diw_fixture(root + '/diw', DIW_IMAGES)
+    norm = disp_config('DIW/InstaDepthNet_d').data
+    whdr = TDISP.eval_diw(TDISP.make_disp_forward(name, ck6),
+                          R.DIWReader(*diw, norm['data_mean'],
+                                      norm['data_std']),
+                          log=lambda *a: None)
+    check(whdr['n'] == DIW_IMAGES and np.isfinite(whdr['whdr']),
+          f'{name}: eval_diw on the step-6 checkpoint ({whdr})')
+    print(f'  depth train flow {name} (batch {args.data.get("batch_size")}'
+          f', 384^2): 4 steps, checkpoint, resume, 6 steps, validate '
+          f'{val}; Tester (disparity route, median) {res}; eval_diw '
+          f'{whdr} ({card})')
+    # a torch .pt through compat: the port's forward against the module
+    # that wrote the file, on the card
+    fwd = TDISP.make_disp_forward('midas_pretrained', oracle_path)
+    with torch.no_grad():
+        got = fwd(x384)
+        want = oracle(x384.permute(0, 3, 1, 2))
+    err = worst_rel(got, want.cpu())
+    share = float((want > 0).float().mean())
+    check(err <= MIDAS_BAR and share > 0.2,
+          f'the .pt MidasNet through compat within {MIDAS_BAR} of the '
+          f'torch module ({err:.3e}; positive share {share:.3f})')
+    print(f'  make_disp_forward on the .pt (compat): disparity within '
+          f'{err:.3e} of max |the torch module\'s| at 384^2, '
+          f'{100 * share:.1f}% of its pixels positive ({card})')
+    three_steps(torch, T, 'InstaDepthNet_od', fixture, f'{root}/od',
+                every_leaf=False)
+
+
+def quiet_log():
+    import logging
+    log = logging.getLogger('chip_smoke.depth')
+    log.addHandler(logging.NullHandler())
+    log.propagate = False
+    return log
+
+
+def phase_depth(torch, dev, card, wrappers):
+    """InstaDepthNet training on the card (module docstring, phase 9).
+    Returns {measurement: number}."""
+    import os
+    import tempfile
+    from instaorder_tpu_torch.data import readers as R
+    from instaorder_tpu_torch.data import synthetic
+    from instaorder_tpu_torch.data.image_io import read_rgb
+    from instaorder_tpu_torch.train import trainer as T
+
+    t0 = time.perf_counter()
+    numbers = {}
+    for w in wrappers.values():
+        w.launches = 0
+    with tempfile.TemporaryDirectory() as root:
+        insta, _, img = synthetic.make_instaorder_fixture(
+            root, n_images=TESTER_IMAGES, n_instances=TESTER_INSTANCES,
+            h=HEIGHT, w=WIDTH)
+        fixture = (insta, img)
+        fn = R.InstaOrderReader(insta).get_image_instances(
+            0, with_gt=False)[4]
+        x384 = midas_image(torch, read_rgb(os.path.join(img, fn)), dev)
+        path, oracle = midas_oracle_file(torch, root, x384, dev)
+        phase_depth_ingest(torch, T, fixture, root, path, card)
+        phase_depth_xdev(torch, fixture, dev, card, numbers)
+        phase_depth_flow(torch, T, fixture, root, path, oracle, x384, card)
+        del oracle
+        # the numbers: the _d step on a fixed batch and the loader-fed
+        # window
+        bt, dt, alone, ta, batch = time_loader_fed(
+            T, 'InstaDepthNet_d', fixture, f'{root}/w',
+            warmup=DEPTH_LOADER_WARMUP, window=DEPTH_LOADER_WINDOW)
+        ms, peak = time_train_step(torch, T, ta, batch)
+        n, d = ta.args.data['batch_size'], ta.args.data
+        numbers.update(step_ms=ms, peak_gib=peak, batch_ms=bt, data_ms=dt,
+                       alone_ms=alone)
+        print(f'  depth train InstaDepthNet_d {d["input_size"]}^2 batch {n}: '
+              f'device step {ms:.2f} ms (median of {TIMING_REPS} after '
+              f'{TIMING_WARMUP}, fixed batch on the card) = '
+              f'{n / ms * 1e3:.2f} samples/s, peak memory {peak:.2f} GiB; '
+              f'{d["workers"]} thread workers: Trainer loader-fed batch time '
+              f'{bt:.2f} ms = {n / bt * 1e3:.2f} samples/s, data time '
+              f'{dt:.2f} ms (steps {DEPTH_LOADER_WARMUP + 1}-'
+              f'{DEPTH_LOADER_WARMUP + DEPTH_LOADER_WINDOW}); the loader '
+              f'alone {alone:.2f} ms a batch ({card})')
+        del ta
+    torch.cuda.synchronize()
+    got = {n: w.launches for n, w in wrappers.items() if w.launches}
+    check(not got, f'depth training: no kernel launched (JAX\'s path '
+          f'reaches none): {got}')
+    numbers['seconds'] = time.perf_counter() - t0
+    print(f'depth train phase: {numbers["seconds"]:.1f} s; hand-written '
+          f'kernel launches 0 ({card})')
     return numbers
 
 
@@ -3631,7 +4166,10 @@ def main():
     # ---- 8. PCNet-M ----------------------------------------------------------
     phase_pcnet(torch, dev, card, wrappers)
 
-    # ---- 9. report ----------------------------------------------------------
+    # ---- 9. InstaDepthNet training -------------------------------------------
+    phase_depth(torch, dev, card, wrappers)
+
+    # ---- 10. report ---------------------------------------------------------
     kernels = []
     for name, r in results.items():
         t_bytes = r['bytes'] / H100_BYTES_PER_S * 1e3

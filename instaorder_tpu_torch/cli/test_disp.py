@@ -9,8 +9,8 @@ plus --device.
 The config's data.dataset picks the flow: diw (WHDR over the annotated
 point pairs) or kitti / nyu (the 8 dense-depth metrics). --device: 'cuda'
 (the default) runs on the card; 'cpu' on the CPU. Reading the YAML needs
-PyYAML. --load_model takes the port's own checkpoints (a torch .pt /
-.pth raises NotImplementedError, ROADMAP.md queue 1 item 5).
+PyYAML. --load_model takes the port's own checkpoints or a torch .pt /
+.pth.tar / .pth state_dict (compat/torch_convert.convert_checkpoint).
 """
 
 from __future__ import annotations

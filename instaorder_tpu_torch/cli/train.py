@@ -10,12 +10,17 @@ reference's main.py flags, plus --device.
 one; 'cpu' trains on the CPU. One process trains on one device:
 --n-devices above 1 and --multihost (data-parallel training) raise
 NotImplementedError until the `parallel/` slice is ported (ROADMAP.md).
---load_pretrain raises too (ROADMAP.md queue 1 item 5: compat).
---extract, --evaluate and --evaluate-save are accepted and inert, as in
-the reference (main.py:55-58). Reading the YAML needs PyYAML. Every
-experiment config trains but the InstaDepthNet ones (ROADMAP.md queue 1
-item 4) and midas_pretrained (no training algorithm in either package);
-experiments/*/pcnet_m trains the UNet on PartialCompDataset.
+--load_pretrain merges a torch state_dict onto the init
+(compat/torch_convert.load_pretrain). --extract, --evaluate and
+--evaluate-save are accepted and inert, as in the reference (main.py:
+55-58). Reading the YAML needs PyYAML. Every experiment config of
+experiments/{InstaOrder,COCOA,KINS} trains: experiments/*/pcnet_m trains
+the UNet on PartialCompDataset, experiments/InstaOrder/InstaDepthNet_*
+the MiDaS networks (their `pretrained_weight` loaded when the file
+exists). midas_pretrained has no training algorithm in either package,
+and experiments/{DIW,kitti}/InstaDepthNet_d are evaluation configs (no
+total_iter, no trainval_dataset): their training fails with a KeyError,
+as the JAX package's does.
 """
 
 from __future__ import annotations

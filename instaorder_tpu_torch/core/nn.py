@@ -107,7 +107,11 @@ def batch_norm(params, stats, x, train, momentum=0.1, eps=1e-5):
     copies of the running ones (cuDNN's fused batch norm on the card,
     f32 statistics for a bf16 input, f64 ones for an f64 input); a
     single value per channel, which it refuses, takes the same formula
-    written out.
+    written out. On the CPU its input is made a contiguous NCHW tensor
+    first: PyTorch's CPU kernel for the channels-last view of an NHWC
+    tensor normalises as x * a + b, which cancels where |mean| >> std
+    (a mask net's first layers), while its contiguous kernel computes
+    (x - mean) * a as the JAX package does.
     train=False: `batch_norm_eval`, stats returned as given."""
     if not train:
         return batch_norm_eval(params, stats, x, eps), stats
@@ -117,8 +121,11 @@ def batch_norm(params, stats, x, train, momentum=0.1, eps=1e-5):
     var = stats['var'].detach().to(ct).clone()
     scale, bias = params['scale'].to(ct), params['bias'].to(ct)
     if n > 1:
-        y = F.batch_norm(x.permute(0, 3, 1, 2), mean, var, scale, bias,
-                         training=True, momentum=momentum, eps=eps)
+        xc = x.permute(0, 3, 1, 2)
+        if x.device.type == 'cpu':
+            xc = xc.contiguous()
+        y = F.batch_norm(xc, mean, var, scale, bias, training=True,
+                         momentum=momentum, eps=eps)
         return y.permute(0, 2, 3, 1), {'mean': mean, 'var': var}
     xf = x.to(ct)
     axes = tuple(range(x.ndim - 1))

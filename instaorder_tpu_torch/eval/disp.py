@@ -10,10 +10,9 @@ The disparity forward (MidasNet, or an InstaDepthNet's disparity path)
 runs on the card, one image a call; the ground-truth read-back and the
 metrics stay on the host in numpy, as in the JAX package.
 
-Not ported yet (each raises NotImplementedError): a torch `.pt` / `.pth`
-checkpoint (the compat converters, ROADMAP.md queue 1 item 5) and the
-per-image debug PNGs of `save_dir` (matplotlib, with `utils/visualize`,
-ROADMAP.md queue 1 item 4).
+Not ported yet (raises NotImplementedError): the per-image debug PNGs of
+`save_dir` (matplotlib, with `utils/visualize`, ROADMAP.md queue 1 item
+4).
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..compat.torch_convert import convert_checkpoint
 from ..convert import to_numpy, to_torch, tree_to
 from ..core import checkpoint as ckpt
 from ..data.image_io import read_depth_png
@@ -139,22 +139,21 @@ def eval_dense_depth(forward, reader, dataset='kitti', n_samples=-1,
 def make_disp_forward(algo, load_model=None, features=256, device=None):
     """The disparity forward of an evaluation run. algo:
     'midas_pretrained' | 'InstaDepthNet_d' | 'InstaDepthNet_od'; the net
-    at full width from seed 0, then `load_model` (the port's own checkpoint,
-    core/checkpoint.load_state) when given. device: None is the card
+    at full width from seed 0, then `load_model` when given: a torch
+    `.pt` / `.pth.tar` / `.pth` state_dict through
+    compat/torch_convert.convert_checkpoint (family 'midas'), else the
+    port's own checkpoint (core/checkpoint.load_state). device: None is the card
     (device.resolve_device), 'cpu' the CPU. Returns forward(x): x an
     (N, H, W, 3) normalised NHWC array or tensor -> the (N, H, W)
     disparity, a tensor on the device (models/midas.apply_disp; an
     InstaDepthNet's order branches do not touch it)."""
     dev = resolve_device(device)
-    if load_model and load_model.endswith(('.pt', '.pth.tar', '.pth')):
-        raise NotImplementedError(
-            f'{load_model}: torch checkpoints need the compat converters, '
-            'not ported to instaorder_tpu_torch yet (ROADMAP.md queue 1 '
-            'item 5)')
     params, stats, cfg = midas.init(torch.Generator().manual_seed(0),
                                     features=features,
                                     variant=ALGO_VARIANTS[algo])
-    if load_model:
+    if load_model and load_model.endswith(('.pt', '.pth.tar', '.pth')):
+        params, stats, _ = convert_checkpoint(load_model, cfg, 'midas')
+    elif load_model:
         _, params, stats, _ = ckpt.load_state(load_model, to_numpy(params),
                                               to_numpy(stats))
         params, stats = to_torch(params), to_torch(stats)

@@ -1,6 +1,7 @@
 """MiDaS v2.1 monocular disparity and the InstaDepthNet order heads, NHWC
 (counterpart of instaorder_tpu/models/midas.py: `init`, `apply` and their
-blocks; eval only, as the port's `resnet.apply`).
+blocks; the eval forward is `apply`, JAX's train=True is `apply_train`,
+as in the port's `resnet`).
 
 Reference:
   MidasNet            <- midas/midas_net.py:215-277
@@ -132,10 +133,17 @@ def init(gen, features=256, depth_num_classes=3, occ_num_classes=2,
     return tree_to(p, device), tree_to(s, device), cfg
 
 
-def _disp_path(params, stats, cfg, img):
-    """(disp (N, H, W), the trunk's feature dict) of NHWC img."""
-    feats = resnet.apply(params['trunk'], stats['trunk'], cfg['trunk_cfg'],
-                         img, features=True)
+def _disp_path(params, stats, cfg, img, train=False):
+    """(disp (N, H, W), the trunk's feature dict, the trunk's new
+    statistics (train) or None) of NHWC img."""
+    if train:
+        feats, trunk_stats = resnet.apply_train(
+            params['trunk'], stats['trunk'], cfg['trunk_cfg'], img,
+            features=True)
+    else:
+        feats = resnet.apply(params['trunk'], stats['trunk'],
+                             cfg['trunk_cfg'], img, features=True)
+        trunk_stats = None
     rn = [cnn.conv2d(params[f'scratch{i}'], feats[f'layer{i}'], padding=1)
           for i in range(1, 5)]
     path = _fusion_apply(params['refinenet4'], rn[3])
@@ -147,19 +155,30 @@ def _disp_path(params, stats, cfg, img):
     out = cnn.conv2d(params['out_conv3'], out)
     if cfg['non_negative']:
         out = torch.relu(out)
-    return out[..., 0], feats
+    return out[..., 0], feats, trunk_stats
 
 
-def _order_branch_apply(branch_p, branch_s, bcfg, masks2ch, trunk_feats):
+def _order_branch_apply(branch_p, branch_s, bcfg, masks2ch, trunk_feats,
+                        train=False):
     """Headless ResNet-50 over the (N, H, W, 2) masks, the trunk's
     layer1..3 features added to the input of stages 2..4
-    (midas_net.py:91-99) -> (N, classes) logits."""
+    (midas_net.py:91-99) -> (N, classes) logits; train=True: -> (logits,
+    {'net': the branch's new statistics})."""
     net_p, net_s = branch_p['net'], branch_s['net']
-    h = resnet.run_stem(net_p, net_s, masks2ch)
-    h = resnet.run_stage(net_p, net_s, bcfg, 1, h)
+    new_s: Dict[str, Any] = {}
+    if train:
+        h, new_s['bn1'] = resnet.run_stem(net_p, net_s, masks2ch, True)
+        h, new_s['layer1'] = resnet.run_stage(net_p, net_s, bcfg, 1, h, True)
+    else:
+        h = resnet.run_stage(net_p, net_s, bcfg, 1,
+                             resnet.run_stem(net_p, net_s, masks2ch))
     for li, key in ((2, 'layer1'), (3, 'layer2'), (4, 'layer3')):
-        h = resnet.run_stage(net_p, net_s, bcfg, li, h + trunk_feats[key])
-    return cnn.linear(branch_p['fc'], cnn.avg_pool_global(h))
+        h = resnet.run_stage(net_p, net_s, bcfg, li, h + trunk_feats[key],
+                             train)
+        if train:
+            h, new_s[f'layer{li}'] = h
+    logits = cnn.linear(branch_p['fc'], cnn.avg_pool_global(h))
+    return (logits, {'net': new_s}) if train else logits
 
 
 def apply_disp(params, stats, cfg, img):
@@ -170,22 +189,40 @@ def apply_disp(params, stats, cfg, img):
     return _disp_path(params, stats, cfg, img)[0]
 
 
+def _forward(params, stats, cfg, img, mask1, mask2, train):
+    disp, feats, trunk_stats = _disp_path(params, stats, cfg, img, train)
+    new_stats: Dict[str, Any] = {'trunk': trunk_stats}
+    variant = cfg['variant']
+    if variant == 'midas':
+        return disp, new_stats
+    m2 = torch.stack([mask1, mask2], dim=-1)
+    branches = ('gdo',) if variant == 'instadepthnet_d' else ('do', 'oo')
+    logits = []
+    for b in branches:
+        out = _order_branch_apply(params[b], stats[b], cfg[f'{b}_cfg'], m2,
+                                  feats, train)
+        if train:
+            out, new_stats[b] = out
+        logits.append(out)
+    if variant == 'instadepthnet_d':
+        return (disp, logits[0], None), new_stats
+    return (disp, logits[0], logits[1]), new_stats
+
+
 def apply(params, stats, cfg, img, mask1=None, mask2=None):
     """Eval forward. img (N, H, W, 3) normalised; masks (N, H, W).
     MidasNet -> disp (N, H, W); InstaDepthNet_d -> (disp, depth logits,
     None); InstaDepthNet_od -> (disp, depth logits, occlusion logits).
     (The JAX package's apply also returns the statistics and takes
-    train.)"""
-    disp, feats = _disp_path(params, stats, cfg, img)
-    variant = cfg['variant']
-    if variant == 'midas':
-        return disp
-    m2 = torch.stack([mask1, mask2], dim=-1)
-    if variant == 'instadepthnet_d':
-        return disp, _order_branch_apply(params['gdo'], stats['gdo'],
-                                         cfg['gdo_cfg'], m2, feats), None
-    depth = _order_branch_apply(params['do'], stats['do'], cfg['do_cfg'], m2,
-                                feats)
-    occ = _order_branch_apply(params['oo'], stats['oo'], cfg['oo_cfg'], m2,
-                              feats)
-    return disp, depth, occ
+    train; see `apply_train`.)"""
+    return _forward(params, stats, cfg, img, mask1, mask2, False)[0]
+
+
+def apply_train(params, stats, cfg, img, mask1=None, mask2=None):
+    """Train-mode forward (the JAX package's `apply(..., train=True)`):
+    every BatchNorm of the trunk and the order branches normalises with
+    its batch statistics. Returns (out, new_stats): out as `apply`'s,
+    new_stats the running statistics updated in a new tree with JAX's
+    keys: 'trunk', and 'gdo' (InstaDepthNet_d) or 'do' and 'oo'
+    (InstaDepthNet_od)."""
+    return _forward(params, stats, cfg, img, mask1, mask2, True)

@@ -14,9 +14,9 @@ Each entry returns a dict with:
 
 MidasNet / InstaDepthNet_d / InstaDepthNet_od (models/midas.py) take
 `init(gen, device=None, **kw)` (in_channels and num_classes dropped, as
-in the JAX package) and `apply(params, stats, cfg, img, mask1=None,
-mask2=None)`; they are eval-only (no apply_train: their training is
-not ported). The UNet family (PCNet-M, models/unet.py) takes
+in the JAX package), `apply(params, stats, cfg, img, mask1=None,
+mask2=None)` and `apply_train(params, stats, cfg, img, mask1=None,
+mask2=None)`. The UNet family (PCNet-M, models/unet.py) takes
 `init(gen, in_channels=3, n_classes=2, device=None, **extra)` (the rest
 of backbone_param ignored, as in the JAX package), `apply(params,
 stats, cfg, x, rgb=None)` and `apply_train(params, stats, cfg, x,
@@ -68,7 +68,8 @@ def _midas_entry(variant):
             kw.pop('num_classes', None)
             return midas.init(gen, variant=variant,
                               device=resolve_device(device), **kw)
-        return {'init': init, 'apply': midas.apply}
+        return {'init': init, 'apply': midas.apply,
+                'apply_train': midas.apply_train}
     return factory
 
 

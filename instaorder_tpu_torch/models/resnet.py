@@ -231,21 +231,26 @@ def apply_train(params, stats, cfg, x, features=False):
     return _forward(params, stats, cfg, x, True, None, features)
 
 
-def run_stage(params, stats, cfg, stage_idx, x):
-    """One residual stage (1-indexed, eval mode) on x -> out. The MiDaS
-    order branches interleave trunk features between stages (reference
-    midas/midas_net.py:91-99, 193-206)."""
+def run_stage(params, stats, cfg, stage_idx, x, train=False):
+    """One residual stage (1-indexed) on x -> out; train=True: -> (out,
+    the stage's new statistics), every BatchNorm on its batch statistics.
+    The MiDaS order branches interleave trunk features between stages
+    (reference midas/midas_net.py:91-99, 193-206)."""
     name = f'layer{stage_idx}'
     out = x
+    stage_new = []
     for bi, (bp, bs) in enumerate(zip(params[name], stats[name])):
         stride = 2 if (stage_idx > 1 and bi == 0) else 1
-        out, _ = _block_apply(bp, bs, out, cfg['block'], stride,
-                              cfg['groups'], train=False)
-    return out
+        out, bns = _block_apply(bp, bs, out, cfg['block'], stride,
+                                cfg['groups'], train=train)
+        stage_new.append(bns)
+    return (out, stage_new) if train else out
 
 
-def run_stem(params, stats, x):
-    """conv1 + bn + relu + max-pool (eval mode) -> out."""
+def run_stem(params, stats, x, train=False):
+    """conv1 + bn + relu + max-pool -> out; train=True: -> (out, bn1's new
+    statistics)."""
     out = cnn.conv2d(params['conv1'], x, stride=2, padding=3)
-    out, _ = cnn.batch_norm(params['bn1'], stats['bn1'], out, False)
-    return cnn.max_pool(torch.relu(out), 3, 2, 1)
+    out, bn1 = cnn.batch_norm(params['bn1'], stats['bn1'], out, train)
+    out = cnn.max_pool(torch.relu(out), 3, 2, 1)
+    return (out, bn1) if train else out

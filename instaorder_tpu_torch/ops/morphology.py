@@ -1,10 +1,11 @@
-"""Binary morphology for the `nbor` pair filter (counterpart of
-instaorder_tpu/ops/morphology.py: `binary_dilation`,
-`bordering_matrix`).
+"""Binary morphology for the `nbor` pair filter and InstaDepthNet's
+order loss (counterpart of instaorder_tpu/ops/morphology.py:
+`binary_erosion`, `binary_dilation`, `bordering_matrix`).
 
 The 4-connected cross structuring element is five shifted copies;
-out-of-image is 0 (dilating a binary mask with a replicated edge gives
-the same result, since the identity term already holds the edge pixel).
+out-of-image is 0 (scipy.ndimage.binary_erosion's default border_value;
+dilating a binary mask with a replicated edge gives the same result, since
+the identity term already holds the edge pixel).
 """
 
 from __future__ import annotations
@@ -22,6 +23,17 @@ def _shift(x, dy: int, dx: int):
     ys = slice(0, h) if dy >= 0 else slice(-dy, h - dy)
     xs = slice(0, w) if dx >= 0 else slice(-dx, w - dx)
     return xp[..., ys, xs].bool()
+
+
+def binary_erosion(mask):
+    """4-connected erosion of a (..., H, W) boolean mask, border value 0:
+    scipy.ndimage.binary_erosion with its default structure (the
+    reference erodes on the host, models/supervised_order.py:160-164)."""
+    m = mask.bool()
+    out = m
+    for dy, dx in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+        out = out & _shift(m, dy, dx)
+    return out
 
 
 def binary_dilation(mask):

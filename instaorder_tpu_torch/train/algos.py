@@ -26,11 +26,10 @@ the backward pass, torch.utils.checkpoint without reentrancy).
 
 PartialCompletionMask (PCNet-M) trains the UNet over [modal, eraser]
 (+ the RGB patch for the *res variants) against the un-erased mask,
-with the eraser-weighted pixel CE. The training of InstaDepthNet_d / _od
-(the MiDaS networks: their dorder / smooth losses and the MiDaS weight
-ingest) is not ported yet: their factories raise NotImplementedError
-(ROADMAP.md queue 1 item 4), and so does `check_ported`, which the
-Trainer calls before it builds the net.
+with the eraser-weighted pixel CE. InstaDepthNet_d / _od train the MiDaS
+networks (models/midas.py) over the RGB image and the two masks: the
+depth CE, the optional occlusion BCE, the edge-aware smoothness of both
+passes' disparities and the disparity-order violation count.
 
 Batch convention (NHWC, fixed shapes, tensors on the training device):
   rgb (N,H,W,3) float32 | modal1, modal2 (N,H,W) float32 {0,1}
@@ -46,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import losses as L
 from ..core.nn import tree_cast
+from ..ops.morphology import binary_erosion
 
 
 def _compute_dtype(hyper):
@@ -228,21 +228,66 @@ def make_partial_completion_mask(net, cfg, hyper):
     return loss_fn
 
 
-NOT_PORTED = ('InstaDepthNet_d', 'InstaDepthNet_od')
+def make_insta_depth_net(net, cfg, hyper, with_occ):
+    """InstaDepthNet_d / _od (reference supervised_order.py:99-367): the
+    weighted depth CE (on the softmax), the occlusion BCE (_od, when
+    occ_order_weight is not 0), the edge-aware smoothness of both passes'
+    disparities and the disparity-order violation count over the eroded
+    masks (erosion on the device, ops/morphology, where the reference
+    syncs with scipy on the host), divided by H * W.
 
+    The two passes run one after the other, as in the JAX package: the
+    second (masks swapped) starts from the statistics the first returns,
+    so every BatchNorm of the trunk and the branches takes two momentum
+    updates a step. A term whose weight is 0 is logged as a 0 tensor."""
+    ow = hyper['overlap_weight']
+    dw = hyper['distinct_weight']
+    smooth_w = hyper['smooth_weight']
+    dorder_w = hyper['dorder_weight']
+    occ_w = hyper.get('occ_order_weight', 0)
 
-def check_ported(algo):
-    if algo in NOT_PORTED:
-        raise NotImplementedError(
-            f"training algo '{algo}' is not ported to instaorder_tpu_torch "
-            'yet (ROADMAP.md queue 1 item 4: MiDaS / InstaDepthNet '
-            'training)')
+    def fwd(params, stats, rgb, ma, mb, train):
+        if train:
+            return net['apply_train'](params, stats, cfg, rgb, ma, mb)
+        return net['apply'](params, stats, cfg, rgb, ma, mb), stats
 
+    def loss_fn(params, stats, batch, train=True):
+        rgb, m1, m2 = batch['rgb'], batch['modal1'], batch['modal2']
+        (disp1, dep1, occ1_o), s1 = fwd(params, stats, rgb, m1, m2, train)
+        (disp2, dep2, occ2_o), s2 = fwd(params, s1, rgb, m2, m1, train)
+        zero = torch.zeros((), device=rgb.device)
+        sm1 = torch.softmax(dep1, dim=-1)
+        sm2 = torch.softmax(dep2, dim=-1)
+        d1 = batch['depth_order']
+        d2 = L.swap_depth_labels(d1)
+        ovl = batch['is_overlap'] == 1
+        dst = batch['is_overlap'] == 0
+        loss_overlap = (L.cross_entropy_masked(sm1, d1, ovl) +
+                        L.cross_entropy_masked(sm2, d2, ovl)) * ow
+        loss_distinct = (L.cross_entropy_masked(sm1, d1, dst) +
+                         L.cross_entropy_masked(sm2, d2, dst)) * dw
+        loss_occ = zero
+        if with_occ and occ_w != 0:
+            loss_occ = _occ_bce(occ1_o, occ2_o, batch)
+        loss_smooth = zero
+        if smooth_w != 0:
+            loss_smooth = (L.edge_aware_smoothness(disp1, rgb) +
+                           L.edge_aware_smoothness(disp2, rgb)) * smooth_w
+        loss_dorder = zero
+        if dorder_w != 0:
+            count = L.disparity_order_violations(
+                disp1, disp2, binary_erosion(m1 > 0.5),
+                binary_erosion(m2 > 0.5), d1, dst)
+            hw = disp1.shape[-2] * disp1.shape[-1]
+            loss_dorder = count / hw * dorder_w
+        loss = (loss_overlap + loss_distinct + loss_occ + loss_smooth +
+                loss_dorder)
+        return loss, (s2, _detached({
+            'loss': loss, 'loss_overlap': loss_overlap,
+            'loss_distinct': loss_distinct, 'loss_occ': loss_occ,
+            'loss_smooth': loss_smooth, 'loss_disp_order': loss_dorder}))
 
-def _not_ported(algo):
-    def factory(net, cfg, hyper):
-        check_ported(algo)
-    return factory
+    return loss_fn
 
 
 ALGOS = {
@@ -251,8 +296,8 @@ ALGOS = {
     'InstaOrderNet_o': make_insta_order_o,
     'InstaOrderNet_d': make_insta_order_d,
     'InstaOrderNet_od': make_insta_order_od,
-    'InstaDepthNet_d': _not_ported('InstaDepthNet_d'),
-    'InstaDepthNet_od': _not_ported('InstaDepthNet_od'),
+    'InstaDepthNet_d': lambda n, c, h: make_insta_depth_net(n, c, h, False),
+    'InstaDepthNet_od': lambda n, c, h: make_insta_depth_net(n, c, h, True),
     'PartialCompletionMask': make_partial_completion_mask,
 }
 

@@ -32,9 +32,13 @@ def build_train_step(loss_fn, optimizer):
                   for p in tree_leaves(params)]
         loss, (new_stats, logs) = loss_fn(tree_unflatten(params, leaves),
                                           stats, batch, train=True)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not reach (InstaDepthNet_od's occlusion
+        # branch at occ_order_weight 0) gets a zero gradient, as under
+        # jax.grad, so that weight decay still moves it
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
         new_params, new_opt = optimizer.update(
-            tree_unflatten(params, list(grads)), opt_state, params, lr)
+            tree_unflatten(params, grads), opt_state, params, lr)
         return new_params, new_stats, new_opt, logs
 
     return step

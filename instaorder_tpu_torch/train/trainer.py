@@ -38,7 +38,7 @@ from ..data.sampler import (DistributedGivenIterationSampler,
 from ..device import resolve_device
 from ..models.registry import get_backbone
 from ..utils.telemetry import make_summary_logger
-from .algos import check_ported, make_loss
+from .algos import make_loss
 from .optim import make_optimizer
 from .step import build_eval_step, build_train_step
 
@@ -164,7 +164,6 @@ class Trainer:
 
         algo = model_cfg['algo']
         self.algo = algo
-        check_ported(algo)      # before a full-width net is drawn
         seed = getattr(args, 'seed', 131)
         gen = torch.Generator().manual_seed(seed)
         self.net = get_backbone(model_cfg.get('backbone_arch', algo))
@@ -190,17 +189,46 @@ class Trainer:
         self.logger.info(f'#parameters: {param_count(self.params)}')
 
     def _ingest_pretrained(self, model_cfg):
-        """`load_pretrain` (a torch state_dict merged onto the init,
-        reference single_stage_model.py:63-64) needs the compat
-        converters, not ported yet. `pretrained_weight` only applies to
-        the MiDaS family, whose training `check_ported` refuses."""
+        """Training-time pretrained ingest (reference main.py:38-39 +
+        single_stage_model.py:17-27), through compat/torch_convert:
+
+          * `pretrained_weight` (the MiDaS model-f6b98070.pt) for the
+            InstaDepthNet / midas algos: the disparity path only, the
+            order branches keep their init (midas_net.py:30-45). A
+            missing file warns, and training starts from scratch (the
+            JAX package's documented deviation: the reference crashes).
+          * `load_pretrain: <path>` (the config or --load_pretrain): a
+            torch state_dict merged strict=False onto the init, family
+            'midas' for InstaDepthNet, 'unet' for PartialCompletionMask,
+            else 'resnet' (resnet_cls.py:227-232). The reference's
+            `pretrained: True` URL download is not supported (no
+            network); pass a local path.
+        """
+        from ..compat.torch_convert import load_pretrain
+        algo = self.algo
+        pw = model_cfg.get('pretrained_weight')
+        if pw and (algo.startswith('InstaDepthNet') or 'midas' in algo):
+            if os.path.isfile(pw):
+                self.params, self.stats = load_pretrain(
+                    pw, self.params, self.stats, self.net_cfg,
+                    family='midas_base', warn=self.logger.info,
+                    device=self.device)
+                self.logger.info(f'=> loaded pretrained_weight {pw}')
+            else:
+                self.logger.info(
+                    f'caution: pretrained_weight {pw} not found; training '
+                    f'the disp trunk from scratch (the reference would '
+                    f'require this asset)')
         lp = model_cfg.get('load_pretrain') or getattr(
             self.args, 'load_pretrain', None)
         if isinstance(lp, str) and lp:
-            raise NotImplementedError(
-                f'load_pretrain {lp}: the torch state_dict converters are '
-                'not ported to instaorder_tpu_torch yet (ROADMAP.md queue '
-                '1 item 5: compat)')
+            family = ('midas' if algo.startswith('InstaDepthNet')
+                      else 'unet' if algo == 'PartialCompletionMask'
+                      else 'resnet')
+            self.params, self.stats = load_pretrain(
+                lp, self.params, self.stats, self.net_cfg, family=family,
+                warn=self.logger.info, device=self.device)
+            self.logger.info(f'=> loaded pretrain {lp}')
 
     # -- checkpointing -----------------------------------------------------
     def save(self, step):

@@ -40,6 +40,7 @@ from instaorder_tpu_torch.models import midas as tmidas
 
 from test_disp_eval import (FakeDIWReader, FakeKITTIReader,
                             gradient_disp_forward)
+from torch_ref import TorchMidasOracle
 
 SMALL = (1, 1, 1, 1)
 MAKE_DISP_FORWARD = TDISP.make_disp_forward     # before any monkeypatch
@@ -352,7 +353,8 @@ def test_tester_disparity_route_matches_jax(insta, patched, algo, select,
     assert got == want and len(got) == 9
 
 
-def test_cli_test_disp(disp_fixtures, patched, tmp_path, capsys):
+def test_cli_test_disp(disp_fixtures, patched, tmp_path, capsys,
+                       monkeypatch):
     import yaml
     for name, exp in (('diw', 'DIW/midas_pretrained'),
                       ('kitti', 'kitti/InstaDepthNet_d')):
@@ -372,9 +374,31 @@ def test_cli_test_disp(disp_fixtures, patched, tmp_path, capsys):
                 else TDISP.eval_dense_depth(fwd, reader, 'kitti', 2,
                                             log=quiet))
         assert got == want and got['n'] == 2
-    with pytest.raises(NotImplementedError, match='queue 1 item 5'):
-        MAKE_DISP_FORWARD('midas_pretrained', 'model-f6b98070.pt',
-                          device='cpu')
+    # a torch .pt load_model through compat/torch_convert, held against
+    # the torch module that wrote the state dict; make_disp_forward draws
+    # the trimmed trunk here (its full depth costs ~80 s of a loaded CPU)
+    real_init = tmidas.init
+    monkeypatch.setattr(tmidas, 'init', lambda gen, **kw: real_init(
+        gen, trunk_layers=SMALL, branch_layers=SMALL, **kw))
+    oracle = TorchMidasOracle(trunk_layers=SMALL, features=8,
+                              variant='midas').eval()
+    x = np.random.RandomState(0).randn(1, SIZE, SIZE, 3).astype(np.float32)
+    xt = torch.from_numpy(x.transpose(0, 3, 1, 2))
+    last = oracle.scratch.output_conv[4]
+    pre = []
+    hook = last.register_forward_hook(lambda m, i, o: pre.append(o))
+    with torch.no_grad():
+        oracle(xt)
+        hook.remove()
+        last.bias -= pre[0].median()   # the disparity positive on ~half
+    pt = str(tmp_path / 'model-f6b98070.pt')
+    torch.save(oracle.state_dict(), pt)
+    got = MAKE_DISP_FORWARD('midas_pretrained', pt, features=8,
+                            device='cpu')(x).numpy()
+    with torch.no_grad():
+        want = oracle(xt).numpy()
+    assert 0.2 < (want > 0).mean() and want.shape == got.shape
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 def test_jax_gap_routes_raise(insta, patched):

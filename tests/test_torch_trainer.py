@@ -134,10 +134,23 @@ def test_trainer_needs_a_gpu_by_default(fixture, tmp_path):
         pytest.skip('a GPU is present')
     with pytest.raises(RuntimeError, match='no GPU'):
         Trainer(make_args(fixture), out_dir=str(tmp_path / 'gpu'))
+    # load_pretrain: a torch state_dict (the reference's .pth.tar layout)
+    # merged onto the init through compat/torch_convert
+    from torch_ref import TorchResNetCls
+    from instaorder_tpu_torch.compat.torch_convert import (
+        resnet_from_torch_state_dict)
+    tm = TorchResNetCls(layers=(1, 1, 1, 1), in_channels=5, num_classes=2)
+    pth = str(tmp_path / 'pretrain.pth.tar')
+    torch.save({'step': 0, 'state_dict': {f'module.{k}': v for k, v in
+                                          tm.state_dict().items()}}, pth)
     args = make_args(fixture)
-    args.model['load_pretrain'] = '/x/imagenet.pth'
-    with pytest.raises(NotImplementedError, match='queue 1 item 5'):
-        Trainer(args, device='cpu', out_dir=str(tmp_path / 'pre'))
+    args.model['load_pretrain'] = pth
+    t = Trainer(args, device='cpu', out_dir=str(tmp_path / 'pre'))
+    want, wstats = resnet_from_torch_state_dict(tm.state_dict(), t.net_cfg)
+    for got, ref in ((t.params, want), (t.stats, wstats)):
+        assert len(tree_leaves(got)) == len(tree_leaves(ref))
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                     tree_leaves(ref)))
 
 
 @pytest.fixture()
@@ -182,11 +195,20 @@ def test_cli(config_file, tmp_path):
                                os.path.join(out, 'checkpoints'),
                                '--load-iter', '2', '--validate'])
     assert t.start_iter == 0
+    # --load_pretrain: a torch state_dict merged onto the init (a missing
+    # file fails in torch.load, as in the JAX package)
+    from torch_ref import TorchResNetCls
+    tm = TorchResNetCls(layers=(1, 1, 1, 1), in_channels=5, num_classes=2)
+    pth = str(tmp_path / 'a.pth')
+    torch.save(tm.state_dict(), pth)
+    t = cli_train.main(base + ['--load_pretrain', pth, '--validate'])
+    assert torch.equal(t.params['layer2'][0]['conv2']['w'],
+                       tm.layer2[0].conv2.weight.permute(2, 3, 1, 0))
+    with pytest.raises(FileNotFoundError):
+        cli_train.main(base + ['--load_pretrain', '/x/a.pth'])
     # the refusals
     for extra, err in ((['--n-devices', '2'], NotImplementedError),
-                       (['--multihost'], NotImplementedError),
-                       (['--load_pretrain', '/x/a.pth'],
-                        NotImplementedError)):
+                       (['--multihost'], NotImplementedError)):
         with pytest.raises(err):
             cli_train.main(base + extra)
     if not torch.cuda.is_available():

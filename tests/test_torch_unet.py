@@ -7,20 +7,22 @@ activations O(1): a random init at xavier gain 0.02 under eval-mode
 BatchNorm shrinks the output to ~1e-7, where a comparison says little.
 The registry's own trees are held against JAX's shapes and config.
 
-The f32 train-mode runs of the two packages stray ~2e-5 of max |logit|
-from an f64 run of the same function on these nets (JAX's up to 2.4e-5,
-the port's up to 1.4e-5): a dozen train-mode BatchNorms on mask inputs,
-whose |mean| >> std in the first layers, amplify f32 rounding; the
-port's CPU BatchNorm adds its own (PyTorch's channels-last kernel
-normalises as x * a + b, ROADMAP.md queue 3). So the f32 train-mode
-bars carry that rounding, and the gradients are also held exactly: the
+The f32 train-mode runs of the two packages stray a few 1e-6 of max
+|logit| from an f64 run of the same function on these nets (JAX's up to
+3.5e-6, the port's up to 4.2e-6): a dozen train-mode BatchNorms on mask
+inputs, whose |mean| >> std in the first layers, amplify f32 rounding.
+The port's CPU BatchNorm computes (x - mean) * a on a contiguous input,
+as JAX does (`test_batch_norm_precision_on_masks`: its f32 forward no
+further from f64 than 1.5x JAX's); the bars below are those that JAX's
+own f32 rounding needs, and the gradients are also held exactly: the
 port's forward in f64 on the same branch.
 
 Bars:
   * the forward (depth 2, 3 and 4 at odd and even sizes, so that the
-    pad-to-skip path runs, and a *res variant): eval logits within 1e-5
-    of max |JAX|; train logits within 3e-5 of max |JAX| and the new
-    statistics within 1e-5 of each leaf's max |JAX|;
+    pad-to-skip path runs, and a *res variant): eval and train logits
+    within 1e-5 of max |JAX| (train: measured <= 3.5e-6, JAX's own
+    distance from f64 up to 3.5e-6) and the new statistics within 1e-5
+    of each leaf's max |JAX| (measured <= 2.4e-6);
   * `mask_weighted_cross_entropy` on the same logits within 1e-6
     relative of JAX's, its gradient w.r.t. the logits within 1e-6 of
     its max;
@@ -34,11 +36,11 @@ Bars:
     port in f64 against JAX: loss within 5e-6 relative (both take the
     log-softmax of f32-rounded logits and sum the N*H*W pixel CEs in
     f32, in other orders), each gradient leaf within 1e-4 of its max
-    |JAX grad| (JAX's own f32 rounding; measured <= 4.2e-5). The port
-    in f32: loss within 5e-6, each gradient leaf within 1e-3 of its max
-    (the f32 gradients of both packages carry ~2e-4 of rounding through
-    the train-mode BatchNorms' backward; 1e-3 is chip_smoke.py's update
-    bar), the new statistics within 3e-5. A conv bias that feeds a
+    |JAX grad| (JAX's own f32 rounding; measured <= 4.1e-5). The port
+    in f32: loss within 5e-6, each gradient leaf within 1e-4 of its max
+    (measured <= 4.3e-5: JAX's rounding, the port's f32 gradients lie
+    within 1.2e-5 of its f64 ones), the new statistics within 1e-5
+    (measured <= 2.9e-6). A conv bias that feeds a
     train-mode BatchNorm has gradient 0 and is held on the tree's max
     gradient. The eval loss within 1e-6 of JAX's.
 """
@@ -237,12 +239,40 @@ def test_forward_matches_jax(nets, name, size, n):
                                       rgb=tr)
     want, _ = jf(params, stats, x, rgb, False)
     want_t, want_s = jf(params, stats, x, rgb, True)
-    for g, w, bar in ((got, want, 1e-5), (got_t.numpy(), want_t, 3e-5)):
+    for g, w in ((got, want), (got_t.numpy(), want_t)):
         w = np.asarray(w)
         assert g.shape == w.shape == (n, size, size, 2)
-        assert np.abs(g - w).max() <= bar * np.abs(w).max()
+        assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max()
     err, leaf = worst(convert.to_numpy(got_s), want_s, 'stats')
     assert err <= 1e-5, (leaf, err)
+
+
+def test_batch_norm_precision_on_masks():
+    """tools/bn_precision.py's case (unet05 at 37^2, the registry's init
+    from seed 0, 0/1 rectangle masks, train mode): the port's f32 forward
+    no further from its f64 one than 1.5x JAX's f32 forward, relative to
+    max |logit| (measured: the port 2.06e-6, JAX 7.02e-6; with PyTorch's
+    channels-last CPU BatchNorm the port was 8.34e-6)."""
+    p, s, cfg = TREG.get_backbone('unet05')['init'](
+        torch.Generator().manual_seed(0), in_channels=2, n_classes=2,
+        device='cpu')
+    rng = np.random.RandomState(5)
+    x = np.zeros((3, 37, 37, 2), np.float32)
+    for i in range(3):
+        for c in range(2):
+            y0, x0 = rng.randint(0, 18, 2)
+            x[i, y0:y0 + 18, x0:x0 + 14, c] = 1
+    with torch.no_grad():
+        exact, _ = TU.apply_train(tree_cast(p, torch.float64),
+                                  tree_cast(s, torch.float64), cfg,
+                                  torch.from_numpy(x).double())
+        port, _ = TU.apply_train(p, s, cfg, torch.from_numpy(x))
+    jy, _ = JU.apply(convert.to_numpy(p), convert.to_numpy(s), cfg, x,
+                     train=True)
+    scale = float(exact.abs().max())
+    err = lambda y: float((torch.as_tensor(np.array(y)).double() -  # noqa
+                           exact).abs().max()) / scale
+    assert err(port) <= 1.5 * err(jy), (err(port), err(jy))
 
 
 def test_mask_weighted_cross_entropy_matches_jax():
@@ -343,12 +373,12 @@ def test_pcnet_loss_grads_on_one_branch(nets, name):
             lambda p: jloss_fn(p, stats, batch, True), has_aux=True))(params)
     l64, g64, _, _ = port_loss_grads(loss_fn, params, stats, batch,
                                      torch.float64, masks, indices)
-    for got_l, got_g, bar in ((l64, g64, 1e-4), (loss, grads, 1e-3)):
+    for got_l, got_g in ((l64, g64), (loss, grads)):
         assert abs(got_l - float(wl)) <= 5e-6 * abs(float(wl))
         err, leaf = grads_worst(got_g, wg)
-        assert err <= bar, (leaf, err)
+        assert err <= 1e-4, (leaf, err)
     err, leaf = worst(new_stats, ws, 'stats')
-    assert err <= 3e-5, (leaf, err)
+    assert err <= 1e-5, (leaf, err)
     # the eval loss (train=False): eval-mode BatchNorm, stats returned
     with torch.no_grad():
         el, (es, _) = loss_fn(convert.to_torch(params),

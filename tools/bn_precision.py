@@ -8,9 +8,10 @@ comes from.
 --cpu: the UNet (unet05 at 37^2, batch 3, the registry's init from seed
 0, 0/1 mask inputs) in train mode: the max |logit| error, over max
 |logit| of the port's float64 run, of JAX's f32 forward, of the port's
-(`core/nn.batch_norm` as it is: F.batch_norm on the NHWC tensor viewed
-as NCHW, PyTorch's channels-last CPU kernel) and of the port with that
-view made contiguous first.
+(`core/nn.batch_norm`: F.batch_norm on a contiguous NCHW copy on the
+CPU) and of the port with its BatchNorm input left as the channels-last
+view of the NHWC tensor (PyTorch's channels-last CPU kernel, which
+normalises as x * a + b).
 
 --card: chip_smoke.py phase 6's one-step batch (InstaOrderNet_o,
 ResNet-50, 4 pairs at 256^2) in train mode on the card: for each
@@ -62,14 +63,15 @@ def cpu():
     with torch.no_grad():
         ty, _ = TU.apply_train(p, s, cfg, torch.from_numpy(x))
         real = F.batch_norm
-        F.batch_norm = lambda x, *a, **k: real(x.contiguous(), *a, **k)
+        F.batch_norm = lambda x, *a, **k: real(
+            x.contiguous(memory_format=torch.channels_last), *a, **k)
         try:
             cy, _ = TU.apply_train(p, s, cfg, torch.from_numpy(x))
         finally:
             F.batch_norm = real
     print(f'unet05 train forward, max |error| / max |logit| against the '
           f"port's f64 run: JAX f32 {err(jy):.3e}, port f32 {err(ty):.3e}, "
-          f'port f32 with a contiguous BatchNorm input {err(cy):.3e}')
+          f'port f32 with a channels-last BatchNorm input {err(cy):.3e}')
 
 
 def card():
