@@ -7,14 +7,17 @@ Tester (eval/tester) and the Trainer (train/trainer) at full ResNet-50
 width, the MiDaS / InstaDepthNet evaluation (models/midas, eval/disp) at
 full ResNeXt-101 width, PCNet-M (models/unet, eval/amodal, its Tester
 method and training) at full unet2 width, InstaDepthNet training
-(train/algos, compat/) at full width, and prints one JSON line for
-the kernels plus a final status line.
+(train/algos, compat/) at full width, data-parallel training and pair
+sharding (parallel/), and prints one JSON line for the kernels plus a
+final status line.
 
     python3 chip_smoke.py
 
 Phases (any failed check raises and the script exits nonzero):
   1. build the CUDA sources (instaorder_tpu_torch/csrc) with nvcc; print
-     the build time and the card's name and power limit;
+     the build time and the card's name and power limit; set this
+     process's malloc to reuse freed blocks (keep_freed_heap: the CPU
+     references' large tensors would fault their pages in afresh);
   2. each kernel vs its plain version on the card, at the serving
      batch: the preps (5-channel with bf16 and with f32 output, RGB) on
      4 synthetic 480x640 scenes of 10 instances (180 pairs; the f32
@@ -195,7 +198,31 @@ Phases (any failed check raises and the script exits nonzero):
      memory, the Trainer's loader-fed batch and data ms over a steady
      window (10 steps after 5) and its loader alone; no hand-written
      kernel launched; the phase's seconds;
- 10. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
+ 10. data parallel (parallel/, the all-reduced train step, the Trainer's
+     ranks, cli/train --n-devices, OrderPredictor(mesh=)): NCCL with two
+     ranks on cuda:0 (it refuses a duplicate device: its answer printed);
+     (a) two gloo ranks sharing cuda:0: InstaOrderNet_o at its YAML's
+     settings (ResNet-50, 256^2, SGD, per-rank batch 32) through
+     Trainer(mesh=...): 4 steps, a checkpoint from rank 0 alone, a new
+     Trainer resuming it to 6, validate() finite, the ranks' params equal
+     on every value; one data-parallel SGD step of 2 x 2 pairs on the
+     card against the CPU's f64 one-device steps on the two shards
+     averaged by hand (every run on the CPU f64 run's ReLU branch and
+     pool argmaxes of its shard) at phase 6's bars; the world-2 step on a
+     fixed batch (each rank 32 pairs) and the gloo all-reduce of the
+     gradient bucket, timed; (b) one step through the NCCL path at world
+     1 equal on every value to build_train_step without a mesh (cuDNN
+     deterministic), the world-1 step and the NCCL all-reduce timed
+     (beside one dist.all_reduce of a flat bucket of the same size); (c)
+     make_v2_predictor (compute_dtype f32) and make_folded_predictor (f32,
+     identity,down,stem) with mesh=[cuda:0, cuda:0] against the same
+     predictors unsharded on phase 4's scenes: matrices equal, launches
+     counted; (d) on two or more cards (at most 4): cli.train --n-devices
+     over NCCL (4 steps, --auto-resume to 6, validate), (a)'s ranks and
+     checks over NCCL, the predictors' mesh over the cards with every
+     model kernel launched on every card; on one card (d) prints that it
+     did not run; the phase's seconds;
+ 11. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
      f32 row's share of its 3xTF32 bound (495 TF32 TFLOP/s, three
      products a MAC, two for an int8 A: the row's bound_ms) and of the
      f32 peak, the f32 stem rows' share of their design's floor (the
@@ -398,6 +425,26 @@ V2F32_FORWARDS = [
 def check(ok, what):
     if not ok:
         raise RuntimeError(f'chip_smoke check failed: {what}')
+
+
+def keep_freed_heap():
+    """This process's glibc malloc set to keep freed blocks for reuse:
+    by default it maps every block above a threshold (at most 32 MiB)
+    afresh and unmaps it when freed, so each large tensor of the CPU
+    references (the Tester's, the f64 steps') faults its pages in and
+    zeroes them again, and the eager CPU ops spend more time on that than
+    on their arithmetic. Blocks up to 1 GiB come from the heap, whose
+    top is returned to the system above 2 GiB free. Returns whether
+    glibc took both settings (False where there is no glibc)."""
+    import ctypes
+    import ctypes.util
+    M_TRIM_THRESHOLD, M_MMAP_THRESHOLD = -1, -3
+    try:
+        libc = ctypes.CDLL(ctypes.util.find_library('c') or 'libc.so.6')
+        return bool(libc.mallopt(M_MMAP_THRESHOLD, 1 << 30)
+                    and libc.mallopt(M_TRIM_THRESHOLD, 2 ** 31 - 1))
+    except (OSError, AttributeError):
+        return False
 
 
 def card_line():
@@ -2071,18 +2118,20 @@ def minmax_recorder(torch, TL, sets, flips=None):
 
 
 def train_step_on(torch, T, ST, CV, net, cfg, m, params, stats, batch,
-                  dev, branch=None, dtype=None, record=None):
+                  dev, branch=None, dtype=None, record=None, mesh=None):
     """One SGD step of the loss of model settings `m` (a configuration's
-    `model` section) on `dev` from numpy params/stats and
-    a numpy batch, in f32 (dtype None) or in `dtype` (params, stats and
-    the batch's float fields cast). branch None: record the forward's
-    ReLU masks, its max-pools' argmaxes (core/nn.max_pool: the UNet's 2x2
-    pools, the ResNet stems' 3x3) and its count of tied pool
+    `model` section) on `dev` from numpy params/stats and a numpy batch, in
+    f32 (dtype None) or in `dtype` (params, stats and the batch's float
+    fields cast); with a mesh, this rank's step of a data-parallel one
+    (build_train_step(mesh=...): `batch` is the rank's shard, the gradients,
+    statistics and logs averaged over the ranks). branch None: record the
+    forward's ReLU masks, its max-pools' argmaxes (core/nn.max_pool: the
+    UNet's 2x2 pools, the ResNet stems' 3x3) and its count of tied pool
     windows into a new branch (masks, indices, [ties]), returned; else
     follow them. record: a callback wrapped around the step (a context
-    manager factory), or None. Returns (loss, new params, new stats
-    (numpy), branch, (ReLU flips, pool argmax flips, of them not exact
-    ties, of them beyond 1e-5; pool_recorder), the logs as floats)."""
+    manager factory), or None. Returns (loss, new params, new stats (numpy),
+    branch, (ReLU flips, pool argmax flips, of them not exact ties, of them
+    beyond 1e-5; pool_recorder), the logs as floats)."""
     import contextlib
     from instaorder_tpu_torch import losses as TL
     from instaorder_tpu_torch.core import nn as CN
@@ -2090,7 +2139,7 @@ def train_step_on(torch, T, ST, CV, net, cfg, m, params, stats, batch,
     from instaorder_tpu_torch.train import algos, optim
     loss_fn = algos.make_loss(m['algo'], net, cfg, m)
     opt = optim.make_optimizer('SGD', weight_decay=m['weight_decay'])
-    step = ST.build_train_step(loss_fn, opt)
+    step = ST.build_train_step(loss_fn, opt, mesh)
     cast = (lambda t: t) if dtype is None else \
         (lambda t: t.to(dtype) if t.is_floating_point() else t)
     p = tree_map(cast, CV.tree_to(CV.to_torch(params), dev))
@@ -3947,6 +3996,522 @@ def phase_depth(torch, dev, card, wrappers):
     return numbers
 
 
+# ---- data parallel (parallel/, train/step.py, the Trainer's ranks) ----------
+# (a) ranks sharing the one card (gloo: NCCL refuses two ranks on one
+# device) and the pairs a rank of the card-vs-CPU data-parallel step;
+# (d) at most this many cards
+DP_WORLD = 2
+DP_PAIRS_PER_RANK = 2
+DP_CARDS = 4
+# the Trainer flow's settings (phase 6's train_flow)
+DP_FLOW = dict(print_freq=2, save_freq=4, val_iter=2)
+# the all-reduce's timing (median of DP_REPS after a warm-up); a spawned
+# world's time limit (a rank that raises or outlives it fails the phase;
+# the NCCL duplicate-device probe's is recorded instead)
+DP_REPS = 5
+DP_TIMEOUT = 600
+NCCL_DUP_TIMEOUT = 120
+
+
+def dp_spawn(torch, fn, world, workdir, job, timeout=DP_TIMEOUT,
+             may_hang=False):
+    """fn(rank, world, workdir, job) in `world` spawned, non-daemonic
+    processes, each writing its result to workdir/rank{r}.pt. A rank that
+    raises fails the phase (torch's ProcessRaisedException), as does a
+    world still running after `timeout` s (killed), unless may_hang:
+    then None. Returns the ranks' results in rank order."""
+    import os
+    import torch.multiprocessing as mp
+    os.makedirs(workdir, exist_ok=True)
+    ctx = mp.start_processes(fn, args=(world, workdir, job), nprocs=world,
+                             join=False, daemon=False, start_method='spawn')
+    deadline = time.time() + timeout
+    while not ctx.join(timeout=max(1.0, deadline - time.time())):
+        if time.time() > deadline:
+            for p in ctx.processes:
+                p.kill()
+                p.join()
+            check(may_hang, f'{fn.__name__}: ranks still running after '
+                  f'{timeout} s')
+            return None
+    return [torch.load(f'{workdir}/rank{r}.pt', weights_only=False)
+            for r in range(world)]
+
+
+def dp_reference(torch, T, ST, CV, fixture, world, path):
+    """The CPU's reference for a world-`world` step of InstaOrderNet_o at
+    full width (seed 0, kaiming) on DP_PAIRS_PER_RANK * world pairs of
+    the port's dataset: the port's one-device step on each rank's shard
+    in f64 (recording the shard's ReLU branch, pool argmaxes and
+    extrema) and in f32 on that branch, the shards' losses, new params
+    and statistics averaged by hand (a first SGD step is linear in the
+    gradient). Writes the net, batch and branches to `path` for the
+    ranks. Returns (params, {'f64' / 'f32': (loss, params, stats)})."""
+    import numpy as np
+    from instaorder_tpu_torch.core.nn import tree_map
+    from instaorder_tpu_torch.data.datasets import DATASETS, collate
+    from instaorder_tpu_torch.data.loader import sample_rng
+    from instaorder_tpu_torch.models.registry import get_backbone
+    from instaorder_tpu_torch.parallel import make_mesh, shard_batch
+    cpu = torch.device('cpu')
+    args = train_args('InstaOrderNet_o', fixture, 1)
+    net = get_backbone('resnet50_cls')
+    params, stats, cfg = net['init'](
+        torch.Generator().manual_seed(0), weight_init='kaiming_out',
+        device='cpu', **args.model['backbone_param'])
+    params, stats = CV.to_numpy(params), CV.to_numpy(stats)
+    ds = DATASETS[args.data['trainval_dataset']](args.data, 'train',
+                                                 args.model['algo'])
+    batch = collate([ds.sample(i % len(ds), sample_rng(0, i))
+                     for i in range(DP_PAIRS_PER_RANK * world)])
+    mesh = make_mesh(devices=['cpu'] * world)
+    runs, branches = {'f64': [], 'f32': []}, []
+    for r in range(world):
+        shard = shard_batch(batch, mesh, r)
+        l64, p64, s64, branch, _, _ = train_step_on(
+            torch, T, ST, CV, net, cfg, args.model, params, stats, shard,
+            cpu, None, torch.float64)
+        l32, p32, s32, _, _, _ = train_step_on(
+            torch, T, ST, CV, net, cfg, args.model, params, stats, shard,
+            cpu, branch)
+        runs['f64'].append((l64, p64, s64))
+        runs['f32'].append((l32, p32, s32))
+        branches.append(branch)
+
+    def mean(trees):
+        return tree_map(lambda *a: np.mean(np.stack(
+            [np.asarray(x, np.float64) for x in a]), 0), *trees)
+    ref = {k: (float(np.mean([x[0] for x in v])), mean([x[1] for x in v]),
+               mean([x[2] for x in v])) for k, v in runs.items()}
+    torch.save({'params': params, 'stats': stats, 'cfg': cfg,
+                'batch': batch, 'branches': branches}, path)
+    return params, ref
+
+
+def dp_flow(torch, T, fixture, out, mesh):
+    """(a)'s Trainer flow as this rank of `mesh`: the InstaOrderNet_o
+    YAML for 4 steps (a checkpoint at 4, rank 0's), a new Trainer
+    resuming it (start_iter 4, params equal) to 6, validate(); the
+    ranks' params then, held against rank 0's broadcast; the all-reduce
+    of a tree of the params' shapes (the step's gradient bucket) and the
+    step on a fixed batch of this rank's stream, timed."""
+    import os
+    import numpy as np
+    import torch.distributed as dist
+    from instaorder_tpu_torch.core.nn import tree_leaves
+    from instaorder_tpu_torch.parallel import all_reduce_mean
+    saved = []
+
+    def trainer(total, out_dir):
+        t = T.Trainer(train_args('InstaOrderNet_o', fixture, total,
+                                 **DP_FLOW), out_dir=out_dir, mesh=mesh)
+        quiet_logger(t)
+        real = t.save
+        t.save = lambda step: saved.append(real(step)) or saved[-1]
+        return t
+    t = trainer(4, out)
+    t.train()
+    dist.barrier()          # rank 0's checkpoint is written
+    t2 = trainer(6, f'{out}2')
+    t2.load(f'{out}/checkpoints/ckpt_iter_4.ckpt', resume=True)
+    res = {'resume_equal': all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(t.params), tree_leaves(t2.params)))}
+    t2.train()
+    val = t2.validate()
+    flat = torch.cat([x.reshape(-1) for x in tree_leaves(t2.params)])
+    rank0 = flat.clone()
+    dist.broadcast(rank0, 0)
+    res.update(saved=saved, start_iter=t2.start_iter,
+               curr_step=t2.curr_step, val_loss=float(val['loss']),
+               params_equal=bool(torch.equal(flat, rank0)),
+               n_values=int(flat.numel()),
+               ckpts=sorted(os.listdir(f'{out}/checkpoints')) +
+               sorted(os.listdir(f'{out}2/checkpoints'))
+               if dist.get_rank() == 0 else None)
+    ms = []
+    for i in range(DP_REPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_mean(t2.params)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    res['allreduce_ms'] = float(np.median(ms[1:]))
+    it = iter(t2._make_loader('train'))
+    batch = next(it)
+    it.close()
+    res['step_ms'], res['peak_gib'] = time_train_step(torch, T, t2, batch)
+    res['pairs'] = int(batch['rgb'].shape[0])
+    return res
+
+
+def dp_rank(rank, world, workdir, job):
+    """One rank of phase 10's data-parallel runs (dp_spawn): joins the
+    group (job['backend'] on job['mesh'][rank]); with job['xdev'], the
+    data-parallel SGD step on its shard of the reference's batch, on its
+    shard's f64 branch; with job['flow'], dp_flow."""
+    import torch
+    import torch.distributed as dist
+    from instaorder_tpu_torch import convert as CV
+    from instaorder_tpu_torch.models.registry import get_backbone
+    from instaorder_tpu_torch.parallel import (init_data_parallel, make_mesh,
+                                               shard_batch)
+    from instaorder_tpu_torch.train import step as ST
+    from instaorder_tpu_torch.train import trainer as T
+    mesh = make_mesh(devices=job['mesh'])
+    dev = mesh[rank]
+    init_data_parallel(rank, world, dev, backend=job['backend'],
+                       init_method=f'file://{workdir}/rendezvous')
+    out = {'device': str(dev), 'backend': dist.get_backend()}
+    try:
+        if 'xdev' in job:
+            ref = torch.load(job['xdev'], weights_only=False)
+            args = train_args('InstaOrderNet_o', job['fixture'], 1)
+            loss, p, s, _, flips, _ = train_step_on(
+                torch, T, ST, CV, get_backbone('resnet50_cls'), ref['cfg'],
+                args.model, ref['params'], ref['stats'],
+                shard_batch(ref['batch'], mesh, rank), dev,
+                ref['branches'][rank], mesh=mesh)
+            out['xdev'] = (loss, p, s) if rank == 0 else (loss, None, None)
+            out['flips'] = flips
+            del ref
+        if job.get('flow'):
+            out.update(dp_flow(torch, T, job['fixture'],
+                               f'{workdir}/flow', mesh))
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, f'{workdir}/rank{rank}.pt')
+
+
+def nccl_dup_rank(rank, world, workdir, job):
+    """NCCL with every rank on cuda:0: its answer (NCCL refuses a
+    duplicate device) recorded as text."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from instaorder_tpu_torch.parallel import init_data_parallel
+    try:
+        init_data_parallel(rank, world, 'cuda:0',
+                           init_method=f'file://{workdir}/rendezvous')
+        t = torch.ones(4, device='cuda:0')
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        msg = f'accepted: {t.tolist()}'
+    except RuntimeError as e:       # the refusal is the expected answer
+        msg = f'{type(e).__name__}: ' + ' '.join(str(e).split())[:300]
+    torch.save(msg, f'{workdir}/rank{rank}.pt')
+    os._exit(0)     # a refused communicator may block a normal exit
+
+
+def check_dp_ranks(torch, name, ranks, ref, params, card):
+    """A world's results: the data-parallel step against the CPU's f64
+    reference at phase 6's bars (loss 1e-5 relative, updates 1e-3 of each
+    leaf's max, statistics through check_stats), every rank's loss equal;
+    the Trainer flow: 4 steps, the checkpoints at 4 and 6 written by rank
+    0 alone, the resume equal, 6 steps, validate() finite, the ranks'
+    params equal on every value."""
+    import numpy as np
+    l64, p64, s64 = ref['f64']
+    l32, p32, s32 = ref['f32']
+    lg, pg, sg = ranks[0]['xdev']
+    check(all(r['xdev'][0] == lg for r in ranks),
+          f'{name}: every rank logs the same (averaged) loss')
+    lrel = abs(lg - l64) / abs(l64)
+    upd = leaf_worst(pg, p64, params, 'params')
+    for who, (l, p) in (('card', (lg, pg)), ('CPU f32', (l32, p32))):
+        print(f'  {name} data-parallel SGD step vs the CPU f64 one-device '
+              f'steps averaged ({len(ranks)} x {DP_PAIRS_PER_RANK} pairs): '
+              f'{who} loss {l:.6f} vs {l64:.6f} (rel '
+              f'{abs(l - l64) / abs(l64):.3e}); worst update '
+              f'{leaf_worst(p, p64, params, "params")} ({card})')
+    print(f'  {name}: ReLU / pool flips against the CPU f64 branch by rank '
+          f'{[r["flips"][:2] for r in ranks]}')
+    check(np.isfinite(lg) and lrel <= XDEV_LOSS_BAR,
+          f'{name}: loss within {XDEV_LOSS_BAR} of the CPU\'s ({lrel:.3e})')
+    check(upd[0] <= XDEV_UPDATE_BAR,
+          f'{name}: every update within {XDEV_UPDATE_BAR} ({upd})')
+    check_stats(name, sg, s32, s64, card)
+    r0 = ranks[0]
+    check(r0['ckpts'] == ['ckpt_iter_4.ckpt', 'ckpt_iter_6.ckpt'],
+          f'{name}: checkpoints at 4 and 6 ({r0["ckpts"]})')
+    check(all(len(r['saved']) == 2 for r in ranks) and all(r0['saved'])
+          and all(p is None for r in ranks[1:] for p in r['saved']),
+          f'{name}: rank 0 alone writes the checkpoints')
+    for r in ranks:
+        check(r['resume_equal'] and r['start_iter'] == 4 and
+              r['curr_step'] == 6 and np.isfinite(r['val_loss']),
+              f'{name} rank {r["device"]}: resume at 4 with the params '
+              f'equal, 6 steps, validate() finite')
+        check(r['params_equal'], f'{name}: the ranks\' params equal on '
+              f'every value ({r["n_values"]})')
+    print(f'  {name} Trainer flow: 4 steps, checkpoint (rank 0), resume, '
+          f'6 steps, validate loss {r0["val_loss"]:.4f}; the {len(ranks)} '
+          f'ranks\' {r0["n_values"]} param values equal')
+
+
+def dp_nccl_world1(torch, T, ST, fixture, dev, workdir):
+    """(b): the world-1 step on a fixed batch of the YAML's 32 pairs
+    (timed), then one step through the NCCL path (a process group of
+    one, mesh [dev]) against build_train_step without a mesh on the same
+    inputs, cuDNN deterministic for both: equal on every value; and the
+    NCCL all-reduce of the params' tree and of one flat bucket of its
+    size, timed. Returns (world-1 step ms, pairs, the two all-reduce
+    ms)."""
+    import numpy as np
+    import torch.distributed as dist
+    from instaorder_tpu_torch.core.nn import tree_leaves
+    from instaorder_tpu_torch.parallel import (all_reduce_mean,
+                                               init_data_parallel)
+    t = T.Trainer(train_args('InstaOrderNet_o', fixture, 1), device=dev,
+                  out_dir=f'{workdir}/w1')
+    quiet_logger(t)
+    it = iter(t._make_loader('train'))
+    batch = next(it)
+    it.close()
+    ms1, _ = time_train_step(torch, T, t, batch)
+    init_data_parallel(0, 1, dev, init_method=f'file://{workdir}/nccl1')
+    try:
+        check(dist.get_backend() == 'nccl', 'the card\'s default backend')
+        xb = T.batch_to_device(batch, t.device)
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            a, b = (ST.build_train_step(t.loss_fn, t.optimizer, m)(
+                t.params, t.stats, t.opt_state, xb, t.lr_fn(0))
+                for m in (None, [t.device]))
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = det
+        la, lb = tree_leaves(list(a)), tree_leaves(list(b))
+        differ = sum(not torch.equal(x, y) for x, y in zip(la, lb))
+        print(f'  (b) NCCL world 1: one step through the mesh path vs '
+              f'without: {differ} of {len(la)} leaves differ')
+        check(len(la) == len(lb) and differ == 0,
+              'NCCL world 1: the step equal on every value')
+        # the tree's all-reduce, and one all_reduce of a bucket of the
+        # same size already flat (the difference: the tree's host work)
+        bucket = torch.zeros(sum(x.numel() for x in tree_leaves(t.params)),
+                             device=dev)
+        ms = {}
+        for name, fn in (('tree', lambda: all_reduce_mean(t.params)),
+                         ('flat', lambda: dist.all_reduce(bucket))):
+            ms[name] = []
+            for i in range(DP_REPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        dist.destroy_process_group()
+    return (ms1, int(batch['rgb'].shape[0]), float(np.median(ms['tree'][1:])),
+            float(np.median(ms['flat'][1:])))
+
+
+def dp_predictors(torch, serving, resnet, TPL, wrappers, calib_x, dev, mesh,
+                  card):
+    """(c) / (d): make_v2_predictor (compute_dtype f32, the dual-head net)
+    and make_folded_predictor (f32, identity,down,stem) with mesh=`mesh`
+    against the same predictors unsharded, on phase 4's scenes: the
+    matrices equal, the launches of every call (the prep once, the
+    model's kernels once for each mesh device), and every model kernel's
+    entry point launched on every device of the mesh (ops/_build.launch
+    recorded)."""
+    from instaorder_tpu_torch.ops import _build
+    nets = predictor_nets(torch, resnet, dev)
+    scenes = pred_scenes(serving)
+    k = len(mesh)
+    kw = dict(patch_or_image='patch', input_size=OUT, prep_impl='pallas5',
+              device=dev)
+    preds = [
+        ('v2-f32 d2', 'InstaOrderNet_od',
+         lambda n, **m: TPL.make_v2_predictor(
+             *n, 'InstaOrderNet_od', [calib_x], compute_dtype=torch.float32,
+             **kw, **m), {PREP: 1, STAGE: k, DOWN: 3 * k, IDEN: 10 * k}),
+        ('f32 d2', 'InstaOrderNet_o',
+         lambda n, **m: TPL.make_folded_predictor(
+             *n, 'InstaOrderNet_o', use_pallas=KFEATS, **kw, **m),
+         {PREP: 1, IDEN16: 5 * k, DOWN16: 3 * k, STEM: k})]
+    where = {}
+    real = _build.launch
+
+    def launch(entry, d, *a):
+        where.setdefault(entry, set()).add(str(d))
+        return real(entry, d, *a)
+    _build.launch = launch
+    try:
+        for name, method, make, expected in preds:
+            single = make(nets[method])
+            sharded = make(nets[method], mesh=mesh)
+            dual = method == 'InstaOrderNet_od'
+            for n, scene in zip(PRED_INSTANCES, scenes):
+                got, counts = pred_launches(
+                    torch, wrappers, lambda: sharded.infer_occ_order(*scene))
+                check(counts == expected, f'mesh predictor {name} N={n}: '
+                      f'launches {counts}, expected {expected}')
+                check((got == single.infer_occ_order(*scene)).all(),
+                      f'mesh predictor {name} N={n}: matrices equal')
+                if dual:
+                    for g, w in zip(sharded.infer_occ_depth_order(*scene),
+                                    single.infer_occ_depth_order(*scene)):
+                        check((g == w).all(), f'mesh predictor {name} '
+                              f'N={n}: occ / depth matrices equal')
+            ms = {}
+            for who, pred in (('unsharded', single), ('mesh', sharded)):
+                t = []
+                for _ in range(PRED_REPS + 1):
+                    t0 = time.perf_counter()
+                    pred.infer_occ_order(*scenes[-1])
+                    t.append((time.perf_counter() - t0) * 1e3)
+                ms[who] = sorted(t[1:])[PRED_REPS // 2]
+            print(f'  mesh predictor {name} over {[str(d) for d in mesh]}: '
+                  f'matrices equal to the unsharded predictor\'s on '
+                  f'{len(scenes)} scenes, launches a call {expected}; '
+                  f'infer_occ_order N={PRED_INSTANCES[-1]} {ms["mesh"]:.3f} '
+                  f'ms, unsharded {ms["unsharded"]:.3f} ms ({card})')
+            del single, sharded
+    finally:
+        _build.launch = real
+    devs = {str(torch.device(d)) for d in mesh}
+    for entry, on in where.items():
+        if entry != 'io_prep_pairs':
+            check(devs <= on, f'{entry} launched on every mesh device '
+                  f'({sorted(on)})')
+    return {e: sorted(on) for e, on in where.items()}
+
+
+def dp_cli(fixture, root, world):
+    """(d): `python -m instaorder_tpu_torch.cli.train --n-devices world`
+    on the InstaOrderNet_o YAML's settings (the fixture's paths): 4 steps
+    and a checkpoint, then --auto-resume to 6 and validate."""
+    import json as js
+    import os
+    import yaml
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = f'{root}/cli'
+    for total, extra in ((4, []), (6, ['--auto-resume'])):
+        a = train_args('InstaOrderNet_o', fixture, total, **DP_FLOW)
+        cfg = js.loads(js.dumps({'model': a.model,
+                                 'data': dict(a.data, base_dir=''),
+                                 'trainer': a.trainer}))
+        path = f'{root}/cli_{total}.yaml'
+        with open(path, 'w') as f:
+            yaml.safe_dump(cfg, f)
+        run = subprocess.run(
+            [sys.executable, '-m', 'instaorder_tpu_torch.cli.train',
+             '--config', path, '--n-devices', str(world), '--out-dir', out,
+             '--seed', '0', *extra], cwd=repo, capture_output=True,
+            text=True, timeout=DP_TIMEOUT)
+        check(run.returncode == 0, f'cli.train --n-devices {world}: '
+              f'{run.stderr[-2000:]}')
+    ckpts = sorted(os.listdir(f'{out}/checkpoints'))
+    log = open(f'{out}/logs/log_train.txt').read()
+    check(ckpts == ['ckpt_iter_4.ckpt', 'ckpt_iter_6.ckpt'] and
+          'Validation Iter: [6]' in log and 'iter 4)' in log,
+          f'cli.train --n-devices {world}: checkpoints {ckpts}, resumed at '
+          f'4, validated at 6')
+    print(f'  (d) cli.train --n-devices {world}: 4 steps, checkpoint, '
+          f'--auto-resume to 6, validate')
+
+
+def phase_data_parallel(torch, serving, resnet, TPL, wrappers, calib_x, dev,
+                        card):
+    """Data-parallel training and pair sharding on the card (module
+    docstring, phase 10). Returns {measurement: number}."""
+    import tempfile
+    from instaorder_tpu_torch import convert as CV
+    from instaorder_tpu_torch.data import synthetic
+    from instaorder_tpu_torch.train import step as ST
+    from instaorder_tpu_torch.train import trainer as T
+
+    t0 = time.perf_counter()
+    numbers = {}
+    n_cards = torch.cuda.device_count()
+    torch.cuda.empty_cache()        # the ranks' memory on the same card
+    with tempfile.TemporaryDirectory() as root:
+        insta, _, img = synthetic.make_instaorder_fixture(
+            root, n_images=TESTER_IMAGES, n_instances=TESTER_INSTANCES,
+            h=HEIGHT, w=WIDTH)
+        fixture = (insta, img)
+        ran = []
+        # NCCL refuses two ranks on one device: confirmed and recorded
+        dup = dp_spawn(torch, nccl_dup_rank, DP_WORLD, f'{root}/dup', {},
+                       timeout=NCCL_DUP_TIMEOUT, may_hang=True)
+        print(f'  NCCL with {DP_WORLD} ranks on cuda:0: '
+              f'{dup[0] if dup else "hung (killed)"}')
+        # (a) two gloo ranks on cuda:0
+        params, ref = dp_reference(torch, T, ST, CV, fixture, DP_WORLD,
+                                   f'{root}/ref.pt')
+        ranks = dp_spawn(torch, dp_rank, DP_WORLD, f'{root}/a', {
+            'mesh': ['cuda:0'] * DP_WORLD, 'backend': 'gloo',
+            'fixture': fixture, 'xdev': f'{root}/ref.pt', 'flow': True})
+        check_dp_ranks(torch, f'(a) world {DP_WORLD} gloo on cuda:0', ranks,
+                       ref, params, card)
+        ran.append('a')
+        numbers.update(step_ms=ranks[0]['step_ms'],
+                       pairs=ranks[0]['pairs'] * DP_WORLD,
+                       gloo_allreduce_ms=ranks[0]['allreduce_ms'],
+                       n_values=ranks[0]['n_values'])
+        # (b) NCCL at world 1, and the world-1 step
+        ms1, pairs1, nccl_ms, flat_ms = dp_nccl_world1(torch, T, ST,
+                                                       fixture, dev, root)
+        numbers.update(step1_ms=ms1, pairs1=pairs1, nccl_allreduce_ms=nccl_ms,
+                       nccl_flat_ms=flat_ms)
+        ran.append('b')
+        # (c) the predictor's mesh on the one card
+        dp_predictors(torch, serving, resnet, TPL, wrappers, calib_x, dev,
+                      ['cuda:0'] * DP_WORLD, card)
+        ran.append('c')
+        # (d) two or more cards
+        if n_cards >= 2:
+            world = min(n_cards, DP_CARDS)
+            mesh = [f'cuda:{i}' for i in range(world)]
+            dp_cli(fixture, root, world)
+            params, ref = dp_reference(torch, T, ST, CV, fixture, world,
+                                       f'{root}/ref_d.pt')
+            ranks = dp_spawn(torch, dp_rank, world, f'{root}/d', {
+                'mesh': mesh, 'backend': 'nccl', 'fixture': fixture,
+                'xdev': f'{root}/ref_d.pt', 'flow': True})
+            check_dp_ranks(torch, f'(d) world {world} NCCL', ranks, ref,
+                           params, card)
+            numbers.update(nccl_world=world, nccl_step_ms=ranks[0]['step_ms'],
+                           nccl_pairs=ranks[0]['pairs'] * world,
+                           nccl_world_allreduce_ms=ranks[0]['allreduce_ms'])
+            where = dp_predictors(torch, serving, resnet, TPL, wrappers,
+                                  calib_x, dev, mesh, card)
+            print(f'  (d) kernels by device: {where}')
+            ran.append('d')
+        else:
+            print('  phase 10 (d) did not run: the machine has one card')
+    mb = numbers['n_values'] * 4 / 1e6
+    print(f'data parallel (a) world {DP_WORLD} gloo, both ranks on cuda:0: '
+          f'step {numbers["step_ms"]:.2f} ms (median of {TIMING_REPS} after '
+          f'{TIMING_WARMUP}, each rank a fixed batch of '
+          f'{numbers["pairs"] // DP_WORLD} pairs) = '
+          f'{numbers["pairs"] / numbers["step_ms"] * 1e3:.1f} pairs/s; the '
+          f'world-1 step {numbers["step1_ms"]:.2f} ms = '
+          f'{numbers["pairs1"] / numbers["step1_ms"] * 1e3:.1f} pairs/s. '
+          f'Two ranks share one card here: not a scaling figure ({card})')
+    print(f'data parallel all-reduce of the InstaOrderNet_o gradient bucket '
+          f'({numbers["n_values"]} f32 values, {mb:.1f} MB; '
+          f'parallel/collectives.all_reduce_mean, median of {DP_REPS} after '
+          f'1): gloo at world {DP_WORLD} on cuda:0 '
+          f'{numbers["gloo_allreduce_ms"]:.2f} ms, NCCL at world 1 '
+          f'{numbers["nccl_allreduce_ms"]:.3f} ms, of it a dist.all_reduce '
+          f'of one flat bucket of that size {numbers["nccl_flat_ms"]:.3f} '
+          f'ms ({card})')
+    if 'nccl_world' in numbers:
+        w = numbers['nccl_world']
+        print(f'data parallel (d) world {w} NCCL on {w} cards: step '
+              f'{numbers["nccl_step_ms"]:.2f} ms = '
+              f'{numbers["nccl_pairs"] / numbers["nccl_step_ms"] * 1e3:.1f} '
+              f'pairs/s; all-reduce {numbers["nccl_world_allreduce_ms"]:.2f}'
+              f' ms ({card})')
+    numbers['seconds'] = time.perf_counter() - t0
+    print(f'data parallel phase: ran {",".join(ran)}; '
+          f'{numbers["seconds"]:.1f} s')
+    return numbers
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3970,6 +4535,7 @@ def main():
     dev = resolve_device()
     card = card_line()
     print(card)
+    print(f'glibc malloc keeps freed blocks for reuse: {keep_freed_heap()}')
     print(f'torch {torch.__version__} cuda {torch.version.cuda} '
           f'device {torch.cuda.get_device_name(0)}')
 
@@ -4169,7 +4735,10 @@ def main():
     # ---- 9. InstaDepthNet training -------------------------------------------
     phase_depth(torch, dev, card, wrappers)
 
-    # ---- 10. report ---------------------------------------------------------
+    # ---- 10. data parallel -------------------------------------------------
+    phase_data_parallel(torch, serving, resnet, TPL, wrappers, x, dev, card)
+
+    # ---- 11. report ---------------------------------------------------------
     kernels = []
     for name, r in results.items():
         t_bytes = r['bytes'] / H100_BYTES_PER_S * 1e3

@@ -4,13 +4,22 @@ reference's main.py flags, plus --device.
     python -m instaorder_tpu_torch.cli.train --config \
         experiments/InstaOrder/InstaOrderNet_o/config.yaml \
         [--load-model PATH [--load-iter N]] [--resume] [--auto-resume] \
-        [--validate] [--seed N] [--out-dir DIR] [--device cpu]
+        [--validate] [--seed N] [--out-dir DIR] [--device cpu] \
+        [--n-devices N | --multihost]
 
---device: 'cuda' (the default) trains on the card and raises without
-one; 'cpu' trains on the CPU. One process trains on one device:
---n-devices above 1 and --multihost (data-parallel training) raise
-NotImplementedError until the `parallel/` slice is ported (ROADMAP.md).
---load_pretrain merges a torch state_dict onto the init
+--device: 'cuda' (the default) trains on the cards and raises without
+one; 'cpu' trains on the CPU. Data-parallel training (parallel/, the
+reference's NCCL ranks): --n-devices N starts N ranks, one process each
+(torch.multiprocessing.spawn, non-daemonic, so that the loader's
+process workers still start inside a rank), NCCL on cuda:0..N-1, or
+gloo on the CPU with --device cpu; fewer than N cards raises. Without
+--n-devices the card path trains on every visible card, as the JAX
+package's make_mesh(None), and --device cpu in one process. A world of
+1 is the one-device Trainer in this process. --multihost joins a
+torchrun launch instead (python -m torch.distributed.run ... -m
+instaorder_tpu_torch.cli.train --multihost): this process is the rank
+torchrun names. The YAML's batch_size is per rank. --load_pretrain
+merges a torch state_dict onto the init
 (compat/torch_convert.load_pretrain). --extract, --evaluate and
 --evaluate-save are accepted and inert, as in the reference (main.py:
 55-58). Reading the YAML needs PyYAML. Every experiment config of
@@ -27,13 +36,12 @@ from __future__ import annotations
 
 import argparse
 import os
-
-_PARALLEL = ('data-parallel training is not ported to instaorder_tpu_torch '
-             'yet (ROADMAP.md: the parallel/ slice, 4 GPUs); train on one '
-             'device')
+import tempfile
 
 
 def main(argv=None):
+    """Train as the command line asks. Returns the Trainer of this
+    process, or None when --n-devices spawned the ranks."""
     ap = argparse.ArgumentParser()
     ap.add_argument('--config', required=True)
     ap.add_argument('--load-model', default=None)
@@ -55,9 +63,50 @@ def main(argv=None):
     ap.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
     args = ap.parse_args(argv)
 
-    if args.multihost or (args.n_devices or 1) > 1:
-        raise NotImplementedError(f'--multihost / --n-devices: {_PARALLEL}')
+    from ..parallel import make_mesh
+    if args.multihost:
+        if args.n_devices is not None:
+            raise ValueError('--multihost takes its ranks from torchrun; '
+                             'drop --n-devices')
+        import torch.distributed as dist
+        from ..parallel import init_from_env
+        mesh, _ = init_from_env(args.device)
+        try:
+            return train(args, mesh)
+        finally:
+            dist.destroy_process_group()
+    if args.device == 'cpu':
+        mesh = make_mesh(devices=['cpu'] * (args.n_devices or 1))
+    else:
+        mesh = make_mesh(args.n_devices)     # raises with fewer cards
+    if len(mesh) == 1:
+        return train(args, None, mesh[0])
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as store:
+        mp.spawn(_rank, args=(args, mesh, f'file://{store}/rendezvous'),
+                 nprocs=len(mesh), join=True, daemon=False)
+    return None
 
+
+def _rank(rank, args, mesh, init_method):
+    """One spawned rank of --n-devices: join the group, train, leave."""
+    import torch
+    import torch.distributed as dist
+    from ..parallel import init_data_parallel
+    if mesh[rank].type == 'cpu':
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // len(mesh)))
+    init_data_parallel(rank, len(mesh), mesh[rank], init_method=init_method)
+    try:
+        train(args, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def train(args, mesh, device=None):
+    """Build the Trainer of the parsed command line (on `device`, or as
+    this process's rank of `mesh`), load or resume as asked, and run
+    it. Returns the Trainer."""
     from .config import load_config
     from ..train.trainer import Trainer
 
@@ -65,7 +114,7 @@ def main(argv=None):
     cfg.seed = args.seed
     if args.load_pretrain:
         cfg.load_pretrain = args.load_pretrain
-    trainer = Trainer(cfg, device=args.device, out_dir=args.out_dir)
+    trainer = Trainer(cfg, device=device, out_dir=args.out_dir, mesh=mesh)
     if args.load_model:
         path = args.load_model
         if args.load_iter is not None:

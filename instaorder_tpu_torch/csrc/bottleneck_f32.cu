@@ -355,7 +355,7 @@ template <int BN, int KIND>
 int launch(const SegF& s0, const SegF& s1, int M, int Ho, int Wo, int Cout,
            const float* bias, const float* bias2, const void* res,
            int res_i8, float r, void* out, int mode, cudaStream_t stream) {
-  static bool smem_set = false;
+  static bool smem_set[kMaxDevices] = {};
   const int e = allow_smem(conv_gemm_f32_kernel<BN, KIND>, TileF<BN>::kSmem,
                            smem_set);
   if (e) return e;

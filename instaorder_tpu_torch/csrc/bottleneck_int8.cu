@@ -231,7 +231,7 @@ conv_gemm_s8_kernel(Seg s0, Seg s1, int M, int Ho, int Wo, int Cout,
 template <int BN, int KIND>
 int launch(const Seg& s0, const Seg& s1, int M, int Ho, int Wo, int Cout,
            const int8_t* res, float sxr, int8_t* out, cudaStream_t stream) {
-  static bool smem_set = false;
+  static bool smem_set[kMaxDevices] = {};
   const int e = allow_smem(conv_gemm_s8_kernel<BN, KIND>, Tile<BN>::kSmem,
                            smem_set);
   if (e) return e;

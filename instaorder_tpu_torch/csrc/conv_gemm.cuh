@@ -419,14 +419,31 @@ struct Gather {
   }
 };
 
-// once per kernel instantiation: allow `bytes` of dynamic shared memory
+// the most cards a process launches on; per-device launch state (the
+// shared-memory attribute, the stems' grid caps) is kept in arrays this long
+constexpr int kMaxDevices = 64;
+
+// the current device (the one a launch runs on), checked against
+// kMaxDevices
+inline int current_device(int& dev) {
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  return dev < kMaxDevices ? 0 : (int)cudaErrorInvalidDevice;
+}
+
+// once per kernel instantiation and device: allow `bytes` of dynamic
+// shared memory (the attribute belongs to the device: a flag for the
+// process would leave a second card's launch refused)
 template <class Kernel>
-inline int allow_smem(Kernel kernel, int bytes, bool& done) {
-  if (done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(
+inline int allow_smem(Kernel kernel, int bytes,
+                      bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  int e = current_device(dev);
+  if (e || done[dev]) return e;
+  e = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  done = e == cudaSuccess;
-  return (int)e;
+  done[dev] = e == (int)cudaSuccess;
+  return e;
 }
 
 }  // namespace convgemm

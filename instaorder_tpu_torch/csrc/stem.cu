@@ -413,14 +413,17 @@ int launch(const void* x, void* xs, int N, int H, int W, int C,
            cudaStream_t st, Args... args) {
   using S = Stem<S8, COUT>;
   const auto kernel = kernel_of<S8, COUT, Q8>();
-  static bool smem_set = false;
-  static int grid_cap = 0;
-  int e = allow_smem(kernel, S::kSmem, smem_set);
-  if (e) return e;
+  // per device: the shared-memory attribute and the grid cap (SMs x
+  // resident CTAs) belong to the card the launch runs on
+  static bool smem_set[kMaxDevices] = {};
+  static int grid_caps[kMaxDevices] = {};
+  int dev = 0;
+  int e = current_device(dev);
+  if (e || (e = allow_smem(kernel, S::kSmem, smem_set))) return e;
+  int& grid_cap = grid_caps[dev];
   if (!grid_cap) {
-    int dev = 0, sms = 0, occ = 0;
-    if ((e = (int)cudaGetDevice(&dev))
-        || (e = (int)cudaDeviceGetAttribute(
+    int sms = 0, occ = 0;
+    if ((e = (int)cudaDeviceGetAttribute(
                 &sms, cudaDevAttrMultiProcessorCount, dev))
         || (e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                 &occ, kernel, kThreads, S::kSmem)))
@@ -884,14 +887,17 @@ int launch_f32(const void* x, void* xs, const float* wk, const float* bias,
                void* out, int N, int H, int W, int cout, int q8,
                cudaStream_t st) {
   using S = StemF<C>;
-  static bool smem_set = false;
-  static int grid_cap = 0;
-  int e = allow_smem(stem_f32_kernel<C>, S::kSmem, smem_set);
-  if (e) return e;
+  // per device, as in launch() above
+  static bool smem_set[kMaxDevices] = {};
+  static int grid_caps[kMaxDevices] = {};
+  int dev = 0;
+  int e = current_device(dev);
+  if (e || (e = allow_smem(stem_f32_kernel<C>, S::kSmem, smem_set)))
+    return e;
+  int& grid_cap = grid_caps[dev];
   if (!grid_cap) {
-    int dev = 0, sms = 0, occ = 0;
-    if ((e = (int)cudaGetDevice(&dev))
-        || (e = (int)cudaDeviceGetAttribute(
+    int sms = 0, occ = 0;
+    if ((e = (int)cudaDeviceGetAttribute(
                 &sms, cudaDevAttrMultiProcessorCount, dev))
         || (e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                 &occ, stem_f32_kernel<C>, kThreads, S::kSmem)))

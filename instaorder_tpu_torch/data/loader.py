@@ -12,7 +12,11 @@ instaorder_tpu/data/loader.py, its `thread` and `process` modes).
 Each sample's RNG is seeded from its position in the stream,
 (seed * 1_000_003 + pos) % (2**31 - 1), as in the JAX package, so the
 batches are the same for every worker count and in both modes, and the
-same as the JAX package's. A worker's error is raised to the consumer.
+same as the JAX package's. A data-parallel rank's loader (rank,
+world_size) holds the rank's slice of each global batch: its items take
+their positions in the global stream, so that rank r's batch is the
+rows of the JAX package's global batch that its mesh device r holds. A
+worker's error is raised to the consumer.
 The JAX package's third mode, 'grain', raises here: the grain package is
 not a dependency of the port.
 """
@@ -47,7 +51,7 @@ def _worker_sample(args):
 
 class DataLoader:
     def __init__(self, dataset, sampler, batch_size, num_workers=4,
-                 prefetch=4, seed=0, mode='thread'):
+                 prefetch=4, seed=0, mode='thread', rank=0, world_size=1):
         if mode == 'grain':
             raise NotImplementedError(
                 "DataLoader mode='grain' is not ported: the grain package "
@@ -62,6 +66,14 @@ class DataLoader:
         self.prefetch = prefetch
         self.seed = seed
         self.mode = mode
+        self.rank, self.world_size = rank, world_size
+
+    def _stream_pos(self, p):
+        """The global stream position of this loader's item p: rank r
+        holds items r*b .. r*b + b - 1 of each global batch of
+        world_size*b."""
+        b = self.batch_size
+        return (p // b * self.world_size + self.rank) * b + p % b
 
     def _make_pool(self):
         if self.mode == 'process':
@@ -88,14 +100,15 @@ class DataLoader:
                     if stop.is_set():
                         break
                     lo, hi = b * self.batch_size, (b + 1) * self.batch_size
+                    pos = [self._stream_pos(p) for p in range(lo, hi)]
                     if self.mode == 'process':
                         samples = list(pool.map(
                             _worker_sample,
-                            [(self.seed, p, indices[p])
-                             for p in range(lo, hi)]))
+                            [(self.seed, q, indices[p])
+                             for q, p in zip(pos, range(lo, hi))]))
                     else:
                         samples = list(pool.map(
-                            sample_one, zip(range(lo, hi), indices[lo:hi])))
+                            sample_one, zip(pos, indices[lo:hi])))
                     q.put(collate(samples))
                 q.put(None)
             except Exception as e:  # surface worker errors to the consumer

@@ -19,12 +19,20 @@ then dropped through `valid`. There is no jit: PyTorch runs eagerly.
 
 `DisparityOrderPredictor` orders the instances by a disparity map
 (MiDaS): one forward an image, the region depths on the device, the pair
-loop on the host. The JAX package's `mesh=` pair sharding is not ported
-(ROADMAP.md queue 1).
+loop on the host.
+
+Pair sharding (`mesh=`, the JAX package's shard_map over the `data`
+axis): the forward's batch, the padded 2P pairs (or the siamese P), is
+split into contiguous equal chunks, one for each device of the mesh (a
+list of devices, parallel/mesh.make_mesh); each device holds its own
+copy of the trees (the card-built kernel weights included) and runs its
+chunk, and the outputs are gathered in order on the first device. The
+prep and the decode stay on the first device, unsharded, as in JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import inspect
 
@@ -102,16 +110,19 @@ class OrderPredictor:
 
     device: None -> the card (device.resolve_device, which also pins
     TF32 off), or 'cpu' for the plain versions. params and stats are
-    moved there. The infer_* methods take the image (H, W, 3) float in
-    [0, 255], masks (N, H, W) {0, 1} and bboxes (N, 4) xywh as numpy
-    arrays, upload them once per call (the image as f32, the masks as
-    uint8) and return numpy int32 matrices.
+    moved there. mesh: a list of devices (the first one takes the place
+    of `device`) to shard the forward's pair batch over (module
+    docstring); a batch that does not divide by its size raises, as
+    JAX's shard_map does. The infer_* methods take the image (H, W, 3)
+    float in [0, 255], masks (N, H, W) {0, 1} and bboxes (N, 4) xywh as
+    numpy arrays, upload them once per call (the image as f32, the masks
+    as uint8) and return numpy int32 matrices.
     """
 
     def __init__(self, apply_fn, cfg, params, stats, method,
                  patch_or_image='patch', input_size=256, use_rgb=True,
                  directions=2, siamese_fn=None, prep_impl='einsum',
-                 prep_passes=3, prep_dtype=None, device=None):
+                 prep_passes=3, prep_dtype=None, device=None, mesh=None):
         if patch_or_image not in MODES:
             raise ValueError(f'patch_or_image must be one of {MODES}')
         if directions not in (1, 2):
@@ -122,11 +133,19 @@ class OrderPredictor:
             raise ValueError("prep_impl='pallas5' supports patch mode "
                              "only (image/resize/orig share one RGB crop "
                              "across pairs: nothing to fuse)")
-        self.device = resolve_device(device)
+        self.mesh = None if mesh is None else [resolve_device(d)
+                                                for d in mesh]
+        self.device = resolve_device(device) if mesh is None \
+            else self.mesh[0]
         self.apply_fn = apply_fn
         self.cfg = cfg
         self.params = tree_to(params, self.device)
         self.stats = tree_to(stats, self.device)
+        # each mesh device's copy of the trees (one copy per distinct
+        # device)
+        self._replicas = None if mesh is None else {
+            d: (tree_to(self.params, d), tree_to(self.stats, d))
+            for d in dict.fromkeys(self.mesh)}
         self.method = method
         self.patch_or_image = patch_or_image
         self.input_size = input_size
@@ -143,19 +162,47 @@ class OrderPredictor:
             self._takes_valid_hw = False
 
     def to(self, device):
-        """The same predictor with its trees on `device` (e.g. 'cpu', to
-        hold the card's matrices against the plain versions)."""
+        """The same predictor, unsharded, with its trees on `device` (e.g.
+        'cpu', to hold the card's matrices against the plain versions)."""
         other = copy.copy(self)
+        other.mesh = other._replicas = None
         other.device = resolve_device(device)
         other.params = tree_to(self.params, other.device)
         other.stats = tree_to(self.stats, other.device)
         return other
 
+    def _sharded(self, fn, x):
+        """fn(params, stats, x) over the mesh: x's rows in len(mesh)
+        contiguous equal chunks, chunk k on mesh device k with its copy
+        of the trees, the outputs (tensors, or tuples of them, nested)
+        gathered in order on the first device; fn on the trees as they
+        are without a mesh."""
+        if self.mesh is None:
+            return fn(self.params, self.stats, x)
+        n, k = int(x.shape[0]), len(self.mesh)
+        if n % k:
+            raise ValueError(f'a batch of {n} does not divide over the '
+                             f'{k}-device mesh')
+        outs = []
+        for d, part in zip(self.mesh, x.split(n // k)):
+            # the chunk's device made current once for its whole forward,
+            # so that the kernel wrappers need no switch of their own
+            with (torch.cuda.device(d) if d.type == 'cuda'
+                  else contextlib.nullcontext()):
+                outs.append(fn(*self._replicas[d], part.to(d)))
+
+        def gather(parts):
+            if isinstance(parts[0], tuple):
+                return tuple(gather(p) for p in zip(*parts))
+            return torch.cat([p.to(self.device) for p in parts])
+        return gather(outs)
+
     def _forward(self, x, valid_hw=None):
         if valid_hw is not None:
-            return self.apply_fn(self.params, self.stats, self.cfg, x,
-                                 valid_hw=valid_hw)
-        return self.apply_fn(self.params, self.stats, self.cfg, x)
+            return self._sharded(lambda p, s, xs: self.apply_fn(
+                p, s, self.cfg, xs, valid_hw=valid_hw), x)
+        return self._sharded(
+            lambda p, s, xs: self.apply_fn(p, s, self.cfg, xs), x)
 
     def _build_batch(self, image, masks, bboxes, pair_idx):
         """-> (x, valid_hw): the (P, h, w, 5) pair batch on the device and
@@ -235,8 +282,8 @@ class OrderPredictor:
         x1, valid_hw = self._build_batch(image, masks, bboxes, pair_idx)
         if (self.directions == 2 and self.siamese_fn is not None
                 and valid_hw is None and self.use_rgb):
-            out1, out2 = self.siamese_fn(self.params, self.stats, self.cfg,
-                                         x1)
+            out1, out2 = self._sharded(
+                lambda p, s, xs: self.siamese_fn(p, s, self.cfg, xs), x1)
             return pair_idx, valid, out1, out2, n
         x = x1 if self.directions == 1 else torch.cat(
             [x1, _swap_input(x1)], dim=0)

@@ -155,6 +155,24 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def launch(entry: str, dev, *args) -> int:
+    """Call the library's entry point `entry` with `args` and the current
+    stream of `dev` (a CUDA device), `dev` the current device for the
+    call: the runtime launches on the current device whatever device the
+    stream belongs to, and the kernels keep their launch state (the
+    shared-memory attribute, the stems' grid caps) per current device.
+    The device is switched only where another one is current (a switch
+    costs host time on every launch). Returns the entry point's CUDA
+    error code."""
+    import torch
+    fn = getattr(library(), entry)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)
+
+
 def check(rc: int, what: str):
     if rc:
         raise RuntimeError(f'{what}: CUDA error {rc} at launch')

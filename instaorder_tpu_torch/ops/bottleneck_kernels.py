@@ -224,12 +224,12 @@ def _gemm(out, segs, bias, mode, bias2=None, res=None, r=0.0):
         _check_act(res, 'bottleneck residual')
         if tuple(res.shape) != tuple(out.shape):
             raise ValueError('identity residual must match the output shape')
-    rc = _build.library().io_conv_gemm(
-        *args, N, Ho, Wo, Cout, bn, bias.data_ptr(),
+    rc = _build.launch(
+        'io_conv_gemm', dev, *args, N, Ho, Wo, Cout, bn, bias.data_ptr(),
         None if bias2 is None else bias2.data_ptr(),
         None if res is None else res.data_ptr(),
         int(res is not None and res.dtype == torch.int8), float(r),
-        out.data_ptr(), mode, torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), mode)
     _build.check(rc, 'bottleneck gemm')
     return out
 
@@ -274,12 +274,12 @@ def _gemm_f32(out, segs, bias, mode, bias2=None, res=None, r=0.0,
     if out.dtype != (torch.int8 if mode == _Q8_INT8_F32 else torch.float32):
         raise ValueError(f'bottleneck output: {out.dtype} does not match '
                          f'the f32 epilogue mode {mode}')
-    rc = _build.library().io_conv_gemm_f32(
-        *args, N, Ho, Wo, Cout, bn, bias.data_ptr(),
+    rc = _build.launch(
+        'io_conv_gemm_f32', dev, *args, N, Ho, Wo, Cout, bn, bias.data_ptr(),
         None if bias2 is None else bias2.data_ptr(),
         None if res is None else res.data_ptr(),
         int(res is not None and res.dtype == torch.int8), float(r),
-        out.data_ptr(), mode, torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), mode)
     _build.check(rc, 'bottleneck gemm (f32)')
     return out
 

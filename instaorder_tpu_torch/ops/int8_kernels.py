@@ -172,10 +172,10 @@ def _gemm(out, segs, mode, res=None, sxr=0.0):
         _check_x(res, 'int8 bottleneck residual')
         if tuple(res.shape) != tuple(out.shape):
             raise ValueError('identity residual must match the output shape')
-    rc = _build.library().io_conv_gemm_s8(
-        *args, N, Ho, Wo, Cout, bn, None if res is None else res.data_ptr(),
-        float(sxr), out.data_ptr(), mode,
-        torch.cuda.current_stream(dev).cuda_stream)
+    rc = _build.launch(
+        'io_conv_gemm_s8', dev, *args, N, Ho, Wo, Cout, bn,
+        None if res is None else res.data_ptr(), float(sxr), out.data_ptr(),
+        mode)
     _build.check(rc, 'int8 bottleneck gemm')
     return out
 

@@ -216,12 +216,11 @@ def fused_prep_pairs(images, masks, pair_idx, rois, out_size=256,
                              f'and on {dev}')
     out = torch.empty((S * P, out_size, out_size, 5), dtype=out_dtype,
                       device=dev)
-    lib = _build.library()
-    rc = lib.io_prep_pairs(
-        images.data_ptr(), masks.data_ptr(), pair_idx.data_ptr(),
-        rois.data_ptr(), out.data_ptr(), S, P, masks.shape[1], H, W,
-        out_size, passes, BAND_ROWS, int(out_dtype == torch.float32),
-        torch.cuda.current_stream(dev).cuda_stream)
+    rc = _build.launch(
+        'io_prep_pairs', dev, images.data_ptr(), masks.data_ptr(),
+        pair_idx.data_ptr(), rois.data_ptr(), out.data_ptr(), S, P,
+        masks.shape[1], H, W, out_size, passes, BAND_ROWS,
+        int(out_dtype == torch.float32))
     _build.check(rc, 'fused_prep_pairs')
     fused_prep_pairs.launches += 1
     return out
@@ -256,11 +255,10 @@ def fused_prep_rgb(images, rois, out_size=256, normalize=True, passes=3,
     P = rois.shape[1]
     out = torch.empty((S * P, out_size, out_size, 3), dtype=out_dtype,
                       device=dev)
-    rc = _build.library().io_prep_rgb(
-        images.data_ptr(), rois.data_ptr(), out.data_ptr(), S, P, H, W,
-        out_size, passes, int(bool(normalize)), BAND_ROWS,
-        int(out_dtype == torch.float32),
-        torch.cuda.current_stream(dev).cuda_stream)
+    rc = _build.launch(
+        'io_prep_rgb', dev, images.data_ptr(), rois.data_ptr(),
+        out.data_ptr(), S, P, H, W, out_size, passes, int(bool(normalize)),
+        BAND_ROWS, int(out_dtype == torch.float32))
     _build.check(rc, 'fused_prep_rgb')
     fused_prep_rgb.launches += 1
     return out

@@ -219,12 +219,11 @@ def fused_stem(x, w, b, q8=False, wk=None):
     Hc, Wc = H // 2, W // 2
     out = torch.empty((N, (Hc - 1) // 2 + 1, (Wc - 1) // 2 + 1, cout),
                       dtype=torch.int8 if q8 else x.dtype, device=dev)
-    lib = _build.library()
-    fn = lib.io_fused_stem_f32 if x.dtype == torch.float32 \
-        else lib.io_fused_stem
-    rc = fn(x.data_ptr(), _pack_scratch(x).data_ptr(), wk.data_ptr(),
-            b.data_ptr(), out.data_ptr(), N, H, W, C, cout, int(bool(q8)),
-            torch.cuda.current_stream(dev).cuda_stream)
+    entry = 'io_fused_stem_f32' if x.dtype == torch.float32 \
+        else 'io_fused_stem'
+    rc = _build.launch(entry, dev, x.data_ptr(), _pack_scratch(x).data_ptr(),
+                       wk.data_ptr(), b.data_ptr(), out.data_ptr(), N, H, W,
+                       C, cout, int(bool(q8)))
     _build.check(rc, 'fused_stem')
     fused_stem.launches += 1
     return out
@@ -289,10 +288,10 @@ def fused_stem_int8(x8, w8, m, b, wk=None):
     Hc, Wc = H // 2, W // 2
     out = torch.empty((N, (Hc - 1) // 2 + 1, (Wc - 1) // 2 + 1, cout),
                       dtype=torch.int8, device=dev)
-    rc = _build.library().io_fused_stem_s8(
-        x8.data_ptr(), _pack_scratch(x8).data_ptr(), wk.data_ptr(),
-        m.data_ptr(), b.data_ptr(), out.data_ptr(), N, H, W, C, cout,
-        torch.cuda.current_stream(dev).cuda_stream)
+    rc = _build.launch(
+        'io_fused_stem_s8', dev, x8.data_ptr(), _pack_scratch(x8).data_ptr(),
+        wk.data_ptr(), m.data_ptr(), b.data_ptr(), out.data_ptr(), N, H, W,
+        C, cout)
     _build.check(rc, 'fused_stem_int8')
     fused_stem_int8.launches += 1
     return out

@@ -5,10 +5,23 @@ Parity with reference trainer.py (Trainer.__init__/run/train/validate):
 seeding, file + console logger, registry model construction, resume from
 `iter_` in the checkpoint filename, per-iteration LR schedule, periodic
 validation with the val_iter cap, checkpoints, telemetry
-(utils/telemetry.make_summary_logger) — on one device: `device=None` is
-the card (device.resolve_device raises without one), 'cpu' the CPU. The
-world size is 1; data-parallel training across cards is the `parallel/`
-slice (ROADMAP.md).
+(utils/telemetry.make_summary_logger). Without a mesh it trains on one
+device: `device=None` is the card (device.resolve_device raises without
+one), 'cpu' the CPU.
+
+With a mesh (parallel/mesh.make_mesh; this process one rank of its
+process group, parallel/mesh.init_data_parallel) it is one replica of
+data-parallel training, as the reference's ranks: it runs on
+mesh[rank], loads only its own stream (DistributedGivenIterationSampler
+of its rank at the YAML's per-rank batch_size: the ranks' batches
+together are the JAX package's global batch, rank r's the rows its mesh
+device r holds, after a resume too), and the train and eval steps
+all-reduce (train/step.py). Rank 0 broadcasts the params and statistics
+after init and after a load (the reference's broadcast_params); rank 0
+alone writes the log file, the telemetry and the checkpoints, and every
+rank loads them. Validation follows the JAX package: the global val
+batch is batch_size_val, split over the ranks, and must divide by the
+world size.
 
 The weights are drawn from a torch.Generator seeded with `args.seed`, so
 a seed gives the same net on every device (not the JAX package's net:
@@ -37,7 +50,9 @@ from ..data.sampler import (DistributedGivenIterationSampler,
                             DistributedSequentialSampler)
 from ..device import resolve_device
 from ..models.registry import get_backbone
-from ..utils.telemetry import make_summary_logger
+from ..parallel.collectives import broadcast_tree
+from ..parallel.mesh import data_rank
+from ..utils.telemetry import SummaryLogger, make_summary_logger
 from .algos import make_loss
 from .optim import make_optimizer
 from .step import build_eval_step, build_train_step
@@ -87,30 +102,6 @@ def create_logger(name, log_file, level=logging.INFO):
     return logger
 
 
-class GlobalBatchSampler:
-    """The per-rank DistributedGivenIterationSampler streams interleaved
-    into global batches, so that each replica would consume what the
-    reference's rank r consumes (sampler parity for resume). At a world
-    size of 1 it is the rank-0 stream."""
-
-    def __init__(self, n_items, total_iter, per_rank_batch, world_size,
-                 last_iter=-1):
-        self.streams = [list(DistributedGivenIterationSampler(
-            n_items, total_iter, per_rank_batch, world_size, r, last_iter))
-            for r in range(world_size)]
-        self.per_rank_batch = per_rank_batch
-
-    def __iter__(self):
-        b = self.per_rank_batch
-        n_batches = len(self.streams[0]) // b
-        for i in range(n_batches):
-            for stream in self.streams:
-                yield from stream[i * b:(i + 1) * b]
-
-    def __len__(self):
-        return len(self.streams) * len(self.streams[0])
-
-
 def batch_to_device(batch, device):
     """A collated numpy batch as tensors on `device`: floating fields in
     f32, the label fields in their integer (or bool) type."""
@@ -137,13 +128,27 @@ def _on_device(tree, device):
     return (t.float() if t.is_floating_point() else t).to(device)
 
 
+def silent_logger(name):
+    """A logger that writes nothing (the ranks other than 0)."""
+    logger = logging.getLogger(name)
+    logger.handlers.clear()
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    return logger
+
+
 class Trainer:
-    def __init__(self, args, device=None, out_dir=None):
+    def __init__(self, args, device=None, out_dir=None, mesh=None):
         if isinstance(args, str):
             args = load_config(args)
         self.args = args
-        self.device = resolve_device(device)
-        self.world_size = 1
+        self.mesh = mesh
+        if mesh is None:
+            self.rank, self.world_size = 0, 1
+            self.device = resolve_device(device)
+        else:
+            self.rank, self.world_size = data_rank(mesh), len(mesh)
+            self.device = resolve_device(mesh[self.rank])
         model_cfg: Dict[str, Any] = args.model
         data_cfg: Dict[str, Any] = args.data
         trainer_cfg: Dict[str, Any] = args.trainer
@@ -152,15 +157,20 @@ class Trainer:
         base = out_dir or os.path.join(
             data_cfg.get('base_dir', '.'), 'data', 'out', 'InstaOrder', exp)
         self.folder = base
-        os.makedirs(os.path.join(base, 'logs'), exist_ok=True)
-        os.makedirs(os.path.join(base, 'checkpoints'), exist_ok=True)
-        self.logger = create_logger(
-            f'instaorder_tpu_torch.{exp}',
-            os.path.join(base, 'logs', 'log_train.txt'))
-        # wandb/tensorboardX telemetry (reference trainer.py:39-66)
-        self.summary = make_summary_logger(
-            trainer_cfg, base, run_name=f'Train/{exp}',
-            config=vars(args) if hasattr(args, '__dict__') else None)
+        if self.rank == 0:
+            os.makedirs(os.path.join(base, 'logs'), exist_ok=True)
+            os.makedirs(os.path.join(base, 'checkpoints'), exist_ok=True)
+            self.logger = create_logger(
+                f'instaorder_tpu_torch.{exp}',
+                os.path.join(base, 'logs', 'log_train.txt'))
+            # wandb/tensorboardX telemetry (reference trainer.py:39-66)
+            self.summary = make_summary_logger(
+                trainer_cfg, base, run_name=f'Train/{exp}',
+                config=vars(args) if hasattr(args, '__dict__') else None)
+        else:
+            self.logger = silent_logger(
+                f'instaorder_tpu_torch.{exp}.rank{self.rank}')
+            self.summary = SummaryLogger()
 
         algo = model_cfg['algo']
         self.algo = algo
@@ -171,6 +181,7 @@ class Trainer:
         self.params, self.stats, self.net_cfg = self.net['init'](
             gen, device=self.device, **bparams)
         self._ingest_pretrained(model_cfg)
+        self._broadcast()
         self.loss_fn = make_loss(algo, self.net, self.net_cfg, model_cfg)
         self.optimizer = make_optimizer(
             model_cfg['optim'],
@@ -181,8 +192,9 @@ class Trainer:
                              model_cfg['lr_mults'],
                              model_cfg.get('warmup_lr', []),
                              model_cfg.get('warmup_steps', []))
-        self.train_step = build_train_step(self.loss_fn, self.optimizer)
-        self.eval_step = build_eval_step(self.loss_fn)
+        self.train_step = build_train_step(self.loss_fn, self.optimizer,
+                                           mesh)
+        self.eval_step = build_eval_step(self.loss_fn, mesh)
 
         self.start_iter = 0
         self.curr_step = 0
@@ -230,8 +242,19 @@ class Trainer:
                 warn=self.logger.info, device=self.device)
             self.logger.info(f'=> loaded pretrain {lp}')
 
+    def _broadcast(self):
+        """Rank 0's params and statistics on every rank (no-op without a
+        mesh)."""
+        if self.mesh is not None:
+            self.params = broadcast_tree(self.params)
+            self.stats = broadcast_tree(self.stats)
+
     # -- checkpointing -----------------------------------------------------
     def save(self, step):
+        """Rank 0 writes the checkpoint and returns its path; the other
+        ranks write nothing and return None."""
+        if self.rank != 0:
+            return None
         path = ckpt.save_state(os.path.join(self.folder, 'checkpoints'),
                                step, self.params, self.stats,
                                self.opt_state)
@@ -244,6 +267,7 @@ class Trainer:
             self.opt_state if resume else None, warn=self.logger.info)
         self.params = _on_device(params, self.device)
         self.stats = _on_device(stats, self.device)
+        self._broadcast()
         if resume and opt is not None:
             self.opt_state = _on_device(opt, self.device)
             self.start_iter = step
@@ -252,20 +276,33 @@ class Trainer:
 
     # -- data --------------------------------------------------------------
     def _make_loader(self, phase):
+        """This rank's loader: the train stream of its rank at the
+        per-rank batch_size; the sequential val stream's global batches
+        of batch_size_val, this rank's 1/world rows of each."""
         data_cfg = self.args.data
         ds_cls = DATASETS[data_cfg['trainval_dataset']]
         dataset = ds_cls(data_cfg, phase, self.algo)
+        world, rank = self.world_size, self.rank
         if phase == 'train':
             batch = data_cfg['batch_size']
-            sampler = GlobalBatchSampler(
-                len(dataset), self.args.model['total_iter'], batch,
-                self.world_size, last_iter=self.start_iter - 1)
+            sampler = DistributedGivenIterationSampler(
+                len(dataset), self.args.model['total_iter'], batch, world,
+                rank, last_iter=self.start_iter - 1)
         else:
-            batch = data_cfg.get('batch_size_val', data_cfg['batch_size'])
-            sampler = DistributedSequentialSampler(len(dataset), 1, 0)
+            total = data_cfg.get('batch_size_val', data_cfg['batch_size'])
+            if total % world:
+                raise ValueError(
+                    f'batch_size_val={total} must be divisible by the mesh '
+                    f'size ({world}) so the eval step can shard it')
+            batch = total // world
+            stream = list(DistributedSequentialSampler(len(dataset), 1, 0))
+            sampler = [stream[(i * world + rank) * batch + j]
+                       for i in range(len(stream) // total)
+                       for j in range(batch)]
         return DataLoader(dataset, sampler, batch,
                           num_workers=data_cfg.get('workers', 4),
-                          mode=data_cfg.get('loader_mode', 'thread'))
+                          mode=data_cfg.get('loader_mode', 'thread'),
+                          rank=rank, world_size=world)
 
     # -- loops -------------------------------------------------------------
     def run(self, validate_only=False):

@@ -1472,3 +1472,77 @@ def test_f32_q8_stem_kernel(dev, n, hw, cout):
     assert tuple(got.shape) == (n, ho, ho, cout) and got.dtype == torch.int8
     _close(got, want)
     assert float(((want > 0) & (want < 127)).float().mean()) > 0.2
+
+
+# ---------------------------------------------------------------------------
+# a second card: every wrapper launches on the device of its tensors
+# ---------------------------------------------------------------------------
+
+
+def test_every_wrapper_on_a_second_card(dev):
+    """Every kernel wrapper, in each of its modes (bf16, f32, int8, the
+    stems' q8, s8 and f32 instantiations, both preps), on cuda:1 with
+    cuda:0 the current device, against its plain version on cuda:1: the
+    wrappers make the tensors' card current for each launch, and the
+    kernels set their shared-memory attribute and grid cap per card
+    (a process-wide flag, set by a launch on cuda:0 first, would leave
+    the cuda:1 launch refused). Skipped with fewer than two cards."""
+    from instaorder_tpu_torch.ops import bottleneck_bf16_kernels as B16
+    from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+    from instaorder_tpu_torch.ops import int8_kernels as IK
+    from instaorder_tpu_torch.ops import prep_kernels as PK
+    from instaorder_tpu_torch.ops import stem_kernels as SK
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two CUDA devices')
+    wrappers = [PK.fused_prep_pairs, PK.fused_prep_rgb,
+                BK.fused_bottleneck_i8v2_stage,
+                BK.fused_bottleneck_i8v2_down_s2,
+                BK.fused_bottleneck_i8v2_identity,
+                BK.fused_bottleneck_i8v2_hwncp_stage,
+                BK.fused_bottleneck_down_i8v2_hwnc, BK.fused_bottleneck_i8v2,
+                BK.fused_bottleneck_down_i8v2, B16.fused_bottleneck,
+                B16.fused_bottleneck_down, B16.fused_bottleneck_stage,
+                B16.fused_bottleneck_stage_stream, B16.fused_bottleneck_hwnc,
+                SK.fused_stem, SK.fused_stem_int8, IK.fused_bottleneck_int8,
+                IK.fused_bottleneck_down_int8,
+                IK.fused_bottleneck_int8_hwnc,
+                IK.fused_bottleneck_down_int8_hwnc,
+                IK.fused_bottleneck_down_s2_int8_hwnc]
+    before = [w.launches for w in wrappers]
+    # a launch on cuda:0 first, so that a per-process flag would be set
+    test_stem_kernel_ragged(dev, 1, 36, 64, False, torch.bfloat16)
+    test_identity_kernel_ragged(dev, 3, 7, torch.int8, True)
+    torch.cuda.set_device(0)
+    d1 = torch.device('cuda', 1)
+    test_prep_kernel_odd_sizes(d1, 3)
+    test_prep_rgb_kernel_odd_sizes(d1, 3, True)
+    test_prep_f32_out_adversarial_rois_exact(d1, 72, 3)
+    test_identity_kernel_ragged(d1, 3, 7, torch.int8, True)
+    test_down_s2_kernel_ragged(d1, 9)
+    test_stage_kernel(d1)
+    test_i8v2_nhwc_identity_kernel(d1, 3, 7, 256, 64, torch.int8)
+    test_stride1_projection_kernels(d1, 3, 9, 64, 64, 256, True)
+    test_hwncp_stage_kernel(d1)
+    test_bf16_identity_kernel_ragged(d1, 3, 10)
+    test_bf16_down_kernel_ragged(d1, 2, 3, 14)
+    test_bf16_stage_and_hwnc_kernels(d1, 2, 9, 256, 64, 2)
+    for dt in (torch.bfloat16, torch.float32):
+        test_stem_kernel_ragged(d1, 3, 50, 128, False, dt)
+        test_stem_kernel_ragged(d1, 2, 30, 128, True, dt)
+    test_f32_q8_stem_kernel(d1, 2, 30, 64)
+    test_f32_stem_kernel(d1, 3, 50, 128, 5)
+    test_int8_identity_kernel_exact(d1, 3, 7, 64, 64)
+    test_int8_projection_kernel_exact(d1, 1, 3, 9, 64, 64, 256)
+    test_int8_projection_kernel_exact(d1, 2, 2, 9, 256, 128, 512)
+    test_int8_stem_kernel_exact(d1, 3, 50, 128)
+    test_f32_identity_kernel_ragged(d1, 3, 10)
+    test_f32_down_kernel_ragged(d1, 2, 3, 14)
+    test_f32_stage_and_hwnc_kernels(d1, 2, 9, 256, 64, 2)
+    test_v2_f32_identity_kernels(d1, 2, 10, 256, 64, torch.float32, False)
+    for kind in ('stage', 'hwncp', 'run'):
+        test_v2_f32_stage_kernels(d1, kind)
+    torch.cuda.synchronize(d1)
+    assert torch.cuda.current_device() == 0
+    missed = [w.__name__ for w, b in zip(wrappers, before)
+              if w.launches == b]
+    assert not missed, missed

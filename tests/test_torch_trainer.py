@@ -7,6 +7,7 @@ with the JAX package's Trainer.
     step-6 checkpoint;
   * checkpoint interop with JAX's Trainer: test_torch_trainer_interop.py;
   * the failure paths: a non-finite loss, no GPU, the CLI's refusals;
+    the CLI's data-parallel ranks (--n-devices 2 --device cpu);
   * chip_smoke.py's training configurations: the experiment YAMLs'.
 """
 
@@ -177,7 +178,7 @@ def config_file(fixture, tmp_path):
     return str(cfg)
 
 
-def test_cli(config_file, tmp_path):
+def test_cli(config_file, tmp_path, monkeypatch):
     out = str(tmp_path / 'cli')
     base = ['--config', config_file, '--out-dir', out, '--device', 'cpu']
     t = cli_train.main(base + ['--seed', '7', '--extract', '--evaluate',
@@ -206,11 +207,23 @@ def test_cli(config_file, tmp_path):
                        tm.layer2[0].conv2.weight.permute(2, 3, 1, 0))
     with pytest.raises(FileNotFoundError):
         cli_train.main(base + ['--load_pretrain', '/x/a.pth'])
-    # the refusals
-    for extra, err in ((['--n-devices', '2'], NotImplementedError),
-                       (['--multihost'], NotImplementedError)):
-        with pytest.raises(err):
-            cli_train.main(base + extra)
+    # data parallel: --n-devices 2 --device cpu trains in two gloo ranks
+    # (tests/test_torch_parallel_trainer.py holds their batches against
+    # JAX's), rank 0 alone writing the checkpoint and the log; more
+    # cards than are visible raise; --multihost needs torchrun
+    monkeypatch.setenv('OMP_NUM_THREADS', '1')
+    out2 = str(tmp_path / 'cli2')
+    assert cli_train.main(['--config', config_file, '--out-dir', out2,
+                           '--device', 'cpu', '--n-devices', '2']) is None
+    assert os.listdir(os.path.join(out2, 'checkpoints')) == [
+        'ckpt_iter_2.ckpt']
+    log = open(os.path.join(out2, 'logs', 'log_train.txt')).read()
+    assert log.count('Iter: [2/2]') == 1, log
+    with pytest.raises((RuntimeError, ValueError), match='no GPU|only'):
+        cli_train.main(['--config', config_file, '--out-dir', out,
+                        '--n-devices', str(torch.cuda.device_count() + 1)])
+    with pytest.raises(RuntimeError, match='torchrun'):
+        cli_train.main(base + ['--multihost'])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no GPU'):
             cli_train.main(['--config', config_file, '--out-dir', out])
