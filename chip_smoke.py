@@ -8,8 +8,10 @@ width, the MiDaS / InstaDepthNet evaluation (models/midas, eval/disp) at
 full ResNeXt-101 width, PCNet-M (models/unet, eval/amodal, its Tester
 method and training) at full unet2 width, InstaDepthNet training
 (train/algos, compat/) at full width, data-parallel training and pair
-sharding (parallel/), and prints one JSON line for the kernels plus a
-final status line.
+sharding (parallel/), the last modules (instance segmentation and the
+convex-hull baseline of eval/amodal, the Mapillary reader under the
+PCNet-M Trainer, models/legacy with its losses, utils/profiling), and
+prints one JSON line for the kernels plus a final status line.
 
     python3 chip_smoke.py
 
@@ -62,12 +64,20 @@ Phases (any failed check raises and the script exits nonzero):
   4. the order predictors (eval/pipeline.py) on 4 synthetic 480x640
      scenes of 3, 7, 10 and 16 instances (pair buckets 8, 32, 64, 128):
      make_v2_predictor (a dual-head net; directions 1 and 2, and at
-     compute_dtype=f32 with directions 2), make_int8_predictor, make_folded_predictor(bf16, identity,down,stem)
-     and make_folded_predictor(f32, identity,down,stem; also the image,
+     compute_dtype=f32 with directions 2), make_int8_predictor,
+     make_folded_predictor(bf16, identity,down,stem) and
+     make_folded_predictor(f32, identity,down,stem; also the image,
      resize and orig modes), and the f32 one without kernels (the cuDNN
-     f32 route, timed only). For each: the launches of every infer call,
+     f32 route, timed only); then the 3-class InstaOrderNet_d head (its
+     head centred on the 7-instance scene, centre_depth_head) through
+     the f32 and bf16 (identity,down,stem) folded, int8c and v2
+     factories with infer_depth_order, and the dual head on the bf16
+     stage, sstage and hwnc sets and on int8c hwnc,down,stem. For each:
+     the launches of every infer call,
      the matrices (and logits) on the card against the same predictor
-     moved to the CPU on the two smallest scenes, and the per-image ms
+     moved to the CPU on the two smallest scenes (the depth-only head's
+     bf16 / v2 matrices at the pairs whose log(top / next) exceeds 4x
+     the logit error its bar allows on every pair), and the per-image ms
      of infer_occ_order at each bucket with images/s over the four
      scenes;
   5. the Tester (eval/tester.py, JAX's tools/test.py counterpart) on
@@ -222,7 +232,40 @@ Phases (any failed check raises and the script exits nonzero):
      checks over NCCL, the predictors' mesh over the cards with every
      model kernel launched on every card; on one card (d) prints that it
      did not run; the phase's seconds;
- 11. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
+ 11. the last modules (eval/amodal, data/readers Mapillary, models/legacy,
+     losses, utils/profiling; JAX's counterparts reach no Pallas kernel,
+     so no kernel launches here, checked; phase_last_modules, which a
+     driver may call alone): (a) infer_instseg with box prompts, without
+     and with the dense CRF (ops/crf, on the host), of phase 8's moved
+     unet2 on the first 2 images of the phase 5 InstaOrder fixture at
+     128x160, card against CPU: probabilities within a tenth of the sure
+     margin, masks equal wherever the CPU's (CRF-refined) probability
+     lies more than the sure margin from th; infer_amodal_hull (hulls
+     cover their masks) grounded and not; (b) the PCNet-M Trainer on a
+     Mapillary fixture (data/synthetic.make_mapillary_fixture: 8 images
+     of 192x256, 16-bit instance maps) through the InstaOrder pcnet_m
+     YAML with dataset Mapillary: 3 finite steps that move every leaf;
+     (c) the legacy nets at the reference's widths from seed 0:
+     PConvUNet layer_size 7 at 512^2 (batch 1, image and mask), AE256
+     and VAE32 at 256^2 (the VAE's noise fed in), both spectral-norm
+     discriminators at 256^2 and the VGG16 extractor at 256^2 (batch
+     2), eval and train forwards on the card against the CPU's f64 run
+     of the same net (the card's f64 run within 1e-9 of max |f64| in
+     train mode, where the net is f64 throughout; its f32 run within
+     max(1e-5, k x the CPU f32 run's distance from f64), k 4 for a
+     train-mode net with BatchNorm, whose f32 forward with cuDNN
+     switched off is printed beside, else 2; the train mode's
+     statistics, the discriminators' power-iteration vectors included,
+     by check_stats at that factor), each eval forward timed with the
+     port's StepTimer; inpainting_loss's gradient
+     through a train-mode PConvUNet (layer_size 7) and VGG16 at 256^2
+     against the CPU's f64 one (the card's f64 gradient within 1e-9 of
+     each leaf's max; in f32 the loss within 1e-5 relative, each leaf
+     within max(1e-3, 4x the CPU f32 run's error) of its max); one
+     PConvUNet forward traced by utils/profiling.trace into a temporary
+     directory (the device kernels and busy ms of its Chrome trace); the
+     phase's seconds;
+ 12. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
      f32 row's share of its 3xTF32 bound (495 TF32 TFLOP/s, three
      products a MAC, two for an int8 A: the row's bound_ms) and of the
      f32 peak, the f32 stem rows' share of their design's floor (the
@@ -1323,16 +1366,26 @@ PRED_CPU_SCENES = 2
 # the model kernels of the f32 predictor's identity,down,stem route
 F32_MODEL = {IDEN16: 5, DOWN16: 3, STEM: 1}
 HEAD_GAIN = 100.0
+# the centred depth-only head's logit bars on the bf16 and v2 routes, held
+# on every pair, relative to max |logit| + the part the centring took off
+# (compare_on_cpu); measured over all pairs of the two smallest scenes:
+# bf16 1.43e-3, v2 8.80e-3 (H100 80GB HBM3, 700 W)
+DEPTH_BARS = {'bf16': 2.5e-3, 'v2': 1.2e-2}
 PRED_REPS = 5
 
 
-def predictor_nets(torch, resnet, dev):
-    """Full ResNet-50 width, 5-channel stem, from seed 0 (kaiming): the
-    2-logit InstaOrderNet_o net and a dual-head (2, 3) InstaOrderNet_od
-    net, their heads scaled by HEAD_GAIN."""
+PRED_CLASSES = {'InstaOrderNet_o': 2, 'InstaOrderNet_od': [2, 3],
+                'InstaOrderNet_d': 3}
+
+
+def predictor_nets(torch, resnet, dev, methods=tuple(PRED_CLASSES)):
+    """Full ResNet-50 width, 5-channel stem, from seed 0 (kaiming), for
+    each of `methods`: the 2-logit InstaOrderNet_o net, a dual-head (2,
+    3) InstaOrderNet_od net and a 3-class InstaOrderNet_d net, their
+    heads scaled by HEAD_GAIN."""
     nets = {}
-    for method, classes in (('InstaOrderNet_o', 2),
-                            ('InstaOrderNet_od', [2, 3])):
+    for method in methods:
+        classes = PRED_CLASSES[method]
         gen = torch.Generator().manual_seed(0)
         params, stats, cfg = resnet.init(
             gen, arch='resnet50', in_channels=5, num_classes=classes,
@@ -1342,6 +1395,34 @@ def predictor_nets(torch, resnet, dev):
                 params[fc] = {k: v * HEAD_GAIN for k, v in params[fc].items()}
         nets[method] = (params, stats, cfg)
     return nets
+
+
+def centre_depth_head(torch, TPL, net, scene, dev):
+    """(the 3-class net with its head centred and scaled (centre_heads'
+    rule, on tensors) on the logits of `scene`'s pairs, both directions,
+    from the plain f32 predictor (no kernel), the largest common part
+    the centring took off a logit). At HEAD_GAIN its logits are in the
+    thousands and share one class across every pair and both swap
+    directions: decode_depth's swap average then sits on 0.5 / 0.5 for
+    every pair, and no decision is sure. The centred logits are the
+    small difference of the trunk's terms and that common part, so
+    compare_on_cpu holds their rounding on the logits' scale before the
+    centring (max |logit| + the common part)."""
+    import numpy as np
+    params, stats, cfg = net
+    pred = TPL.make_folded_predictor(params, stats, cfg, 'InstaOrderNet_d',
+                                     input_size=OUT, device=dev)
+    with torch.no_grad():
+        _, valid, o1, o2, _ = pred.pair_outputs(*scene)
+    valid = valid.cpu().numpy()
+    z = np.concatenate([o.double().cpu().numpy()[valid] for o in (o1, o2)])
+    mu = z.mean(axis=0)
+    g = LOGIT_SPREAD / max(float((z - mu).std()), 1e-30)
+    w, b = params['fc']['w'], params['fc']['b']
+    shift = g * float(np.abs(mu).max())
+    mu = torch.as_tensor(mu, dtype=b.dtype, device=b.device)
+    return (dict(params, fc={'w': w * g, 'b': (b - mu) * g}), stats,
+            cfg), shift
 
 
 def pred_scenes(serving):
@@ -1384,28 +1465,80 @@ def sure_matrix_check(name, got, want, p_ij, p_ji, pidx, valid, exact):
     return n
 
 
-def compare_on_cpu(torch, name, pred, scene, bar, exact, dual):
+def depth_probs(torch, o1, o2):
+    """decode_depth's averaged softmax [closer, farther, equal] of the
+    (i, j) direction, float64."""
+    d1 = torch.softmax(o1.double(), -1)
+    if o2 is None:
+        return d1
+    d2 = torch.softmax(o2.double(), -1)
+    return torch.stack([(d1[:, 0] + d2[:, 1]) / 2, (d1[:, 1] + d2[:, 0]) / 2,
+                        (d1[:, 2] + d2[:, 2]) / 2], 1)
+
+
+def sure_depth_check(name, got, want, pw, pidx, valid, exact, margin):
+    """Depth matrices equal (exact), or equal at the pairs whose averaged
+    CPU softmax pw (depth_probs) puts log(top / next) above `margin`,
+    one margin for every pair (compare_on_cpu's 4 x the route's verified
+    logit error). Returns the cells compared."""
+    import torch
+    if exact:
+        check((got == want).all(), f'{name}: depth matrices equal')
+        return int(got.size)
+    top = torch.sort(pw, -1).values
+    lead = torch.log(top[:, -1]) - torch.log(top[:, -2])
+    n = 0
+    for k in range(len(pidx)):
+        if valid[k] and float(lead[k]) > margin:
+            i, j = (int(v) for v in pidx[k])
+            check(got[i, j] == want[i, j] and got[j, i] == want[j, i],
+                  f'{name}: sure depth cells ({i}, {j}) equal')
+            n += 2
+    return n
+
+
+def compare_on_cpu(torch, name, pred, scene, bar, exact, dual, shift=0.0):
     """The matrices and logits of `pred` on the card against the same
     predictor on the CPU (the plain versions). exact routes (f32, int8c)
     hold every pair's logits to `bar`; the bf16 and v2 routes hold the
     first 4 pairs' to `bar` and print all pairs' (the megasteps' rule:
     over many pairs the v2 route spreads ~2e-2 even between JAX's own
     two routes, ROADMAP.md queue 3), and the matrices where the CPU's
-    probability is more than 1e-2 from 0.5."""
+    probability is more than 1e-2 from 0.5. shift: a common part taken
+    off every logit (centre_depth_head), added to the scale the error is
+    held on. The depth-only head holds every pair's logits to `bar` on
+    every route; on the bf16 and v2 routes it then compares the depth
+    matrices at the pairs whose CPU log(top / next) averaged probability
+    exceeds 4 x the largest error that bar allows (a logit error d moves
+    the log of each swap-averaged probability by at most 2 d, so those
+    decisions cannot flip)."""
     cpu = pred.to('cpu')
     pidx, valid, g1, g2, n = pred.pair_outputs(*scene)
     _, _, w1, w2, _ = cpu.pair_outputs(*scene)
     flat = lambda o: [] if o is None else (list(o) if isinstance(o, tuple)
                                            else [o])
-    few = len(pidx) if exact else 4
-    worst = worst_few = 0.0
+    depth = pred.method == 'InstaOrderNet_d'
+    few = len(pidx) if exact or depth else 4
+    worst = worst_few = top_scale = 0.0
     for g, w in zip(flat(g1) + flat(g2), flat(w1) + flat(w2)):
-        scale = max(float(w.abs().max()), 1e-6)
+        scale = max(float(w.abs().max()) + shift, 1e-6)
+        top_scale = max(top_scale, scale)
         d = (g.cpu() - w).abs()
         worst = max(worst, float(d.max()) / scale)
         worst_few = max(worst_few, float(d[:few].max()) / scale)
     check(worst_few <= bar, f'{name}: logits of {few} pairs within {bar} '
-          f'of max |logit| of the CPU ({worst_few:.3e})')
+          f'of max |logit| (+ {shift:.4g}) of the CPU ({worst_few:.3e})')
+    if depth:
+        margin = 4 * bar * top_scale
+        cells = sure_depth_check(
+            name, pred.infer_depth_order(*scene),
+            cpu.infer_depth_order(*scene), depth_probs(torch, w1, w2),
+            pidx, valid.cpu().numpy(), exact, margin)
+        print(f'  {name} N={n}: card vs CPU logits max rel err '
+              f'{worst_few:.3e} over {few} pairs, {worst:.3e} over all '
+              f'{len(pidx)}; {cells} depth matrix cells compared'
+              + ('' if exact else f' (log(top / next) above {margin:.4g})'))
+        return cells
     o1 = w1[0] if dual else w1
     o2 = None if w2 is None else (w2[0] if dual else w2)
     s1 = torch.sigmoid(o1)
@@ -1436,6 +1569,8 @@ def phase_predictors(torch, serving, resnet, TPL, wrappers, calib_x, dev,
     """Phase 4. Returns {row name: launches} for rows counted here."""
     nets = predictor_nets(torch, resnet, dev)
     scenes = pred_scenes(serving)
+    nets['InstaOrderNet_d'], depth_shift = centre_depth_head(
+        torch, TPL, nets['InstaOrderNet_d'], scenes[1], dev)
     b16 = torch.bfloat16
     kw = dict(patch_or_image='patch', input_size=OUT, prep_impl='pallas5',
               device=dev)
@@ -1471,6 +1606,37 @@ def phase_predictors(torch, serving, resnet, TPL, wrappers, calib_x, dev,
         ('f32 d2 cuDNN', 'InstaOrderNet_o',
          lambda n: TPL.make_folded_predictor(*n, 'InstaOrderNet_o', **kw),
          None, True, {PREP: 1}),
+        # the depth-only head (3 classes) through the four factories,
+        # infer_depth_order (decode_depth averages the swapped direction
+        # with its labels exchanged)
+        ('d f32 d2', 'InstaOrderNet_d', lambda n: TPL.make_folded_predictor(
+            *n, 'InstaOrderNet_d', use_pallas=KFEATS, **kw), 1e-5, True,
+         {PREP: 1, **F32_MODEL}),
+        ('d bf16 d2 identity,down,stem', 'InstaOrderNet_d',
+         lambda n: TPL.make_folded_predictor(
+             *n, 'InstaOrderNet_d', dtype=b16, use_pallas=KFEATS,
+             prep_dtype=b16, **kw), DEPTH_BARS['bf16'], False,
+         {PREP: 1, IDEN16: 5, DOWN16: 3, STEM: 1}),
+        ('d int8c d2', 'InstaOrderNet_d', lambda n: TPL.make_int8_predictor(
+            *n, 'InstaOrderNet_d', [calib_x], prep_dtype=b16, **kw), 1e-5,
+         True, {PREP: 1, I8: 12, D8: 4}),
+        ('d v2 d2', 'InstaOrderNet_d', lambda n: TPL.make_v2_predictor(
+            *n, 'InstaOrderNet_d', [calib_x], prep_dtype=b16,
+            prep_passes=1, **kw), DEPTH_BARS['v2'], False,
+         {PREP: 1, STAGE: 1, DOWN: 3, IDEN: 10}),
+        # the dual head on the bf16 stage / sstage / hwnc sets and on
+        # int8c hwnc,down,stem
+        *((f'od bf16 d2 {f}', 'InstaOrderNet_od',
+           (lambda f: lambda n: TPL.make_folded_predictor(
+               *n, 'InstaOrderNet_od', dtype=b16, use_pallas=(f,),
+               prep_dtype=b16, **kw))(f), 0.02, False, {PREP: 1, k: c})
+          for f, k, c in (('stage', STAGE16, 2), ('sstage', SSTAGE16, 2),
+                          ('hwnc', HWNC16, 5))),
+        ('od int8c d2 hwnc,down,stem', 'InstaOrderNet_od',
+         lambda n: TPL.make_int8_predictor(
+             *n, 'InstaOrderNet_od', [calib_x], prep_dtype=b16,
+             use_pallas=('hwnc', 'down', 'stem'), **kw), 1e-5, True,
+         {PREP: 1, I8H: 12, D8H1: 1, D8H2: 3, STEM8: 1}),
     ]
     timing = {}
     counted = {}
@@ -1478,8 +1644,11 @@ def phase_predictors(torch, serving, resnet, TPL, wrappers, calib_x, dev,
         print(f'--- predictor {name} ({method})')
         pred = make(nets[method])
         dual = method == 'InstaOrderNet_od'
+        # the depth-only head has no occlusion decode
+        infer = (pred.infer_depth_order if method == 'InstaOrderNet_d'
+                 else pred.infer_occ_order)
         for k, scene in enumerate(scenes):
-            calls = [('infer_occ_order', pred.infer_occ_order)]
+            calls = [(infer.__name__, infer)]
             if dual and pred.directions == 2:
                 calls.append(('infer_occ_depth_order',
                               pred.infer_occ_depth_order))
@@ -1498,14 +1667,18 @@ def phase_predictors(torch, serving, resnet, TPL, wrappers, calib_x, dev,
             ms = []
             for _ in range(PRED_REPS + 1):
                 t1 = time.perf_counter()
-                pred.infer_occ_order(*scene)
+                infer(*scene)
                 ms.append((time.perf_counter() - t1) * 1e3)
             ms = sorted(ms[1:])[PRED_REPS // 2]
             timing[name, PRED_INSTANCES[k]] = ms
         with torch.no_grad():
-            for scene in scenes[:PRED_CPU_SCENES] if bar else ():
-                compare_on_cpu(torch, f'predictor {name}', pred, scene, bar,
-                               exact, dual)
+            cells = [compare_on_cpu(torch, f'predictor {name}', pred, scene,
+                                    bar, exact, dual, depth_shift
+                                    if method == 'InstaOrderNet_d' else 0.0)
+                     for scene in (scenes[:PRED_CPU_SCENES] if bar else ())]
+        if method == 'InstaOrderNet_d':
+            check(sum(cells) > 0, f'predictor {name}: some depth decision '
+                  f'is sure on the {PRED_CPU_SCENES} scenes')
         if name == 'f32 d2':
             for mode in ('image', 'resize', 'orig'):
                 other = TPL.OrderPredictor(
@@ -1524,11 +1697,13 @@ def phase_predictors(torch, serving, resnet, TPL, wrappers, calib_x, dev,
         del pred
         torch.cuda.empty_cache()
     print(f'predictor phase: {time.perf_counter() - t0:.1f} s')
-    for name, *_ in preds:
+    for name, method, *_ in preds:
         row = [timing[name, n] for n in PRED_INSTANCES]
         per = ', '.join(f'N={n} (pairs {n * (n - 1) // 2}): {ms:.3f} ms'
                         for n, ms in zip(PRED_INSTANCES, row))
-        print(f'predictor {name}: infer_occ_order per image {per}; '
+        call = ('infer_depth_order' if method == 'InstaOrderNet_d'
+                else 'infer_occ_order')
+        print(f'predictor {name}: {call} per image {per}; '
               f'{len(row) / (sum(row) / 1e3):.2f} images/s over the '
               f'{len(row)} scenes ({card})')
     return counted
@@ -2243,13 +2418,13 @@ def leaf_errors(got, want):
     return out
 
 
-def check_stats(name, sg, s32, s64, card):
+def check_stats(name, sg, s32, s64, card, factor=XDEV_CPU_FACTOR):
     """The card's new statistics (sg) against the CPU's f64 ones (s64):
     each leaf within max(XDEV_STATS_BAR, XDEV_CPU_FACTOR x the CPU f32
     run's own error on that leaf), the CPU f32 run (s32) being exact in
     JAX's sense; prints the worst leaf's two errors."""
     e_card, e_cpu = leaf_errors(sg, s64), leaf_errors(s32, s64)
-    bar = {k: max(XDEV_STATS_BAR, XDEV_CPU_FACTOR * e_cpu[k]) for k in e_card}
+    bar = {k: max(XDEV_STATS_BAR, factor * e_cpu[k]) for k in e_card}
     worst = max(e_card, key=lambda k: e_card[k] / bar[k])
     over = sum(e_card[k] > XDEV_STATS_BAR for k in e_card)
     print(f'  {name} new statistics vs CPU f64: worst card leaf {worst} '
@@ -2259,7 +2434,7 @@ def check_stats(name, sg, s32, s64, card):
           f'{len(e_card)} card leaves above {XDEV_STATS_BAR} ({card})')
     check(e_card[worst] <= bar[worst],
           f'{name}: every new statistic within max({XDEV_STATS_BAR}, '
-          f'{XDEV_CPU_FACTOR} x the CPU f32 run\'s error) of f64 ({worst})')
+          f'{factor} x the CPU f32 run\'s error) of f64 ({worst})')
 
 
 def phase_train_xdev(torch, T, ST, CV, get_backbone, fixture, dev, card):
@@ -2438,7 +2613,7 @@ def train_flow(torch, T, name, fixture, out, tester_cfg,
 
 
 def three_steps(torch, T, name, fixture, out, dataset='InstaOrder',
-                every_leaf=True):
+                every_leaf=True, data=None):
     """experiments/<dataset>/<name> at its own settings on the card: 3
     finite steps that move every param leaf (every_leaf False: the leaves
     moved are counted, not held: InstaDepthNet_od's YAML trains little
@@ -2446,8 +2621,9 @@ def three_steps(torch, T, name, fixture, out, dataset='InstaOrder',
     spacing leaves a weight as it was)."""
     import numpy as np
     from instaorder_tpu_torch.core.nn import tree_leaves
-    ta = T.Trainer(train_args(name, fixture, 3, dataset=dataset,
+    ta = T.Trainer(train_args(name, fixture, 3, data=data, dataset=dataset,
                               print_freq=1, val_iter=1), out_dir=out)
+    dataset = ta.args.data['dataset']
     quiet_logger(ta)
     before = [x.clone() for x in tree_leaves(ta.params)]
     seen = []
@@ -3557,6 +3733,7 @@ def phase_pcnet(torch, dev, card, wrappers):
                     'KINS': synthetic.make_kins_fixture(root)}
         net = phase_pcnet_forward(torch, U, AM, dev, fixtures['InstaOrder'],
                                   card, numbers)
+        numbers['net'] = net
         phase_pcnet_tester(torch, root, fixtures, net, dev, card, numbers)
         phase_pcnet_train(torch, root, fixtures)
         phase_pcnet_xdev(torch, fixtures['InstaOrder'], dev, card, numbers)
@@ -3584,6 +3761,414 @@ def phase_pcnet(torch, dev, card, wrappers):
     numbers['seconds'] = time.perf_counter() - t0
     print(f'pcnet phase: {numbers["seconds"]:.1f} s; hand-written kernel '
           f'launches 0 ({card})')
+    return numbers
+
+
+# ---- the last modules (eval/amodal instseg / hull, Mapillary, models/legacy,
+# utils/profiling) ------------------------------------------------------------
+# the Mapillary fixture of the PCNet-M Trainer: images, instances a map,
+# and its size
+MAPILLARY_FIXTURE = dict(n_images=8, n_instances=5, h=192, w=256)
+# the legacy nets at the reference's widths: PConvUNet's layer_size and
+# input side, the batch of every forward, the AE / VAE / discriminator /
+# VGG16 input side, the discriminators' input channels, and the side of
+# the inpainting-loss gradient (PConvUNet + VGG16 on the CPU in f64 at
+# 512^2 would take minutes)
+LEGACY_PCONV = (7, 512)
+LEGACY_BATCH = 2
+LEGACY_SIDE = 256
+LEGACY_DISC_IN = {'inpaint': 4, 'nlayer': 3}
+LEGACY_GRAD_SIDE = 256
+# card forward timing: StepTimer's mean over this many after a warm-up
+LEGACY_WARMUP, LEGACY_REPS = 2, 10
+# the card's f32 run of a net with BatchNorm, in train mode (its forward,
+# statistics and inpainting_loss's gradient), against the CPU's f64:
+# within this many times the CPU f32 run's own distance from f64 (where
+# above the phase's bar); every other legacy run within XDEV_CPU_FACTOR
+# times. The AE's 14 train-mode BatchNorms amplify any change of the f32
+# sum order: its train forward lies 1.94e-5 from f64 on an H100 (700 W),
+# 1.56e-5 with cuDNN switched off, against the CPU f32 run's 8.0e-6;
+# legacy_xdev prints the cuDNN-off forward beside the card's.
+LEGACY_CPU_FACTOR = 4
+# the legacy nets with BatchNorm
+LEGACY_BN = ('PConvUNet', 'AE256', 'VAE32')
+# the card's f64 run against the CPU's f64 (the same function, other sums):
+# train-mode forwards and the gradient (eval-mode BatchNorm computes in
+# f32 whatever its input: the AE256's eval "f64" runs lie 5.3e-7 apart)
+LEGACY_F64_BAR = 1e-9
+
+
+def legacy_nets(torch):
+    """{name: (apply(trees, inputs, train) -> (out, new_stats), trees,
+    inputs)} of the legacy nets at the reference's widths, from seed 0 on
+    the CPU (numpy-seeded inputs; the VAE's noise fed in)."""
+    import numpy as np
+    from instaorder_tpu_torch.models import legacy as L
+    rng = np.random.RandomState(0)
+    t = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.randn(*shape).astype(np.float32))
+    gen = torch.Generator().manual_seed(0)
+    n, side = LEGACY_BATCH, LEGACY_SIDE
+    nets = {}
+    ls, pside = LEGACY_PCONV
+    p, st, cfg = L.pconv_unet_init(gen, layer_size=ls)
+    mask = torch.from_numpy((rng.rand(1, pside, pside, 1) > 0.3).astype(
+        np.float32)).expand(1, pside, pside, 3).contiguous()
+    nets[f'PConvUNet layer_size={ls} {pside}^2'] = (
+        (lambda cfg: lambda tr, x, train: L.pconv_unet_apply(
+            tr[0], tr[1], cfg, x[0], x[1], train=train))(cfg),
+        (p, st), (t(1, pside, pside, 3), mask))
+    for name, kw in L.AE_FACTORIES.items():
+        if name == 'AE32':
+            continue
+        p, st, cfg = L.ae_init(gen, **kw)
+        eps = t(n, kw['latent_dim'])
+        nets[f'{name} {side}^2'] = (
+            (lambda cfg, eps: lambda tr, x, train: L.ae_apply(
+                tr[0], tr[1], cfg, x[0], train=train,
+                eps=eps.to(x[0]) if train else None))(cfg, eps),
+            (p, st), (t(n, side, side, 3),))
+    for kind, cin in LEGACY_DISC_IN.items():
+        init = getattr(L, f'{kind}_discriminator_init')
+        apply = getattr(L, f'{kind}_discriminator_apply')
+        p, st, cfg = init(gen, cin)
+        nets[f'{kind} discriminator {side}^2'] = (
+            (lambda apply, cfg: lambda tr, x, train: apply(
+                tr[0], tr[1], cfg, x[0], train=train))(apply, cfg),
+            (p, st), (t(n, side, side, cin),))
+    vp, vcfg = L.vgg16_extractor_init(gen)
+    nets[f'VGG16 extractor {side}^2'] = (
+        (lambda vcfg: lambda tr, x, train: (L.vgg16_extractor_apply(
+            tr[0], vcfg, x[0]), {}))(vcfg),
+        (vp, {}), (t(n, side, side, 3),))
+    return nets
+
+
+def _cast_to(torch, tree, dtype, device):
+    from instaorder_tpu_torch.convert import tree_to
+    from instaorder_tpu_torch.core.nn import tree_cast
+    return tree_to(tree_cast(tree, dtype), device)
+
+
+def _out_leaves(out):
+    if isinstance(out, (tuple, list)):
+        return [x for o in out for x in _out_leaves(o)]
+    return [out]
+
+
+def legacy_xdev(torch, name, apply, trees, inputs, dev, card, numbers):
+    """Eval and train forwards of one legacy net on the card against the
+    CPU's f64 run: the card's f64 run within LEGACY_F64_BAR of max |f64|
+    (train mode), its f32 run within max(MIDAS_BAR, factor x the CPU f32
+    run's own distance from f64), the train mode's new statistics by
+    check_stats at that factor; factor LEGACY_CPU_FACTOR for a train-mode
+    net with BatchNorm (LEGACY_BN), whose card f32 forward is also run
+    and printed with cuDNN switched off, else XDEV_CPU_FACTOR. The card's
+    eval forward timed with StepTimer."""
+    from instaorder_tpu_torch.convert import to_numpy
+    from instaorder_tpu_torch.utils.profiling import StepTimer
+    for train in (False, True):
+        bn = train and name.split()[0] in LEGACY_BN
+        factor = LEGACY_CPU_FACTOR if bn else XDEV_CPU_FACTOR
+        runs = {}
+        for who, dt, d in (('f64', torch.float64, 'cpu'),
+                           ('f32', torch.float32, 'cpu'),
+                           ('card f64', torch.float64, dev),
+                           ('card', torch.float32, dev),
+                           *((('card no cuDNN', torch.float32, dev),)
+                             if bn else ())):
+            tr = [_cast_to(torch, x, dt, d) for x in trees]
+            xs = [x.to(dt).to(d) for x in inputs]
+            with torch.no_grad(), torch.backends.cudnn.flags(
+                    enabled=who != 'card no cuDNN', allow_tf32=False):
+                out, st = apply(tr, xs, train)
+            runs[who] = ([o.double().cpu() for o in _out_leaves(out)],
+                         to_numpy(st))
+        mode = 'train' if train else 'eval'
+        if bn:
+            nocudnn = max(float((g - w).abs().max() / w.abs().max())
+                          for g, w in zip(runs['card no cuDNN'][0],
+                                          runs['f64'][0]))
+            cpu32 = max(float((c - w).abs().max() / w.abs().max())
+                        for c, w in zip(runs['f32'][0], runs['f64'][0]))
+            numbers[name, 'no cuDNN'] = nocudnn
+            print(f'  legacy {name} {mode}: the card f32 with cuDNN '
+                  f'switched off {nocudnn:.3e} from the CPU f64 (the CPU '
+                  f'f32 {cpu32:.3e})')
+        worst, bar_w, worst64 = 0.0, MIDAS_BAR, 0.0
+        for g, g64, c, w in zip(*(runs[k][0] for k in (
+                'card', 'card f64', 'f32', 'f64'))):
+            scale = float(w.abs().max())
+            e64 = float((g64 - w).abs().max()) / scale
+            # eval-mode BatchNorm computes in f32 whatever its input
+            # (core/nn.batch_norm_eval): only train mode is f64 throughout
+            check(e64 <= LEGACY_F64_BAR or not train, f'{name} {mode}: the '
+                  f'card\'s f64 run within {LEGACY_F64_BAR} of the CPU\'s '
+                  f'({e64:.3e})')
+            worst64 = max(worst64, e64)
+            e_card = float((g - w).abs().max()) / scale
+            bar = max(MIDAS_BAR, factor * float((c - w).abs().max())
+                      / scale)
+            check(e_card <= bar, f'{name} {mode}: card within {bar:.3e} of '
+                  f'the CPU f64 ({e_card:.3e})')
+            if e_card / bar > worst / bar_w:
+                worst, bar_w = e_card, bar
+        print(f'  legacy {name} {mode}: card vs CPU f64 outputs worst '
+              f'{worst:.3e} (bar {bar_w:.3e}), the card\'s f64 run '
+              f'{worst64:.3e}, over {len(runs["card"][0])} outputs')
+        numbers[name, mode] = worst
+        if train and runs['f64'][1]:
+            check_stats(f'legacy {name}', *(runs[k][1] for k in (
+                'card', 'f32', 'f64')), card, factor=factor)
+    tr = [_cast_to(torch, x, torch.float32, dev) for x in trees]
+    xs = [x.to(dev) for x in inputs]
+    timer = StepTimer(window=LEGACY_REPS)
+    with torch.no_grad():
+        for k in range(LEGACY_WARMUP + LEGACY_REPS):
+            timer.start()
+            timer.stop(apply(tr, xs, False)[0])
+    numbers[name, 'ms'] = timer.avg * 1e3
+    print(f'  legacy {name}: eval forward {timer.avg * 1e3:.3f} ms '
+          f'(StepTimer, mean of {LEGACY_REPS} after {LEGACY_WARMUP}; '
+          f'{card})')
+    return tr, xs
+
+
+def inpaint_grad(torch, params, stats, cfg, vgg, vcfg, x, m, gt, dt, d):
+    """(loss, {leaf path: gradient} as float64 CPU tensors) of the sum of
+    inpainting_loss through a train-mode PConvUNet and the VGG16
+    extractor, in dtype dt on device d."""
+    from instaorder_tpu_torch import losses as TL
+    from instaorder_tpu_torch.models import legacy as L
+    p = _cast_to(torch, params, dt, d)
+    paths, leaves = [], []
+    for k, blk in p.items():
+        for kk, v in blk.items():
+            for kkk, t in (v.items() if isinstance(v, dict) else ()):
+                t.requires_grad_(True)
+                paths.append(f'{k}.{kk}.{kkk}')
+                leaves.append(t)
+    vg = _cast_to(torch, vgg, dt, d)
+    x, m, gt = (a.to(dt).to(d) for a in (x, m, gt))
+    (out, _), _ = L.pconv_unet_apply(p, _cast_to(torch, stats, dt, d), cfg,
+                                     x, m, train=True)
+    terms = TL.inpainting_loss(
+        x, m, out, gt, extractor=lambda im: L.vgg16_extractor_apply(
+            vg, vcfg, im))
+    loss = sum(terms.values())
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), {k: g.double().cpu()
+                                  for k, g in zip(paths, grads)}
+
+
+def legacy_grad_xdev(torch, dev, card, numbers):
+    """inpainting_loss's gradient through PConvUNet (layer_size 7, train
+    mode) and VGG16 at LEGACY_GRAD_SIDE^2, card against the CPU's f64: the
+    card's f64 gradient within LEGACY_F64_BAR of each leaf's max; in
+    f32 the loss within XDEV_LOSS_BAR relative, each leaf within max(
+    XDEV_UPDATE_BAR, LEGACY_CPU_FACTOR x the CPU f32 run's own error) of
+    its max |f64 gradient| (the partial convolutions divide by the
+    window's mask count, so the deep leaves' gradients are small
+    differences of large terms; tests/test_torch_legacy.py)."""
+    import numpy as np
+    from instaorder_tpu_torch.models import legacy as L
+    gen = torch.Generator().manual_seed(1)
+    p, st, cfg = L.pconv_unet_init(gen, layer_size=LEGACY_PCONV[0])
+    vgg, vcfg = L.vgg16_extractor_init(gen)
+    rng = np.random.RandomState(1)
+    side = LEGACY_GRAD_SIDE
+    x, gt = (torch.from_numpy(rng.randn(1, side, side, 3).astype(
+        np.float32)) for _ in range(2))
+    m = torch.from_numpy((rng.rand(1, side, side, 1) > 0.3).astype(
+        np.float32)).expand(1, side, side, 3).contiguous()
+    runs = {who: inpaint_grad(torch, p, st, cfg, vgg, vcfg, x, m, gt, dt, d)
+            for who, dt, d in (('f64', torch.float64, 'cpu'),
+                               ('f32', torch.float32, 'cpu'),
+                               ('card f64', torch.float64, dev),
+                               ('card', torch.float32, dev))}
+    l64 = runs['f64'][0]
+    lrel = abs(runs['card'][0] - l64) / abs(l64)
+    check(np.isfinite(runs['card'][0]) and lrel <= XDEV_LOSS_BAR,
+          f'legacy inpainting loss: card within {XDEV_LOSS_BAR} of the CPU '
+          f'f64 ({lrel:.3e})')
+    worst, worst64 = (0.0, 1.0, ''), 0.0
+    for k, w in runs['f64'][1].items():
+        scale = max(float(w.abs().max()), 1e-30)
+        e64 = float((runs['card f64'][1][k] - w).abs().max()) / scale
+        check(e64 <= LEGACY_F64_BAR, f'legacy inpainting gradient {k}: '
+              f'the card\'s f64 within {LEGACY_F64_BAR} ({e64:.3e})')
+        worst64 = max(worst64, e64)
+        e = float((runs['card'][1][k] - w).abs().max()) / scale
+        bar = max(XDEV_UPDATE_BAR, LEGACY_CPU_FACTOR * float(
+            (runs['f32'][1][k] - w).abs().max()) / scale)
+        check(e <= bar, f'legacy inpainting gradient {k}: card within '
+              f'{bar:.3e} of the CPU f64 ({e:.3e})')
+        if e / bar > worst[0] / worst[1]:
+            worst = (e, bar, k)
+    numbers['grad loss rel'], numbers['grad worst'] = lrel, worst[0]
+    print(f'  legacy inpainting_loss gradient (PConvUNet layer_size '
+          f'{LEGACY_PCONV[0]} train mode + VGG16, {side}^2; {card}): loss '
+          f'{runs["card"][0]:.6f} vs CPU f64 {l64:.6f} (rel {lrel:.3e}); '
+          f'worst leaf {worst[2]} {worst[0]:.3e} of its max (bar '
+          f'{worst[1]:.3e}) over {len(runs["f64"][1])} leaves; the card\'s '
+          f'f64 gradient {worst64:.3e}')
+
+
+def phase_instseg(torch, dev, card, numbers, net, fixture):
+    """infer_instseg (bbox prompts; without and with the dense CRF) of the
+    moved unet2 on the fixture's first PCNET_CPU_IMAGES images, card
+    against CPU: the probabilities within a tenth of the sure margin,
+    the masks equal wherever the CPU's (CRF-refined) probability lies
+    more than PCNET_SURE from th; infer_amodal_hull on every image."""
+    import os
+    import numpy as np
+    from instaorder_tpu_torch.convert import to_torch
+    from instaorder_tpu_torch.data import readers as R
+    from instaorder_tpu_torch.data.image_io import read_rgb
+    from instaorder_tpu_torch.eval import amodal as AM
+    from instaorder_tpu_torch.eval import heuristics as H
+    from instaorder_tpu_torch.eval.tester import expand_bbox
+    from instaorder_tpu_torch.models import unet as U
+    from instaorder_tpu_torch.ops.crf import densecrf
+    from instaorder_tpu_torch.ops.resize import resize_cubic_u8
+    from instaorder_tpu_torch.utils.geometry import crop_padding
+    insta, img_root = fixture
+    reader = R.InstaOrderReader(insta)
+    size = pcnet_config('InstaOrder')['data']['input_size']
+    p, s, cfg = net
+    comp = {who: AM.AmodalCompleter(U.apply, cfg, to_torch(p), to_torch(s),
+                                    input_size=size, device=d)
+            for who, d in (('card', dev), ('cpu', 'cpu'))}
+    logs = {who: record_completer(c, []) for who, c in comp.items()}
+    ms = {False: [], True: []}
+    perr, px, near_px, above = 0.0, 0, 0, []
+    for i in range(PCNET_CPU_IMAGES):
+        modal, cat, bboxes, _, fn = reader.get_image_instances(
+            i, with_gt=False)[:5]
+        image = read_rgb(os.path.join(img_root, fn))
+        # integer boxes (the reader's are COCO floats), as the
+        # reference's instseg slices its box masks with them
+        bboxes = np.round(bboxes).astype(int)
+        new = expand_bbox(bboxes)
+        for crf in (False, True):
+            kw = dict(input_size=size, th=PCNET_TH,
+                      rgb=image if crf else None)
+            t0 = time.perf_counter()
+            got = AM.infer_instseg(comp['card'], image, cat, bboxes, new,
+                                   **kw)
+            ms[crf].append((time.perf_counter() - t0) * 1e3)
+            want = AM.infer_instseg(comp['cpu'], image, cat, bboxes, new,
+                                    **kw)
+            pg, pw = logs['card'][-1]['prob'], logs['cpu'][-1]['prob']
+            perr = max(perr, float(np.abs(pg - pw).max()))
+            ref = pw
+            if crf:
+                ref = np.stack([densecrf(np.stack([1.0 - q, q]),
+                                         resize_cubic_u8(crop_padding(
+                                             image, b, (0, 0, 0)), size,
+                                             size))[1]
+                                for q, b in zip(pw, new)])
+            for g, w, r in zip(got, want, ref):
+                near = np.abs(r - PCNET_TH) <= PCNET_SURE
+                check((g == w)[~near].all(), f'instseg (crf {crf}): card '
+                      f'masks equal to the CPU\'s at every sure pixel')
+                px += int((~near).sum())
+                near_px += int(near.sum())
+                above.append(float(w.mean()))
+        order = H.infer_order_hull(modal)
+        for grounded in (True, False):
+            hulls = AM.infer_amodal_hull(modal, bboxes, order,
+                                         order_grounded=grounded)
+            check(all(h.dtype == np.uint8 and (h >= m).all()
+                      for h, m in zip(hulls, modal)),
+                  'infer_amodal_hull: uint8 hulls covering each mask')
+    check(perr <= PCNET_SURE / 10, f'instseg: card vs CPU probabilities '
+          f'within {PCNET_SURE / 10} ({perr:.3e})')
+    share = float(np.mean(above))
+    check(0.0 < share < 1.0, f'instseg: masks neither empty nor full '
+          f'({share:.3f})')
+    numbers['instseg prob err'] = perr
+    numbers['instseg ms'] = {k: float(np.median(v)) for k, v in ms.items()}
+    print(f'  instseg (unet2, {size}^2 box prompts, th {PCNET_TH}; '
+          f'{PCNET_CPU_IMAGES} images): card vs CPU probabilities '
+          f'{perr:.3e}; {px} mask pixels held equal, {near_px} within '
+          f'{PCNET_SURE} of th not held; {100 * share:.2f}% of the pixels '
+          f'set; per image {numbers["instseg ms"][False]:.2f} ms, with the '
+          f'host CRF {numbers["instseg ms"][True]:.2f} ms ({card})')
+
+
+def phase_last_modules(torch, dev, card, wrappers, net=None):
+    """Phase 11 (module docstring): instseg / hull, the Mapillary PCNet-M
+    Trainer, the legacy nets and the inpainting gradient, timed with
+    StepTimer and one profiling.trace; no hand-written kernel launched.
+    net: phase 8's moved unet2 (numpy (params, stats, cfg)); None builds
+    it as phase 8 does (phase_pcnet_forward), for a run of this phase
+    alone. Returns {measurement: number}."""
+    import json as _json
+    import os
+    import tempfile
+    from instaorder_tpu_torch.data import synthetic
+    from instaorder_tpu_torch.eval import amodal as AM
+    from instaorder_tpu_torch.models import unet as U
+    from instaorder_tpu_torch.train import trainer as T
+    from instaorder_tpu_torch.utils import profiling as PF
+
+    t0 = time.perf_counter()
+    numbers = {}
+    for w in wrappers.values():
+        w.launches = 0
+    with tempfile.TemporaryDirectory() as root:
+        insta, _, img = synthetic.make_instaorder_fixture(
+            root, n_images=TESTER_IMAGES, n_instances=TESTER_INSTANCES,
+            h=PCNET_HW[0], w=PCNET_HW[1])
+        if net is None:
+            net = phase_pcnet_forward(torch, U, AM, dev, (insta, img), card,
+                                      {})
+        t1 = time.perf_counter()
+        phase_instseg(torch, dev, card, numbers, net, (insta, img))
+        numbers['instseg s'] = time.perf_counter() - t1
+        # the PCNet-M Trainer on Mapillary (the pcnet_m YAML, dataset
+        # Mapillary)
+        t1 = time.perf_counter()
+        ann, mroot, mimg = synthetic.make_mapillary_fixture(
+            root, **MAPILLARY_FIXTURE)
+        three_steps(torch, T, 'pcnet_m', (ann, mimg), f'{root}/m',
+                    data={'dataset': 'Mapillary', 'train_root': mroot,
+                          'val_root': mroot})
+        numbers['mapillary s'] = time.perf_counter() - t1
+        # the legacy nets
+        t1 = time.perf_counter()
+        last = None
+        for name, (apply, trees, inputs) in legacy_nets(torch).items():
+            tr, xs = legacy_xdev(torch, name, apply, trees, inputs, dev,
+                                 card, numbers)
+            if last is None:
+                last = (name, apply, tr, xs)
+        legacy_grad_xdev(torch, dev, card, numbers)
+        numbers['legacy s'] = time.perf_counter() - t1
+        # one traced PConvUNet forward (utils/profiling.trace)
+        name, apply, tr, xs = last
+        with torch.no_grad(), PF.trace(f'{root}/trace'):
+            apply(tr, xs, False)
+        with open(f'{root}/trace/trace.json') as f:
+            events = _json.load(f)['traceEvents']
+        kern = [e for e in events if e.get('cat') == 'kernel']
+        busy = sum(e.get('dur', 0) for e in kern) / 1e3
+        check(os.path.getsize(f'{root}/trace/trace.json') > 0 and kern,
+              'profiling.trace: a Chrome trace holding the card\'s kernels')
+        print(f'  profiling.trace of one {name} eval forward: '
+              f'{len(kern)} device kernels, {busy:.3f} ms busy ({card})')
+        numbers['trace kernels'] = len(kern)
+    torch.cuda.synchronize()
+    got = {n: w.launches for n, w in wrappers.items() if w.launches}
+    check(not got, f'last modules: no kernel launched (JAX\'s counterparts '
+          f'reach none): {got}')
+    numbers['seconds'] = time.perf_counter() - t0
+    print(f'last-modules phase: {numbers["seconds"]:.1f} s (instseg '
+          f'{numbers["instseg s"]:.1f}, Mapillary training '
+          f'{numbers["mapillary s"]:.1f}, legacy nets '
+          f'{numbers["legacy s"]:.1f}); hand-written kernel launches 0 '
+          f'({card})')
     return numbers
 
 
@@ -4317,7 +4902,8 @@ def dp_predictors(torch, serving, resnet, TPL, wrappers, calib_x, dev, mesh,
     entry point launched on every device of the mesh (ops/_build.launch
     recorded)."""
     from instaorder_tpu_torch.ops import _build
-    nets = predictor_nets(torch, resnet, dev)
+    nets = predictor_nets(torch, resnet, dev,
+                          ('InstaOrderNet_o', 'InstaOrderNet_od'))
     scenes = pred_scenes(serving)
     k = len(mesh)
     kw = dict(patch_or_image='patch', input_size=OUT, prep_impl='pallas5',
@@ -4730,7 +5316,7 @@ def main():
     phase_midas(torch, dev, card, wrappers)
 
     # ---- 8. PCNet-M ----------------------------------------------------------
-    phase_pcnet(torch, dev, card, wrappers)
+    pcnet = phase_pcnet(torch, dev, card, wrappers)
 
     # ---- 9. InstaDepthNet training -------------------------------------------
     phase_depth(torch, dev, card, wrappers)
@@ -4738,7 +5324,10 @@ def main():
     # ---- 10. data parallel -------------------------------------------------
     phase_data_parallel(torch, serving, resnet, TPL, wrappers, x, dev, card)
 
-    # ---- 11. report ---------------------------------------------------------
+    # ---- 11. the last modules ----------------------------------------------
+    phase_last_modules(torch, dev, card, wrappers, pcnet.get('net'))
+
+    # ---- 12. report ---------------------------------------------------------
     kernels = []
     for name, r in results.items():
         t_bytes = r['bytes'] / H100_BYTES_PER_S * 1e3

@@ -12,8 +12,9 @@ versions (as the tests do). Reading the YAML needs PyYAML; a config with
 its disparity, as midas_pretrained is evaluated. A PCNet-M config
 (experiments/*/pcnet_m: the UNet, PartialCompletionMask) orders by the
 amodal completer's votes at the Tester's order_th, 0.1: --order_th is
-parsed and, as in the JAX package, not passed on. --save_pngs is not
-ported yet and raises (ROADMAP.md queue 1 item 4).
+parsed and, as in the JAX package, not passed on. --save_pngs 1 writes
+the per-image PNGs (eval/tester.py) under the config's out_dir
+(default out_pngs/); they need matplotlib, networkx and cv2.
 """
 
 from __future__ import annotations

@@ -8,7 +8,9 @@ sides (NHWC/HWIO), so the bridge is a leaf-wise copy. It covers the
 resnet `params`/`stats` trees, the folded tree and the v2 `qparams`
 tree, whose scalar leaves (`r`, `s_feat`) become Python floats, and the
 optimizer state (train/optim.py), whose integer scalar (Adam's step
-count `t`, int32) stays a 0-d tensor of its dtype.
+count `t`, int32) stays a 0-d tensor of its dtype. A string leaf (the
+legacy PConvUNet's `'sample': 'down-7'`, models/legacy.py) passes through
+both ways unchanged.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import torch
 
 
 def _leaf_to_torch(a, device):
+    if isinstance(a, str):
+        return a
     a = np.asarray(a)
     if a.ndim == 0 and not np.issubdtype(a.dtype, np.integer):
         return float(a)
@@ -60,4 +64,6 @@ def to_numpy(tree):
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.numpy()
+    if isinstance(tree, str):
+        return tree
     return np.float32(tree)

@@ -54,8 +54,7 @@ def _make_reader(config, phase):
     if dataset == 'InstaOrder':
         return R.InstaOrderReader(annot)
     if dataset == 'Mapillary':
-        raise NotImplementedError(
-            'the Mapillary reader is not ported to instaorder_tpu_torch')
+        return R.MapillaryReader(config[f'{phase}_root'], annot)
     return R.KINSLVISReader(dataset, annot)
 
 

@@ -10,8 +10,10 @@ goes through PIL, imported at call time, so a machine without PIL still
 reads PNG. `read_depth_png` reads a depth map as the JAX package's
 `cv2.imread(name, -1) / 256` gives it (the KITTI convention,
 instaorder_tpu/eval/disp.py:88-92): 8- and 16-bit gray PNG decode here,
-anything else through cv2 at call time. `write_png` writes RGB or gray
-(uint8, or uint16 as 16-bit gray) with filter 0.
+anything else through cv2 at call time. `read_gray` reads a gray PNG's
+raw values (8- or 16-bit; Mapillary's instance maps), anything else
+through PIL at call time. `write_png` writes RGB or gray (uint8, or
+uint16 as 16-bit gray) with filter 0.
 """
 
 from __future__ import annotations
@@ -148,6 +150,38 @@ def read_rgb(path) -> np.ndarray:
         return np.array(im.convert('RGB'))
 
 
+def _decode_gray(data: bytes):
+    """(H, W) uint8 / uint16 of an 8- or 16-bit gray non-interlaced PNG,
+    else None."""
+    if not data.startswith(_SIGNATURE):
+        return None
+    (w, h, depth, ctype, _, _, interlace), _, idat = _png_parts(data)
+    if ctype != 0 or depth not in (8, 16) or interlace != 0:
+        return None
+    nb = depth // 8
+    pix = _unfilter(zlib.decompress(idat), h, w * nb, nb)
+    return pix.view('>u2' if nb == 2 else np.uint8).reshape(h, w)
+
+
+def read_gray(path) -> np.ndarray:
+    """(H, W) raw values of a gray image file, as PIL's
+    `np.array(Image.open(path))` gives them (uint8 or uint16)."""
+    with open(path, 'rb') as f:
+        data = f.read()
+    raw = _decode_gray(data)
+    if raw is not None:
+        return raw.astype(raw.dtype.newbyteorder('='))
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f'image_io.read_gray: {path} is not an 8- or 16-bit gray '
+            'non-interlaced PNG, and reading it needs the PIL package '
+            '(Pillow)') from e
+    with Image.open(path) as im:
+        return np.array(im)
+
+
 def read_depth_png(path):
     """(H, W) float32 depth of a depth-map file, as the JAX package's
     `cv2.imread(path, -1).astype(np.float32) / 256` gives it (uint16 / 256
@@ -157,13 +191,7 @@ def read_depth_png(path):
         return None
     with open(path, 'rb') as f:
         data = f.read()
-    raw = None
-    if data.startswith(_SIGNATURE):
-        (w, h, depth, ctype, _, _, interlace), _, idat = _png_parts(data)
-        if ctype == 0 and depth in (8, 16) and interlace == 0:
-            nb = depth // 8
-            pix = _unfilter(zlib.decompress(idat), h, w * nb, nb)
-            raw = pix.view('>u2' if nb == 2 else np.uint8).reshape(h, w)
+    raw = _decode_gray(data)
     if raw is None:
         try:
             import cv2

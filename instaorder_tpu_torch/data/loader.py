@@ -1,5 +1,5 @@
 """Batched, prefetching data loader on the host (counterpart of
-instaorder_tpu/data/loader.py, its `thread` and `process` modes).
+instaorder_tpu/data/loader.py).
 
   * mode='thread': a thread pool maps `dataset.sample(idx, rng)` over
     the sampler's stream (numpy, zlib and the resizes' matmuls release
@@ -7,18 +7,23 @@ instaorder_tpu/data/loader.py, its `thread` and `process` modes).
   * mode='process': spawn-based worker processes (the reference's
     num_workers model) for hosts where the GIL-bound share of a sample
     limits the threads. 'spawn', not fork: a worker never inherits the
-    parent's CUDA context.
+    parent's CUDA context;
+  * mode='grain': grain.python.DataLoader (imported at call time; its
+    worker processes, per-process sharding and checkpointable iterators)
+    over a data source whose record b is the whole batch b, so that
+    grain's sharding of records across its workers moves whole batches
+    and keeps each batch's composition; its deterministic output order
+    keeps the batches' order. Without the grain package it raises an
+    ImportError that names it; it never falls back to threads.
 
 Each sample's RNG is seeded from its position in the stream,
 (seed * 1_000_003 + pos) % (2**31 - 1), as in the JAX package, so the
-batches are the same for every worker count and in both modes, and the
-same as the JAX package's. A data-parallel rank's loader (rank,
-world_size) holds the rank's slice of each global batch: its items take
-their positions in the global stream, so that rank r's batch is the
-rows of the JAX package's global batch that its mesh device r holds. A
-worker's error is raised to the consumer.
-The JAX package's third mode, 'grain', raises here: the grain package is
-not a dependency of the port.
+batches are the same for every worker count and mode, and the same as
+the JAX package's. A data-parallel rank's loader
+(rank, world_size) holds the rank's slice of each global batch: its
+items take their positions in the global stream, so that rank r's batch
+is the rows of the JAX package's global batch that its mesh device r
+holds. A worker's error is raised to the consumer.
 """
 
 from __future__ import annotations
@@ -49,16 +54,43 @@ def _worker_sample(args):
     return _WORKER['ds'].sample(int(idx), sample_rng(seed, pos))
 
 
+def _grain():
+    """grain.python, or an ImportError that names it."""
+    try:
+        import grain.python as gp
+    except ImportError as e:
+        raise ImportError(
+            "DataLoader mode='grain' needs the grain package, which is not "
+            "installed here; use mode='thread' or 'process'") from e
+    return gp
+
+
+class _BatchSource:
+    """grain's data source in mode='grain': record b is batch b, its
+    samples drawn at their stream positions with sample_rng, collated.
+    Module-level so that grain's worker processes can unpickle it."""
+
+    def __init__(self, dataset, batches, seed):
+        self._ds = dataset
+        self._batches = batches       # [(stream positions, indices)]
+        self._seed = seed
+
+    def __len__(self):
+        return len(self._batches)
+
+    def __getitem__(self, b):
+        pos, idx = self._batches[int(b)]
+        return collate([self._ds.sample(int(i), sample_rng(self._seed, q))
+                        for q, i in zip(pos, idx)])
+
+
 class DataLoader:
     def __init__(self, dataset, sampler, batch_size, num_workers=4,
                  prefetch=4, seed=0, mode='thread', rank=0, world_size=1):
-        if mode == 'grain':
-            raise NotImplementedError(
-                "DataLoader mode='grain' is not ported: the grain package "
-                "is not a dependency of instaorder_tpu_torch; use 'thread' "
-                "or 'process'")
-        if mode not in ('thread', 'process'):
+        if mode not in ('thread', 'process', 'grain'):
             raise ValueError(f'unknown loader mode {mode!r}')
+        if mode == 'grain':
+            _grain()
         self.dataset = dataset
         self.sampler = sampler
         self.batch_size = batch_size
@@ -75,6 +107,29 @@ class DataLoader:
         b = self.batch_size
         return (p // b * self.world_size + self.rank) * b + p % b
 
+    def _batches(self):
+        """[(stream positions, sampler indices)] of each whole batch."""
+        indices = list(self.sampler)
+        b = self.batch_size
+        return [([self._stream_pos(p) for p in range(k * b, (k + 1) * b)],
+                 indices[k * b:(k + 1) * b])
+                for k in range(len(indices) // b)]
+
+    def _iter_grain(self):
+        gp = _grain()
+        batches = self._batches()
+        if not batches:
+            return
+        loader = gp.DataLoader(
+            data_source=_BatchSource(self.dataset, batches, self.seed),
+            sampler=gp.IndexSampler(
+                num_records=len(batches), shard_options=gp.NoSharding(),
+                shuffle=False, num_epochs=1),
+            worker_count=self.num_workers,
+            read_options=gp.ReadOptions(
+                prefetch_buffer_size=max(self.prefetch, self.num_workers)))
+        yield from loader
+
     def _make_pool(self):
         if self.mode == 'process':
             import multiprocessing as mp
@@ -84,8 +139,10 @@ class DataLoader:
         return ThreadPoolExecutor(self.num_workers)
 
     def __iter__(self):
-        indices = list(self.sampler)
-        n_batches = len(indices) // self.batch_size
+        if self.mode == 'grain':
+            yield from self._iter_grain()
+            return
+        batches = self._batches()
         pool = self._make_pool()
         q: queue.Queue = queue.Queue(self.prefetch)
         stop = threading.Event()
@@ -96,19 +153,15 @@ class DataLoader:
 
         def producer():
             try:
-                for b in range(n_batches):
+                for pos, idx in batches:
                     if stop.is_set():
                         break
-                    lo, hi = b * self.batch_size, (b + 1) * self.batch_size
-                    pos = [self._stream_pos(p) for p in range(lo, hi)]
                     if self.mode == 'process':
                         samples = list(pool.map(
                             _worker_sample,
-                            [(self.seed, q, indices[p])
-                             for q, p in zip(pos, range(lo, hi))]))
+                            [(self.seed, p, i) for p, i in zip(pos, idx)]))
                     else:
-                        samples = list(pool.map(
-                            sample_one, zip(pos, indices[lo:hi])))
+                        samples = list(pool.map(sample_one, zip(pos, idx)))
                     q.put(collate(samples))
                 q.put(None)
             except Exception as e:  # surface worker errors to the consumer

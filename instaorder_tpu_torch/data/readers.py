@@ -1,20 +1,22 @@
 """Annotation readers (host-side ingest; counterpart of
-instaorder_tpu/data/readers.py: the readers the Tester uses).
+instaorder_tpu/data/readers.py).
 
 Capability parity with the reference's `datasets/reader.py`:
   read_KINS / read_LVIS / read_COCOA  <- reader.py:20-66
   InstaOrderReader                    <- reader.py:294-457
   COCOAReader                         <- reader.py:209-291
   KINSLVISReader                      <- reader.py:460-539
+  MapillaryReader                     <- reader.py:542-599
 
   KITTIReader / NYUReader / DIWReader <- reader.py:69-206 (the dense
                                          disparity eval, eval/disp.py)
 
-MapillaryReader (a training reader) is not ported yet (ROADMAP.md queue
-1). The disparity readers read images with `image_io.read_rgb` (PNG
-without PIL; other formats through PIL at call time) and resize to 384^2
-with `ops/resize.resize_linear_u8`, equal to cv2.INTER_LINEAR on every
-value.
+MapillaryReader (a training reader: instance maps, no ground-truth
+order) reads `{root}/instances/{image_id}.png` with `image_io.read_gray`
+(16-bit PNG without PIL). The disparity readers read images with
+`image_io.read_rgb` (PNG without PIL; other formats through PIL at call
+time) and resize to 384^2 with `ops/resize.resize_linear_u8`, equal to
+cv2.INTER_LINEAR on every value.
 
 Masks decode through the port's data/rle.py (pycocotools-compatible);
 order strings ("i<j", "i<j & j<i", "i=j", "1-2,...") parse into the
@@ -34,7 +36,7 @@ import os
 import numpy as np
 
 from . import rle
-from .image_io import read_rgb
+from .image_io import read_gray, read_rgb
 from ..ops.resize import resize_linear_u8
 from ..utils.geometry import mask_to_bbox
 
@@ -353,6 +355,63 @@ READERS = {
     'KINS': lambda fn: KINSLVISReader('KINS', fn),
     'LVIS': lambda fn: KINSLVISReader('LVIS', fn),
 }
+
+
+# ---------------------------------------------------------------------------
+# Mapillary
+# ---------------------------------------------------------------------------
+
+class MapillaryReader:
+    """Mapillary Vistas: `annot_fn` lists each image's regions
+    (instance_id, category_id); the instance map
+    `{root}/instances/{image_id}.png` holds instance_id = category * 256 +
+    instance at each pixel. No ground-truth order or amodal masks."""
+
+    def __init__(self, root, annot_fn):
+        with open(annot_fn) as f:
+            annot = json.load(f)
+        self.categories = annot['categories']
+        self.annot_info = annot['images']
+        self.root = root
+        self.indexing = [(i, j) for i, ann in enumerate(self.annot_info)
+                         for j in range(len(ann['regions']))]
+
+    def get_instance_length(self):
+        return len(self.indexing)
+
+    def get_image_length(self):
+        return len(self.annot_info)
+
+    def _instance_map(self, image_id):
+        return read_gray(f'{self.root}/instances/{image_id}.png').astype(
+            np.uint16)
+
+    def get_instance(self, idx, with_gt=False):
+        if with_gt:
+            raise ValueError('Mapillary Vistas has no ground truth for '
+                             'ordering / amodal masks')
+        imgidx, regidx = self.indexing[idx]
+        image_id = self.annot_info[imgidx]['image_id']
+        inst_map = self._instance_map(image_id)
+        reg = self.annot_info[imgidx]['regions'][regidx]
+        modal = (inst_map == reg['instance_id']).astype(np.uint8)
+        return (modal, np.array(mask_to_bbox(modal)), reg['category_id'],
+                image_id + '.jpg', None)
+
+    def get_image_instances(self, idx, with_gt=False, with_anns=False,
+                            ignore_stuff=False):
+        """Every id of the map (background 0 included), as the
+        reference: (modal (K, H, W), ids // 256, bboxes, None, file)."""
+        if with_gt or ignore_stuff:
+            raise ValueError('Mapillary Vistas has no ground truth, and '
+                             'no stuff filter')
+        image_id = self.annot_info[idx]['image_id']
+        inst_map = self._instance_map(image_id)
+        ids = np.unique(inst_map)
+        modal = (ids[:, None, None] == inst_map[None]).astype(np.uint8)
+        bboxes = [mask_to_bbox(m) for m in modal]
+        return (modal, ids // 256, np.array(bboxes), None,
+                image_id + '.jpg')
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Synthetic-annotation fixtures (counterpart of
-instaorder_tpu/data/synthetic.py: the three fixture writers), and the
-dense-disparity eval's (DIW, KITTI, NYU; the JAX package has none).
+instaorder_tpu/data/synthetic.py: the three fixture writers), the
+dense-disparity eval's (DIW, KITTI, NYU) and Mapillary's (the JAX
+package has none of these four).
 
 Generates a tiny, fully-valid InstaOrder/COCO dataset on disk — images,
 `instances_val2017.json`, `InstaOrder_val2017.json` with coherent
@@ -328,3 +329,43 @@ def make_nyu_fixture(root, n_images=2, h=480, w=640, seed=5):
     with open(path, 'w') as f:
         f.writelines(lines)
     return path, root
+
+
+def make_mapillary_fixture(root, n_images=4, n_instances=4, h=96, w=128,
+                           seed=6):
+    """Mapillary Vistas layout under {root}/mapillary/: 16-bit instance
+    maps instances/<id>.png (each pixel category * 256 + instance, 0
+    where no instance: layered rectangles, later ones on top), RGB images
+    images/<id>.jpg, and annotations.json listing each image's regions
+    (instance_id, category_id) and the categories. The images are PNG
+    data under the reader's `.jpg` names (image_io.read_rgb and PIL
+    both go by the file's signature), so no JPEG encoder is needed.
+    Returns (annotation path, the reader's root, image root)."""
+    rng = np.random.RandomState(seed)
+    base = os.path.join(root, 'mapillary')
+    for sub in ('instances', 'images'):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    images = []
+    for i in range(n_images):
+        image_id = f'map_{i:04d}'
+        inst = np.zeros((h, w), np.uint16)
+        regions = []
+        for k in range(n_instances):
+            hh, ww = rng.randint(h // 4, h // 2), rng.randint(w // 4, w // 2)
+            y0, x0 = rng.randint(0, h - hh), rng.randint(0, w - ww)
+            cat = int(rng.randint(1, 60))
+            iid = cat * 256 + k
+            inst[y0:y0 + hh, x0:x0 + ww] = iid
+            regions.append({'instance_id': iid, 'category_id': cat})
+        # a region wholly covered by later ones is not in the map
+        present = set(np.unique(inst).tolist())
+        regions = [r for r in regions if r['instance_id'] in present]
+        write_png(os.path.join(base, 'instances', f'{image_id}.png'), inst)
+        write_png(os.path.join(base, 'images', f'{image_id}.jpg'),
+                  _scene_rgb(rng, h, w))
+        images.append({'image_id': image_id, 'regions': regions})
+    path = os.path.join(base, 'annotations.json')
+    with open(path, 'w') as f:
+        json.dump({'categories': [{'id': c} for c in range(1, 60)],
+                   'images': images}, f)
+    return path, base, os.path.join(base, 'images')

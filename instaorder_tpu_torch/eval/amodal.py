@@ -8,6 +8,8 @@ Reference inference.py:
   infer_order (erase-and-complete votes)   <- :627-688
   get_neighbors / get_ancestors            <- :805-822
   infer_amodal                             <- :885-926
+  infer_amodal_hull (convex-hull baseline) <- :239-251
+  infer_instseg (bbox prompts, denseCRF)   <- :825-857
   recover_mask / resize_mask / patch_to_fullimage <- :217-236, 929-933
 
 The patches of a call go through the UNet in chunks of PATCH_CHUNK (one
@@ -18,7 +20,9 @@ votes run on the host in numpy, as in the JAX package: the nearest
 resizes through `ops.resize.resize_nearest_np`, the 'linear' mask resize
 as an f32 half-pixel resize then > 0.5 (cv2's float path), the RGB
 patch of a *res net through `resize_cubic_u8`, fed un-normalised as the
-JAX package feeds it. The graph walks (ancestors) stay on the host.
+JAX package feeds it. The graph walks (ancestors) stay on the host, and
+so do the convex hulls (`heuristics.convex_hull_image`, scipy) and the
+mean-field CRF of `infer_instseg` (`ops.crf.densecrf`, numpy / scipy).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from ..device import resolve_device
 from ..ops.morphology import bordering_matrix
 from ..ops.resize import resize, resize_cubic_u8, resize_nearest_np
 from ..utils.geometry import crop_padding, dilate_square
+from .heuristics import convex_hull_image
 
 # patches per forward: bounds the activations of one call (~2.5 GiB for
 # unet2 at 256^2), whatever the number of instances
@@ -202,3 +207,59 @@ class AmodalCompleter:
             eraser_ps.append(e)
             rgb_ps.append(rgb)
         return list(self._predict(modal_ps, eraser_ps, rgb_ps, th))
+
+
+def infer_amodal_hull(inmodal, bboxes, order_matrix, order_grounded=True):
+    """Convex-hull amodal baseline (inference.py:239-251): each modal
+    mask's filled convex hull, cut (order_grounded) to the mask and its
+    ancestors' union. bboxes is unused, as in the reference."""
+    out = []
+    for i in range(inmodal.shape[0]):
+        m = inmodal[i]
+        hull = convex_hull_image(m).astype(np.uint8)
+        if order_grounded:
+            if order_matrix is None:
+                raise ValueError('order_grounded needs an order_matrix')
+            anc = get_ancestors(order_matrix, i)
+            eraser = (inmodal[anc, ...].sum(axis=0) > 0).astype(np.uint8)
+            hull[(eraser == 0) & (m == 0)] = 0
+        out.append(hull)
+    return out
+
+
+def infer_instseg(completer, image, category, bboxes, new_bboxes,
+                  input_size, th, rgb=None):
+    """Instance segmentation from bbox prompts (inference.py:825-857):
+    each bbox as a mask inside its crop `new_bboxes[i]`, resized to
+    input_size (nearest), through the completer with an all-zero eraser,
+    the class-1 probability thresholded at th. With `rgb` (H, W, 3)
+    uint8 given, one mean-field step of the dense CRF (ops/crf.densecrf)
+    on [1 - p, p] over the crop's cubic-resized RGB comes first.
+    Returns a list of (input_size, input_size) uint8 masks."""
+    num = bboxes.shape[0]
+    modal_ps, eraser_ps, rgb_ps = [], [], []
+    for i in range(num):
+        rel = [bboxes[i][0] - new_bboxes[i][0],
+               bboxes[i][1] - new_bboxes[i][1], bboxes[i][2], bboxes[i][3]]
+        bbox_mask = np.zeros((new_bboxes[i][3], new_bboxes[i][2]), np.uint8)
+        bbox_mask[rel[1]:rel[1] + rel[3], rel[0]:rel[0] + rel[2]] = 1
+        bbox_mask = resize_nearest_np(bbox_mask, input_size, input_size)
+        modal_ps.append(bbox_mask.astype(np.float32) * category[i])
+        eraser_ps.append(np.zeros_like(bbox_mask, np.float32))
+        if completer.use_rgb:
+            rgb_ps.append(resize_cubic_u8(
+                crop_padding(image, new_bboxes[i], pad_value=(0, 0, 0)),
+                input_size, input_size))
+    if rgb is None:
+        return list(completer._predict(modal_ps, eraser_ps, rgb_ps, th))
+    from ..ops.crf import densecrf
+    probs = completer._predict_prob(modal_ps, eraser_ps, rgb_ps)
+    out = []
+    for i in range(num):
+        rgb_patch = resize_cubic_u8(
+            crop_padding(rgb, new_bboxes[i], pad_value=(0, 0, 0)),
+            input_size, input_size)
+        prob = np.stack([1.0 - probs[i], probs[i]])
+        prob_crf = densecrf(prob, rgb_patch)
+        out.append((prob_crf[1] > th).astype(np.uint8))
+    return out

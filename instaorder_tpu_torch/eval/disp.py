@@ -8,15 +8,15 @@ Reference:
 
 The disparity forward (MidasNet, or an InstaDepthNet's disparity path)
 runs on the card, one image a call; the ground-truth read-back and the
-metrics stay on the host in numpy, as in the JAX package.
-
-Not ported yet (raises NotImplementedError): the per-image debug PNGs of
-`save_dir` (matplotlib, with `utils/visualize`, ROADMAP.md queue 1 item
-4).
+metrics stay on the host in numpy, as in the JAX package, and so do the
+per-image debug PNGs of `eval_dense_depth(save_dir=)` (matplotlib,
+imported at call time: without it they raise an ImportError that names
+it).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
@@ -28,6 +28,8 @@ from ..core import checkpoint as ckpt
 from ..data.image_io import read_depth_png
 from ..device import resolve_device
 from ..models import midas
+from ..utils.midas_io import unnormalize
+from ..utils.visualize import pyplot, require
 from ..ops.resize import resize_weights_linear
 from .metrics import compute_errors
 
@@ -86,13 +88,15 @@ def eval_dense_depth(forward, reader, dataset='kitti', n_samples=-1,
 
     read_gt_depth(depth_name) -> float32 (H, W) depth in metres (0 =
     missing) or None; defaults to the KITTI uint16 / 256 PNG convention
-    (image_io.read_depth_png). save_dir (the reference's per-image debug
-    PNGs) is not ported yet."""
+    (image_io.read_depth_png).
+
+    save_dir: when set, writes the reference's per-image debug PNGs
+    (test_disp_KITTI.py:205-231): the histogram of the scaled depths
+    under distribution/depth/, pred_disp/{img}_{d1 %:.2f}.png, gt_disp/
+    and the un-normalised rgb/ (cmap inferno but rgb). They need
+    matplotlib."""
     if save_dir is not None:
-        raise NotImplementedError(
-            'eval_dense_depth save_dir: the debug PNGs need matplotlib and '
-            'are not ported to instaorder_tpu_torch yet (ROADMAP.md queue '
-            '1 item 4)')
+        require('matplotlib')
     min_depth, max_depth = (1e-3, 80.0) if dataset == 'kitti' else (1e-3,
                                                                     10.0)
     if read_gt_depth is None:
@@ -118,8 +122,17 @@ def eval_dense_depth(forward, reader, dataset='kitti', n_samples=-1,
             missing += 1
             continue
         ratio = np.median(gt_depth[valid]) / np.median(pred_depth[valid])
-        pred_depth = np.clip(pred_depth * ratio, min_depth, max_depth)
-        errors.append(compute_errors(gt_depth[valid], pred_depth[valid]))
+        pred_depth = pred_depth * ratio
+        if save_dir is not None:
+            # the scaled (pre-clip) depths, 50 gray bins
+            # (test_disp_KITTI.py:209-215)
+            _save_depth_hist(save_dir, img_name, pred_depth[valid])
+        pred_depth = np.clip(pred_depth, min_depth, max_depth)
+        err = compute_errors(gt_depth[valid], pred_depth[valid])
+        errors.append(err)
+        if save_dir is not None:
+            _save_disp_pngs(save_dir, img_name, disp, gt_depth, image_chw,
+                            err['d1'] * 100.0)
     log(f'computed error on {len(errors)} / {missing} missing')
     if not errors:
         return {'n': 0}
@@ -134,6 +147,39 @@ def eval_dense_depth(forward, reader, dataset='kitti', n_samples=-1,
     log('\n  ' + header)
     log(vals)
     return out
+
+
+def _save_depth_hist(save_dir, img_name, depths):
+    plt = pyplot()
+    name = os.path.splitext(os.path.basename(img_name))[0]
+    d = os.path.join(save_dir, 'distribution', 'depth')
+    os.makedirs(d, exist_ok=True)
+    plt.hist(depths, color='gray', edgecolor='black', bins=50)
+    plt.title('Histogram of pred_depth[mask_valid]')
+    plt.xlabel('depth')
+    plt.ylabel('distribution')
+    plt.savefig(os.path.join(d, f'{name}.png'))
+    plt.close('all')
+
+
+def _save_disp_pngs(save_dir, img_name, pred_disp, gt_depth, image_chw,
+                    d1_pct):
+    """pred / gt disparity and the un-normalised rgb
+    (test_disp_KITTI.py:224-231)."""
+    plt = pyplot()
+    name = os.path.splitext(os.path.basename(img_name))[0]
+    for sub in ('pred_disp', 'gt_disp', 'rgb'):
+        os.makedirs(os.path.join(save_dir, sub), exist_ok=True)
+    plt.imsave(os.path.join(save_dir, 'pred_disp',
+                            f'{name}_{d1_pct:.2f}.png'),
+               pred_disp, cmap='inferno')
+    gt_disp = 1.0 / (gt_depth + 1e-3)
+    gt_disp[gt_depth == 0] = 0
+    plt.imsave(os.path.join(save_dir, 'gt_disp', f'{name}.png'),
+               gt_disp, cmap='inferno')
+    rgb = unnormalize(image_chw)
+    plt.imsave(os.path.join(save_dir, 'rgb', f'{name}.png'),
+               np.clip(rgb, 0.0, 1.0).transpose(1, 2, 0))
 
 
 def make_disp_forward(algo, load_model=None, features=256, device=None):

@@ -5,7 +5,7 @@ Parity with reference tools/test.py: per-image loop computing the
 predicted order matrices through the batched OrderPredictor (one forward
 over every pair of an image), occlusion R/P/F1 + depth WHDR accumulation
 with the reference's -1-slice masking, bbox expansion with enlarge_box,
-and the heuristic order methods.
+the heuristic order methods, and the debug PNGs (`save_pngs`).
 
 The model is the unfolded `resnet.apply` at f32, as in the JAX package:
 on the card that is the cuDNN f32 route with TF32 off
@@ -24,8 +24,16 @@ infer_occ_depth_order).
 
 The PartialCompletionMask method (PCNet-M) votes each pair's order
 with the UNet's amodal completions (`amodal.AmodalCompleter.infer_order`,
-cuDNN f32 as well). Not ported yet: the PNG dumps (`save_pngs` raises
-NotImplementedError, ROADMAP.md queue 1 item 4).
+cuDNN f32 as well).
+
+save_pngs writes the reference's per-image PNGs under out_dir
+(tools/test.py:230-262, 366-371): mask/ (the instance overlay), and
+occ_order/ and depth_order/ (the ground-truth and predicted order
+graphs) after each image of the loop that computes them, and disp/ (the
+clipped disparity, cubic-upsampled to the image, cmap inferno) on the
+disparity route. They need matplotlib, networkx and cv2
+(utils/visualize), imported when the Tester is built: without them it
+raises an ImportError that names the package.
 """
 
 from __future__ import annotations
@@ -47,11 +55,12 @@ from ..models.registry import get_backbone
 from ..utils.telemetry import make_summary_logger
 from . import heuristics as H
 from .amodal import AmodalCompleter
+from ..ops.resize import resize
+from ..utils.visualize import (draw_graph, get_mid_top_from_masks,
+                               put_instance_mask_and_ID, pyplot, require)
 from .metrics import (eval_depth_order_whdr,
                       eval_order_recall_precision_f1)
-from .pipeline import OrderPredictor
-
-_QUEUE = 'not ported to instaorder_tpu_torch yet (ROADMAP.md queue 1 item 4)'
+from .pipeline import DisparityOrderPredictor, OrderPredictor
 
 
 def expand_bbox(bboxes, enlarge_box=3.0):
@@ -87,7 +96,7 @@ class Tester:
         self.zd = getattr(args, 'zd', 0)
         self.save_pngs = getattr(args, 'save_pngs', 0)
         if self.save_pngs:
-            raise NotImplementedError(f'Tester save_pngs: {_QUEUE}')
+            require('matplotlib', 'networkx', 'cv2')
         self.out_dir = getattr(args, 'out_dir', 'out_pngs')
         self.logger = logger or _print_logger()
         self.curr_step = 0  # set from the loaded checkpoint
@@ -254,6 +263,15 @@ class Tester:
             closer = ('lower' if self.dataset in ('COCOA', 'InstaOrder')
                       else 'higher')
             return H.infer_depth_order_yaxis(modal, closer=closer)
+        if (isinstance(self.predictor, DisparityOrderPredictor)
+                and self.save_pngs):
+            # keep the clipped disparity for the disp/ PNG
+            pred, self._last_disp = self.predictor.infer_depth_order(
+                image.astype(np.float32), modal.astype(np.float32),
+                bboxes.astype(np.float32), pairs=self.pairs,
+                return_disp=True)
+            return pred
+        self._last_disp = None
         return self.predictor.infer_depth_order(
             image.astype(np.float32), modal.astype(np.float32),
             bboxes.astype(np.float32), pairs=self.pairs)
@@ -271,6 +289,8 @@ class Tester:
             f1s.append(f1)
             self.logger.info(
                 f'[{fn}]\trecall={r:.3f} / precision={p:.3f} / f1={f1:.3f}')
+            if self.save_pngs:
+                self._dump_pngs(fn, image, modal, pred_occ=pred, gt_occ=gt)
         out = {'recall': float(np.mean(rs)),
                'precision': float(np.mean(ps)),
                'f1': float(np.mean(f1s)), 'n': len(rs)}
@@ -300,6 +320,10 @@ class Tester:
             self.logger.info(
                 f"[{fn}]\t{per['ovlX_all'][0]:.3f} | "
                 f"{per['ovlO_all'][0]:.3f} | {per['ovlOX_all'][0]:.3f}")
+            if self.save_pngs:
+                self._dump_pngs(fn, image, modal, pred_depth=pred,
+                                gt_depth=gt_d[0], gt_overlap=gt_d[1],
+                                disp=getattr(self, '_last_disp', None))
         return self._finish_whdr(whdr_acc)
 
     def eval_occ_depth_order(self):
@@ -324,6 +348,10 @@ class Tester:
                 f"[{fn}]\t{per['ovlX_all'][0]:.3f} | {per['ovlO_all'][0]:.3f}"
                 f" | {per['ovlOX_all'][0]:.3f}\n\t\t\trecall={r:.3f} / "
                 f"precision={p:.3f} / f1={f1:.3f}")
+            if self.save_pngs:
+                self._dump_pngs(fn, image, modal, pred_occ=occ, gt_occ=gt_o,
+                                pred_depth=dep, gt_depth=gt_d[0],
+                                gt_overlap=gt_d[1])
         out = self._finish_whdr(whdr_acc)
         out.update({'recall': float(np.mean(rs)),
                     'precision': float(np.mean(ps)),
@@ -335,6 +363,45 @@ class Tester:
                               'val/precision': out['precision'],
                               'val/f1': out['f1']}, self.curr_step)
         return out
+
+    def _dump_pngs(self, image_fn, image, modal, pred_occ=None, gt_occ=None,
+                   pred_depth=None, gt_depth=None, gt_overlap=None,
+                   disp=None):
+        """The PNGs of one image (tools/test.py:230-262): the mask overlay
+        and, for each order computed, the gt / pred graphs side by side;
+        `disp` adds the clipped disparity of tools/test.py:366-371
+        (cubic-upsampled to the image size on the host, cmap inferno)."""
+        plt = pyplot()
+        img_name = os.path.splitext(os.path.basename(image_fn))[0]
+        for sub in ('mask', 'occ_order', 'depth_order'):
+            os.makedirs(os.path.join(self.out_dir, sub), exist_ok=True)
+        overlay = put_instance_mask_and_ID(
+            image, modal, get_mid_top_from_masks(modal))
+        plt.imsave(os.path.join(self.out_dir, 'mask', f'{img_name}.png'),
+                   overlay)
+        for name, gt, pred, ovl in (('occ_order', gt_occ, pred_occ, None),
+                                    ('depth_order', gt_depth, pred_depth,
+                                     gt_overlap)):
+            if pred is None:
+                continue
+            fig = plt.figure(figsize=(10, 5))
+            ax = fig.add_subplot(121)
+            draw_graph(np.where(gt == -1, 0, gt), ovl, ax=ax)
+            ax.set_title('gt')
+            ax2 = fig.add_subplot(122)
+            draw_graph(pred, ax=ax2)
+            ax2.set_title('pred')
+            fig.savefig(os.path.join(self.out_dir, name,
+                                     f'{img_name}.png'),
+                        bbox_inches='tight')
+            plt.close(fig)
+        if disp is not None:
+            os.makedirs(os.path.join(self.out_dir, 'disp'), exist_ok=True)
+            up = resize(torch.from_numpy(np.asarray(disp, np.float32))[None],
+                        image.shape[0], image.shape[1], 'cubic')[0].numpy()
+            plt.imsave(os.path.join(self.out_dir, 'disp',
+                                    f'{img_name}.png'),
+                       up, cmap='inferno')
 
     def _finish_whdr(self, whdr_acc):
         """Mean over images skipping the -1 empty-slice sentinel

@@ -1,8 +1,10 @@
 """The order nets' and PCNet-M's losses (counterpart of
 instaorder_tpu/losses.py: `bce`, `bce_with_logits`, `cross_entropy`,
 `cross_entropy_masked`, the label swaps, InstaDepthNet's `min_max_norm`,
-`edge_aware_smoothness` and `disparity_order_violations`, and
-`mask_weighted_cross_entropy`).
+`edge_aware_smoothness` and `disparity_order_violations`,
+`mask_weighted_cross_entropy`, and the deocclusion terms of the legacy
+nets (models/legacy.py): `l2_with_ignore`, `adversarial_loss`,
+`gram_matrix`, `total_variation_loss`, `inpainting_loss`).
 
 Every order model in the reference applies its criterion to *already
 activated* outputs: nn.CrossEntropyLoss on softmaxed logits and
@@ -21,7 +23,8 @@ JAX and 0 in `torch.abs`, so `_abs` writes it as JAX's select; and the
 reductions are `amin` / `amax`, which split the gradient evenly among
 tied extrema as `jnp.min` / `jnp.max` do (`torch.max(dim=...)` sends it
 to one index). A ReLU'd disparity holds runs of exact zeros, so both
-cases are common, not rare.
+cases are common, not rare. The inpainting L1 terms take |x| the same
+way: their masked differences are exact zeros wherever the mask cuts.
 """
 
 from __future__ import annotations
@@ -177,3 +180,77 @@ def mask_weighted_cross_entropy(logits, target, mask, inmask_weight=5.0,
                     torch.full_like(pix, outmask_weight))
     n, h, wd = target.shape
     return torch.sum(pix * w) / (n * h * wd)
+
+
+def l2_with_ignore(pred, target, ignore_value=None):
+    """Mean squared error, over the pixels whose target is not
+    `ignore_value` when one is given (reference models/losses.py:45-57)."""
+    t = target.float()
+    if ignore_value is None:
+        return torch.mean((pred - t) ** 2)
+    m = (target != ignore_value).float()
+    return torch.sum((pred - t) ** 2 * m) / torch.clamp(torch.sum(m),
+                                                        min=1.0)
+
+
+def adversarial_loss(outputs, is_real, is_disc=None, loss_type='nsgan',
+                     real_label=1.0, fake_label=0.0):
+    """GAN loss (reference models/losses.py:5-42): nsgan (BCE on sigmoid
+    outputs), lsgan (MSE), hinge."""
+    o = outputs.float()
+    if loss_type == 'hinge':
+        if is_disc:
+            o = -o if is_real else o
+            return torch.mean(torch.relu(1.0 + o))
+        return torch.mean(-o)
+    label = torch.full_like(o, real_label if is_real else fake_label)
+    if loss_type == 'nsgan':
+        return bce(o, label)
+    if loss_type == 'lsgan':
+        return torch.mean((o - label) ** 2)
+    raise ValueError(loss_type)
+
+
+def gram_matrix(feat):
+    """(N, H, W, C) -> (N, C, C) Gram matrix over C * H * W
+    (losses.py:91-97)."""
+    n, h, w, c = feat.shape
+    f = feat.reshape(n, h * w, c)
+    return torch.einsum('nxc,nxd->ncd', f, f) / (c * h * w)
+
+
+def _l1(a, b):
+    return torch.mean(_abs(a - b))
+
+
+def total_variation_loss(image):
+    """(N, H, W, C) mean |one-pixel shift| along W plus along H
+    (losses.py:100-104)."""
+    return (_l1(image[:, :, :-1], image[:, :, 1:]) +
+            _l1(image[:, :-1], image[:, 1:]))
+
+
+def inpainting_loss(inp, mask, output, gt, extractor=None):
+    """The hole / valid / perceptual / style / tv terms of the partial-
+    convolution inpainting loss (losses.py:107-145), NHWC. extractor(img)
+    -> [feat1, feat2, feat3] (the VGG16 slices, models/legacy); without
+    one the perceptual ('prc') and style terms are left out. A 1-channel
+    image is tiled to 3 channels for the extractor. Returns {term:
+    scalar}."""
+    comp = mask * inp + (1 - mask) * output
+    out = {'hole': _l1((1 - mask) * output, (1 - mask) * gt),
+           'valid': _l1(mask * output, mask * gt)}
+    if extractor is not None:
+        def to3(t):
+            return t if t.shape[-1] == 3 else t.repeat(1, 1, 1, 3)
+        f_comp = extractor(to3(comp))
+        f_out = extractor(to3(output))
+        f_gt = extractor(to3(gt))
+        out['prc'] = sum(_l1(a, g) + _l1(c, g) for a, c, g in
+                         zip(f_out, f_comp, f_gt))
+        out['style'] = sum(
+            _l1(gram_matrix(a), gram_matrix(g)) +
+            _l1(gram_matrix(c), gram_matrix(g))
+            for a, c, g in zip(f_out, f_comp, f_gt))
+    out['tv'] = total_variation_loss(comp)
+    return out

@@ -192,7 +192,7 @@ def test_eval_diw_matches_jax_on_fake_reader():
 
 
 @pytest.mark.parametrize('gt', ['constant', 'ramp', 'missing'])
-def test_eval_dense_depth_matches_jax_on_fake_reader(gt):
+def test_eval_dense_depth_matches_jax_on_fake_reader(gt, tmp_path):
     rng = np.random.RandomState(7)
     maps = {'constant': np.full((362, 1224), 5.0, np.float32),
             'ramp': np.where(rng.rand(362, 1224) < 0.3, np.linspace(
@@ -214,9 +214,12 @@ def test_eval_dense_depth_matches_jax_on_fake_reader(gt):
     assert sorted(got) == sorted(want)
     for k in want:
         assert abs(got[k] - want[k]) <= 1e-12 * max(abs(want[k]), 1), k
-    with pytest.raises(NotImplementedError, match='queue 1 item 4'):
-        TDISP.eval_dense_depth(fwd, FakeKITTIReader(), 'kitti',
-                               read_gt_depth=read_gt, save_dir='x')
+    # save_dir writes the debug PNGs (pixels held against JAX's in
+    # tests/test_torch_pngs.py) and leaves the metrics as they are
+    assert TDISP.eval_dense_depth(fwd, FakeKITTIReader(), 'kitti',
+                                  read_gt_depth=read_gt, log=quiet,
+                                  save_dir=str(tmp_path)) == got
+    assert (tmp_path / 'pred_disp').is_dir() == (gt != 'missing')
 
 
 @pytest.fixture(scope='module')

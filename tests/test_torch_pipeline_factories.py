@@ -50,7 +50,8 @@ KERNELS = ('fused_bottleneck', 'fused_bottleneck_down', 'fused_stem',
            'fused_bottleneck_i8v2_hwnc', 'fused_bottleneck_i8v2_hwnc_stage',
            'fused_bottleneck_down_s2_i8v2_hwnc',
            'fused_bottleneck_down_i8v2_hwnc')
-NUM_CLASSES = {'InstaOrderNet_o': 2, 'InstaOrderNet_od': [2, 3]}
+NUM_CLASSES = {'InstaOrderNet_o': 2, 'InstaOrderNet_od': [2, 3],
+               'InstaOrderNet_d': 3}
 
 
 @pytest.fixture
@@ -95,20 +96,30 @@ def same_fold_and_scales(monkeypatch, j, t, calib):
     monkeypatch.setattr(JQ, 'calibrate_folded_resnet', lambda *a: want)
 
 
-def _probs(out1, out2):
+def _depth_probs(d1, d2):
+    """decode_depth's averaged softmax [closer, farther, equal] of the
+    (i, j) direction (d2 None: directions=1)."""
+    def sm(o):
+        o = np.asarray(o, np.float64)
+        e = np.exp(o - o.max(-1, keepdims=True))
+        return e / e.sum(-1, keepdims=True)
+    if d2 is None:
+        return sm(d1)
+    d1, d2 = sm(d1), sm(d2)
+    return np.stack([(d1[:, 0] + d2[:, 1]) / 2, (d1[:, 1] + d2[:, 0]) / 2,
+                     (d1[:, 2] + d2[:, 2]) / 2], axis=1)
+
+
+def _probs(out1, out2, method):
     """JAX's occlusion (p_ij, p_ji) and depth softmax averages."""
+    if method == 'InstaOrderNet_d':
+        return {'depth': _depth_probs(out1, out2)}
     sig = lambda o: 1.0 / (1.0 + np.exp(-np.asarray(o, np.float64)))
     occ = lambda o: o[0] if isinstance(o, tuple) else o
     s1, s2 = sig(occ(out1)), sig(occ(out2))
     probs = {'occ': ((s1[:, 1] + s2[:, 0]) / 2, (s1[:, 0] + s2[:, 1]) / 2)}
     if isinstance(out1, tuple):
-        def sm(o):
-            e = np.exp(np.asarray(o, np.float64))
-            return e / e.sum(-1, keepdims=True)
-        d1, d2 = sm(out1[1]), sm(out2[1])
-        probs['depth'] = np.stack([(d1[:, 0] + d2[:, 1]) / 2,
-                                   (d1[:, 1] + d2[:, 0]) / 2,
-                                   (d1[:, 2] + d2[:, 2]) / 2], axis=1)
+        probs['depth'] = _depth_probs(out1[1], out2[1])
     return probs
 
 
@@ -133,6 +144,9 @@ def _sure_cells(pidx, valid, probs, kind, margin=1e-2):
 def _matrices(jp, tp, image, masks, bboxes, dual):
     """[(port matrix, JAX matrix, kind)] of the infer_* methods."""
     args = (image, masks, bboxes)
+    if tp.method == 'InstaOrderNet_d':
+        return [(tp.infer_depth_order(*args), jp.infer_depth_order(*args),
+                 'depth')]
     if not dual:
         return [(tp.infer_occ_order(*args), jp.infer_occ_order(*args),
                  'occ')]
@@ -166,7 +180,7 @@ def hold_factory(jp, tp, image, masks, bboxes, bar, exact, dual, e2e=True):
 
     pidx, jvalid, j1, j2, _ = jp._pair_outputs(image, masks, bboxes)
     jvalid = np.asarray(jvalid)
-    probs = _probs(j1, j2)
+    probs = _probs(j1, j2, tp.method)
     scale = np.abs(np.asarray(j1[0] if dual else j1)).max()
     assert scale > 0.1, 'degenerate test net'
     build = tp._build_batch

@@ -181,12 +181,18 @@ def test_port_imports_without_jax():
               'train.algos', 'train.optim', 'losses', 'core.schedule',
               'data.datasets', 'data.loader', 'data.sampler',
               'cli.train', 'models.midas', 'eval.disp', 'utils.midas_io',
-              'cli.test_disp'):
+              'cli.test_disp', 'models.legacy', 'ops.crf',
+              'utils.visualize', 'utils.profiling'):
         assert 'instaorder_tpu_torch.' + m in mods, m
     code = ('import sys; sys.modules["jax"] = None; '
             'sys.modules["instaorder_tpu"] = None; import importlib\n'
             f'for m in {mods!r}: importlib.import_module(m)\n'
             'import chip_smoke\n'
+            # the grain path: mode='grain' imports grain.python, which
+            # itself tries jax
+            'from instaorder_tpu_torch.data.loader import DataLoader\n'
+            'assert list(DataLoader(None, [], 1, mode="grain")) == []\n'
+            'assert "grain.python" in sys.modules\n'
             'bad = [m for m in sys.modules if m == "jax" and sys.modules[m] '
             'is not None or m.startswith("jax.")]\n'
             'assert not bad, bad\n')

@@ -33,6 +33,8 @@ from instaorder_tpu.models.registry import get_backbone as jget
 
 from instaorder_tpu_torch.eval.tester import Tester as TTester
 
+from test_torch_train_step import one_torch_thread  # noqa: F401 (a fixture)
+
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 import chip_smoke as CS  # noqa: E402

@@ -829,8 +829,14 @@ def test_cli_test_matches_jax(tmp_path, monkeypatch, capsys):
     got = tcli.main(argv + ['--device', 'cpu'])
     assert capsys.readouterr().out.strip().splitlines()[-1] == str(got)
     assert str(got) == want
-    with pytest.raises(NotImplementedError, match='queue 1 item 4'):
-        tcli.main(argv + ['--device', 'cpu', '--save_pngs', '1'])
+    # --save_pngs writes the PNGs under the Tester's default out_pngs/
+    # (tests/test_torch_pngs.py holds their pixels against JAX's; the
+    # area heuristic: no net to run again)
+    monkeypatch.chdir(tmp_path)
+    tcli.main(argv + ['--device', 'cpu', '--save_pngs', '1',
+                      '--order_method', 'area'])
+    assert len(list((tmp_path / 'out_pngs' / 'occ_order').glob('*.png'))) \
+        == 2
     # --disp_select_method runs the disparity route (an InstaDepthNet_d
     # YAML; a trimmed net in place of the full-width one)
     monkeypatch.setattr(TDISP, 'make_disp_forward', tiny_disp_forward)
@@ -880,8 +886,10 @@ def test_tester_unported_routes_raise(tmp_path, monkeypatch):
         for k, v in kw.items():
             setattr(a, k, v)
         return a
-    with pytest.raises(NotImplementedError, match='queue 1 item 4'):
-        TT.Tester(args(save_pngs=1), device='cpu')
+    # save_pngs now runs (the PNGs against JAX's: tests/test_torch_pngs.py)
+    t = TT.Tester(args(save_pngs=1, order_method='area'), device='cpu')
+    t.run()
+    assert sorted(os.listdir(tmp_path / 'mask')) == ['000000001000.png']
     # the PartialCompletionMask method now runs (a UNet; its parity with
     # JAX's Tester is in tests/test_torch_amodal.py)
     a = args(order_method='PartialCompletionMask')
