@@ -270,6 +270,9 @@ Phases (any failed check raises and the script exits nonzero):
      products a MAC, two for an int8 A: the row's bound_ms) and of the
      f32 peak, the f32 stem rows' share of their design's floor (the
      same method at the K the kernel issues, 288 at C = 5), the
+     inventory's coverage line (every row of ops/inventory.KERNELS, one
+     per JAX Pallas function and mode, held against its plain version in
+     phase 2, else the script fails naming the missing rows), the
      `kernels` JSON line, then {"ok": true, "device": {...}}.
 Exits nonzero without a result when no CUDA device is present.
 """
@@ -278,6 +281,8 @@ import json
 import subprocess
 import sys
 import time
+
+from instaorder_tpu_torch.ops import inventory
 
 SCENES = 4
 INSTANCES = 10
@@ -335,53 +340,11 @@ V2F32 = {n: n + F32 for n in (STAGE, RUN, DOWN, IDEN, HWNCP, DOWN1H, IDENN,
 V2F32_ROWS = tuple(V2F32.values())
 # not a kernel: the v2 plain-chain blocks of a megastep, counted too
 PLAIN_V2 = 'plain v2 blocks'
-_CSRC = 'instaorder_tpu_torch/csrc/'
-SOURCES = {PREP: _CSRC + 'prep.cu', PREP_F32: _CSRC + 'prep.cu',
-           STAGE: _CSRC + 'bottleneck_v2.cu',
-           DOWN: _CSRC + 'bottleneck_v2.cu', IDEN: _CSRC + 'bottleneck_v2.cu',
-           RGB: _CSRC + 'prep.cu', IDEN16: _CSRC + 'bottleneck_v2.cu',
-           DOWN16: _CSRC + 'bottleneck_v2.cu', STEM: _CSRC + 'stem.cu',
-           STEMQ8: _CSRC + 'stem.cu',
-           I8: _CSRC + 'bottleneck_int8.cu', D8: _CSRC + 'bottleneck_int8.cu',
-           STEM8: _CSRC + 'stem.cu', I8H: _CSRC + 'bottleneck_int8.cu',
-           D8H1: _CSRC + 'bottleneck_int8.cu',
-           D8H2: _CSRC + 'bottleneck_int8.cu',
-           **{k: _CSRC + 'bottleneck_v2.cu' for k in (
-               HWNCP, DOWN1H, IDENN, DOWN1N, STAGE16, SSTAGE16, HWNC16,
-               RUN)},
-           **{k: _CSRC + 'bottleneck_f32.cu' for k in (
-               IDEN32, DOWN32, STAGE32, SSTAGE32, HWNC32)},
-           STEM32: _CSRC + 'stem.cu', RGB32: _CSRC + 'prep.cu',
-           **{V2F32[k]: _CSRC + 'bottleneck_f32.cu' for k in V2F32
-              if k != STEMQ8},
-           V2F32[STEMQ8]: _CSRC + 'stem.cu'}
-REPLACES = {PREP: 'instaorder_tpu/ops/prep_pallas.py:315',
-            PREP_F32: 'instaorder_tpu/ops/prep_pallas.py:316',
-            STAGE: 'instaorder_tpu/ops/pallas_blocks.py:1526',
-            DOWN: 'instaorder_tpu/ops/pallas_blocks.py:1010',
-            IDEN: 'instaorder_tpu/ops/pallas_blocks.py:739',
-            RGB: 'instaorder_tpu/ops/prep_pallas.py:200',
-            IDEN16: 'instaorder_tpu/ops/pallas_blocks.py:86',
-            DOWN16: 'instaorder_tpu/ops/pallas_blocks.py:1974',
-            STEM: 'instaorder_tpu/ops/pallas_blocks.py:2271',
-            STEMQ8: 'instaorder_tpu/ops/pallas_blocks.py:2271',
-            I8: 'instaorder_tpu/ops/pallas_blocks.py:460',
-            D8: 'instaorder_tpu/ops/pallas_blocks.py:2122',
-            STEM8: 'instaorder_tpu/ops/pallas_blocks.py:2354',
-            I8H: 'instaorder_tpu/ops/pallas_blocks.py:1134',
-            D8H1: 'instaorder_tpu/ops/pallas_blocks.py:1234',
-            D8H2: 'instaorder_tpu/ops/pallas_blocks.py:1348',
-            HWNCP: 'instaorder_tpu/ops/pallas_blocks.py:1787',
-            DOWN1H: 'instaorder_tpu/ops/pallas_blocks.py:872',
-            IDENN: 'instaorder_tpu/ops/pallas_blocks.py:551',
-            DOWN1N: 'instaorder_tpu/ops/pallas_blocks.py:633',
-            STAGE16: 'instaorder_tpu/ops/pallas_blocks.py:172',
-            SSTAGE16: 'instaorder_tpu/ops/pallas_blocks.py:259',
-            HWNC16: 'instaorder_tpu/ops/pallas_blocks.py:2439',
-            RUN: 'instaorder_tpu/ops/pallas_blocks.py:1526'}
-REPLACES.update({n + F32: REPLACES[n] for n in (
-    IDEN16, DOWN16, STAGE16, SSTAGE16, HWNC16, STEM, RGB)})
-REPLACES.update({V2F32[n]: REPLACES[n] for n in V2F32})
+# each row's CUDA source and the JAX line it replaces, from the port's
+# inventory of its kernels (ops/inventory.py), which the report holds
+# whole: every row of it must have been held against its plain version
+SOURCES = {k: src for k, (src, _) in inventory.rows().items()}
+REPLACES = {k: at for k, (_, at) in inventory.rows().items()}
 # the megasteps: (name, profile, megastep keywords, launches per step;
 # every other kernel must launch 0 times)
 V2_LAUNCHES = {PREP: 1, STAGE: 1, DOWN: 3, IDEN: 10}
@@ -5365,6 +5328,9 @@ def main():
             'plain_ms': r['plain_ms'], 'bound_ms': max(t_bytes, t_ops),
             'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
             'library_ms': None, 'conv_only_ms': r.get('conv_only_ms')})
+    print(inventory.coverage_line(results))
+    check(not inventory.missing_rows(results),
+          'every kernel row of the inventory held against its plain version')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

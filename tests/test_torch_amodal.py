@@ -59,6 +59,7 @@ from instaorder_tpu_torch.utils.geometry import dilate_square
 
 from test_torch_train_step import one_torch_thread  # noqa: F401 (a fixture)
 from test_torch_unet import seeded_net
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))

@@ -39,6 +39,7 @@ from instaorder_tpu_torch.ops import bottleneck_kernels as bk
 from instaorder_tpu_torch.ops import int8_kernels as ik
 from instaorder_tpu_torch.ops import pairs as TP
 from instaorder_tpu_torch.ops import prep_kernels as PK
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 OUT = 64
 LSB = 1.0 / (255 * 0.224) + 1e-6

@@ -22,6 +22,7 @@ from instaorder_tpu_torch.ops import bottleneck_bf16_kernels as BK16
 from instaorder_tpu_torch.ops import pairs as TP
 from instaorder_tpu_torch.ops import prep_kernels as PK
 from instaorder_tpu_torch.ops import stem_kernels as SK
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 DT = {'f32': (jnp.float32, torch.float32),
       'bf16': (jnp.bfloat16, torch.bfloat16)}

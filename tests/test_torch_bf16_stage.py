@@ -25,6 +25,7 @@ from instaorder_tpu_torch import convert
 from instaorder_tpu_torch.core.nn import tree_cast
 from instaorder_tpu_torch.models import folding as TF
 from instaorder_tpu_torch.ops import bottleneck_bf16_kernels as B16
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 DT = {'f32': (jnp.float32, torch.float32),
       'bf16': (jnp.bfloat16, torch.bfloat16)}

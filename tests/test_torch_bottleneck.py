@@ -16,6 +16,7 @@ import torch
 from instaorder_tpu.ops import pallas_blocks as PB
 
 from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 H = W = 16
 N = 2

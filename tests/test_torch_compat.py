@@ -33,6 +33,7 @@ from instaorder_tpu_torch.models import resnet as tresnet
 from instaorder_tpu_torch.models import unet as tunet
 
 from torch_ref import TorchMidasOracle, TorchResNetCls, TorchUNet
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 SMALL = (1, 1, 1, 1)
 

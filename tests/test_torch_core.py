@@ -21,6 +21,7 @@ from instaorder_tpu_torch.core import nn as tnn
 from instaorder_tpu_torch.eval import decode as tdecode
 from instaorder_tpu_torch.models import folding as tfolding
 from instaorder_tpu_torch.models import resnet as tresnet
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 torch.backends.cudnn.allow_tf32 = False
 

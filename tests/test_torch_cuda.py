@@ -20,6 +20,7 @@ k%."""
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 pytestmark = pytest.mark.cuda
 

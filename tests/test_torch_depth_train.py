@@ -60,6 +60,7 @@ from instaorder_tpu_torch.train import algos as TA
 
 from test_torch_train_step import (  # noqa: F401 (a fixture)
     one_torch_thread, recorded_relu, relu_on, worst)
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 SMALL = (1, 1, 1, 1)
 SIZE = 64

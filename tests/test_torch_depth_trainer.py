@@ -46,6 +46,7 @@ from instaorder_tpu_torch.train.trainer import Trainer
 
 from test_torch_train_step import one_torch_thread  # noqa: F401 (a fixture)
 from torch_ref import TorchMidasOracle
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = [1, 1, 1, 1]

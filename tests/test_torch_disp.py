@@ -41,6 +41,7 @@ from instaorder_tpu_torch.models import midas as tmidas
 from test_disp_eval import (FakeDIWReader, FakeKITTIReader,
                             gradient_disp_forward)
 from torch_ref import TorchMidasOracle
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 SMALL = (1, 1, 1, 1)
 MAKE_DISP_FORWARD = TDISP.make_disp_forward     # before any monkeypatch

@@ -43,6 +43,7 @@ from instaorder_tpu_torch.models import folding as TF
 from instaorder_tpu_torch.ops import gemm_layout
 from instaorder_tpu_torch.ops import pairs as TP
 from instaorder_tpu_torch.ops import prep_kernels as PK
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 OUT = 64
 LSB = 1.0 / (255 * 0.224) + 1e-6

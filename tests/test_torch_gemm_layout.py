@@ -13,6 +13,7 @@ from instaorder_tpu_torch import serving
 from instaorder_tpu_torch.models import quantize as TQ
 from instaorder_tpu_torch.ops import gemm_layout as GL
 from instaorder_tpu_torch.ops import int8_kernels as IK
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 
 @pytest.mark.parametrize('cout,bn', [(64, 64), (128, 128), (192, 64),

@@ -48,6 +48,7 @@ from instaorder_tpu_torch.utils.geometry import crop_padding, mask_to_bbox
 from test_torch_legacy import F64_BAR, bn_in_dtype, seeded, structure
 from test_torch_amodal import (CS, PROB_BAR, SIZE, TH, completers,  # noqa
                                moved_net, one_torch_thread, scene)
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 NEAR = 1e-4
 

@@ -30,6 +30,7 @@ from instaorder_tpu_torch.models import folding as TF
 from instaorder_tpu_torch.models import quantize as TQ
 from instaorder_tpu_torch.ops import int8_kernels as IK
 from instaorder_tpu_torch.ops import stem_kernels as SK
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 OUT = 64
 KERNELS = ('fused_bottleneck_int8', 'fused_bottleneck_down_int8',

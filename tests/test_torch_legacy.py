@@ -65,6 +65,7 @@ from instaorder_tpu_torch.core.nn import tree_cast, tree_leaves, tree_map
 from instaorder_tpu_torch.models import legacy as TLG
 
 from test_torch_train_step import one_torch_thread  # noqa: F401 (a fixture)
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 BAR = 1e-5
 LOSS_BAR = 1e-5
 GRAD_BAR = 1e-4

@@ -38,6 +38,7 @@ from instaorder_tpu_torch.data import synthetic
 
 from test_torch_train_data import assert_samples_match
 from test_torch_unet import REPO
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 
 @pytest.fixture(scope='module')

@@ -25,6 +25,7 @@ from instaorder_tpu_torch.models import midas as tmidas
 from instaorder_tpu_torch.models import registry as TREG
 from instaorder_tpu_torch.models import resnet as tresnet
 from instaorder_tpu_torch.ops import resize as tresize
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 BAR = 1e-5
 SMALL = (1, 1, 1, 1)

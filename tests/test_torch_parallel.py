@@ -44,6 +44,7 @@ import torch_parallel_ranks as R
 from test_torch_train_step import (  # noqa: F401 (a fixture)
     NET, jax_net, leaves, make_batch, one_torch_thread, relu_on, to_port,
     worst)
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 WORLD = 4
 HYPER = {'use_rgb': True}

@@ -31,6 +31,7 @@ import torch_parallel_ranks as R
 from test_torch_parallel import _jax_step_on_branches, stacked
 from test_torch_trainer import REPO, config_file, make_args  # noqa: F401
 from test_torch_train_step import leaves
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 WORLD = 2
 

@@ -44,6 +44,7 @@ from test_torch_train_data import assert_samples_match
 from test_torch_train_step import (  # noqa: F401 (a fixture)
     one_torch_thread, recorded_relu, relu_on)
 from test_torch_unet import REPO, pool_on, recorded_pool, seeded_net
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 SAMPLES = 6
 

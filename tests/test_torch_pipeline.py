@@ -29,6 +29,7 @@ from instaorder_tpu.models import resnet as jresnet
 from instaorder_tpu_torch import convert
 from instaorder_tpu_torch.eval import pipeline as TPL
 from instaorder_tpu_torch.models import resnet as tresnet
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 F32_BAR = 1e-5
 

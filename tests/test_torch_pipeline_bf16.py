@@ -14,6 +14,7 @@ from test_torch_pipeline_factories import (KFEATS, KW, _nets, hold_factory,
                                            interpret)  # noqa: F401
 
 from instaorder_tpu_torch.eval import pipeline as TPL
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 
 @pytest.mark.parametrize('method', ['InstaOrderNet_o', 'InstaOrderNet_od'])

@@ -41,6 +41,7 @@ from test_torch_pipeline_factories import (KFEATS, KW, _calib, _nets,
 from instaorder_tpu_torch import convert
 from instaorder_tpu_torch.eval import pipeline as TPL
 from instaorder_tpu_torch.ops import bottleneck_bf16_kernels as B16
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 D = 'InstaOrderNet_d'
 BF16_SETS = ('stage', 'sstage', 'hwnc')

@@ -44,6 +44,7 @@ from instaorder_tpu_torch import convert
 from instaorder_tpu_torch.eval import pipeline as TPL
 from instaorder_tpu_torch.models import quantize as TQ
 from instaorder_tpu_torch.models.folding import fold_resnet as t_fold
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 KFEATS = ('identity', 'down', 'stem')
 KERNELS = ('fused_bottleneck', 'fused_bottleneck_down', 'fused_stem',
@@ -141,20 +142,25 @@ def _sure_cells(pidx, valid, probs, kind, margin=1e-2):
     return tuple(np.asarray(cells).T)
 
 
-def _matrices(jp, tp, image, masks, bboxes, dual):
-    """[(port matrix, JAX matrix, kind)] of the infer_* methods."""
+def _infer(p, method, image, masks, bboxes, dual):
+    """[(matrix, kind)] of predictor p's infer_* method for its head."""
     args = (image, masks, bboxes)
-    if tp.method == 'InstaOrderNet_d':
-        return [(tp.infer_depth_order(*args), jp.infer_depth_order(*args),
-                 'depth')]
+    if method == 'InstaOrderNet_d':
+        return [(p.infer_depth_order(*args), 'depth')]
     if not dual:
-        return [(tp.infer_occ_order(*args), jp.infer_occ_order(*args),
-                 'occ')]
-    got = list(zip(tp.infer_occ_depth_order(*args),
-                   jp.infer_occ_depth_order(*args), ('occ', 'depth')))
-    np.testing.assert_array_equal(tp.infer_depth_order(*args), got[1][0])
-    np.testing.assert_array_equal(tp.infer_occ_order(*args), got[0][0])
-    return got
+        return [(p.infer_occ_order(*args), 'occ')]
+    return list(zip(p.infer_occ_depth_order(*args), ('occ', 'depth')))
+
+
+def _matrices(want, tp, image, masks, bboxes, dual):
+    """[(port matrix, JAX matrix, kind)] of the infer_* methods; `want`
+    is _infer of the JAX predictor on the same scene."""
+    got = _infer(tp, tp.method, image, masks, bboxes, dual)
+    if len(got) == 2:
+        args = (image, masks, bboxes)
+        np.testing.assert_array_equal(tp.infer_occ_order(*args), got[0][0])
+        np.testing.assert_array_equal(tp.infer_depth_order(*args), got[1][0])
+    return [(g, w, kind) for (g, kind), (w, _) in zip(got, want)]
 
 
 def _hold_matrices(mats, exact, pidx, valid, probs):
@@ -183,6 +189,9 @@ def hold_factory(jp, tp, image, masks, bboxes, bar, exact, dual, e2e=True):
     probs = _probs(j1, j2, tp.method)
     scale = np.abs(np.asarray(j1[0] if dual else j1)).max()
     assert scale > 0.1, 'degenerate test net'
+    # JAX's matrices, computed once: both checks below hold the port's to
+    # the same JAX predictor on the same scene
+    want = _infer(jp, tp.method, image, masks, bboxes, dual)
     build = tp._build_batch
     tp._build_batch = lambda *a: (torch.from_numpy(xj).to(tp.prep_dtype),
                                   None)
@@ -191,13 +200,13 @@ def hold_factory(jp, tp, image, masks, bboxes, bar, exact, dual, e2e=True):
         np.testing.assert_array_equal(tvalid.numpy(), jvalid)
         assert_logits_close(t1, j1, bar)
         assert_logits_close(t2, j2, bar)
-        _hold_matrices(_matrices(jp, tp, image, masks, bboxes, dual), exact,
-                       pidx, jvalid, probs)
+        _hold_matrices(_matrices(want, tp, image, masks, bboxes, dual),
+                       exact, pidx, jvalid, probs)
     finally:
         tp._build_batch = build
     if e2e:
-        _hold_matrices(_matrices(jp, tp, image, masks, bboxes, dual), exact,
-                       pidx, jvalid, probs)
+        _hold_matrices(_matrices(want, tp, image, masks, bboxes, dual),
+                       exact, pidx, jvalid, probs)
 
 
 def _nets(method):

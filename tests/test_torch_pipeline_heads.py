@@ -14,6 +14,7 @@ from test_torch_pipeline import (_batches, assert_logits_close, hold, net,
 
 from instaorder_tpu_torch.eval import pipeline as TPL
 from instaorder_tpu_torch.models import resnet as tresnet
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 
 def test_pallas5_prep_matches_jax_interpret():

@@ -31,6 +31,7 @@ from instaorder_tpu_torch.ops import pairs as TP
 from instaorder_tpu_torch.ops import prep_kernels as PK
 from instaorder_tpu_torch.ops import resize as TR
 from instaorder_tpu_torch.utils.geometry import get_closest_int_multiple_of
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 OUT = 64
 LSB_F32 = 1.0 / (255.0 * 0.224) + 1e-6

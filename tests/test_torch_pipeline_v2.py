@@ -13,6 +13,7 @@ from test_torch_pipeline_factories import (KW, _calib, _nets, hold_factory,
                                            same_fold_and_scales)
 
 from instaorder_tpu_torch.eval import pipeline as TPL
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 
 @pytest.mark.parametrize('method', ['InstaOrderNet_o', 'InstaOrderNet_od'])

@@ -37,6 +37,7 @@ from instaorder_tpu.utils import visualize as JV
 from instaorder_tpu_torch.eval import disp as TDISP
 from instaorder_tpu_torch.eval.tester import Tester as TTester
 from instaorder_tpu_torch.utils import visualize as TV
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 
 @pytest.fixture(scope='module')

@@ -19,6 +19,7 @@ from instaorder_tpu.ops.prep_pallas import fused_prep_pairs as j_fused
 
 from instaorder_tpu_torch.ops import pairs as TP
 from instaorder_tpu_torch.ops import prep_kernels as PK
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 OUT = 64
 

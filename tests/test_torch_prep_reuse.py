@@ -23,6 +23,7 @@ import torch
 
 from instaorder_tpu_torch.ops import pairs as TP
 from instaorder_tpu_torch.ops import prep_kernels as PK
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 OUT = 20
 H, W = 37, 29

@@ -23,6 +23,7 @@ from instaorder_tpu.utils import profiling as JP
 import instaorder_tpu_torch.utils as TU
 from instaorder_tpu_torch.utils import geometry as TG
 from instaorder_tpu_torch.utils import profiling as TP
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 
 @pytest.mark.parametrize('h,w,c', [(224, 224, 3), (256, 256, 5),

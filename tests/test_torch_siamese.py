@@ -27,6 +27,7 @@ from instaorder_tpu_torch import convert, serving
 from instaorder_tpu_torch.core.nn import tree_cast
 from instaorder_tpu_torch.models import folding as TF
 from instaorder_tpu_torch.models import quantize as TQ
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 OUT = 64
 FEATURES = [False, True, ('identity', 'down', 'stem')]

@@ -27,6 +27,7 @@ from instaorder_tpu.ops import pallas_blocks
 
 from instaorder_tpu_torch import convert, device, serving
 from instaorder_tpu_torch.models import quantize as TQ
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 REPO = Path(__file__).resolve().parent.parent
 OUT = 64

@@ -31,6 +31,7 @@ from instaorder_tpu_torch.models import quantize as Q
 from instaorder_tpu_torch.ops import gemm_layout
 from instaorder_tpu_torch.ops import stem_kernels as SK
 from instaorder_tpu_torch.ops.int8_kernels import requant
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 SIZES = [30, 36, 50, 64]
 

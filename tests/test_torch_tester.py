@@ -34,6 +34,7 @@ from instaorder_tpu.models.registry import get_backbone as jget
 from instaorder_tpu_torch.eval.tester import Tester as TTester
 
 from test_torch_train_step import one_torch_thread  # noqa: F401 (a fixture)
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))

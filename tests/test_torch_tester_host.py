@@ -57,6 +57,7 @@ from instaorder_tpu_torch.models import resnet as tresnet
 from instaorder_tpu_torch.models import unet as tunet
 from instaorder_tpu_torch.utils import geometry as TG
 from instaorder_tpu_torch.utils import telemetry as TTEL
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))

@@ -42,6 +42,7 @@ from instaorder_tpu_torch.train import step as TST
 from test_torch_train_step import (  # noqa: F401 (a fixture)
     NET, SIZE, jax_net, jax_value_and_grad, leaves, make_batch,
     one_torch_thread, port_value_and_grad, to_port, worst)
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 REPO = Path(__file__).resolve().parent.parent
 LAYERS = (1, 1, 1, 1)

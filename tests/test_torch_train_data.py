@@ -25,6 +25,7 @@ from instaorder_tpu_torch.data import synthetic
 from instaorder_tpu_torch.ops import resize as TR
 
 from test_torch_train_step import one_torch_thread  # noqa: F401 (a fixture)
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 SIZE = 64
 SAMPLES = 6

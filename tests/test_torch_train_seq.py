@@ -17,6 +17,7 @@ from instaorder_tpu_torch.train import step as TST
 from test_torch_train_step import (  # noqa: F401 (a fixture)
     CASES, NET, check_loss_grads_stats, jax_net, make_batch,
     one_torch_thread, to_port)
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 
 @pytest.fixture(scope='module')

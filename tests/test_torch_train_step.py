@@ -53,6 +53,7 @@ from instaorder_tpu_torch.models.registry import get_backbone
 from instaorder_tpu_torch.train import algos as TA
 from instaorder_tpu_torch.train import optim as TO
 from instaorder_tpu_torch.train import step as TST
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 LAYERS = (1, 1, 1, 1)
 SIZE = 64

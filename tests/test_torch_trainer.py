@@ -28,6 +28,7 @@ from instaorder_tpu_torch.eval.tester import Tester
 from instaorder_tpu_torch.train.trainer import Trainer
 
 from test_torch_train_step import one_torch_thread  # noqa: F401 (a fixture)
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))

@@ -26,6 +26,7 @@ from instaorder_tpu_torch.train.trainer import Trainer
 from test_torch_train_step import (  # noqa: F401 (a fixture)
     one_torch_thread, recorded_relu, relu_on)
 from test_torch_trainer import make_args
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 
 @pytest.fixture(scope='module')

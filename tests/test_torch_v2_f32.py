@@ -43,6 +43,7 @@ from instaorder_tpu_torch.models import quantize as TQ
 from instaorder_tpu_torch.ops import bottleneck_kernels as BK
 from instaorder_tpu_torch.ops import gemm_layout
 from instaorder_tpu_torch.ops import stem_kernels as SK
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 N, H = 2, 16
 # kernel feature sets of the forward: the default, its q8 stem, and the

@@ -45,6 +45,7 @@ from instaorder_tpu.ops import pallas_blocks
 
 from instaorder_tpu_torch import serving
 from instaorder_tpu_torch.models import quantize as TQ
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 # the JAX kernels of the v2 default feature set (hwnc, down2, hwncs1d)
 KERNELS = ('fused_bottleneck_i8v2_hwnc', 'fused_bottleneck_i8v2_hwnc_stage',

@@ -29,6 +29,7 @@ from instaorder_tpu_torch import convert, serving
 from instaorder_tpu_torch.models import folding as TF
 from instaorder_tpu_torch.models import quantize as TQ
 from instaorder_tpu_torch.ops import bottleneck_kernels as BK
+import torch_threads  # noqa: F401 (the suite's torch thread cap)
 
 N, H = 3, 16
 JAX_KERNELS = ('fused_bottleneck_i8v2_hwnc', 'fused_bottleneck_i8v2_hwnc_stage',
