@@ -15,11 +15,29 @@ prints one JSON line for the kernels plus a final status line.
 
     python3 chip_smoke.py
 
+The CPU references of every card-vs-CPU comparison (the CPU f64 and f32
+steps, the CPU Tester, predictor, forward and megastep runs) run in a
+pool of spawned worker processes beside the card's phases (RefPool:
+REF_WORKERS workers at niceness 19 with an equal share of the cores in
+torch threads each, stopped while the card's phases time anything). The
+references that need only seeds and fixtures (phases 6, 8, 9, 10, 11)
+start with the script; those of phases 3, 4, 5 and 7, which need what the
+card built or centred, start as the phase builds it, and their
+comparisons run after phase 11 (phase 12). Each phase prints its wall
+seconds, the seconds this process spent in (or waiting for) CPU
+references, the CPU seconds of this process, of the reference workers
+and of its ended children, and the host's least available memory and
+highest load; a `timing:` line before the last ones sums them, with each
+reference job's seconds in its worker. A phase run alone (its pool
+argument None) opens a pool of its own, so a script calling it keeps
+its work under a main guard.
+
 Phases (any failed check raises and the script exits nonzero):
   1. build the CUDA sources (instaorder_tpu_torch/csrc) with nvcc; print
-     the build time and the card's name and power limit; set this
-     process's malloc to reuse freed blocks (keep_freed_heap: the CPU
-     references' large tensors would fault their pages in afresh);
+     the build time and the card's name and power limit, and the host's
+     core counts; set this process's malloc to reuse freed blocks
+     (keep_freed_heap: the CPU references' large tensors would fault
+     their pages in afresh; the pool's workers do the same);
   2. each kernel vs its plain version on the card, at the serving
      batch: the preps (5-channel with bf16 and with f32 output, RGB) on
      4 synthetic 480x640 scenes of 10 instances (180 pairs; the f32
@@ -73,11 +91,11 @@ Phases (any failed check raises and the script exits nonzero):
      the f32 and bf16 (identity,down,stem) folded, int8c and v2
      factories with infer_depth_order, and the dual head on the bf16
      stage, sstage and hwnc sets and on int8c hwnc,down,stem. For each:
-     the launches of every infer call,
-     the matrices (and logits) on the card against the same predictor
-     moved to the CPU on the two smallest scenes (the depth-only head's
-     bf16 / v2 matrices at the pairs whose log(top / next) exceeds 4x
-     the logit error its bar allows on every pair), and the per-image ms
+     the launches of every infer call, the matrices (and logits) on the
+     card against the same predictor moved to the CPU on the smallest
+     scene (the depth-only head on the two smallest; its bf16 / v2
+     matrices at the pairs whose log(top / next) exceeds 4x the logit
+     error its bar allows on every pair), and the per-image ms
      of infer_occ_order at each bucket with images/s over the four
      scenes;
   5. the Tester (eval/tester.py, JAX's tools/test.py counterpart) on
@@ -93,11 +111,12 @@ Phases (any failed check raises and the script exits nonzero):
      area, yaxis) and on KINS. Each runs through Tester(device=None)
      .run() on the card, where it launches no kernel (JAX's Tester
      reaches none: the unfolded f32 resnet.apply, cuDNN with TF32 off),
-     and through the same Tester on the CPU: ground truth and heuristic
-     matrices equal everywhere, model matrices equal at every sure cell,
-     the metrics equal wherever no cell differs (so wherever every cell
-     is sure); per-image ms on the card for each run, and the
-     prediction's share;
+     and through the same Tester on the CPU over the first
+     TESTER_CPU_IMAGES (2) images: ground truth and heuristic matrices
+     equal everywhere, model matrices equal at every sure cell, the
+     card's metrics over those images (first_tester_metrics) equal to
+     the CPU's wherever no cell differs (so wherever every cell is sure);
+     per-image ms on the card for each run, and the prediction's share;
   6. training (train/trainer.py, JAX's trainer.py counterpart) on the
      same InstaOrder fixture, every step autograd over cuDNN f32 (TF32
      off; JAX's training reaches no Pallas kernel, so no kernel launches
@@ -192,13 +211,14 @@ Phases (any failed check raises and the script exits nonzero):
      TorchMidasOracle, torch only) written with torch.save and given to
      the _od Trainer as pretrained_weight: every trunk and decoder leaf
      the file's, the branches at their init; (b) one SGD step of _d and
-     of _od at full width on 2 samples of 384^2, card against the CPU's
-     f64 step (the CPU f64 run's ReLU branch and pool argmaxes): loss
-     within 1e-5 relative (without the violation count where a pixel
-     lies within 1e-5 of its threshold), updates within 1e-3, the
-     statistics as in phase 6, the violation count equal where no pixel
-     is near a threshold (else the flipped pixels printed), the CPU f32
-     run's distances beside, the host's peak RSS; (c) the _d YAML through
+     of _od at full width on DEPTH_XDEV samples (1) of 384^2, card
+     against the CPU's f64 step (the CPU f64 run's ReLU branch and pool
+     argmaxes): loss within 1e-5 relative (without the violation count
+     where a pixel lies within 1e-5 of its threshold), updates within
+     1e-3, the statistics as in phase 6, the violation count equal where
+     no pixel is near a threshold (else the flipped pixels printed), the
+     CPU f32 run's distances beside, the reference worker's peak RSS;
+     (c) the _d YAML through
      Trainer(device=None).train() at batch 12 (its pretrained_weight
      missing: the warning checked), 4 steps, a checkpoint, a new Trainer
      resuming to 6, validate() finite, the Tester's disparity route and
@@ -265,7 +285,9 @@ Phases (any failed check raises and the script exits nonzero):
      PConvUNet forward traced by utils/profiling.trace into a temporary
      directory (the device kernels and busy ms of its Chrome trace); the
      phase's seconds;
- 12. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
+ 12. the deferred comparisons of phases 3, 4, 5 and 7, each as its
+     reference job ends;
+ 13. each stem row's achieved TFLOP/s (TOP/s) at its real K = 245, each
      f32 row's share of its 3xTF32 bound (495 TF32 TFLOP/s, three
      products a MAC, two for an int8 A: the row's bound_ms) and of the
      f32 peak, the f32 stem rows' share of their design's floor (the
@@ -273,11 +295,14 @@ Phases (any failed check raises and the script exits nonzero):
      inventory's coverage line (every row of ops/inventory.KERNELS, one
      per JAX Pallas function and mode, held against its plain version in
      phase 2, else the script fails naming the missing rows), the
-     `kernels` JSON line, then {"ok": true, "device": {...}}.
+     `timing:` line, the card's line, the `kernels` JSON line, then
+     {"ok": true, "device": {...}}.
 Exits nonzero without a result when no CUDA device is present.
 """
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -433,6 +458,334 @@ def check(ok, what):
         raise RuntimeError(f'chip_smoke check failed: {what}')
 
 
+class PhaseClock:
+    """The wall seconds of each phase of main and, within it, the seconds
+    this process spent computing or awaiting CPU references (the CPU f64
+    and f32 runs, the CPU Tester / predictor / forward references), by
+    label. A reference outside any phase (a phase run alone) counts under
+    its label only."""
+
+    def __init__(self):
+        self.phases = []            # [name, wall s, reference s]
+        self.refs = {}              # label: s
+        self.pool = {}              # label: a pool job's s in its worker
+        self.workers = list         # the open pool's worker pids
+        self._open = None
+        self._host = [float('inf'), 0.0]    # the phase's least MemAvailable
+        #                                   # (GiB) and highest 1-min load
+
+    def watch(self, every=2.0):
+        """Sample the host's available memory (/proc/meminfo) and 1-minute
+        load average every `every` s in a daemon thread; each phase's
+        line prints the least and the highest."""
+        import threading
+
+        def sample():
+            while True:
+                with open('/proc/meminfo') as f:
+                    kib = next(int(line.split()[1]) for line in f
+                               if line.startswith('MemAvailable:'))
+                self._host[0] = min(self._host[0], kib / 2 ** 20)
+                self._host[1] = max(self._host[1], os.getloadavg()[0])
+                time.sleep(every)
+        if os.path.exists('/proc/meminfo'):
+            threading.Thread(target=sample, daemon=True).start()
+
+    def _cpu(self):
+        """CPU seconds (user + system) of this process, of the open
+        reference pool's workers (/proc/<pid>/stat), and of this
+        process's children that have ended (the ranks, nvcc)."""
+        import resource
+        pool = 0.0
+        for pid in self.workers():
+            try:
+                with open(f'/proc/{pid}/stat') as f:
+                    fields = f.read().rsplit(')', 1)[1].split()
+                pool += (int(fields[11]) + int(fields[12])) / os.sysconf(
+                    'SC_CLK_TCK')
+            except (OSError, IndexError, ValueError):
+                pass            # an ended worker, or no /proc
+        me, ended = (sum(resource.getrusage(who)[:2]) for who in (
+            resource.RUSAGE_SELF, resource.RUSAGE_CHILDREN))
+        return me, pool, ended
+
+    def begin(self, name):
+        """End the open phase, if any, and start phase `name`."""
+        self.end()
+        self._open = [name, time.perf_counter(), 0.0, self._cpu()]
+        self.phases.append(self._open)
+        self._host = [float('inf'), 0.0]
+
+    def end(self):
+        """End the open phase: print its wall and reference seconds, the
+        CPU seconds of this process, of the reference workers and of its
+        ended children in it, the peak RSS so far and the host's extremes
+        (watch)."""
+        import resource
+        row, self._open = self._open, None
+        if row is None:
+            return
+        row[1] = time.perf_counter() - row[1]
+        cpu = [b - a for a, b in zip(row.pop(), self._cpu())]
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+        print(f'phase {row[0]}: {row[1]:.1f} s wall, {row[2]:.1f} s of it '
+              f'in CPU references; CPU {cpu[0]:.1f} s here, {cpu[1]:.1f} s '
+              f'in the reference workers, {cpu[2]:.1f} s in ended '
+              f'children; peak RSS so far {rss:.1f} GiB; host: '
+              f'least MemAvailable {self._host[0]:.1f} GiB, highest 1-min '
+              f'load {self._host[1]:.1f}')
+
+    @contextlib.contextmanager
+    def ref(self, label):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.refs[label] = self.refs.get(label, 0.0) + dt
+            if self._open is not None:
+                self._open[2] += dt
+
+    def line(self):
+        """The `timing:` summary: each phase's wall and reference seconds,
+        this process's reference seconds by label (computed here or
+        awaited from the pool) and each pool job's seconds in its
+        worker."""
+        return 'timing: ' + json.dumps({
+            'phases': {n: {'wall_s': round(w, 2), 'cpu_ref_s': round(r, 2)}
+                       for n, w, r in self.phases},
+            'total_s': round(sum(w for _, w, _ in self.phases), 2),
+            'cpu_refs_s': {k: round(v, 2) for k, v in self.refs.items()},
+            'pool_job_s': {k: round(v, 2) for k, v in self.pool.items()}})
+
+
+CLOCK = PhaseClock()
+
+# ---- the CPU references beside the card -------------------------------------
+# The reference pool's spawned worker processes, each at an equal share of
+# this process's cores in torch threads and at the lowest scheduling
+# priority, stopped while the card's phases time anything (quiet()): the
+# timings stay those of a quiet host, and the references take the cores
+# the rest of the time.
+REF_WORKERS = 4
+# the longest the main process waits for one job: a worker that dies (the
+# host out of memory) leaves its job unfinished, and the script fails
+# instead of waiting out its own time limit
+REF_TIMEOUT = 600
+
+
+def ref_worker_init(threads, quiet):
+    """A reference pool worker (spawned: a fresh interpreter): in a
+    session of its own (a stopped worker never sits in the script's
+    process group, which the kernel hangs up when that group is orphaned
+    with a stopped member), no card visible (CUDA_VISIBLE_DEVICES empty,
+    so a stray CUDA call raises), niceness 19, torch at `threads`
+    intra-op threads, glibc's malloc keeping freed blocks
+    (keep_freed_heap), the native RLE codec loaded as in the main
+    process; it takes no job while the pool is quiet."""
+    os.setsid()
+    os.environ['CUDA_VISIBLE_DEVICES'] = ''
+    os.nice(19)
+    import torch
+    from instaorder_tpu_torch import native
+    torch.set_num_threads(threads)
+    keep_freed_heap()
+    native.load()           # the RLE codec the main process uses
+    while quiet.is_set():
+        time.sleep(0.05)
+
+
+def run_ref(fn, args, path):
+    """One reference job in a worker: fn(*args) pickled to file `path`
+    (jobs return numpy arrays and Python values only; a file keeps the
+    large ones out of the pool's pipes and the main process's result
+    thread); then the worker's freed memory goes back to the system
+    (glibc's malloc_trim: the worker takes the next job). Returns the
+    job's seconds."""
+    import ctypes
+    import ctypes.util
+    import gc
+    import pickle
+    import torch
+    t0 = time.perf_counter()
+    out = fn(*args)
+    check(not torch.cuda.is_initialized(),
+          f'{fn.__name__}: a reference worker stays off the card')
+    with open(path, 'wb') as f:
+        pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+    seconds = time.perf_counter() - t0
+    del out
+    gc.collect()
+    ctypes.CDLL(ctypes.util.find_library('c') or 'libc.so.6').malloc_trim(0)
+    return seconds
+
+
+class RefPool:
+    """The CPU references in spawned worker processes (multiprocessing,
+    spawn context), computed while this process drives the card.
+    submit() starts a job; result() waits for it (the wait counted by
+    CLOCK as reference time), re-raising a job's exception so that its
+    phase fails; later() defers a check of a job's result to finish(),
+    which the context's exit runs; put() writes a job's large input to a
+    file; paused() stops the workers. The context sets quiet() to
+    paused(). On an exception the workers are terminated; either way the
+    pool's files and tempdir()'s directories are removed."""
+
+    def __init__(self, workers=REF_WORKERS):
+        import itertools
+        import multiprocessing
+        ctx = multiprocessing.get_context('spawn')
+        self.threads = max(1, len(os.sched_getaffinity(0)) // workers)
+        self._quiet, self._depth = ctx.Event(), 0
+        self._pool = ctx.Pool(workers, ref_worker_init,
+                              (self.threads, self._quiet))
+        self._jobs, self._later, self._dirs = {}, [], []
+        self._files = self.tempdir()
+        self._count = itertools.count()
+        print(f'reference pool: {workers} spawned workers at niceness 19, '
+              f'{self.threads} torch threads each')
+
+    def submit(self, label, fn, *args):
+        """Start job `label` = fn(*args) in a worker (once)."""
+        if label not in self._jobs:
+            path = os.path.join(self._files, f'out{next(self._count)}.pkl')
+            self._jobs[label] = (self._pool.apply_async(
+                run_ref, (fn, args, path)), path)
+        return label
+
+    def result(self, label, fn=None, *args):
+        """Job `label`'s result, submitting fn(*args) first if it is not
+        running yet."""
+        import pickle
+        if fn is not None:
+            self.submit(label, fn, *args)
+        job, path = self._jobs.pop(label)
+        with CLOCK.ref(label):
+            CLOCK.pool[label] = job.get(REF_TIMEOUT)
+            with open(path, 'rb') as f:
+                out = pickle.load(f)
+        os.remove(path)
+        return out
+
+    def put(self, torch, obj):
+        """obj written with torch.save to a file of the pool (any tensor
+        dtype, bf16 included, and module-level functions): a job's input,
+        which the job reads with torch.load. Returns the path."""
+        path = os.path.join(self._files, f'in{next(self._count)}.pt')
+        torch.save(obj, path)
+        return path
+
+    def later(self, label, fn, *args, then):
+        """Start job `label` = fn(*args); finish() calls then(its
+        result)."""
+        self.submit(label, fn, *args)
+        self._later.append((label, then))
+
+    def tempdir(self):
+        """A directory that lives until the pool closes (for a job's
+        files)."""
+        import tempfile
+        self._dirs.append(tempfile.mkdtemp(prefix='chip_smoke_'))
+        return self._dirs[-1]
+
+    def finish(self):
+        """Every deferred check, in the order deferred."""
+        while self._later:
+            label, then = self._later.pop(0)
+            then(self.result(label))
+
+    @contextlib.contextmanager
+    def paused(self):
+        """Every worker stopped (SIGSTOP) inside the block, and a worker
+        started meanwhile waits before its first job: the block runs on a
+        host without the references. Nests."""
+        import signal
+        self._depth += 1
+        if self._depth == 1:
+            self._quiet.set()
+            self._stopped = list(self._pool._pool)
+            for p in self._stopped:
+                signal_process(p.pid, signal.SIGSTOP)
+        try:
+            yield
+        finally:
+            self._depth -= 1
+            if self._depth == 0:
+                self._quiet.clear()
+                for p in self._stopped:
+                    signal_process(p.pid, signal.SIGCONT)
+
+    def __enter__(self):
+        global QUIET
+        self._outer, QUIET = QUIET, self.paused
+        self._workers, CLOCK.workers = CLOCK.workers, lambda: [
+            p.pid for p in self._pool._pool]
+        return self
+
+    def __exit__(self, kind, value, tb):
+        import shutil
+        global QUIET
+        QUIET, CLOCK.workers = self._outer, self._workers
+        try:
+            if kind is None:
+                self.finish()
+                self._pool.close()
+            else:
+                self._pool.terminate()
+            self._pool.join()
+        finally:
+            for d in self._dirs:
+                shutil.rmtree(d, ignore_errors=True)
+
+
+def signal_process(pid, sig):
+    """os.kill(pid, sig); a process that has ended is left alone."""
+    try:
+        os.kill(pid, sig)
+    except ProcessLookupError:
+        pass
+
+
+# the open RefPool's paused(), else a no-op: quiet() around every timing
+QUIET = contextlib.nullcontext
+
+
+def quiet():
+    """The reference workers stopped inside the block (RefPool.paused),
+    where there is an open pool."""
+    return QUIET()
+
+
+def own_pool(pool):
+    """`pool`, or, for a phase run alone (pool None), a RefPool of its
+    own that finishes with the phase."""
+    return contextlib.nullcontext(pool) if pool is not None else RefPool()
+
+
+def host_tree(x):
+    """A tree of tensors (dicts, lists, tuples) as numpy, its structure
+    kept: a job's result or a branch sent between processes."""
+    if isinstance(x, dict):
+        return {k: host_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(host_tree(v) for v in x)
+    if hasattr(x, 'detach'):
+        return x.detach().cpu().numpy()
+    return x
+
+
+def torch_tree(torch, x):
+    """host_tree's inverse: numpy arrays as CPU tensors."""
+    import numpy as np
+    if isinstance(x, dict):
+        return {k: torch_tree(torch, v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(torch_tree(torch, v) for v in x)
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x)
+    return x
+
+
 def keep_freed_heap():
     """This process's glibc malloc set to keep freed blocks for reuse:
     by default it maps every block above a threshold (at most 32 MiB)
@@ -462,15 +815,16 @@ def card_line():
 
 def cuda_ms(torch, fn, reps=5):
     """Mean device time of fn over reps launches (after one warm-up)."""
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
+    with quiet():
         fn()
-    b.record()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
 
 
@@ -1249,15 +1603,28 @@ def phase_trunk_v2_variants(torch, BK, Q, FO, q, x, results, f32=False):
                        h, [(layer[k + 1], 1)], f32=f32)
 
 
+def megastep_cpu(path):
+    """Reference job of phase 3: fn(*args, **kwargs) of the (fn, args,
+    kwargs) that file `path` (RefPool.put) holds, the plain path on the
+    CPU. numpy."""
+    import torch
+    fn, args, kwargs = torch.load(path, weights_only=False)
+    with torch.no_grad():
+        return host_tree(fn(*args, **kwargs))
+
+
 def phase_megastep(torch, name, step, reference, wrappers, expected,
-                   n_pairs, card, directions, margins, bar=0.02, iters=10):
+                   n_pairs, card, directions, margins, pool, bar=0.02,
+                   iters=10):
     """One megastep with the counts set to 0 just before it: launch
     counts, timing, and the first `few` pairs' logits (both directions at
-    directions=2) against `reference()`, the plain path on the CPU,
-    within `bar` of max |logit| (2% for the bf16 and quantized paths,
-    F32_LOGIT_BAR at f32); the error over the first m pairs, for each m
-    in `margins`, is printed beside the bar (it shows how much room the
-    bar leaves). Returns the launch counts and the logits."""
+    directions=2) against the plain path on the CPU (reference(n) gives
+    its (fn, args, kwargs) for the first n pairs; it runs in `pool`, the
+    comparison when the pool finishes), within `bar` of max |logit| (2%
+    for the bf16 and quantized paths, F32_LOGIT_BAR at f32); the error
+    over the first m pairs, for each m in `margins`, is printed beside
+    the bar (it shows how much room the bar leaves). Returns the launch
+    counts and the logits."""
     print(f'--- megastep {name}')
     for w in wrappers.values():
         w.launches = 0
@@ -1273,59 +1640,70 @@ def phase_megastep(torch, name, step, reference, wrappers, expected,
               and bool(torch.isfinite(o).all()) for o in outs),
           'finite (P, 2) logits')
 
-    step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
+    with quiet():
         step()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     print(f'megastep {name}: {n_pairs} pairs, {dt / iters * 1e3:.3f} '
           f'ms/step, {n_pairs * iters / dt:.1f} pairs/s ({card})')
 
     few = 4
     n_ref = max([few, *margins])
-    t0 = time.perf_counter()
     with torch.no_grad():
-        ref = reference(n_ref)
-    print(f'plain CPU path on {n_ref} pairs: '
-          f'{time.perf_counter() - t0:.1f} s')
-    refs = ref if directions == 2 else (ref,)
+        job = pool.put(torch, reference(n_ref))
+    outs = [o[:n_ref].cpu() for o in outs]
+    decisions = ij[:few].cpu(), ji[:few].cpu()
 
     def rel_err(got, r):
         scale = max(float(r.abs().max()), 1e-6)
         return float((got - r).abs().max()) / scale, scale
 
-    for d, (o, r_all) in enumerate(zip(outs, refs)):
-        got, r = o[:few].cpu(), r_all[:few]
-        rel, scale = rel_err(got, r)
-        print(f'direction {d}: logits vs plain CPU path ({few} pairs): '
-              f'max rel err {rel:.3e}')
-        for m in margins:
-            print(f'  over {m} pairs: max rel err '
-                  f'{rel_err(o[:m].cpu(), r_all[:m])[0]:.3e}')
-        print('  logits (card):', got.tolist())
-        print('  logits (cpu): ', r.tolist())
-        check(rel <= bar and scale > 1e-3,
-              f'{name}: nonzero logits within {bar:g} of max |logit|')
-    refs = tuple(r[:few] for r in refs)
-    s = [torch.sigmoid(r) for r in refs]
-    p_ij, p_ji = ((s[0][:, 1] + s[1][:, 0]) / 2, (s[0][:, 0] + s[1][:, 1]) / 2) \
-        if directions == 2 else (s[0][:, 1], s[0][:, 0])
-    for p, dec in ((p_ij, ij[:few].cpu()), (p_ji, ji[:few].cpu())):
-        sure = (p - 0.5).abs() > 1e-2
-        check(bool((dec[sure] == (p[sure] > 0.5)).all()),
-              f'{name}: decisions agree where the reference is sure')
+    def then(ref):
+        ref = torch_tree(torch, ref)
+        refs = ref if directions == 2 else (ref,)
+        print(f'--- megastep {name}: logits against the plain CPU path on '
+              f'{n_ref} pairs')
+        for d, (o, r_all) in enumerate(zip(outs, refs)):
+            got, r = o[:few], r_all[:few]
+            rel, scale = rel_err(got, r)
+            print(f'direction {d}: logits vs plain CPU path ({few} pairs): '
+                  f'max rel err {rel:.3e}')
+            for m in margins:
+                print(f'  over {m} pairs: max rel err '
+                      f'{rel_err(o[:m], r_all[:m])[0]:.3e}')
+            print('  logits (card):', got.tolist())
+            print('  logits (cpu): ', r.tolist())
+            check(rel <= bar and scale > 1e-3,
+                  f'{name}: nonzero logits within {bar:g} of max |logit|')
+        refs = tuple(r[:few] for r in refs)
+        s = [torch.sigmoid(r) for r in refs]
+        p_ij, p_ji = ((s[0][:, 1] + s[1][:, 0]) / 2,
+                      (s[0][:, 0] + s[1][:, 1]) / 2) \
+            if directions == 2 else (s[0][:, 1], s[0][:, 0])
+        for p, dec in zip((p_ij, p_ji), decisions):
+            sure = (p - 0.5).abs() > 1e-2
+            check(bool((dec[sure] == (p[sure] > 0.5)).all()),
+                  f'{name}: decisions agree where the reference is sure')
+    pool.later(f'megastep plain CPU path: {name}', megastep_cpu, job,
+               then=then)
     return launches, logits
 
 
 # the predictor phase: instance counts of its four scenes (pair buckets
-# 8, 32, 64, 128), the two whose matrices are also computed on the CPU,
-# the head gain (at the kaiming init the 2-logit head gives |logits| ~
-# 1e-2, every probability within 1e-2 of 0.5, so no decision would be
-# sure) and the timing repeats (median of 5 after a warm-up)
+# 8, 32, 64, 128), the ones whose matrices are also computed on the CPU
+# (the smallest; the two smallest for the depth-only head, whose bf16 and
+# v2 routes compare only the pairs far from a tie, and whose head is
+# centred on the second), the head gain (at the kaiming init the 2-logit
+# head gives |logits| ~ 1e-2, every probability within 1e-2 of 0.5, so no
+# decision would be sure) and the timing repeats (median of 5 after a
+# warm-up)
 PRED_INSTANCES = (3, 7, 10, 16)
-PRED_CPU_SCENES = 2
+PRED_CPU_SCENES = 1
+DEPTH_CPU_SCENES = 2
 # the model kernels of the f32 predictor's identity,down,stem route
 F32_MODEL = {IDEN16: 5, DOWN16: 3, STEM: 1}
 HEAD_GAIN = 100.0
@@ -1460,9 +1838,41 @@ def sure_depth_check(name, got, want, pw, pidx, valid, exact, margin):
     return n
 
 
-def compare_on_cpu(torch, name, pred, scene, bar, exact, dual, shift=0.0):
-    """The matrices and logits of `pred` on the card against the same
-    predictor on the CPU (the plain versions). exact routes (f32, int8c)
+def pair_results(pred, scenes, depth, dual):
+    """The side of compare_on_cpu that `pred` gives, on each scene:
+    (pair outputs (pidx, valid, out1, out2, n), its matrices
+    (infer_depth_order for the depth-only head, else infer_occ_order),
+    infer_occ_depth_order's for a dual head, else None). numpy."""
+    out = []
+    for scene in scenes:
+        o = pred.pair_outputs(*scene)
+        # the infer_* calls decode this one forward's outputs
+        pred.pair_outputs = lambda *a, **kw: o
+        try:
+            mats = (pred.infer_depth_order(*scene) if depth else
+                    pred.infer_occ_order(*scene))
+            od = pred.infer_occ_depth_order(*scene) if dual else None
+        finally:
+            del pred.pair_outputs
+        out.append(host_tree((o, mats, od)))
+    return out
+
+
+def predictor_cpu(path, scenes, depth, dual):
+    """Reference job of phase 4: pair_results of the predictor that file
+    `path` holds (RefPool.put of the card's predictor moved to the CPU:
+    the plain versions)."""
+    import torch
+    with torch.no_grad():
+        return pair_results(torch.load(path, weights_only=False), scenes,
+                            depth, dual)
+
+
+def compare_on_cpu(torch, name, card, cpu, bar, exact, dual, depth,
+                   shift=0.0):
+    """The matrices and logits of a predictor on the card against the same
+    predictor on the CPU (the plain versions), on one scene: `card` and
+    `cpu` its pair_results there. exact routes (f32, int8c)
     hold every pair's logits to `bar`; the bf16 and v2 routes hold the
     first 4 pairs' to `bar` and print all pairs' (the megasteps' rule:
     over many pairs the v2 route spreads ~2e-2 even between JAX's own
@@ -1474,19 +1884,17 @@ def compare_on_cpu(torch, name, pred, scene, bar, exact, dual, shift=0.0):
     matrices at the pairs whose CPU log(top / next) averaged probability
     exceeds 4 x the largest error that bar allows (a logit error d moves
     the log of each swap-averaged probability by at most 2 d, so those
-    decisions cannot flip)."""
-    cpu = pred.to('cpu')
-    pidx, valid, g1, g2, n = pred.pair_outputs(*scene)
-    _, _, w1, w2, _ = cpu.pair_outputs(*scene)
+    decisions cannot flip). Returns the cells compared."""
+    (pidx, valid, g1, g2, n), got, got_od = torch_tree(torch, card)
+    (_, _, w1, w2, _), want, want_od = torch_tree(torch, cpu)
     flat = lambda o: [] if o is None else (list(o) if isinstance(o, tuple)
                                            else [o])
-    depth = pred.method == 'InstaOrderNet_d'
     few = len(pidx) if exact or depth else 4
     worst = worst_few = top_scale = 0.0
     for g, w in zip(flat(g1) + flat(g2), flat(w1) + flat(w2)):
         scale = max(float(w.abs().max()) + shift, 1e-6)
         top_scale = max(top_scale, scale)
-        d = (g.cpu() - w).abs()
+        d = (g - w).abs()
         worst = max(worst, float(d.max()) / scale)
         worst_few = max(worst_few, float(d[:few].max()) / scale)
     check(worst_few <= bar, f'{name}: logits of {few} pairs within {bar} '
@@ -1494,9 +1902,8 @@ def compare_on_cpu(torch, name, pred, scene, bar, exact, dual, shift=0.0):
     if depth:
         margin = 4 * bar * top_scale
         cells = sure_depth_check(
-            name, pred.infer_depth_order(*scene),
-            cpu.infer_depth_order(*scene), depth_probs(torch, w1, w2),
-            pidx, valid.cpu().numpy(), exact, margin)
+            name, got.numpy(), want.numpy(), depth_probs(torch, w1, w2),
+            pidx.numpy(), valid.numpy(), exact, margin)
         print(f'  {name} N={n}: card vs CPU logits max rel err '
               f'{worst_few:.3e} over {few} pairs, {worst:.3e} over all '
               f'{len(pidx)}; {cells} depth matrix cells compared'
@@ -1510,26 +1917,49 @@ def compare_on_cpu(torch, name, pred, scene, bar, exact, dual, shift=0.0):
     else:
         s2 = torch.sigmoid(o2)
         p_ij, p_ji = (s1[:, 1] + s2[:, 0]) / 2, (s1[:, 0] + s2[:, 1]) / 2
-    valid = valid.cpu().numpy()
-    cells = sure_matrix_check(name, pred.infer_occ_order(*scene),
-                              cpu.infer_occ_order(*scene), p_ij, p_ji,
-                              pidx, valid, exact)
-    if dual:
-        for g, w in zip(pred.infer_occ_depth_order(*scene),
-                        cpu.infer_occ_depth_order(*scene)):
-            if exact:
-                check((g == w).all(), f'{name}: occ/depth matrices equal')
-        check((pred.infer_depth_order(*scene)
-               == pred.infer_occ_depth_order(*scene)[1]).all(),
-              f'{name}: infer_depth_order is the dual call\'s depth')
+    cells = sure_matrix_check(name, got.numpy(), want.numpy(), p_ij, p_ji,
+                              pidx.numpy(), valid.numpy(), exact)
+    if dual and exact:
+        for g, w in zip(got_od, want_od):
+            check((g == w).all(), f'{name}: occ/depth matrices equal')
     print(f'  {name} N={n}: card vs CPU logits max rel err {worst_few:.3e} '
           f'over {few} pairs, {worst:.3e} over all {len(pidx)}; {cells} '
           f'matrix cells compared')
+    return cells
+
+
+def defer_predictor_check(torch, pool, name, pred, scenes, bar, exact,
+                          shift=0.0):
+    """compare_on_cpu of `pred` on each of `scenes`: the card's side now,
+    the CPU's in the pool (predictor_cpu), the comparisons when the pool
+    finishes (for the depth-only head with at least one depth decision
+    sure over the scenes). A dual head's infer_depth_order is checked to
+    be its infer_occ_depth_order's depth now."""
+    depth = pred.method == 'InstaOrderNet_d'
+    dual = pred.method == 'InstaOrderNet_od'
+    with torch.no_grad():
+        card = pair_results(pred, scenes, depth, dual)
+        if dual:
+            for scene, (_, _, od) in zip(scenes, card):
+                check((pred.infer_depth_order(*scene) == od[1]).all(),
+                      f'{name}: infer_depth_order is the dual call\'s '
+                      f'depth')
+
+    def then(cpu):
+        cells = [compare_on_cpu(torch, name, c, w, bar, exact, dual, depth,
+                                shift) for c, w in zip(card, cpu)]
+        check(not depth or sum(cells) > 0, f'{name}: some depth decision '
+              f'is sure on the {len(scenes)} scenes')
+    pool.later(f'predictor CPU runs: {name}', predictor_cpu,
+               pool.put(torch, pred.to('cpu')), scenes, depth, dual,
+               then=then)
 
 
 def phase_predictors(torch, serving, resnet, TPL, wrappers, calib_x, dev,
-                     card):
-    """Phase 4. Returns {row name: launches} for rows counted here."""
+                     card, pool):
+    """Phase 4; its card-vs-CPU comparisons deferred to `pool`'s finish
+    (defer_predictor_check). Returns {row name: launches} for rows
+    counted here."""
     nets = predictor_nets(torch, resnet, dev)
     scenes = pred_scenes(serving)
     nets['InstaOrderNet_d'], depth_shift = centre_depth_head(
@@ -1628,20 +2058,19 @@ def phase_predictors(torch, serving, resnet, TPL, wrappers, calib_x, dev,
             if name == 'f32 d2' and k == len(scenes) - 1:
                 counted[PREP_F32] = got[PREP]
             ms = []
-            for _ in range(PRED_REPS + 1):
-                t1 = time.perf_counter()
-                infer(*scene)
-                ms.append((time.perf_counter() - t1) * 1e3)
+            with quiet():
+                for _ in range(PRED_REPS + 1):
+                    t1 = time.perf_counter()
+                    infer(*scene)
+                    ms.append((time.perf_counter() - t1) * 1e3)
             ms = sorted(ms[1:])[PRED_REPS // 2]
             timing[name, PRED_INSTANCES[k]] = ms
-        with torch.no_grad():
-            cells = [compare_on_cpu(torch, f'predictor {name}', pred, scene,
-                                    bar, exact, dual, depth_shift
-                                    if method == 'InstaOrderNet_d' else 0.0)
-                     for scene in (scenes[:PRED_CPU_SCENES] if bar else ())]
-        if method == 'InstaOrderNet_d':
-            check(sum(cells) > 0, f'predictor {name}: some depth decision '
-                  f'is sure on the {PRED_CPU_SCENES} scenes')
+        if bar:
+            depth = method == 'InstaOrderNet_d'
+            defer_predictor_check(
+                torch, pool, f'predictor {name}', pred,
+                scenes[:DEPTH_CPU_SCENES if depth else PRED_CPU_SCENES], bar,
+                exact, depth_shift if depth else 0.0)
         if name == 'f32 d2':
             for mode in ('image', 'resize', 'orig'):
                 other = TPL.OrderPredictor(
@@ -1654,9 +2083,8 @@ def phase_predictors(torch, serving, resnet, TPL, wrappers, calib_x, dev,
                 print(f'  f32 {mode} mode: launches {got}')
                 check(got == F32_MODEL, f'f32 {mode} mode runs the model '
                       f'kernels and no prep kernel: {got}')
-                with torch.no_grad():
-                    compare_on_cpu(torch, f'predictor f32 {mode}', other,
-                                   scenes[0], 1e-5, True, False)
+                defer_predictor_check(torch, pool, f'predictor f32 {mode}',
+                                      other, scenes[:1], 1e-5, True)
         del pred
         torch.cuda.empty_cache()
     print(f'predictor phase: {time.perf_counter() - t0:.1f} s')
@@ -1673,7 +2101,7 @@ def phase_predictors(torch, serving, resnet, TPL, wrappers, calib_x, dev,
 
 
 def phase_v2_f32_forwards(torch, serving, Q, q32, cfg, x32, counters,
-                          n_pairs, card, launches):
+                          n_pairs, card, launches, pool):
     """The v2 model at compute_dtype=f32 through apply_folded_v2 (d1) and
     apply_folded_v2_siamese (d2) on the smoke cell's pair batch x32, per
     feature set of V2F32_FORWARDS, each with the counts set to 0 just
@@ -1695,12 +2123,13 @@ def phase_v2_f32_forwards(torch, serving, Q, q32, cfg, x32, counters,
                 return (logits, *dec)
 
             def reference(few, fwd=fwd, feats=feats):
-                return fwd(q_cpu, cfg, x32[:few].cpu(), use_pallas=feats)
+                return fwd, (q_cpu, cfg, x32[:few].cpu()), {
+                    'use_pallas': feats}
 
             got, _ = phase_megastep(
                 torch, f'v2 f32 d{directions} +{fname}', step, reference,
                 counters, expected, n_pairs, card, directions,
-                (MARGIN_PAIRS,), iters=3)
+                (MARGIN_PAIRS,), pool, iters=3)
             for k, n in got.items():
                 # the stage launches of the hwncs set are kernel 2's
                 # down=False mode
@@ -1747,6 +2176,8 @@ def check_int8c_same_input(torch, Q, FO, q, cfg, x, directions, feats,
 # 6 instances each (15 pairs an image); COCOA and KINS at their defaults
 TESTER_IMAGES = 8
 TESTER_INSTANCES = 6
+# the Tester images whose records and metrics the CPU's are held against
+TESTER_CPU_IMAGES = 2
 # a decision is sure when its reference probability (sigmoid at 0.5) or
 # its argmax (top probability over the runner-up) is more than this away
 # from flipping; the predictor phase's rule
@@ -2027,6 +2458,17 @@ def centre_heads(params, logits, spread=LOGIT_SPREAD):
     return out
 
 
+def instaorder_fixture(root, hw=(HEIGHT, WIDTH)):
+    """The phases' InstaOrder fixture (data/synthetic.py, seed 0):
+    TESTER_IMAGES images of hw, TESTER_INSTANCES instances each, written
+    under root; (annotation file, image root)."""
+    from instaorder_tpu_torch.data import synthetic
+    insta, _, img = synthetic.make_instaorder_fixture(
+        root, n_images=TESTER_IMAGES, n_instances=TESTER_INSTANCES,
+        h=hw[0], w=hw[1])
+    return insta, img
+
+
 def tester_args(cfg, root, fixtures, method, pairs, load_model):
     """The config namespace the Tester reads (cli/config.load_config's
     shape), on the fixture of cfg's dataset; tensorboard switched off
@@ -2068,16 +2510,38 @@ def tester_net(torch, cfg, root, fixtures, step):
     return CK.save_state(f'{root}/net', step, params, stats)
 
 
-def phase_tester(torch, dev, card, wrappers):
+def tester_cpu(args):
+    """Reference job of phase 5: Tester(args) on the CPU over the first
+    TESTER_CPU_IMAGES images, with its records (record_tester); (records,
+    result)."""
+    from instaorder_tpu_torch.eval.tester import Tester
+    t = Tester(args, logger=quiet_tester_log('chip_smoke.tester'),
+               device='cpu', n_images=TESTER_CPU_IMAGES)
+    recs = record_tester(t)
+    return recs, t.run()
+
+
+def first_tester_metrics(t, recs, n):
+    """Tester t's metrics over its first n images' records, as its eval
+    loop (by the config's trainval_dataset) gives them on n images."""
+    tv = t.args.data['trainval_dataset']
+    if tv == 'SupDepthOrderDataset':
+        return first_metrics(t, recs, n)
+    occ = first_occ_metrics(recs, n)
+    if tv == 'SupDepthOccOrderDataset':
+        del occ['n']
+        return dict(first_metrics(t, recs, n), **occ)
+    return occ
+
+
+def phase_tester(torch, dev, card, wrappers, pool=None):
     """The Tester on the card and on the CPU: fixtures written by the
     port's data/synthetic.py, each net from seed 0 (tester_net) saved
     with the port's save_state and loaded through load_model; card and
-    CPU records compared; per-image ms by run. Returns {run name:
-    (per-image ms, of it the prediction's), medians after one warm-up
-    image}."""
-    import logging
-    import os
-    import tempfile
+    CPU records compared (the CPU's runs in `pool`, own_pool, compared
+    when it finishes; the files live in its tempdir until then);
+    per-image ms by run. Returns {run name: (per-image ms, of it the
+    prediction's), medians after one warm-up image}."""
     import numpy as np
     from instaorder_tpu_torch import native
     from instaorder_tpu_torch.core import checkpoint as CK
@@ -2089,63 +2553,64 @@ def phase_tester(torch, dev, card, wrappers):
           f'the native RLE codec is loaded and registered '
           f'({native.LOAD_ERROR})')
     print(f'native RLE codec: {sorted(rle._NATIVE)}')
-    log = logging.getLogger('chip_smoke.tester')
-    log.addHandler(logging.NullHandler())
-    log.propagate = False
+    log = quiet_tester_log('chip_smoke.tester')
     timing = {}
-    with tempfile.TemporaryDirectory() as root:
-        insta, _, img = synthetic.make_instaorder_fixture(
-            root, n_images=TESTER_IMAGES, n_instances=TESTER_INSTANCES,
-            h=HEIGHT, w=WIDTH)
-        fixtures = {'InstaOrder': (insta, img),
+    with own_pool(pool) as pool:
+        root = pool.tempdir()
+        fixtures = {'InstaOrder': instaorder_fixture(root),
                     'COCOA': synthetic.make_cocoa_fixture(root),
                     'KINS': synthetic.make_kins_fixture(root)}
         net, net_of = None, None
         for step, (name, cname, method, pairs) in enumerate(TESTER_RUNS):
             cfg = TESTER_CONFIGS[cname]
             if not method and net_of != cname:
-                if net:
-                    os.remove(net)
                 net, net_of = tester_net(torch, cfg, root, fixtures,
                                          1000 + step), cname
             args = tester_args(cfg, root, fixtures, method, pairs,
                                None if method else net)
-            recs = {}
-            for where, d in (('card', None), ('cpu', 'cpu')):
-                t = Tester(args, logger=log, device=d)
-                recs[where] = record_tester(t)
-                for w in wrappers.values():
-                    w.launches = 0
+            t = Tester(args, logger=log, device=None)
+            recs = record_tester(t)
+            for w in wrappers.values():
+                w.launches = 0
+            with quiet():
                 res = t.run()
-                if where == 'card':
-                    torch.cuda.synchronize()
-                    got = {n: w.launches for n, w in wrappers.items()
-                           if w.launches}
-                    check(not got, f'tester {name}: no kernel launched '
-                          f'(as JAX\'s Tester reaches none): {got}')
-                    check(method or t.predictor.device.type == 'cuda',
-                          f'tester {name}: the predictor is on the card')
-                    check(method or t.curr_step == CK.parse_iter(net),
-                          f'tester {name}: the checkpoint\'s step loaded')
-                recs[where + ' result'] = res
-            sure, unsure, differ = compare_tester_runs(
-                name, cfg['model']['algo'], recs['card'], recs['cpu'])
-            if not differ:
-                check(recs['card result'] == recs['cpu result'],
-                      f'tester {name}: metrics equal ({recs["card result"]} '
-                      f'vs {recs["cpu result"]})')
-            med = lambda k: float(np.median([r[k] for r in
-                                             recs['card'][1:]]))
+            torch.cuda.synchronize()
+            got = {n: w.launches for n, w in wrappers.items() if w.launches}
+            check(not got, f'tester {name}: no kernel launched (as JAX\'s '
+                  f'Tester reaches none): {got}')
+            check(method or t.predictor.device.type == 'cuda',
+                  f'tester {name}: the predictor is on the card')
+            check(method or t.curr_step == CK.parse_iter(net),
+                  f'tester {name}: the checkpoint\'s step loaded')
+            med = lambda k: float(np.median([r[k] for r in  # noqa: E731
+                                             recs[1:]]))
             timing[name] = (med('ms'), med('predict_ms'))
-            print(f'  tester {name}: {recs["card result"]}; card vs CPU: '
-                  f'{sure} sure cells equal, {unsure} unsure, {differ} '
-                  f'differ; metrics {"equal" if not differ else "not held"}'
-                  f'; per image {timing[name][0]:.3f} ms (card)')
-    print(f'tester phase: {time.perf_counter() - t0:.1f} s')
-    for name, (ms, pred_ms) in timing.items():
-        print(f'tester {name}: {ms:.3f} ms per image on the card, '
-              f'{pred_ms:.3f} of it the prediction (host clock, median '
-              f'after one warm-up image; {card})')
+            print(f'  tester {name}: {res} on the card; per image '
+                  f'{timing[name][0]:.3f} ms')
+
+            first = first_tester_metrics(t, recs, TESTER_CPU_IMAGES)
+
+            def then(cpu, name=name, algo=cfg['model']['algo'], recs=recs,
+                     first=first):
+                want, want_res = cpu
+                sure, unsure, differ = compare_tester_runs(
+                    name, algo, recs[:TESTER_CPU_IMAGES], want)
+                if not differ:
+                    check(first == want_res, f'tester {name}: metrics on the '
+                          f'first {TESTER_CPU_IMAGES} images equal ({first} '
+                          f'vs {want_res})')
+                print(f'  tester {name}: card vs CPU (first '
+                      f'{TESTER_CPU_IMAGES} images): {sure} sure cells equal, '
+                      f'{unsure} unsure, {differ} differ; metrics '
+                      f'{"equal" if not differ else "not held"}')
+            pool.later(f'tester CPU runs: {name}', tester_cpu, args,
+                       then=then)
+        print(f'tester phase (the card\'s runs): '
+              f'{time.perf_counter() - t0:.1f} s')
+        for name, (ms, pred_ms) in timing.items():
+            print(f'tester {name}: {ms:.3f} ms per image on the card, '
+                  f'{pred_ms:.3f} of it the prediction (host clock, median '
+                  f'after one warm-up image; {card})')
     return timing
 
 
@@ -2400,23 +2865,22 @@ def check_stats(name, sg, s32, s64, card, factor=XDEV_CPU_FACTOR):
           f'{factor} x the CPU f32 run\'s error) of f64 ({worst})')
 
 
-def phase_train_xdev(torch, T, ST, CV, get_backbone, fixture, dev, card):
-    """One SGD step of InstaOrderNet_o and of InstaOrderNet_od at full
-    width on the card and on the CPU: the same params (seed 0, kaiming),
-    the same batch of XDEV_PAIRS pairs from the port's dataset. The CPU
-    runs the step in f32 and in f64; the card's f32 step is held against
-    the CPU's f64 one (the CPU's f32 convolutions, oneDNN's, are the
-    less exact of the two f32 runs: its step is printed beside, with
-    its own distance from f64). Every run follows the ReLU branch and the
-    stem pool's argmaxes of the CPU's f64 run (on_branch, pool_recorder),
-    so that no f32 rounding picks the branch; the number of ReLU inputs
-    and pool windows whose own choice differs is printed."""
-    import numpy as np
+def train_xdev_cpu(name):
+    """Reference job of phase 6 for `name`: its net at full width (seed 0,
+    kaiming) and XDEV_PAIRS pairs of the port's dataset on the InstaOrder
+    fixture; the CPU's f64 step (recording the ReLU branch and the stem
+    pool's argmaxes) and its f32 step on that branch. numpy."""
+    import tempfile
+    import torch
+    from instaorder_tpu_torch import convert as CV
     from instaorder_tpu_torch.data.datasets import DATASETS, collate
     from instaorder_tpu_torch.data.loader import sample_rng
+    from instaorder_tpu_torch.models.registry import get_backbone
+    from instaorder_tpu_torch.train import step as ST
+    from instaorder_tpu_torch.train import trainer as T
     cpu = torch.device('cpu')
-    for name in ('InstaOrderNet_o', 'InstaOrderNet_od'):
-        args = train_args(name, fixture, 1)
+    with tempfile.TemporaryDirectory() as root:
+        args = train_args(name, instaorder_fixture(root), 1)
         net = get_backbone('resnet50_cls')
         params, stats, cfg = net['init'](
             torch.Generator().manual_seed(0), weight_init='kaiming_out',
@@ -2426,12 +2890,46 @@ def phase_train_xdev(torch, T, ST, CV, get_backbone, fixture, dev, card):
                                                      args.model['algo'])
         batch = collate([ds.sample(i % len(ds), sample_rng(0, i))
                          for i in range(XDEV_PAIRS)])
-        run = lambda d, branch=None, dtype=None: train_step_on(  # noqa: E731
-            torch, T, ST, CV, net, cfg, args.model, params, stats, batch,
-            d, branch, dtype)
-        l64, p64, s64, branch, _, _ = run(cpu, None, torch.float64)
-        l32, p32, s32, _, cflips, _ = run(cpu, branch)
-        lg, pg, sg, _, flips, _ = run(dev, branch)
+    run = lambda branch=None, dtype=None: train_step_on(  # noqa: E731
+        torch, T, ST, CV, net, cfg, args.model, params, stats, batch, cpu,
+        branch, dtype)
+    l64, p64, s64, branch, _, _ = run(None, torch.float64)
+    l32, p32, s32, _, cflips, _ = run(branch)
+    return dict(params=params, stats=stats, cfg=cfg, batch=batch,
+                f64=(l64, p64, s64), f32=(l32, p32, s32, cflips),
+                branch=host_tree(branch))
+
+
+# phase 6's reference jobs: (pool label, job, its argument)
+TRAIN_XDEV_REFS = {n: (f'train xdev CPU f64 + f32 steps {n}', train_xdev_cpu,
+                       n) for n in ('InstaOrderNet_o', 'InstaOrderNet_od')}
+
+
+def phase_train_xdev(torch, T, ST, CV, get_backbone, fixture, dev, card,
+                     pool):
+    """One SGD step of InstaOrderNet_o and of InstaOrderNet_od at full
+    width on the card against the CPU's (train_xdev_cpu, from the pool):
+    the same params (seed 0, kaiming), the same batch of XDEV_PAIRS pairs
+    from the port's dataset. The CPU runs the step in f32 and in f64; the
+    card's f32 step is held against the CPU's f64 one (the CPU's f32
+    convolutions, oneDNN's, are the less exact of the two f32 runs: its
+    step is printed beside, with its own distance from f64). Every run
+    follows the ReLU branch and the stem pool's argmaxes of the CPU's f64
+    run (on_branch, pool_recorder), so that no f32 rounding picks the
+    branch; the number of ReLU inputs and pool windows whose own choice
+    differs is printed."""
+    import numpy as np
+    for name in ('InstaOrderNet_o', 'InstaOrderNet_od'):
+        ref = pool.result(*TRAIN_XDEV_REFS[name])
+        params, stats, cfg, batch = (ref[k] for k in ('params', 'stats',
+                                                      'cfg', 'batch'))
+        l64, p64, s64 = ref['f64']
+        l32, p32, s32, cflips = ref['f32']
+        branch = torch_tree(torch, ref['branch'])
+        args = train_args(name, fixture, 1)
+        lg, pg, sg, _, flips, _ = train_step_on(
+            torch, T, ST, CV, get_backbone('resnet50_cls'), cfg, args.model,
+            params, stats, batch, dev, branch)
         out = {}
         for who, (l, p, s) in (('card f32', (lg, pg, sg)),
                                ('CPU f32', (l32, p32, s32))):
@@ -2470,12 +2968,13 @@ def time_train_step(torch, T, t, batch):
     times = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for i in range(TIMING_WARMUP + TIMING_REPS):
-        t0 = time.perf_counter()
-        p, s, o, logs = t.train_step(p, s, o, xb, lr)
-        torch.cuda.synchronize()
-        if i >= TIMING_WARMUP:
-            times.append((time.perf_counter() - t0) * 1e3)
+    with quiet():
+        for i in range(TIMING_WARMUP + TIMING_REPS):
+            t0 = time.perf_counter()
+            p, s, o, logs = t.train_step(p, s, o, xb, lr)
+            torch.cuda.synchronize()
+            if i >= TIMING_WARMUP:
+                times.append((time.perf_counter() - t0) * 1e3)
     check(np.isfinite(float(logs['loss'])), 'timed steps: finite loss')
     return (float(np.median(times)),
             torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -2515,17 +3014,19 @@ def time_loader_fed(T, name, fixture, out_dir, data=None,
                 yield b
         return batches()
     t._make_loader = windowed
-    t.train()
+    with quiet():
+        t.train()
     check(t.curr_step == warmup + window and
           t.btime.count == window == t.dtime.count,
           f'{name}: a loader-fed window of {window} steps')
-    it = iter(make('train'))
-    for _ in range(ALONE_WARMUP):
-        next(it)
-    t0 = time.perf_counter()
-    for _ in range(ALONE_WINDOW):
-        batch = next(it)
-    alone = (time.perf_counter() - t0) / ALONE_WINDOW * 1e3
+    with quiet():
+        it = iter(make('train'))
+        for _ in range(ALONE_WARMUP):
+            next(it)
+        t0 = time.perf_counter()
+        for _ in range(ALONE_WINDOW):
+            batch = next(it)
+        alone = (time.perf_counter() - t0) / ALONE_WINDOW * 1e3
     it.close()
     return t.btime.avg * 1e3, t.dtime.avg * 1e3, alone, t, batch
 
@@ -2612,12 +3113,11 @@ def three_steps(torch, T, name, fixture, out, dataset='InstaOrder',
           f'{len(before)} param leaves moved')
 
 
-def phase_train(torch, dev, card, wrappers):
-    """Training on the card (module docstring, phase 6). Returns {run:
-    numbers}."""
+def phase_train(torch, dev, card, wrappers, pool=None):
+    """Training on the card (module docstring, phase 6), its CPU
+    references from `pool` (own_pool). Returns {run: numbers}."""
     import tempfile
     from instaorder_tpu_torch import convert as CV
-    from instaorder_tpu_torch.data import synthetic
     from instaorder_tpu_torch.models.registry import get_backbone
     from instaorder_tpu_torch.train import step as ST
     from instaorder_tpu_torch.train import trainer as T
@@ -2626,11 +3126,8 @@ def phase_train(torch, dev, card, wrappers):
     for w in wrappers.values():
         w.launches = 0
     numbers = {}
-    with tempfile.TemporaryDirectory() as root:
-        insta, _, img = synthetic.make_instaorder_fixture(
-            root, n_images=TESTER_IMAGES, n_instances=TESTER_INSTANCES,
-            h=HEIGHT, w=WIDTH)
-        fixture = (insta, img)
+    with tempfile.TemporaryDirectory() as root, own_pool(pool) as pool:
+        fixture = instaorder_fixture(root)
         train_flow(torch, T, 'InstaOrderNet_o', fixture, f'{root}/o',
                    TESTER_CONFIGS['InstaOrder/InstaOrderNet_o'])
         # every ported algorithm at its own settings: 3 finite steps that
@@ -2638,7 +3135,8 @@ def phase_train(torch, dev, card, wrappers):
         for name in TRAIN_NETS:
             three_steps(torch, T, name, fixture, f'{root}/{name}')
 
-        phase_train_xdev(torch, T, ST, CV, get_backbone, fixture, dev, card)
+        phase_train_xdev(torch, T, ST, CV, get_backbone, fixture, dev, card,
+                         pool)
 
         # the numbers: the loader-fed Trainer over a steady window and its
         # loader alone (_o also with process workers), and the device step
@@ -2725,15 +3223,16 @@ def event_ms(torch, fn, warmup=TIMING_WARMUP, reps=TIMING_REPS):
     """The ms of each of reps calls of fn() after warmup, CUDA events
     around each call."""
     times = []
-    for i in range(warmup + reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        if i >= warmup:
-            times.append(a.elapsed_time(b))
+    with quiet():
+        for i in range(warmup + reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            if i >= warmup:
+                times.append(a.elapsed_time(b))
     return times
 
 
@@ -2881,11 +3380,12 @@ def traced_forward(torch, fn, out_dir):
     none. The busy time is the union of their intervals."""
     import os
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with quiet():
         fn()
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
     path = os.path.join(out_dir, 'midas_trace.json')
     prof.export_chrome_trace(path)
     with open(path) as f:
@@ -2925,32 +3425,47 @@ def head_conv_routes(torch, M, cnn, p, dev, card, numbers):
     torch.cuda.empty_cache()
 
 
-def phase_midas_forward(torch, M, nets, cpu, x384, xk, pair_masks, card,
-                        numbers, out_dir):
-    """(a) and the forward timings of (d): each net's outputs on the card
-    against the CPU's on the same trees, one traced MidasNet forward of
-    each shape, and the head conv's two routes."""
-    import numpy as np
-    from instaorder_tpu_torch.core import nn as cnn
+def midas_forward_cpu(path, x384, xk, m1, m2):
+    """Reference job of phase 7 (a): the three nets that `path` holds
+    (torch.save of {name: (params, stats, cfg)}, out_conv3's bias raised)
+    on the CPU: MidasNet's disparity of x384 and of xk, _d's and _od's
+    outputs on MIDAS_PAIRS copies of x384 with the mask pairs m1, m2.
+    numpy."""
+    import torch
+    from instaorder_tpu_torch.models import midas as M
+    nets = torch.load(path, weights_only=False)
+    out = {}
     with torch.no_grad():
         p, s, cfg = nets['MidasNet']
-        cp, cs, _ = cpu['MidasNet']
         for what, x in (('384^2', x384), ('352x1216', xk)):
-            got = M.apply_disp(p, s, cfg, x)
-            want = M.apply_disp(cp, cs, cfg, x.cpu())
-            err = worst_rel(got, want)
-            share = float((want > 0).float().mean())
-            check(err <= MIDAS_BAR, f'MidasNet {what}: card within '
-                  f'{MIDAS_BAR} of max |CPU| ({err:.3g})')
-            check(share >= POSITIVE_SHARE, f'MidasNet {what}: positive '
-                  f'disparity on {share:.4f} of the pixels')
+            out[what] = M.apply_disp(p, s, cfg, torch.from_numpy(x)).numpy()
+        img = torch.from_numpy(x384).expand(MIDAS_PAIRS, -1, -1,
+                                            -1).contiguous()
+        for name in ('InstaDepthNet_d', 'InstaDepthNet_od'):
+            p, s, cfg = nets[name]
+            out[name] = host_tree(M.apply(p, s, cfg, img, torch.from_numpy(m1),
+                                          torch.from_numpy(m2)))
+    return out
+
+
+def phase_midas_forward(torch, M, nets, x384, xk, pair_masks, card,
+                        numbers, out_dir):
+    """(a) and the forward timings of (d): each net's outputs on the card,
+    one traced MidasNet forward of each shape, and the head conv's two
+    routes. Returns the check of the card's outputs against the CPU's on
+    the same trees (midas_forward_cpu's)."""
+    import numpy as np
+    from instaorder_tpu_torch.core import nn as cnn
+    got = {}
+    with torch.no_grad():
+        p, s, cfg = nets['MidasNet']
+        for what, x in (('384^2', x384), ('352x1216', xk)):
+            got[what] = M.apply_disp(p, s, cfg, x).cpu()
             times = event_ms(torch, lambda: M.apply_disp(p, s, cfg, x))
             ms = float(np.median(times))
             numbers[f'MidasNet {what}'] = ms
-            print(f'  MidasNet {what}: disparity card vs CPU {err:.3g} of '
-                  f'max |CPU| (bar {MIDAS_BAR}), {100 * share:.2f}% '
-                  f'positive; forward {ms:.3f} ms (batch 1, median of '
-                  f'{TIMING_REPS} after {TIMING_WARMUP}, range '
+            print(f'  MidasNet {what}: forward {ms:.3f} ms (batch 1, median '
+                  f'of {TIMING_REPS} after {TIMING_WARMUP}, range '
                   f'{min(times):.3f}-{max(times):.3f}; {card})')
             busy, span, n_ops = traced_forward(
                 torch, lambda: M.apply_disp(p, s, cfg, x), out_dir)
@@ -2968,21 +3483,7 @@ def phase_midas_forward(torch, M, nets, cpu, x384, xk, pair_masks, card,
         m1, m2 = pair_masks
         for name in ('InstaDepthNet_d', 'InstaDepthNet_od'):
             p, s, cfg = nets[name]
-            cp, cs, _ = cpu[name]
-            got = M.apply(p, s, cfg, img, m1, m2)
-            want = M.apply(cp, cs, cfg, img.cpu(), m1.cpu(), m2.cpu())
-            errs = []
-            for what, g, w in zip(('disparity', 'depth', 'occlusion'), got,
-                                  want):
-                if w is None:
-                    check(g is None, f'{name}: no {what} head')
-                    continue
-                errs.append((what, worst_rel(g, w)))
-                check(errs[-1][1] <= MIDAS_BAR, f'{name} {what}: card within '
-                      f'{MIDAS_BAR} of max |CPU| ({errs[-1][1]:.3g})')
-                check(bool(torch.isfinite(w).all()), f'{name} {what} finite')
-            print(f'  {name} on {MIDAS_PAIRS} mask pairs, card vs CPU of max '
-                  f'|CPU|: ' + ', '.join(f'{w} {e:.3g}' for w, e in errs))
+            got[name] = host_tree(M.apply(p, s, cfg, img, m1, m2))
         p, s, cfg = nets['InstaDepthNet_od']
         idx = np.arange(MIDAS_OD_BATCH) % MIDAS_PAIRS
         img = x384.expand(MIDAS_OD_BATCH, -1, -1, -1).contiguous()
@@ -2999,10 +3500,62 @@ def phase_midas_forward(torch, M, nets, cpu, x384, xk, pair_masks, card,
         head_conv_routes(torch, M, cnn, nets['MidasNet'][0]['out_conv1'],
                          x384.device, card, numbers)
 
+    def then(cpu):
+        for what in ('384^2', '352x1216'):
+            want = torch.from_numpy(cpu[what])
+            err = worst_rel(got[what], want)
+            share = float((want > 0).float().mean())
+            check(err <= MIDAS_BAR, f'MidasNet {what}: card within '
+                  f'{MIDAS_BAR} of max |CPU| ({err:.3g})')
+            check(share >= POSITIVE_SHARE, f'MidasNet {what}: positive '
+                  f'disparity on {share:.4f} of the pixels')
+            print(f'  MidasNet {what}: disparity card vs CPU {err:.3g} of '
+                  f'max |CPU| (bar {MIDAS_BAR}), {100 * share:.2f}% '
+                  f'positive')
+        for name in ('InstaDepthNet_d', 'InstaDepthNet_od'):
+            errs = []
+            for what, g, w in zip(('disparity', 'depth', 'occlusion'),
+                                  got[name], cpu[name]):
+                if w is None:
+                    check(g is None, f'{name}: no {what} head')
+                    continue
+                g, w = torch.from_numpy(g), torch.from_numpy(w)
+                errs.append((what, worst_rel(g, w)))
+                check(errs[-1][1] <= MIDAS_BAR, f'{name} {what}: card within '
+                      f'{MIDAS_BAR} of max |CPU| ({errs[-1][1]:.3g})')
+                check(bool(torch.isfinite(w).all()), f'{name} {what} finite')
+            print(f'  {name} on {MIDAS_PAIRS} mask pairs, card vs CPU of max '
+                  f'|CPU|: ' + ', '.join(f'{w} {e:.3g}' for w, e in errs))
+    return then
 
-def phase_midas_tester(dev, root, fixture, nets_ck, log, card, numbers):
+
+def midas_tester_cpu(args, select):
+    """Reference job of phase 7 (b): the Tester's disparity route on the
+    CPU over the first MIDAS_CPU_IMAGES images, its records with the
+    region depths; (records, result)."""
+    from instaorder_tpu_torch.eval import decode as TD
+    from instaorder_tpu_torch.eval.pipeline import DisparityOrderPredictor
+    from instaorder_tpu_torch.eval.tester import Tester
+    t = Tester(args, logger=quiet_tester_log('chip_smoke.midas'),
+               device='cpu', n_images=MIDAS_CPU_IMAGES)
+    recs = record_tester(t)
+    undo = record_region_depths(TD, recs)
+    try:
+        res = t.run()
+    finally:
+        undo()
+    check(isinstance(t.predictor, DisparityOrderPredictor) and
+          t.predictor.device.type == 'cpu' and
+          t.predictor.select == (select or 'median'),
+          f'tester {select}: the disparity predictor on the CPU, select '
+          f'{select or "median"}')
+    return recs, res
+
+
+def phase_midas_tester(pool, dev, root, fixture, nets_ck, card, numbers):
     """(b): the Tester's disparity route on the card (every fixture image)
-    and on the CPU (the first MIDAS_CPU_IMAGES)."""
+    against the CPU's (the first MIDAS_CPU_IMAGES; midas_tester_cpu in
+    the pool, compared when it finishes)."""
     import numpy as np
     from instaorder_tpu_torch.eval import decode as TD
     from instaorder_tpu_torch.eval.pipeline import DisparityOrderPredictor
@@ -3012,52 +3565,68 @@ def phase_midas_tester(dev, root, fixture, nets_ck, log, card, numbers):
         args = tester_args(cfg, root, {'InstaOrder': fixture}, '', pairs,
                            nets_ck[cfg['model']['backbone_arch']])
         args.disp_select_method = select
-        recs, res = {}, {}
-        for where, d, n in (('card', None, -1),
-                            ('cpu', 'cpu', MIDAS_CPU_IMAGES)):
-            t = Tester(args, logger=log, device=d, n_images=n)
-            recs[where] = record_tester(t)
-            undo = record_region_depths(TD, recs[where])
-            try:
-                res[where] = t.run()
-            finally:
-                undo()
-            check(isinstance(t.predictor, DisparityOrderPredictor) and
-                  t.predictor.device.type == (dev.type if d is None else d),
-                  f'tester {name}: the disparity predictor on {where}')
-            check(t.predictor.select == (select or 'median'),
-                  f'tester {name}: select {select or "median"}')
-            if where == 'card':
-                card_t = t
-        sure, unsure, differ = compare_disp_runs(name, recs['card'],
-                                                 recs['cpu'])
-        first = first_metrics(card_t, recs['card'], MIDAS_CPU_IMAGES)
-        if not differ:
-            check(first == res['cpu'], f'tester {name}: metrics on the first '
-                  f'{MIDAS_CPU_IMAGES} images equal ({first} vs '
-                  f'{res["cpu"]})')
-        check(all(np.isfinite(v) for v in res['card'].values()),
+        t = Tester(args, logger=quiet_tester_log('chip_smoke.midas'),
+                   device=None, n_images=-1)
+        recs = record_tester(t)
+        undo = record_region_depths(TD, recs)
+        try:
+            with quiet():
+                res = t.run()
+        finally:
+            undo()
+        check(isinstance(t.predictor, DisparityOrderPredictor) and
+              t.predictor.device.type == dev.type,
+              f'tester {name}: the disparity predictor on the card')
+        check(t.predictor.select == (select or 'median'),
+              f'tester {name}: select {select or "median"}')
+        first = first_metrics(t, recs, MIDAS_CPU_IMAGES)
+        check(all(np.isfinite(v) for v in res.values()),
               f'tester {name}: finite metrics')
-        med = lambda k: float(np.median([r[k] for r in recs['card'][1:]]))
+        med = lambda k: float(np.median([r[k] for r in  # noqa: E731
+                                         recs[1:]]))
         numbers[f'tester {name}'] = (med('ms'), med('predict_ms'))
-        print(f'  tester {name}: {res["card"]}; card vs CPU (first '
-              f'{MIDAS_CPU_IMAGES} images): {sure} sure cells equal, '
-              f'{unsure} unsure, {differ} differ; metrics '
-              f'{"equal" if not differ else "not held"}; per image '
+        print(f'  tester {name}: {res} on the card; per image '
               f'{med("ms"):.3f} ms, {med("predict_ms"):.3f} of it the '
               f'prediction (host clock, median after one warm-up image; '
               f'{card})')
 
+        def then(cpu, name=name, recs=recs, first=first):
+            want, want_res = cpu
+            sure, unsure, differ = compare_disp_runs(name, recs, want)
+            if not differ:
+                check(first == want_res, f'tester {name}: metrics on the '
+                      f'first {MIDAS_CPU_IMAGES} images equal ({first} vs '
+                      f'{want_res})')
+            print(f'  tester {name}: card vs CPU (first {MIDAS_CPU_IMAGES} '
+                  f'images): {sure} sure cells equal, {unsure} unsure, '
+                  f'{differ} differ; metrics '
+                  f'{"equal" if not differ else "not held"}')
+        pool.later(f'midas tester CPU runs: {name}', midas_tester_cpu, args,
+                   select, then=then)
 
-def phase_midas_disp(torch, root, fixtures, nets_ck, card, numbers):
-    """(c): cli/test_disp on the DIW, KITTI and NYU fixtures, on the card
-    and on the CPU, and eval_diw / eval_dense_depth timed a image on the
+
+def test_disp_cpu(path, ck):
+    """Reference job of phase 7 (c): cli/test_disp on the CPU with config
+    `path` and checkpoint `ck`; its result."""
+    import contextlib
+    import io
+    from instaorder_tpu_torch.cli import test_disp
+    with contextlib.redirect_stdout(io.StringIO()):     # its logs
+        return test_disp.main(['--config', path, '--load_model', ck,
+                               '--device', 'cpu'])
+
+
+def phase_midas_disp(torch, pool, root, fixtures, nets_ck, card, numbers):
+    """(c): cli/test_disp on the DIW, KITTI and NYU fixtures on the card
+    against the CPU's (test_disp_cpu in the pool, compared when it
+    finishes), and eval_diw / eval_dense_depth timed a image on the
     card."""
     import contextlib
     import io
     from instaorder_tpu_torch.cli import test_disp
     from instaorder_tpu_torch.data import readers as R
     from instaorder_tpu_torch.eval import disp as TDISP
+    n = {'diw': DIW_IMAGES, 'kitti': KITTI_IMAGES, 'nyu': NYU_IMAGES}
     for name, cname in (('diw', 'DIW/midas_pretrained'),
                         ('kitti', 'kitti/InstaDepthNet_d'),
                         ('nyu', 'kitti/InstaDepthNet_d')):
@@ -3068,18 +3637,15 @@ def phase_midas_disp(torch, root, fixtures, nets_ck, card, numbers):
         algo = cfg.model['algo']
         ck = nets_ck[cfg.model['backbone_arch']]
         with contextlib.redirect_stdout(io.StringIO()):     # its logs
-            res = {where: test_disp.main(['--config', path, '--load_model',
-                                          ck, '--device', where])
-                   for where in ('cuda', 'cpu')}
-        n = {'diw': DIW_IMAGES, 'kitti': KITTI_IMAGES, 'nyu': NYU_IMAGES}
-        check(res['cuda']['n'] == res['cpu']['n'] == n[name],
-              f'{name}: every image evaluated ({res})')
+            res = test_disp.main(['--config', path, '--load_model', ck,
+                                  '--device', 'cuda'])
+        check(res['n'] == n[name], f'{name}: every image evaluated ({res})')
         fwd = TDISP.make_disp_forward(algo, ck)
         cls = {'diw': R.DIWReader, 'kitti': R.KITTIReader,
                'nyu': R.NYUReader}[name]
         reader = cls(ann, img, cfg.data['data_mean'], cfg.data['data_std'])
+        close = 0
         if name == 'diw':
-            close = 0
             for i in range(len(reader)):
                 orig, chw, (a, b, _), _ = reader[i]
                 d = TDISP._upsample_half_pixel_np(
@@ -3087,36 +3653,46 @@ def phase_midas_disp(torch, root, fixtures, nets_ck, card, numbers):
                     orig.shape[0], orig.shape[1])
                 da, db = d[a[0], a[1]], d[b[0], b[1]]
                 close += abs(da - db) <= DIW_SURE * max(abs(da), abs(db))
-            if not close:
-                check(res['cuda'] == res['cpu'], f'diw: WHDR equal {res}')
             run = lambda: TDISP.eval_diw(fwd, reader, log=lambda *a: None)
-            verdict = ('equal' if not close else
-                       f'not held ({close} near-tied pairs)')
         else:
-            for k, v in res['cpu'].items():
-                check(abs(res['cuda'][k] - v) <= DENSE_BAR * abs(v),
-                      f'{name} {k}: card within {DENSE_BAR} of the CPU '
-                      f'({res["cuda"][k]} vs {v})')
             run = lambda: TDISP.eval_dense_depth(fwd, reader, name,
                                                  log=lambda *a: None)
-            verdict = f'within {DENSE_BAR}'
-        run()                   # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        ms = (time.perf_counter() - t0) * 1e3 / n[name]
+        with quiet():
+            run()                   # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            ms = (time.perf_counter() - t0) * 1e3 / n[name]
         numbers[f'{name} per image'] = ms
-        print(f'  cli/test_disp {name}: card {res["cuda"]}, CPU '
-              f'{res["cpu"]}: {verdict}; {ms:.3f} ms an image on the card '
-              f'(host clock, the eval loop warm; {card})')
+        print(f'  cli/test_disp {name}: card {res}; {ms:.3f} ms an image on '
+              f'the card (host clock, the eval loop warm; {card})')
+
+        def then(cpu, name=name, res=res, close=close):
+            check(cpu['n'] == n[name], f'{name}: every image evaluated on '
+                  f'the CPU ({cpu})')
+            if name == 'diw':
+                if not close:
+                    check(res == cpu, f'diw: WHDR equal {res} {cpu}')
+                verdict = ('equal' if not close else
+                           f'not held ({close} near-tied pairs)')
+            else:
+                for k, v in cpu.items():
+                    check(abs(res[k] - v) <= DENSE_BAR * abs(v),
+                          f'{name} {k}: card within {DENSE_BAR} of the CPU '
+                          f'({res[k]} vs {v})')
+                verdict = f'within {DENSE_BAR}'
+            print(f'  cli/test_disp {name}: card {res}, CPU {cpu}: '
+                  f'{verdict}')
+        pool.later(f'midas test_disp CPU runs: {name}', test_disp_cpu, path,
+                   ck, then=then)
 
 
-def phase_midas(torch, dev, card, wrappers):
-    """The MiDaS family on the card (module docstring, phase 7). Returns
-    {measurement: number}."""
-    import logging
+def phase_midas(torch, dev, card, wrappers, pool=None):
+    """The MiDaS family on the card (module docstring, phase 7); its
+    card-vs-CPU comparisons deferred to `pool`'s finish (own_pool; the
+    files live in its tempdir until then). Returns {measurement:
+    number}."""
     import os
-    import tempfile
     import numpy as np
     from instaorder_tpu_torch.convert import to_numpy, tree_to
     from instaorder_tpu_torch.core import checkpoint as CK
@@ -3128,16 +3704,12 @@ def phase_midas(torch, dev, card, wrappers):
     from instaorder_tpu_torch.ops.resize import resize_nearest
 
     t0 = time.perf_counter()
-    log = logging.getLogger('chip_smoke.midas')
-    log.addHandler(logging.NullHandler())
-    log.propagate = False
     numbers = {}
     for w in wrappers.values():
         w.launches = 0
-    with tempfile.TemporaryDirectory() as root:
-        insta, _, img_root = synthetic.make_instaorder_fixture(
-            root, n_images=TESTER_IMAGES, n_instances=TESTER_INSTANCES,
-            h=HEIGHT, w=WIDTH)
+    with own_pool(pool) as pool:
+        root = pool.tempdir()
+        insta, img_root = instaorder_fixture(root)
         fixtures = {
             'diw': synthetic.make_diw_fixture(root + '/diw', DIW_IMAGES),
             'kitti': synthetic.make_kitti_fixture(root + '/kitti',
@@ -3174,23 +3746,27 @@ def phase_midas(torch, dev, card, wrappers):
         mk = torch.as_tensor(modal.astype(np.float32), device=dev)
         mk = resize_nearest(mk, 384, 384)
         pair_masks = (mk[[i for i, _ in pidx]], mk[[j for _, j in pidx]])
-        phase_midas_forward(torch, M, nets, cpu, x384, xk, pair_masks, card,
-                            numbers, root)
+        trees = f'{root}/midas_nets.pt'
+        torch.save(cpu, trees)
+        pool.later('midas CPU forwards', midas_forward_cpu, trees,
+                   *(host_tree(x) for x in (x384, xk, *pair_masks)),
+                   then=phase_midas_forward(torch, M, nets, x384, xk,
+                                            pair_masks, card, numbers, root))
         nets_ck = {name: CK.save_state(f'{root}/{name}', 1, to_numpy(p),
                                        to_numpy(s))
                    for name, (p, s, _) in cpu.items()
                    if name != 'InstaDepthNet_od'}
         del nets, cpu
-        phase_midas_tester(dev, root, (insta, img_root), nets_ck, log, card,
+        phase_midas_tester(pool, dev, root, (insta, img_root), nets_ck, card,
                            numbers)
-        phase_midas_disp(torch, root, fixtures, nets_ck, card, numbers)
-    torch.cuda.synchronize()
-    got = {n: w.launches for n, w in wrappers.items() if w.launches}
-    check(not got, f'midas: no kernel launched (JAX\'s MiDaS path reaches '
-          f'none): {got}')
-    numbers['seconds'] = time.perf_counter() - t0
-    print(f'midas phase: {numbers["seconds"]:.1f} s; hand-written kernel '
-          f'launches 0 ({card})')
+        phase_midas_disp(torch, pool, root, fixtures, nets_ck, card, numbers)
+        torch.cuda.synchronize()
+        got = {n: w.launches for n, w in wrappers.items() if w.launches}
+        check(not got, f'midas: no kernel launched (JAX\'s MiDaS path '
+              f'reaches none): {got}')
+        numbers['seconds'] = time.perf_counter() - t0
+        print(f'midas phase (the card\'s side): {numbers["seconds"]:.1f} s; '
+              f'hand-written kernel launches 0 ({card})')
     return numbers
 
 
@@ -3477,40 +4053,90 @@ def pool_recorder(torch, indices, flips=None, ties=None):
     return pool
 
 
-def phase_pcnet_forward(torch, U, AM, dev, fixture, card, numbers):
+def pcnet_fixtures(root):
+    """Phase 8's fixtures under root: InstaOrder at PCNET_HW, COCOA, KINS;
+    {dataset: (annotation file, image root)}."""
+    from instaorder_tpu_torch.data import synthetic
+    return {'InstaOrder': instaorder_fixture(root, PCNET_HW),
+            'COCOA': synthetic.make_cocoa_fixture(root),
+            'KINS': synthetic.make_kins_fixture(root)}
+
+
+def pcnet_cpu():
+    """Reference job of phases 8 and 11 (the CPU side of each card-vs-CPU
+    check there), on phase 8's fixtures: (a) unet2 from seed 0 with its
+    outc moved on the first image's patches (centre_outc, from the CPU
+    forward) and its CPU logits, the unet2res CPU logits on their first
+    PCNET_RES_BATCH patches; (b) the CPU Tester runs (the first
+    PCNET_CPU_IMAGES images) on the moved net's checkpoint; (d) the CPU's
+    f64 and f32 SGD steps; phase 11 (a)'s CPU instseg. numpy."""
+    import tempfile
+    import numpy as np
+    import torch
+    from instaorder_tpu_torch import convert as CV
+    from instaorder_tpu_torch.data import readers as R
+    from instaorder_tpu_torch.data.image_io import read_rgb
+    from instaorder_tpu_torch.eval import amodal as AM
+    from instaorder_tpu_torch.eval.tester import expand_bbox
+    from instaorder_tpu_torch.models import unet as U
+    from instaorder_tpu_torch.ops.resize import resize_cubic_u8
+    from instaorder_tpu_torch.utils.geometry import crop_padding
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        fixtures = pcnet_fixtures(root)
+        insta, img_root = fixtures['InstaOrder']
+        modal, cat, bboxes, _, fn = R.InstaOrderReader(insta).\
+            get_image_instances(0, with_gt=False)[:5]
+        image = read_rgb(os.path.join(img_root, fn))
+        ebb = expand_bbox(bboxes)
+        size = pcnet_config('InstaOrder')['data']['input_size']
+        p, s, cfg = pcnet_net(torch, 'unet2')
+        log = []
+        cpu = AM.AmodalCompleter(U.apply, cfg, p, s, device='cpu')
+        record_completer(cpu, log)
+        cpu.infer_order(image, modal.astype(np.uint8), cat, ebb,
+                        th=PCNET_TH, input_size=size)
+        x = torch.from_numpy(np.stack([log[0]['modal'], log[0]['eraser']],
+                                      -1).astype(np.float32))
+        with torch.no_grad():
+            d = outc_margins(U.apply(p, s, cfg, x), log[0]['eraser'])
+            p = centre_outc(p, d)
+            want = U.apply(p, s, cfg, x)
+        rp, rs, rcfg = pcnet_net(torch, 'unet2res')
+        rgb = torch.from_numpy(np.stack([
+            resize_cubic_u8(crop_padding(image, ebb[t], (0, 0, 0)), size,
+                            size)
+            for t, _ in log[0]['ind'][:PCNET_RES_BATCH]]).astype(np.float32))
+        with torch.no_grad():
+            want_res = U.apply(rp, rs, rcfg, x[:PCNET_RES_BATCH], rgb=rgb)
+        out['forward'] = host_tree(dict(
+            p=p, s=s, cfg=cfg, x=x, eraser=log[0]['eraser'], margins=d,
+            want=want, res=(rp, rs, rcfg, rgb, want_res)))
+        net = (CV.to_numpy(p), CV.to_numpy(s), cfg)
+        out['tester'] = pcnet_tester_cpu(root, fixtures, net)
+        out['xdev'] = pcnet_xdev_cpu(fixtures['InstaOrder'])
+        out['instseg'] = instseg_cpu(net, fixtures['InstaOrder'])
+    return out
+
+
+def phase_pcnet_forward(torch, dev, card, numbers, ref):
     """(a): unet2 at full width from seed 0 (PCNET_GAIN), its outc moved
     on the InstaOrder fixture's first image (centre_outc); its logits on
     that image's 256^2 patches card vs CPU; a unet2res forward at batch
-    PCNET_RES_BATCH. Returns the moved (params, stats, cfg), numpy."""
-    import os
+    PCNET_RES_BATCH. ref: pcnet_cpu's 'forward'. Returns the moved
+    (params, stats, cfg), numpy."""
     import numpy as np
     from instaorder_tpu_torch.convert import to_numpy, tree_to
     from instaorder_tpu_torch.core.nn import param_count
-    from instaorder_tpu_torch.data import readers as R
-    from instaorder_tpu_torch.data.image_io import read_rgb
-    from instaorder_tpu_torch.eval.tester import expand_bbox
-    from instaorder_tpu_torch.ops.resize import resize_cubic_u8
-    from instaorder_tpu_torch.utils.geometry import crop_padding
-    insta, img_root = fixture
-    modal, cat, bboxes, _, fn = R.InstaOrderReader(insta).\
-        get_image_instances(0, with_gt=False)[:5]
-    image = read_rgb(os.path.join(img_root, fn))
-    ebb = expand_bbox(bboxes)
+    from instaorder_tpu_torch.models import unet as U
     size = pcnet_config('InstaOrder')['data']['input_size']
-    p, s, cfg = pcnet_net(torch, 'unet2')
-    log = []
-    cpu = AM.AmodalCompleter(U.apply, cfg, p, s, device='cpu')
-    record_completer(cpu, log)
-    cpu.infer_order(image, modal.astype(np.uint8), cat, ebb, th=PCNET_TH,
-                    input_size=size)
-    x = torch.from_numpy(np.stack([log[0]['modal'], log[0]['eraser']],
-                                  -1).astype(np.float32))
-    n_pix = int((log[0]['eraser'] == 1).sum())
+    ref = torch_tree(torch, ref)
+    p, s, cfg, x, d, want = (ref[k] for k in ('p', 's', 'cfg', 'x',
+                                               'margins', 'want'))
+    eraser, d = ref['eraser'].numpy(), d.numpy()
+    n_pix = int((eraser == 1).sum())
     check(n_pix > 0, 'pcnet: the first image\'s patches hold eraser pixels')
     with torch.no_grad():
-        d = outc_margins(U.apply(p, s, cfg, x), log[0]['eraser'])
-        p = centre_outc(p, d)
-        want = U.apply(p, s, cfg, x)
         got = U.apply(tree_to(p, dev), tree_to(s, dev), cfg, x.to(dev))
         torch.cuda.synchronize()
         err = worst_rel(got, want)
@@ -3521,7 +4147,7 @@ def phase_pcnet_forward(torch, U, AM, dev, fixture, card, numbers):
     check(perr <= PCNET_SURE / 10, f'pcnet: the card-vs-CPU probability '
           f'error {perr:.3e} within a tenth of the sure margin {PCNET_SURE}')
     prob = torch.softmax(want, -1)[..., 1].numpy()
-    above, near = eraser_shares([{'prob': prob, 'eraser': log[0]['eraser']}])
+    above, near = eraser_shares([{'prob': prob, 'eraser': eraser}])
     check(0.05 < above < 0.95, f'pcnet: a real share of the eraser pixels '
           f'on each side of th ({above:.3f} above)')
     print(f'  pcnet unet2 ({param_count(p)} params, '
@@ -3534,16 +4160,11 @@ def phase_pcnet_forward(torch, U, AM, dev, fixture, card, numbers):
     numbers['forward err'] = err
     numbers['prob err'] = perr
     # the *res variant: the RGB patches as the completer feeds them
-    rp, rs, rcfg = pcnet_net(torch, 'unet2res')
+    rp, rs, rcfg, rgb, want = ref['res']
     k = PCNET_RES_BATCH
-    xr = x[:k]
-    rgb = torch.from_numpy(np.stack([
-        resize_cubic_u8(crop_padding(image, ebb[t], (0, 0, 0)), size, size)
-        for t, _ in log[0]['ind'][:k]]).astype(np.float32))
     with torch.no_grad():
-        want = U.apply(rp, rs, rcfg, xr, rgb=rgb)
-        got = U.apply(tree_to(rp, dev), tree_to(rs, dev), rcfg, xr.to(dev),
-                      rgb=rgb.to(dev))
+        got = U.apply(tree_to(rp, dev), tree_to(rs, dev), rcfg,
+                      x[:k].to(dev), rgb=rgb.to(dev))
     err = worst_rel(got, want)
     check(err <= MIDAS_BAR, f'pcnet unet2res logits card vs CPU within '
           f'{MIDAS_BAR} ({err:.3e})')
@@ -3552,31 +4173,58 @@ def phase_pcnet_forward(torch, U, AM, dev, fixture, card, numbers):
     return to_numpy(p), to_numpy(s), cfg
 
 
-def phase_pcnet_tester(torch, root, fixtures, net, dev, card, numbers):
-    """(b): Tester.run() with the PartialCompletionMask method on the card
-    (every fixture image) and on the CPU (the first PCNET_CPU_IMAGES), the
-    net saved with the port's save_state and loaded through load_model."""
+def quiet_tester_log(name):
+    """A logger that drops a Tester's lines."""
     import logging
+    log = logging.getLogger(name)
+    log.addHandler(logging.NullHandler())
+    log.propagate = False
+    return log
+
+
+def pcnet_tester_cpu(root, fixtures, net):
+    """Phase 8 (b)'s CPU side: each PCNET_RUNS Tester run on the CPU over
+    the first PCNET_CPU_IMAGES images, the net saved (step 7) and loaded
+    through load_model; {run: (records, result)}."""
+    from instaorder_tpu_torch.core import checkpoint as CK
+    from instaorder_tpu_torch.eval.tester import Tester
+    ck = CK.save_state(f'{root}/pcnet', 7, net[0], net[1])
+    out = {}
+    for name, dataset, pairs in PCNET_RUNS:
+        args = tester_args(pcnet_config(dataset), root, fixtures, '', pairs,
+                           ck)
+        t = Tester(args, logger=quiet_tester_log('chip_smoke.pcnet'),
+                   device='cpu', n_images=PCNET_CPU_IMAGES)
+        recs = record_pcnet_tester(t)
+        res = t.run()
+        check(t.order_method == 'PartialCompletionMask' and
+              t.completer.device.type == 'cpu' and t.curr_step == 7,
+              f'pcnet tester {name}: the completer on the CPU, step 7')
+        out[name] = (recs, res)
+    return out
+
+
+def phase_pcnet_tester(torch, root, fixtures, net, dev, card, numbers, ref):
+    """(b): Tester.run() with the PartialCompletionMask method on the card
+    (every fixture image) against the CPU's (the first PCNET_CPU_IMAGES;
+    ref: pcnet_tester_cpu's), the net saved with the port's save_state and
+    loaded through load_model."""
     import numpy as np
     from instaorder_tpu_torch.core import checkpoint as CK
     from instaorder_tpu_torch.eval.tester import Tester
-    log = logging.getLogger('chip_smoke.pcnet')
-    log.addHandler(logging.NullHandler())
-    log.propagate = False
+    log = quiet_tester_log('chip_smoke.pcnet')
     ck = CK.save_state(f'{root}/pcnet', 7, net[0], net[1])
     for name, dataset, pairs in PCNET_RUNS:
         cfg = pcnet_config(dataset)
         args = tester_args(cfg, root, fixtures, '', pairs, ck)
-        recs, res = {}, {}
-        for where, d, n in (('card', None, -1),
-                            ('cpu', 'cpu', PCNET_CPU_IMAGES)):
-            t = Tester(args, logger=log, device=d, n_images=n)
-            recs[where] = record_pcnet_tester(t)
-            res[where] = t.run()
-            check(t.order_method == 'PartialCompletionMask' and
-                  t.completer.device.type == (dev.type if d is None else d)
-                  and t.curr_step == 7,
-                  f'pcnet tester {name}: the completer on {where}, step 7')
+        t = Tester(args, logger=log, device=None, n_images=-1)
+        recs, res = {'card': record_pcnet_tester(t)}, {}
+        with quiet():
+            res['card'] = t.run()
+        check(t.order_method == 'PartialCompletionMask' and
+              t.completer.device.type == dev.type and t.curr_step == 7,
+              f'pcnet tester {name}: the completer on card, step 7')
+        recs['cpu'], res['cpu'] = ref[name]
         kinds, differ = compare_pcnet_runs(name, recs['card'], recs['cpu'])
         first = first_occ_metrics(recs['card'], PCNET_CPU_IMAGES)
         if not differ:
@@ -3613,13 +4261,12 @@ def phase_pcnet_train(torch, root, fixtures):
                     f'{root}/p_{dataset}', dataset)
 
 
-def phase_pcnet_xdev(torch, fixture, dev, card, numbers):
-    """(d): one SGD step of the InstaOrder config at full width on
-    PCNET_XDEV patches of the port's dataset, on the card and on the CPU
-    (f32 and f64), every run on the CPU f64 run's ReLU branch and pool
-    argmaxes, the card's flips counted; the card's step against the CPU's
-    f64 one."""
-    import numpy as np
+def pcnet_xdev_cpu(fixture):
+    """Phase 8 (d)'s CPU side: the InstaOrder config's net at full width
+    (seed 0) and PCNET_XDEV patches of the port's dataset; the CPU's f64
+    step (recording the ReLU branch and the pool argmaxes) and its f32
+    step on that branch. numpy."""
+    import torch
     from instaorder_tpu_torch import convert as CV
     from instaorder_tpu_torch.data.datasets import DATASETS, collate
     from instaorder_tpu_torch.data.loader import sample_rng
@@ -3637,12 +4284,36 @@ def phase_pcnet_xdev(torch, fixture, dev, card, numbers):
                                                  args.model['algo'])
     batch = collate([ds.sample(i % len(ds), sample_rng(0, i))
                      for i in range(PCNET_XDEV)])
-    run = lambda d, branch=None, dtype=None: train_step_on(  # noqa: E731
-        torch, T, ST, CV, net, cfg, args.model, params, stats, batch, d,
+    run = lambda branch=None, dtype=None: train_step_on(  # noqa: E731
+        torch, T, ST, CV, net, cfg, args.model, params, stats, batch, cpu,
         branch, dtype)
-    l64, p64, s64, branch, _, _ = run(cpu, None, torch.float64)
-    l32, p32, s32, _, _, _ = run(cpu, branch)
-    lg, pg, sg, _, flips, _ = run(dev, branch)
+    l64, p64, s64, branch, _, _ = run(None, torch.float64)
+    l32, p32, s32, _, _, _ = run(branch)
+    return dict(params=params, stats=stats, cfg=cfg, batch=batch,
+                f64=(l64, p64, s64), f32=(l32, p32, s32),
+                branch=host_tree(branch))
+
+
+def phase_pcnet_xdev(torch, fixture, dev, card, numbers, ref):
+    """(d): one SGD step of the InstaOrder config at full width on
+    PCNET_XDEV patches of the port's dataset on the card against the
+    CPU's f64 and f32 steps (ref: pcnet_xdev_cpu's), every run on the CPU
+    f64 run's ReLU branch and pool argmaxes, the card's flips counted;
+    the card's step against the CPU's f64 one."""
+    import numpy as np
+    from instaorder_tpu_torch import convert as CV
+    from instaorder_tpu_torch.models.registry import get_backbone
+    from instaorder_tpu_torch.train import step as ST
+    from instaorder_tpu_torch.train import trainer as T
+    args = train_args('pcnet_m', fixture, 1)
+    params, stats, cfg, batch = (ref[k] for k in ('params', 'stats', 'cfg',
+                                                  'batch'))
+    l64, p64, s64 = ref['f64']
+    l32, p32, s32 = ref['f32']
+    branch = torch_tree(torch, ref['branch'])
+    lg, pg, sg, _, flips, _ = train_step_on(
+        torch, T, ST, CV, get_backbone(args.model['backbone_arch']), cfg,
+        args.model, params, stats, batch, dev, branch)
     out = {}
     for who, (l, p, s) in (('card f32', (lg, pg, sg)),
                            ('CPU f32', (l32, p32, s32))):
@@ -3674,32 +4345,33 @@ def phase_pcnet_xdev(torch, fixture, dev, card, numbers):
     check_stats('pcnet', sg, s32, s64, card)
 
 
-def phase_pcnet(torch, dev, card, wrappers):
-    """PCNet-M on the card (module docstring, phase 8). Returns
-    {measurement: number}."""
+# phases 8 and 11's reference job: (pool label, job)
+PCNET_REFS = ('pcnet + instseg CPU references', pcnet_cpu)
+
+
+def phase_pcnet(torch, dev, card, wrappers, pool=None):
+    """PCNet-M on the card (module docstring, phase 8), its CPU
+    references from `pool` (own_pool; pcnet_cpu, phase 11's instseg
+    included: returned under 'instseg'). Returns {measurement:
+    number}."""
     import tempfile
-    from instaorder_tpu_torch.data import synthetic
-    from instaorder_tpu_torch.eval import amodal as AM
-    from instaorder_tpu_torch.models import unet as U
     from instaorder_tpu_torch.train import trainer as T
 
     t0 = time.perf_counter()
     numbers = {}
     for w in wrappers.values():
         w.launches = 0
-    with tempfile.TemporaryDirectory() as root:
-        insta, _, img = synthetic.make_instaorder_fixture(
-            root, n_images=TESTER_IMAGES, n_instances=TESTER_INSTANCES,
-            h=PCNET_HW[0], w=PCNET_HW[1])
-        fixtures = {'InstaOrder': (insta, img),
-                    'COCOA': synthetic.make_cocoa_fixture(root),
-                    'KINS': synthetic.make_kins_fixture(root)}
-        net = phase_pcnet_forward(torch, U, AM, dev, fixtures['InstaOrder'],
-                                  card, numbers)
+    with tempfile.TemporaryDirectory() as root, own_pool(pool) as pool:
+        fixtures = pcnet_fixtures(root)
+        ref = pool.result(*PCNET_REFS)
+        net = phase_pcnet_forward(torch, dev, card, numbers, ref['forward'])
         numbers['net'] = net
-        phase_pcnet_tester(torch, root, fixtures, net, dev, card, numbers)
+        numbers['instseg'] = ref['instseg']
+        phase_pcnet_tester(torch, root, fixtures, net, dev, card, numbers,
+                           ref['tester'])
         phase_pcnet_train(torch, root, fixtures)
-        phase_pcnet_xdev(torch, fixtures['InstaOrder'], dev, card, numbers)
+        phase_pcnet_xdev(torch, fixtures['InstaOrder'], dev, card, numbers,
+                         ref['xdev'])
         # the step on a fixed batch and the loader-fed window
         bt, dt, alone, ta, batch = time_loader_fed(
             T, 'pcnet_m', fixtures['InstaOrder'], f'{root}/w')
@@ -3819,29 +4491,64 @@ def _out_leaves(out):
     return [out]
 
 
-def legacy_xdev(torch, name, apply, trees, inputs, dev, card, numbers):
+LEGACY_CPU_RUNS = (('f64', 'float64'), ('f32', 'float32'))
+
+
+def legacy_cpu():
+    """Phase 11 (c)'s CPU side: each legacy net's eval and train forwards
+    on the CPU in f64 and f32 ({(name, train): {who: (outputs as f64,
+    new statistics)}}), and inpainting_loss's gradient in f64 and f32
+    ({who: (loss, {leaf: gradient})}). numpy."""
+    import torch
+    from instaorder_tpu_torch.convert import to_numpy
+    out = {}
+    for name, (apply, trees, inputs) in legacy_nets(torch).items():
+        for train in (False, True):
+            runs = out[name, train] = {}
+            for who, dt in LEGACY_CPU_RUNS:
+                dt = getattr(torch, dt)
+                tr = [_cast_to(torch, x, dt, 'cpu') for x in trees]
+                xs = [x.to(dt) for x in inputs]
+                with torch.no_grad():
+                    o, st = apply(tr, xs, train)
+                runs[who] = ([v.double().numpy() for v in _out_leaves(o)],
+                             to_numpy(st))
+    p, st, cfg, vgg, vcfg, x, m, gt = legacy_grad_inputs(torch)
+    grads = {who: inpaint_grad(torch, p, st, cfg, vgg, vcfg, x, m, gt,
+                               getattr(torch, dt), 'cpu')
+             for who, dt in LEGACY_CPU_RUNS}
+    return out, {who: (loss, host_tree(g)) for who, (loss, g)
+                 in grads.items()}
+
+
+# phase 11's reference job: (pool label, job)
+LEGACY_REFS = ('legacy CPU f64 + f32 runs and gradients', legacy_cpu)
+
+
+def legacy_xdev(torch, name, apply, trees, inputs, dev, card, numbers,
+                ref):
     """Eval and train forwards of one legacy net on the card against the
-    CPU's f64 run: the card's f64 run within LEGACY_F64_BAR of max |f64|
-    (train mode), its f32 run within max(MIDAS_BAR, factor x the CPU f32
-    run's own distance from f64), the train mode's new statistics by
-    check_stats at that factor; factor LEGACY_CPU_FACTOR for a train-mode
-    net with BatchNorm (LEGACY_BN), whose card f32 forward is also run
-    and printed with cuDNN switched off, else XDEV_CPU_FACTOR. The card's
-    eval forward timed with StepTimer."""
+    CPU's f64 run (ref: legacy_cpu's for this net): the card's f64 run
+    within LEGACY_F64_BAR of max |f64| (train mode), its f32 run within
+    max(MIDAS_BAR, factor x the CPU f32 run's own distance from f64), the
+    train mode's new statistics by check_stats at that factor; factor
+    LEGACY_CPU_FACTOR for a train-mode net with BatchNorm (LEGACY_BN),
+    whose card f32 forward is also run and printed with cuDNN switched
+    off, else XDEV_CPU_FACTOR. The card's eval forward timed with
+    StepTimer."""
     from instaorder_tpu_torch.convert import to_numpy
     from instaorder_tpu_torch.utils.profiling import StepTimer
     for train in (False, True):
         bn = train and name.split()[0] in LEGACY_BN
         factor = LEGACY_CPU_FACTOR if bn else XDEV_CPU_FACTOR
-        runs = {}
-        for who, dt, d in (('f64', torch.float64, 'cpu'),
-                           ('f32', torch.float32, 'cpu'),
-                           ('card f64', torch.float64, dev),
-                           ('card', torch.float32, dev),
-                           *((('card no cuDNN', torch.float32, dev),)
-                             if bn else ())):
-            tr = [_cast_to(torch, x, dt, d) for x in trees]
-            xs = [x.to(dt).to(d) for x in inputs]
+        runs = {who: ([torch.from_numpy(v) for v in outs], st)
+                for who, (outs, st) in ref[name, train].items()}
+        for who, dt in (('card f64', torch.float64),
+                        ('card', torch.float32),
+                        *((('card no cuDNN', torch.float32),) if bn
+                          else ())):
+            tr = [_cast_to(torch, x, dt, dev) for x in trees]
+            xs = [x.to(dt).to(dev) for x in inputs]
             with torch.no_grad(), torch.backends.cudnn.flags(
                     enabled=who != 'card no cuDNN', allow_tf32=False):
                 out, st = apply(tr, xs, train)
@@ -3886,7 +4593,7 @@ def legacy_xdev(torch, name, apply, trees, inputs, dev, card, numbers):
     tr = [_cast_to(torch, x, torch.float32, dev) for x in trees]
     xs = [x.to(dev) for x in inputs]
     timer = StepTimer(window=LEGACY_REPS)
-    with torch.no_grad():
+    with torch.no_grad(), quiet():
         for k in range(LEGACY_WARMUP + LEGACY_REPS):
             timer.start()
             timer.stop(apply(tr, xs, False)[0])
@@ -3924,15 +4631,10 @@ def inpaint_grad(torch, params, stats, cfg, vgg, vcfg, x, m, gt, dt, d):
                                   for k, g in zip(paths, grads)}
 
 
-def legacy_grad_xdev(torch, dev, card, numbers):
-    """inpainting_loss's gradient through PConvUNet (layer_size 7, train
-    mode) and VGG16 at LEGACY_GRAD_SIDE^2, card against the CPU's f64: the
-    card's f64 gradient within LEGACY_F64_BAR of each leaf's max; in
-    f32 the loss within XDEV_LOSS_BAR relative, each leaf within max(
-    XDEV_UPDATE_BAR, LEGACY_CPU_FACTOR x the CPU f32 run's own error) of
-    its max |f64 gradient| (the partial convolutions divide by the
-    window's mask count, so the deep leaves' gradients are small
-    differences of large terms; tests/test_torch_legacy.py)."""
+def legacy_grad_inputs(torch):
+    """The inpainting gradient's inputs from seed 1: (PConvUNet params,
+    stats, cfg (layer_size LEGACY_PCONV[0]), VGG16 params, cfg, image,
+    mask, ground truth at LEGACY_GRAD_SIDE^2)."""
     import numpy as np
     from instaorder_tpu_torch.models import legacy as L
     gen = torch.Generator().manual_seed(1)
@@ -3944,11 +4646,27 @@ def legacy_grad_xdev(torch, dev, card, numbers):
         np.float32)) for _ in range(2))
     m = torch.from_numpy((rng.rand(1, side, side, 1) > 0.3).astype(
         np.float32)).expand(1, side, side, 3).contiguous()
-    runs = {who: inpaint_grad(torch, p, st, cfg, vgg, vcfg, x, m, gt, dt, d)
-            for who, dt, d in (('f64', torch.float64, 'cpu'),
-                               ('f32', torch.float32, 'cpu'),
-                               ('card f64', torch.float64, dev),
-                               ('card', torch.float32, dev))}
+    return p, st, cfg, vgg, vcfg, x, m, gt
+
+
+def legacy_grad_xdev(torch, dev, card, numbers, ref):
+    """inpainting_loss's gradient through PConvUNet (layer_size 7, train
+    mode) and VGG16 at LEGACY_GRAD_SIDE^2, card against the CPU's f64 (ref:
+    legacy_cpu's): the card's f64 gradient within LEGACY_F64_BAR of each
+    leaf's max; in f32 the loss within XDEV_LOSS_BAR relative, each leaf
+    within max(XDEV_UPDATE_BAR, LEGACY_CPU_FACTOR x the CPU f32 run's own
+    error) of its max |f64 gradient| (the partial convolutions divide by
+    the window's mask count, so the deep leaves' gradients are small
+    differences of large terms; tests/test_torch_legacy.py)."""
+    import numpy as np
+    p, st, cfg, vgg, vcfg, x, m, gt = legacy_grad_inputs(torch)
+    side = LEGACY_GRAD_SIDE
+    runs = {who: (loss, torch_tree(torch, g)) for who, (loss, g)
+            in ref.items()}
+    runs.update({who: inpaint_grad(torch, p, st, cfg, vgg, vcfg, x, m, gt,
+                                   dt, dev)
+                 for who, dt in (('card f64', torch.float64),
+                                 ('card', torch.float32))})
     l64 = runs['f64'][0]
     lrel = abs(runs['card'][0] - l64) / abs(l64)
     check(np.isfinite(runs['card'][0]) and lrel <= XDEV_LOSS_BAR,
@@ -3977,53 +4695,51 @@ def legacy_grad_xdev(torch, dev, card, numbers):
           f'f64 gradient {worst64:.3e}')
 
 
-def phase_instseg(torch, dev, card, numbers, net, fixture):
-    """infer_instseg (bbox prompts; without and with the dense CRF) of the
-    moved unet2 on the fixture's first PCNET_CPU_IMAGES images, card
-    against CPU: the probabilities within a tenth of the sure margin,
-    the masks equal wherever the CPU's (CRF-refined) probability lies
-    more than PCNET_SURE from th; infer_amodal_hull on every image."""
+def instseg_scenes(fixture):
+    """The first PCNET_CPU_IMAGES images of the fixture as phase 11 (a)
+    prompts them: (modal, category, integer bboxes, expanded bboxes,
+    image)."""
     import os
     import numpy as np
-    from instaorder_tpu_torch.convert import to_torch
     from instaorder_tpu_torch.data import readers as R
     from instaorder_tpu_torch.data.image_io import read_rgb
-    from instaorder_tpu_torch.eval import amodal as AM
-    from instaorder_tpu_torch.eval import heuristics as H
     from instaorder_tpu_torch.eval.tester import expand_bbox
+    insta, img_root = fixture
+    reader = R.InstaOrderReader(insta)
+    for i in range(PCNET_CPU_IMAGES):
+        modal, cat, bboxes, _, fn = reader.get_image_instances(
+            i, with_gt=False)[:5]
+        # integer boxes (the reader's are COCO floats), as the
+        # reference's instseg slices its box masks with them
+        bboxes = np.round(bboxes).astype(int)
+        yield (modal, cat, bboxes, expand_bbox(bboxes),
+               read_rgb(os.path.join(img_root, fn)))
+
+
+def instseg_cpu(net, fixture):
+    """Phase 11 (a)'s CPU side: infer_instseg of the moved unet2 on the
+    CPU without and with the CRF on each instseg_scenes image; for each,
+    (masks, the completion probabilities, the probabilities the masks are
+    held on: those, or their CRF refinement on the host). numpy."""
+    import numpy as np
+    from instaorder_tpu_torch.convert import to_torch
+    from instaorder_tpu_torch.eval import amodal as AM
     from instaorder_tpu_torch.models import unet as U
     from instaorder_tpu_torch.ops.crf import densecrf
     from instaorder_tpu_torch.ops.resize import resize_cubic_u8
     from instaorder_tpu_torch.utils.geometry import crop_padding
-    insta, img_root = fixture
-    reader = R.InstaOrderReader(insta)
     size = pcnet_config('InstaOrder')['data']['input_size']
     p, s, cfg = net
-    comp = {who: AM.AmodalCompleter(U.apply, cfg, to_torch(p), to_torch(s),
-                                    input_size=size, device=d)
-            for who, d in (('card', dev), ('cpu', 'cpu'))}
-    logs = {who: record_completer(c, []) for who, c in comp.items()}
-    ms = {False: [], True: []}
-    perr, px, near_px, above = 0.0, 0, 0, []
-    for i in range(PCNET_CPU_IMAGES):
-        modal, cat, bboxes, _, fn = reader.get_image_instances(
-            i, with_gt=False)[:5]
-        image = read_rgb(os.path.join(img_root, fn))
-        # integer boxes (the reader's are COCO floats), as the
-        # reference's instseg slices its box masks with them
-        bboxes = np.round(bboxes).astype(int)
-        new = expand_bbox(bboxes)
+    comp = AM.AmodalCompleter(U.apply, cfg, to_torch(p), to_torch(s),
+                              input_size=size, device='cpu')
+    log = record_completer(comp, [])
+    out = []
+    for _, cat, bboxes, new, image in instseg_scenes(fixture):
         for crf in (False, True):
-            kw = dict(input_size=size, th=PCNET_TH,
-                      rgb=image if crf else None)
-            t0 = time.perf_counter()
-            got = AM.infer_instseg(comp['card'], image, cat, bboxes, new,
-                                   **kw)
-            ms[crf].append((time.perf_counter() - t0) * 1e3)
-            want = AM.infer_instseg(comp['cpu'], image, cat, bboxes, new,
-                                    **kw)
-            pg, pw = logs['card'][-1]['prob'], logs['cpu'][-1]['prob']
-            perr = max(perr, float(np.abs(pg - pw).max()))
+            want = AM.infer_instseg(comp, image, cat, bboxes, new,
+                                    input_size=size, th=PCNET_TH,
+                                    rgb=image if crf else None)
+            pw = log[-1]['prob']
             ref = pw
             if crf:
                 ref = np.stack([densecrf(np.stack([1.0 - q, q]),
@@ -4031,6 +4747,40 @@ def phase_instseg(torch, dev, card, numbers, net, fixture):
                                              image, b, (0, 0, 0)), size,
                                              size))[1]
                                 for q, b in zip(pw, new)])
+            out.append(host_tree((want, pw, ref)))
+    return out
+
+
+def phase_instseg(torch, dev, card, numbers, net, fixture, ref):
+    """infer_instseg (bbox prompts; without and with the dense CRF) of the
+    moved unet2 on the fixture's first PCNET_CPU_IMAGES images, card
+    against CPU (ref: instseg_cpu's): the probabilities within a tenth of
+    the sure margin, the masks equal wherever the CPU's (CRF-refined)
+    probability lies more than PCNET_SURE from th; infer_amodal_hull on
+    every image."""
+    import numpy as np
+    from instaorder_tpu_torch.convert import to_torch
+    from instaorder_tpu_torch.eval import amodal as AM
+    from instaorder_tpu_torch.eval import heuristics as H
+    from instaorder_tpu_torch.models import unet as U
+    size = pcnet_config('InstaOrder')['data']['input_size']
+    p, s, cfg = net
+    comp = AM.AmodalCompleter(U.apply, cfg, to_torch(p), to_torch(s),
+                              input_size=size, device=dev)
+    log = record_completer(comp, [])
+    ms = {False: [], True: []}
+    perr, px, near_px, above = 0.0, 0, 0, []
+    refs = iter(ref)
+    for modal, cat, bboxes, new, image in instseg_scenes(fixture):
+        for crf in (False, True):
+            kw = dict(input_size=size, th=PCNET_TH,
+                      rgb=image if crf else None)
+            with quiet():
+                t0 = time.perf_counter()
+                got = AM.infer_instseg(comp, image, cat, bboxes, new, **kw)
+                ms[crf].append((time.perf_counter() - t0) * 1e3)
+            want, pw, ref = next(refs)
+            perr = max(perr, float(np.abs(log[-1]['prob'] - pw).max()))
             for g, w, r in zip(got, want, ref):
                 near = np.abs(r - PCNET_TH) <= PCNET_SURE
                 check((g == w)[~near].all(), f'instseg (crf {crf}): card '
@@ -4060,19 +4810,19 @@ def phase_instseg(torch, dev, card, numbers, net, fixture):
           f'host CRF {numbers["instseg ms"][True]:.2f} ms ({card})')
 
 
-def phase_last_modules(torch, dev, card, wrappers, net=None):
+def phase_last_modules(torch, dev, card, wrappers, pcnet=None, pool=None):
     """Phase 11 (module docstring): instseg / hull, the Mapillary PCNet-M
     Trainer, the legacy nets and the inpainting gradient, timed with
     StepTimer and one profiling.trace; no hand-written kernel launched.
-    net: phase 8's moved unet2 (numpy (params, stats, cfg)); None builds
-    it as phase 8 does (phase_pcnet_forward), for a run of this phase
-    alone. Returns {measurement: number}."""
+    pcnet: phase 8's numbers (its moved unet2, numpy (params, stats,
+    cfg), under 'net', and the CPU instseg under 'instseg'); None takes
+    them from the pool's pcnet_cpu as phase 8 does (phase_pcnet_forward),
+    for a run of this phase alone. Its CPU references from `pool`
+    (own_pool). Returns {measurement: number}."""
     import json as _json
     import os
     import tempfile
     from instaorder_tpu_torch.data import synthetic
-    from instaorder_tpu_torch.eval import amodal as AM
-    from instaorder_tpu_torch.models import unet as U
     from instaorder_tpu_torch.train import trainer as T
     from instaorder_tpu_torch.utils import profiling as PF
 
@@ -4080,15 +4830,17 @@ def phase_last_modules(torch, dev, card, wrappers, net=None):
     numbers = {}
     for w in wrappers.values():
         w.launches = 0
-    with tempfile.TemporaryDirectory() as root:
-        insta, _, img = synthetic.make_instaorder_fixture(
-            root, n_images=TESTER_IMAGES, n_instances=TESTER_INSTANCES,
-            h=PCNET_HW[0], w=PCNET_HW[1])
-        if net is None:
-            net = phase_pcnet_forward(torch, U, AM, dev, (insta, img), card,
-                                      {})
+    with tempfile.TemporaryDirectory() as root, own_pool(pool) as pool:
+        pool.submit(*LEGACY_REFS)
+        fixture = instaorder_fixture(root, PCNET_HW)
+        if pcnet is None:
+            ref = pool.result(*PCNET_REFS)
+            pcnet = {'net': phase_pcnet_forward(torch, dev, card, {},
+                                                ref['forward']),
+                     'instseg': ref['instseg']}
         t1 = time.perf_counter()
-        phase_instseg(torch, dev, card, numbers, net, (insta, img))
+        phase_instseg(torch, dev, card, numbers, pcnet['net'], fixture,
+                      pcnet['instseg'])
         numbers['instseg s'] = time.perf_counter() - t1
         # the PCNet-M Trainer on Mapillary (the pcnet_m YAML, dataset
         # Mapillary)
@@ -4102,16 +4854,17 @@ def phase_last_modules(torch, dev, card, wrappers, net=None):
         # the legacy nets
         t1 = time.perf_counter()
         last = None
+        forwards, grads = pool.result(*LEGACY_REFS)
         for name, (apply, trees, inputs) in legacy_nets(torch).items():
             tr, xs = legacy_xdev(torch, name, apply, trees, inputs, dev,
-                                 card, numbers)
+                                 card, numbers, forwards)
             if last is None:
                 last = (name, apply, tr, xs)
-        legacy_grad_xdev(torch, dev, card, numbers)
+        legacy_grad_xdev(torch, dev, card, numbers, grads)
         numbers['legacy s'] = time.perf_counter() - t1
         # one traced PConvUNet forward (utils/profiling.trace)
         name, apply, tr, xs = last
-        with torch.no_grad(), PF.trace(f'{root}/trace'):
+        with torch.no_grad(), quiet(), PF.trace(f'{root}/trace'):
             apply(tr, xs, False)
         with open(f'{root}/trace/trace.json') as f:
             events = _json.load(f)['traceEvents']
@@ -4136,8 +4889,9 @@ def phase_last_modules(torch, dev, card, wrappers, net=None):
 
 
 # ---- InstaDepthNet training (train/algos.make_insta_depth_net, compat/) -----
-# the card-vs-CPU SGD step: samples at the YAMLs' 384^2
-DEPTH_XDEV = 2
+# the card-vs-CPU SGD step: samples at the YAMLs' 384^2 (the first
+# distinct pair of order 0 or 1: the violation count's case)
+DEPTH_XDEV = 1
 # the loader-fed window of the _d Trainer (steps after a warm-up)
 DEPTH_LOADER_WARMUP, DEPTH_LOADER_WINDOW = 5, 10
 # a pixel whose disparity lies within this share of max |disparity| of
@@ -4279,25 +5033,44 @@ def depth_batch(ds, n):
     return collate((picked + rest)[:n])
 
 
-def phase_depth_xdev(torch, fixture, dev, card, numbers):
-    """(b): one SGD step of the _d and _od YAMLs at full width on
-    DEPTH_XDEV samples of 384^2, on the card and on the CPU (f32 and
-    f64), every run on the CPU f64 run's ReLU branch and pool argmaxes;
-    the card's step against the CPU's f64 one, and the violation count
-    against its count."""
-    import contextlib
+def violation_recorder(seen, who):
+    """A record callback for train_step_on: the arguments of each
+    losses.disparity_order_violations call of the step, on the CPU, into
+    seen[who]."""
+    @contextlib.contextmanager
+    def rec():
+        from instaorder_tpu_torch import losses as TL
+        real = TL.disparity_order_violations
+
+        def wrapped(*a):
+            seen[who] = [v.detach().cpu() for v in a]
+            return real(*a)
+        TL.disparity_order_violations = wrapped
+        try:
+            yield
+        finally:
+            TL.disparity_order_violations = real
+    return rec
+
+
+def depth_xdev_cpu(name):
+    """Reference job of phase 9 (b) for `name`: its net at full width from
+    seed 0 and DEPTH_XDEV samples of the port's dataset on the InstaOrder
+    fixture; the CPU's f64 step (recording the ReLU branch, the pool
+    argmaxes and the min_max_norm extrema) and its f32 step on that
+    branch, each with its violation-count inputs; this worker's peak
+    RSS (GiB). numpy."""
     import resource
-    import numpy as np
+    import tempfile
+    import torch
     from instaorder_tpu_torch import convert as CV
-    from instaorder_tpu_torch import losses as TL
     from instaorder_tpu_torch.data.datasets import DATASETS
     from instaorder_tpu_torch.models.registry import get_backbone
     from instaorder_tpu_torch.train import step as ST
     from instaorder_tpu_torch.train import trainer as T
     cpu = torch.device('cpu')
-    for name in ('InstaDepthNet_d', 'InstaDepthNet_od'):
-        t0 = time.perf_counter()
-        args = train_args(name, fixture, 1)
+    with tempfile.TemporaryDirectory() as root:
+        args = train_args(name, instaorder_fixture(root), 1)
         net = get_backbone(name)
         params, stats, cfg = net['init'](torch.Generator().manual_seed(0),
                                          device='cpu')
@@ -4305,29 +5078,49 @@ def phase_depth_xdev(torch, fixture, dev, card, numbers):
         ds = DATASETS[args.data['trainval_dataset']](args.data, 'train',
                                                      args.model['algo'])
         batch = depth_batch(ds, DEPTH_XDEV)
-        seen = {}
+    seen = {}
+    run = lambda who, branch=None, dtype=None: train_step_on(  # noqa: E731
+        torch, T, ST, CV, net, cfg, args.model, params, stats, batch, cpu,
+        branch, dtype, record=violation_recorder(seen, who))
+    l64, p64, s64, branch, _, lg64 = run('cpu f64', None, torch.float64)
+    l32, p32, s32, _, cflips, lg32 = run('cpu f32', branch)
+    return dict(params=params, stats=stats, cfg=cfg, batch=batch,
+                f64=(l64, p64, s64, lg64), f32=(l32, p32, s32, cflips, lg32),
+                branch=host_tree(branch), seen=host_tree(seen),
+                rss=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                / 2 ** 20)
 
-        def recorder(who):
-            @contextlib.contextmanager
-            def rec():
-                real = TL.disparity_order_violations
 
-                def wrapped(*a):
-                    seen[who] = [v.detach().cpu() for v in a]
-                    return real(*a)
-                TL.disparity_order_violations = wrapped
-                try:
-                    yield
-                finally:
-                    TL.disparity_order_violations = real
-            return rec
-        run = lambda d, who, branch=None, dtype=None: train_step_on(  # noqa
-            torch, T, ST, CV, net, cfg, args.model, params, stats, batch, d,
-            branch, dtype, record=recorder(who))
-        l64, p64, s64, branch, _, lg64 = run(cpu, 'cpu f64', None,
-                                             torch.float64)
-        l32, p32, s32, _, cflips, lg32 = run(cpu, 'cpu f32', branch)
-        lg, pg, sg, _, flips, lgc = run(dev, 'card', branch)
+# phase 9 (b)'s reference jobs: (pool label, job, its argument)
+DEPTH_XDEV_REFS = {n: (f'depth xdev CPU f64 + f32 steps {n}', depth_xdev_cpu,
+                       n) for n in ('InstaDepthNet_d', 'InstaDepthNet_od')}
+
+
+def phase_depth_xdev(torch, fixture, dev, card, numbers, pool):
+    """(b): one SGD step of the _d and _od YAMLs at full width on
+    DEPTH_XDEV samples of 384^2 on the card against the CPU's f64 and f32
+    steps (depth_xdev_cpu, from the pool), every run on the CPU f64 run's
+    ReLU branch and pool argmaxes; the card's step against the CPU's f64
+    one, and the violation count against its count."""
+    import numpy as np
+    from instaorder_tpu_torch import convert as CV
+    from instaorder_tpu_torch.models.registry import get_backbone
+    from instaorder_tpu_torch.train import step as ST
+    from instaorder_tpu_torch.train import trainer as T
+    for name in ('InstaDepthNet_d', 'InstaDepthNet_od'):
+        t0 = time.perf_counter()
+        ref = pool.result(*DEPTH_XDEV_REFS[name])
+        params, stats, cfg, batch = (ref[k] for k in ('params', 'stats',
+                                                      'cfg', 'batch'))
+        l64, p64, s64, lg64 = ref['f64']
+        l32, p32, s32, cflips, lg32 = ref['f32']
+        branch = torch_tree(torch, ref['branch'])
+        seen = torch_tree(torch, ref['seen'])
+        args = train_args(name, fixture, 1)
+        lg, pg, sg, _, flips, lgc = train_step_on(
+            torch, T, ST, CV, get_backbone(name), cfg, args.model, params,
+            stats, batch, dev, branch, record=violation_recorder(seen,
+                                                                 'card'))
         maps = {k: violation_pixels(torch, *v) for k, v in seen.items()}
         counts = {k: int(m.sum()) for k, m in maps.items()}
         hw = seen['card'][0].shape[-2] * seen['card'][0].shape[-1]
@@ -4357,7 +5150,7 @@ def phase_depth_xdev(torch, fixture, dev, card, numbers):
                   f'loss {l:.7f} vs {l64:.7f} (rel {lrel:.3e}; without the '
                   f'count {srel:.3e}); worst update {upd[1]} {upd[0]:.3e} of '
                   f'its max |update|; worst stats {sts[1]} {sts[0]:.3e}')
-        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+        rss = ref['rss']
         print(f'  depth step {name}: violation count card {counts["card"]}, '
               f'CPU f64 {counts["cpu f64"]}, CPU f32 {counts["cpu f32"]}; '
               f'{near} pixels within {VIOLATION_NEAR} of a threshold on the '
@@ -4370,8 +5163,8 @@ def phase_depth_xdev(torch, fixture, dev, card, numbers):
               f'ties, {flips[3]} beyond 1e-5 ({branch[2][0]} windows tied '
               f'on the CPU f64 run); {flips[4]} (CPU f32 {cflips[4]}) of '
               f'{sum(2 * int(m[0].shape[0]) for m in branch[3])} min / max '
-              f'of min_max_norm on other pixels; host peak RSS {rss:.1f} '
-              f'GiB; {time.perf_counter() - t0:.1f} s')
+              f'of min_max_norm on other pixels; the reference worker\'s '
+              f'peak RSS {rss:.1f} GiB; {time.perf_counter() - t0:.1f} s')
         top = sorted(upd_leaves['card f32'].items(), key=lambda kv: -kv[1][0])
         print(f'  depth step {name}: the worst card updates (error over the '
               f'leaf\'s max |f64 update|, that max; the CPU f32 run\'s '
@@ -4488,13 +5281,13 @@ def quiet_log():
     return log
 
 
-def phase_depth(torch, dev, card, wrappers):
-    """InstaDepthNet training on the card (module docstring, phase 9).
-    Returns {measurement: number}."""
+def phase_depth(torch, dev, card, wrappers, pool=None):
+    """InstaDepthNet training on the card (module docstring, phase 9),
+    its CPU references from `pool` (own_pool). Returns {measurement:
+    number}."""
     import os
     import tempfile
     from instaorder_tpu_torch.data import readers as R
-    from instaorder_tpu_torch.data import synthetic
     from instaorder_tpu_torch.data.image_io import read_rgb
     from instaorder_tpu_torch.train import trainer as T
 
@@ -4502,17 +5295,15 @@ def phase_depth(torch, dev, card, wrappers):
     numbers = {}
     for w in wrappers.values():
         w.launches = 0
-    with tempfile.TemporaryDirectory() as root:
-        insta, _, img = synthetic.make_instaorder_fixture(
-            root, n_images=TESTER_IMAGES, n_instances=TESTER_INSTANCES,
-            h=HEIGHT, w=WIDTH)
-        fixture = (insta, img)
+    with tempfile.TemporaryDirectory() as root, own_pool(pool) as pool:
+        fixture = instaorder_fixture(root)
+        insta, img = fixture
         fn = R.InstaOrderReader(insta).get_image_instances(
             0, with_gt=False)[4]
         x384 = midas_image(torch, read_rgb(os.path.join(img, fn)), dev)
         path, oracle = midas_oracle_file(torch, root, x384, dev)
         phase_depth_ingest(torch, T, fixture, root, path, card)
-        phase_depth_xdev(torch, fixture, dev, card, numbers)
+        phase_depth_xdev(torch, fixture, dev, card, numbers, pool)
         phase_depth_flow(torch, T, fixture, root, path, oracle, x384, card)
         del oracle
         # the numbers: the _d step on a fixed batch and the loader-fed
@@ -4586,32 +5377,39 @@ def dp_spawn(torch, fn, world, workdir, job, timeout=DP_TIMEOUT,
             for r in range(world)]
 
 
-def dp_reference(torch, T, ST, CV, fixture, world, path):
-    """The CPU's reference for a world-`world` step of InstaOrderNet_o at
-    full width (seed 0, kaiming) on DP_PAIRS_PER_RANK * world pairs of
-    the port's dataset: the port's one-device step on each rank's shard
-    in f64 (recording the shard's ReLU branch, pool argmaxes and
-    extrema) and in f32 on that branch, the shards' losses, new params
-    and statistics averaged by hand (a first SGD step is linear in the
-    gradient). Writes the net, batch and branches to `path` for the
-    ranks. Returns (params, {'f64' / 'f32': (loss, params, stats)})."""
+def dp_reference_cpu(world):
+    """Reference job of phase 10: the CPU's reference for a world-`world`
+    step of InstaOrderNet_o at full width (seed 0, kaiming) on
+    DP_PAIRS_PER_RANK * world pairs of the port's dataset on the
+    InstaOrder fixture: the port's one-device step on each rank's shard
+    in f64 (recording the shard's ReLU branch, pool argmaxes and extrema)
+    and in f32 on that branch, the shards' losses, new params and
+    statistics averaged by hand (a first SGD step is linear in the
+    gradient). Returns the net, the batch and the branches (numpy) and
+    {'f64' / 'f32': (loss, params, stats)}."""
+    import tempfile
     import numpy as np
+    import torch
+    from instaorder_tpu_torch import convert as CV
     from instaorder_tpu_torch.core.nn import tree_map
     from instaorder_tpu_torch.data.datasets import DATASETS, collate
     from instaorder_tpu_torch.data.loader import sample_rng
     from instaorder_tpu_torch.models.registry import get_backbone
     from instaorder_tpu_torch.parallel import make_mesh, shard_batch
+    from instaorder_tpu_torch.train import step as ST
+    from instaorder_tpu_torch.train import trainer as T
     cpu = torch.device('cpu')
-    args = train_args('InstaOrderNet_o', fixture, 1)
-    net = get_backbone('resnet50_cls')
-    params, stats, cfg = net['init'](
-        torch.Generator().manual_seed(0), weight_init='kaiming_out',
-        device='cpu', **args.model['backbone_param'])
-    params, stats = CV.to_numpy(params), CV.to_numpy(stats)
-    ds = DATASETS[args.data['trainval_dataset']](args.data, 'train',
-                                                 args.model['algo'])
-    batch = collate([ds.sample(i % len(ds), sample_rng(0, i))
-                     for i in range(DP_PAIRS_PER_RANK * world)])
+    with tempfile.TemporaryDirectory() as root:
+        args = train_args('InstaOrderNet_o', instaorder_fixture(root), 1)
+        net = get_backbone('resnet50_cls')
+        params, stats, cfg = net['init'](
+            torch.Generator().manual_seed(0), weight_init='kaiming_out',
+            device='cpu', **args.model['backbone_param'])
+        params, stats = CV.to_numpy(params), CV.to_numpy(stats)
+        ds = DATASETS[args.data['trainval_dataset']](args.data, 'train',
+                                                     args.model['algo'])
+        batch = collate([ds.sample(i % len(ds), sample_rng(0, i))
+                         for i in range(DP_PAIRS_PER_RANK * world)])
     mesh = make_mesh(devices=['cpu'] * world)
     runs, branches = {'f64': [], 'f32': []}, []
     for r in range(world):
@@ -4624,16 +5422,32 @@ def dp_reference(torch, T, ST, CV, fixture, world, path):
             cpu, branch)
         runs['f64'].append((l64, p64, s64))
         runs['f32'].append((l32, p32, s32))
-        branches.append(branch)
+        branches.append(host_tree(branch))
 
     def mean(trees):
         return tree_map(lambda *a: np.mean(np.stack(
             [np.asarray(x, np.float64) for x in a]), 0), *trees)
     ref = {k: (float(np.mean([x[0] for x in v])), mean([x[1] for x in v]),
                mean([x[2] for x in v])) for k, v in runs.items()}
-    torch.save({'params': params, 'stats': stats, 'cfg': cfg,
-                'batch': batch, 'branches': branches}, path)
-    return params, ref
+    return dict(params=params, stats=stats, cfg=cfg, batch=batch,
+                branches=branches, ref=ref)
+
+
+def dp_ref_job(world):
+    """Phase 10's reference job at `world`: (pool label, job, world)."""
+    return (f'data parallel CPU f64 + f32 shard steps world {world}',
+            dp_reference_cpu, world)
+
+
+def dp_reference(torch, pool, world, path):
+    """dp_reference_cpu(world) from the pool, its net, batch and branches
+    written to `path` for the ranks. Returns (params, {'f64' / 'f32':
+    (loss, params, stats)})."""
+    out = pool.result(*dp_ref_job(world))
+    torch.save({'params': out['params'], 'stats': out['stats'],
+                'cfg': out['cfg'], 'batch': out['batch'],
+                'branches': torch_tree(torch, out['branches'])}, path)
+    return out['params'], out['ref']
 
 
 def dp_flow(torch, T, fixture, out, mesh):
@@ -4907,10 +5721,11 @@ def dp_predictors(torch, serving, resnet, TPL, wrappers, calib_x, dev, mesh,
             ms = {}
             for who, pred in (('unsharded', single), ('mesh', sharded)):
                 t = []
-                for _ in range(PRED_REPS + 1):
-                    t0 = time.perf_counter()
-                    pred.infer_occ_order(*scenes[-1])
-                    t.append((time.perf_counter() - t0) * 1e3)
+                with quiet():
+                    for _ in range(PRED_REPS + 1):
+                        t0 = time.perf_counter()
+                        pred.infer_occ_order(*scenes[-1])
+                        t.append((time.perf_counter() - t0) * 1e3)
                 ms[who] = sorted(t[1:])[PRED_REPS // 2]
             print(f'  mesh predictor {name} over {[str(d) for d in mesh]}: '
                   f'matrices equal to the unsharded predictor\'s on '
@@ -4963,12 +5778,11 @@ def dp_cli(fixture, root, world):
 
 
 def phase_data_parallel(torch, serving, resnet, TPL, wrappers, calib_x, dev,
-                        card):
+                        card, pool=None):
     """Data-parallel training and pair sharding on the card (module
-    docstring, phase 10). Returns {measurement: number}."""
+    docstring, phase 10), its CPU references from `pool` (own_pool).
+    Returns {measurement: number}."""
     import tempfile
-    from instaorder_tpu_torch import convert as CV
-    from instaorder_tpu_torch.data import synthetic
     from instaorder_tpu_torch.train import step as ST
     from instaorder_tpu_torch.train import trainer as T
 
@@ -4976,11 +5790,8 @@ def phase_data_parallel(torch, serving, resnet, TPL, wrappers, calib_x, dev,
     numbers = {}
     n_cards = torch.cuda.device_count()
     torch.cuda.empty_cache()        # the ranks' memory on the same card
-    with tempfile.TemporaryDirectory() as root:
-        insta, _, img = synthetic.make_instaorder_fixture(
-            root, n_images=TESTER_IMAGES, n_instances=TESTER_INSTANCES,
-            h=HEIGHT, w=WIDTH)
-        fixture = (insta, img)
+    with tempfile.TemporaryDirectory() as root, own_pool(pool) as pool:
+        fixture = instaorder_fixture(root)
         ran = []
         # NCCL refuses two ranks on one device: confirmed and recorded
         dup = dp_spawn(torch, nccl_dup_rank, DP_WORLD, f'{root}/dup', {},
@@ -4988,11 +5799,11 @@ def phase_data_parallel(torch, serving, resnet, TPL, wrappers, calib_x, dev,
         print(f'  NCCL with {DP_WORLD} ranks on cuda:0: '
               f'{dup[0] if dup else "hung (killed)"}')
         # (a) two gloo ranks on cuda:0
-        params, ref = dp_reference(torch, T, ST, CV, fixture, DP_WORLD,
-                                   f'{root}/ref.pt')
-        ranks = dp_spawn(torch, dp_rank, DP_WORLD, f'{root}/a', {
-            'mesh': ['cuda:0'] * DP_WORLD, 'backend': 'gloo',
-            'fixture': fixture, 'xdev': f'{root}/ref.pt', 'flow': True})
+        params, ref = dp_reference(torch, pool, DP_WORLD, f'{root}/ref.pt')
+        with quiet():       # the ranks time their steps and all-reduces
+            ranks = dp_spawn(torch, dp_rank, DP_WORLD, f'{root}/a', {
+                'mesh': ['cuda:0'] * DP_WORLD, 'backend': 'gloo',
+                'fixture': fixture, 'xdev': f'{root}/ref.pt', 'flow': True})
         check_dp_ranks(torch, f'(a) world {DP_WORLD} gloo on cuda:0', ranks,
                        ref, params, card)
         ran.append('a')
@@ -5001,8 +5812,9 @@ def phase_data_parallel(torch, serving, resnet, TPL, wrappers, calib_x, dev,
                        gloo_allreduce_ms=ranks[0]['allreduce_ms'],
                        n_values=ranks[0]['n_values'])
         # (b) NCCL at world 1, and the world-1 step
-        ms1, pairs1, nccl_ms, flat_ms = dp_nccl_world1(torch, T, ST,
-                                                       fixture, dev, root)
+        with quiet():
+            ms1, pairs1, nccl_ms, flat_ms = dp_nccl_world1(torch, T, ST,
+                                                           fixture, dev, root)
         numbers.update(step1_ms=ms1, pairs1=pairs1, nccl_allreduce_ms=nccl_ms,
                        nccl_flat_ms=flat_ms)
         ran.append('b')
@@ -5015,8 +5827,7 @@ def phase_data_parallel(torch, serving, resnet, TPL, wrappers, calib_x, dev,
             world = min(n_cards, DP_CARDS)
             mesh = [f'cuda:{i}' for i in range(world)]
             dp_cli(fixture, root, world)
-            params, ref = dp_reference(torch, T, ST, CV, fixture, world,
-                                       f'{root}/ref_d.pt')
+            params, ref = dp_reference(torch, pool, world, f'{root}/ref_d.pt')
             ranks = dp_spawn(torch, dp_rank, world, f'{root}/d', {
                 'mesh': mesh, 'backend': 'nccl', 'fixture': fixture,
                 'xdev': f'{root}/ref_d.pt', 'flow': True})
@@ -5087,256 +5898,292 @@ def main():
     print(f'glibc malloc keeps freed blocks for reuse: {keep_freed_heap()}')
     print(f'torch {torch.__version__} cuda {torch.version.cuda} '
           f'device {torch.cuda.get_device_name(0)}')
+    print(f'host: os.cpu_count() {os.cpu_count()}, torch.get_num_threads() '
+          f'{torch.get_num_threads()}, len(os.sched_getaffinity(0)) '
+          f'{len(os.sched_getaffinity(0))}')
+    CLOCK.watch()
 
-    # ---- 1. build ----------------------------------------------------------
-    t0 = time.perf_counter()
-    _build.library()
-    print(f'build: {time.perf_counter() - t0:.2f} s (nvcc '
-          f'{_build.BUILD_INFO["seconds"]:.2f} s)')
-    print(_build.BUILD_INFO['log'])
-
-    # ---- 2. kernels vs plain at the serving shapes -------------------------
-    images, masks, bboxes = serving.synthetic_scenes(
-        SCENES, HEIGHT, WIDTH, INSTANCES, seed=0)
-    sc = serving.upload_scenes(images, masks, bboxes, device=dev)
-    pidx = torch.as_tensor(P.all_pair_indices(INSTANCES)[0],
-                           dtype=torch.int32, device=dev)
-    rois = P.pair_rois(sc[2], pidx).contiguous()
-    n_pairs = SCENES * pidx.shape[0]
-    results = {}
-    x, results[PREP] = phase_prep(torch, PK, (sc[0], sc[1], pidx, rois),
-                                  n_pairs)
-    results[PREP_F32] = phase_prep_f32(torch, PK, serving,
-                                       (sc[0], sc[1], pidx, rois), x, n_pairs)
-    results[RGB] = phase_prep_rgb(torch, PK, sc[0], rois, n_pairs)
-    results[RGB32] = phase_prep_rgb_f32(torch, PK, sc[0], rois, n_pairs)
-    # the serving model, calibrated on this prepped batch (as bench.py).
-    # kaiming init: bench.py's xavier(0.02) trunk quantizes every
-    # activation to 0, which would make every comparison vacuous
-    t0 = time.perf_counter()
-    q, cfg = serving.build_serving_model(0, x, device=dev,
-                                         weight_init='kaiming_out')
-    params16, cfg16 = serving.build_parity_model(0, device=dev,
-                                                 weight_init='kaiming_out')
-    # the --dtype f32 model: the same network, folded, left in f32
-    params32, _ = serving.build_f32_model(0, device=dev,
-                                          weight_init='kaiming_out')
-    # the v2 model at compute_dtype=f32: serving-d1's network and
-    # calibration, quantized at f32, with its f32 stem kernel weights
-    folded, _, scales = serving._calibrated(0, x, dev, 'kaiming_out')
-    q32 = Q.quantize_folded_v2(folded, cfg, scales,
-                               compute_dtype=torch.float32)
-    FO.add_stem_kernel_weights(q32['conv1'])
-    FO.add_f32_block_weights(q32)
-    del folded
-    torch.cuda.synchronize()
-    print(f'build_serving_model + build_parity_model: '
-          f'{time.perf_counter() - t0:.2f} s')
-    # serving-d2's model is calibrated on its own (3-pass) prep, as the
-    # root bench builds each profile's model
-    x3 = PK.fused_prep_pairs(sc[0], sc[1], pidx, rois, out_size=OUT,
-                             passes=3)
-    q2, _ = serving.build_serving_model(0, x3, device=dev,
-                                        weight_init='kaiming_out')
-    # the int8c models, each calibrated on its own profile's prep
-    q8c, _ = serving.build_int8c_model(0, x, device=dev,
-                                       weight_init='kaiming_out')
-    q8c2, _ = serving.build_int8c_model(0, x3, device=dev,
-                                        weight_init='kaiming_out')
-    models = {('serving-d1', 'int8'): q, ('serving-d2', 'int8'): q2,
-              ('parity', 'bf16'): params16, ('serving-d1', 'int8c'): q8c,
-              ('serving-d2', 'int8c'): q8c2, ('serving-d1', 'f32'): params32,
-              ('parity', 'f32'): params32}
-    with torch.no_grad():
-        phase_trunk(torch, BK, Q, FO, q, x, results)
-        phase_trunk_v2_variants(torch, BK, Q, FO, q, x, results)
-        # x3 is also the parity path's input at the kernels' shapes
-        phase_stem_q8(torch, SK, FO, q2, x3, results)
-        phase_trunk_bf16(torch, B16, SK, FO, params16, x3, results)
-        # the f32 trunk on the f32 prep (x3's values, not rounded)
+    with RefPool() as pool:
+        # the references that need only seeds and fixtures start now, beside
+        # the build and the card's phases: phase 9's longest first
+        for job in (*DEPTH_XDEV_REFS.values(), *TRAIN_XDEV_REFS.values(),
+                    PCNET_REFS, dp_ref_job(DP_WORLD), LEGACY_REFS):
+            pool.submit(*job)
+        if torch.cuda.device_count() >= 2:      # phase 10 (d)'s
+            pool.submit(*dp_ref_job(min(torch.cuda.device_count(),
+                                        DP_CARDS)))
+        # ---- 1. build -------------------------------------------------------
+        CLOCK.begin('1 build')
         t0 = time.perf_counter()
-        x3f = PK.fused_prep_pairs(sc[0], sc[1], pidx, rois, out_size=OUT,
-                                  passes=3, out_dtype=torch.float32)
-        phase_trunk_f32(torch, B16, SK, FO, params32, x3f, results)
-        del x3f
-        print(f'f32 kernels vs plain: {time.perf_counter() - t0:.1f} s')
-        # the v2 f32 rows on the v2 f32 model's trunk (x in f32)
+        _build.library()
+        print(f'build: {time.perf_counter() - t0:.2f} s (nvcc '
+              f'{_build.BUILD_INFO["seconds"]:.2f} s)')
+        print(_build.BUILD_INFO['log'])
+
+        # ---- 2. kernels vs plain at the serving shapes ----------------------
+        CLOCK.begin('2 kernels')
+        images, masks, bboxes = serving.synthetic_scenes(
+            SCENES, HEIGHT, WIDTH, INSTANCES, seed=0)
+        sc = serving.upload_scenes(images, masks, bboxes, device=dev)
+        pidx = torch.as_tensor(P.all_pair_indices(INSTANCES)[0],
+                               dtype=torch.int32, device=dev)
+        rois = P.pair_rois(sc[2], pidx).contiguous()
+        n_pairs = SCENES * pidx.shape[0]
+        results = {}
+        x, results[PREP] = phase_prep(torch, PK, (sc[0], sc[1], pidx, rois),
+                                      n_pairs)
+        results[PREP_F32] = phase_prep_f32(
+            torch, PK, serving, (sc[0], sc[1], pidx, rois), x, n_pairs)
+        results[RGB] = phase_prep_rgb(torch, PK, sc[0], rois, n_pairs)
+        results[RGB32] = phase_prep_rgb_f32(torch, PK, sc[0], rois, n_pairs)
+        # the serving model, calibrated on this prepped batch (as bench.py).
+        # kaiming init: bench.py's xavier(0.02) trunk quantizes every
+        # activation to 0, which would make every comparison vacuous
         t0 = time.perf_counter()
-        phase_stem_q8(torch, SK, FO, q32, x, results, f32=True)
-        phase_trunk(torch, BK, Q, FO, q32, x.float(), results, f32=True)
-        phase_trunk_v2_variants(torch, BK, Q, FO, q32, x.float(), results,
-                                f32=True)
-        print(f'v2 f32 kernels vs plain: {time.perf_counter() - t0:.1f} s')
-        t0 = time.perf_counter()
-        phase_trunk_int8(torch, IK, SK, Q, FO, q8c, x, results, wide=False)
-        phase_trunk_int8(torch, IK, SK, Q, FO, q8c2, x3, results, wide=True)
-        print(f'int8c kernels vs plain: {time.perf_counter() - t0:.1f} s')
+        q, cfg = serving.build_serving_model(0, x, device=dev,
+                                             weight_init='kaiming_out')
+        params16, cfg16 = serving.build_parity_model(0, device=dev,
+                                                     weight_init='kaiming_out')
+        # the --dtype f32 model: the same network, folded, left in f32
+        params32, _ = serving.build_f32_model(0, device=dev,
+                                              weight_init='kaiming_out')
+        # the v2 model at compute_dtype=f32: serving-d1's network and
+        # calibration, quantized at f32, with its f32 stem kernel weights
+        folded, _, scales = serving._calibrated(0, x, dev, 'kaiming_out')
+        q32 = Q.quantize_folded_v2(folded, cfg, scales,
+                                   compute_dtype=torch.float32)
+        FO.add_stem_kernel_weights(q32['conv1'])
+        FO.add_f32_block_weights(q32)
+        del folded
+        torch.cuda.synchronize()
+        print(f'build_serving_model + build_parity_model: '
+              f'{time.perf_counter() - t0:.2f} s')
+        # serving-d2's model is calibrated on its own (3-pass) prep, as the
+        # root bench builds each profile's model
+        x3 = PK.fused_prep_pairs(sc[0], sc[1], pidx, rois, out_size=OUT,
+                                 passes=3)
+        q2, _ = serving.build_serving_model(0, x3, device=dev,
+                                            weight_init='kaiming_out')
+        # the int8c models, each calibrated on its own profile's prep
+        q8c, _ = serving.build_int8c_model(0, x, device=dev,
+                                           weight_init='kaiming_out')
+        q8c2, _ = serving.build_int8c_model(0, x3, device=dev,
+                                            weight_init='kaiming_out')
+        models = {('serving-d1', 'int8'): q, ('serving-d2', 'int8'): q2,
+                  ('parity', 'bf16'): params16, ('serving-d1', 'int8c'): q8c,
+                  ('serving-d2', 'int8c'): q8c2,
+                  ('serving-d1', 'f32'): params32, ('parity', 'f32'): params32}
+        with torch.no_grad():
+            phase_trunk(torch, BK, Q, FO, q, x, results)
+            phase_trunk_v2_variants(torch, BK, Q, FO, q, x, results)
+            # x3 is also the parity path's input at the kernels' shapes
+            phase_stem_q8(torch, SK, FO, q2, x3, results)
+            phase_trunk_bf16(torch, B16, SK, FO, params16, x3, results)
+            # the f32 trunk on the f32 prep (x3's values, not rounded)
+            t0 = time.perf_counter()
+            x3f = PK.fused_prep_pairs(sc[0], sc[1], pidx, rois, out_size=OUT,
+                                      passes=3, out_dtype=torch.float32)
+            phase_trunk_f32(torch, B16, SK, FO, params32, x3f, results)
+            del x3f
+            print(f'f32 kernels vs plain: {time.perf_counter() - t0:.1f} s')
+            # the v2 f32 rows on the v2 f32 model's trunk (x in f32)
+            t0 = time.perf_counter()
+            phase_stem_q8(torch, SK, FO, q32, x, results, f32=True)
+            phase_trunk(torch, BK, Q, FO, q32, x.float(), results, f32=True)
+            phase_trunk_v2_variants(torch, BK, Q, FO, q32, x.float(), results,
+                                    f32=True)
+            print(f'v2 f32 kernels vs plain: {time.perf_counter() - t0:.1f} s')
+            t0 = time.perf_counter()
+            phase_trunk_int8(torch, IK, SK, Q, FO, q8c, x, results, wide=False)
+            phase_trunk_int8(torch, IK, SK, Q, FO, q8c2, x3, results,
+                             wide=True)
+            print(f'int8c kernels vs plain: {time.perf_counter() - t0:.1f} s')
 
-    # ---- 3. the megasteps ---------------------------------------------------
-    wrappers = {PREP: PK.fused_prep_pairs,
-                STAGE: BK.fused_bottleneck_i8v2_stage,
-                DOWN: BK.fused_bottleneck_i8v2_down_s2,
-                IDEN: BK.fused_bottleneck_i8v2_identity,
-                RGB: PK.fused_prep_rgb,
-                IDEN16: B16.fused_bottleneck,
-                DOWN16: B16.fused_bottleneck_down,
-                STEM: SK.fused_stem,
-                I8: IK.fused_bottleneck_int8,
-                D8: IK.fused_bottleneck_down_int8,
-                STEM8: SK.fused_stem_int8,
-                I8H: IK.fused_bottleneck_int8_hwnc,
-                D8H1: IK.fused_bottleneck_down_int8_hwnc,
-                D8H2: IK.fused_bottleneck_down_s2_int8_hwnc,
-                HWNCP: BK.fused_bottleneck_i8v2_hwncp_stage,
-                DOWN1H: BK.fused_bottleneck_down_i8v2_hwnc,
-                IDENN: BK.fused_bottleneck_i8v2,
-                DOWN1N: BK.fused_bottleneck_down_i8v2,
-                STAGE16: B16.fused_bottleneck_stage,
-                SSTAGE16: B16.fused_bottleneck_stage_stream,
-                HWNC16: B16.fused_bottleneck_hwnc}
-    plain_v2 = Q._plain_block_v2
+        # ---- 3. the megasteps -----------------------------------------------
+        CLOCK.begin('3 megasteps')
+        wrappers = {PREP: PK.fused_prep_pairs,
+                    STAGE: BK.fused_bottleneck_i8v2_stage,
+                    DOWN: BK.fused_bottleneck_i8v2_down_s2,
+                    IDEN: BK.fused_bottleneck_i8v2_identity,
+                    RGB: PK.fused_prep_rgb,
+                    IDEN16: B16.fused_bottleneck,
+                    DOWN16: B16.fused_bottleneck_down,
+                    STEM: SK.fused_stem,
+                    I8: IK.fused_bottleneck_int8,
+                    D8: IK.fused_bottleneck_down_int8,
+                    STEM8: SK.fused_stem_int8,
+                    I8H: IK.fused_bottleneck_int8_hwnc,
+                    D8H1: IK.fused_bottleneck_down_int8_hwnc,
+                    D8H2: IK.fused_bottleneck_down_s2_int8_hwnc,
+                    HWNCP: BK.fused_bottleneck_i8v2_hwncp_stage,
+                    DOWN1H: BK.fused_bottleneck_down_i8v2_hwnc,
+                    IDENN: BK.fused_bottleneck_i8v2,
+                    DOWN1N: BK.fused_bottleneck_down_i8v2,
+                    STAGE16: B16.fused_bottleneck_stage,
+                    SSTAGE16: B16.fused_bottleneck_stage_stream,
+                    HWNC16: B16.fused_bottleneck_hwnc}
+        plain_v2 = Q._plain_block_v2
 
-    def counted_plain_v2(*a, **kw):
-        counted_plain_v2.launches += 1
-        return plain_v2(*a, **kw)
-    Q._plain_block_v2 = counted_plain_v2
-    counters = dict(wrappers, **{PLAIN_V2: counted_plain_v2})
-    launches = {}
-    for name, profile, extra, expected in MEGASTEPS:
-        prof = serving.resolve_profile(profile,
-                                       prep_rgb=extra.get('prep_rgb'),
-                                       dtype=extra.get('dtype'))
-        kw = dict(out_size=OUT, passes=prof['passes'],
-                  directions=prof['directions'], prep_rgb=prof['prep_rgb'],
-                  prep_precision=serving.prep_precision_of(profile),
-                  use_pallas=extra.get('use_pallas', True))
-        model = models[profile, prof['dtype']]
+        def counted_plain_v2(*a, **kw):
+            counted_plain_v2.launches += 1
+            return plain_v2(*a, **kw)
+        Q._plain_block_v2 = counted_plain_v2
+        counters = dict(wrappers, **{PLAIN_V2: counted_plain_v2})
+        launches = {}
+        for name, profile, extra, expected in MEGASTEPS:
+            prof = serving.resolve_profile(profile,
+                                           prep_rgb=extra.get('prep_rgb'),
+                                           dtype=extra.get('dtype'))
+            kw = dict(out_size=OUT, passes=prof['passes'],
+                      directions=prof['directions'], prep_rgb=prof['prep_rgb'],
+                      prep_precision=serving.prep_precision_of(profile),
+                      use_pallas=extra.get('use_pallas', True))
+            model = models[profile, prof['dtype']]
 
-        def reference(few, model=model, kw=kw):
-            xp = serving.prep_pairs(*sc, pidx, out_size=OUT,
-                                    passes=kw['passes'],
-                                    prep_rgb=kw['prep_rgb'],
-                                    prep_precision=kw['prep_precision'],
-                                    dtype=serving.compute_dtype(model)
-                                    )[:few].cpu()
-            m = tree_to(model, 'cpu')
-            if 'cfg_scales' in m:
-                fwd = (Q.apply_folded_int8_siamese if kw['directions'] == 2
-                       else Q.apply_folded_int8)
-                return fwd(m, cfg, xp, use_pallas=kw['use_pallas'])
-            if 's_feat' in m:
-                fwd = (Q.apply_folded_v2_siamese if kw['directions'] == 2
-                       else Q.apply_folded_v2)
-                return fwd(m, cfg, xp, use_pallas=kw['use_pallas'])
-            fwd = (FO.apply_folded_siamese if kw['directions'] == 2
-                   else FO.apply_folded)
-            return fwd(m, cfg16, xp, dtype=serving.compute_dtype(m),
-                       use_pallas=kw['use_pallas'])
-
-        step = lambda model=model, kw=kw: serving.megastep(
-            model, cfg, *sc, pidx, **kw)
-        got, logits = phase_megastep(
-            torch, name, step, reference, counters, expected, n_pairs, card,
-            prof['directions'],
-            (MARGIN_PAIRS,) if prof['dtype'] == 'int8' else (),
-            bar=F32_LOGIT_BAR if prof['dtype'] == 'f32' else 0.02)
-        if prof['dtype'] == 'int8c':
-            with torch.no_grad():
+            def reference(few, model=model, kw=kw):
+                """(fn, args, kwargs) of the plain path on the CPU."""
                 xp = serving.prep_pairs(*sc, pidx, out_size=OUT,
                                         passes=kw['passes'],
                                         prep_rgb=kw['prep_rgb'],
-                                        prep_precision=kw['prep_precision'])
-                check_int8c_same_input(torch, Q, FO, model, cfg, xp,
-                                       prof['directions'], kw['use_pallas'],
-                                       logits)
-        for k, n in got.items():
-            if prof['dtype'] == 'f32' and k in wrappers:
-                k += F32            # the launches of the f32 modes
-            if n and k not in launches and k in SOURCES:
-                launches[k] = n
-        if name == HWNCS_STEP:
-            launches[RUN] = got[STAGE]
-        if name == STEMQ8_STEP:
-            launches[STEMQ8] = got[STEM]
-    with torch.no_grad():
-        phase_v2_f32_forwards(torch, serving, Q, q32, cfg, x.float(),
-                              counters, n_pairs, card, launches)
+                                        prep_precision=kw['prep_precision'],
+                                        dtype=serving.compute_dtype(model)
+                                        )[:few].cpu()
+                m = tree_to(model, 'cpu')
+                use = {'use_pallas': kw['use_pallas']}
+                two = kw['directions'] == 2
+                if 'cfg_scales' in m:
+                    return (Q.apply_folded_int8_siamese if two else
+                            Q.apply_folded_int8), (m, cfg, xp), use
+                if 's_feat' in m:
+                    return (Q.apply_folded_v2_siamese if two else
+                            Q.apply_folded_v2), (m, cfg, xp), use
+                return (FO.apply_folded_siamese if two else
+                        FO.apply_folded), (m, cfg16, xp), dict(
+                            use, dtype=serving.compute_dtype(m))
 
-    # ---- 4. the order predictors -------------------------------------------
-    launches.update(phase_predictors(torch, serving, resnet, TPL, wrappers,
-                                     x, dev, card))
-    check(set(launches) == set(wrappers) | {RUN, STEMQ8, PREP_F32,
-                                            *F32_ROWS, *V2F32_ROWS},
-          f'every kernel launched on a main path: {sorted(launches)}')
+            step = lambda model=model, kw=kw: serving.megastep(
+                model, cfg, *sc, pidx, **kw)
+            got, logits = phase_megastep(
+                torch, name, step, reference, counters, expected, n_pairs,
+                card, prof['directions'],
+                (MARGIN_PAIRS,) if prof['dtype'] == 'int8' else (), pool,
+                bar=F32_LOGIT_BAR if prof['dtype'] == 'f32' else 0.02)
+            if prof['dtype'] == 'int8c':
+                with torch.no_grad():
+                    xp = serving.prep_pairs(
+                        *sc, pidx, out_size=OUT, passes=kw['passes'],
+                        prep_rgb=kw['prep_rgb'],
+                        prep_precision=kw['prep_precision'])
+                    check_int8c_same_input(
+                        torch, Q, FO, model, cfg, xp, prof['directions'],
+                        kw['use_pallas'], logits)
+            for k, n in got.items():
+                if prof['dtype'] == 'f32' and k in wrappers:
+                    k += F32            # the launches of the f32 modes
+                if n and k not in launches and k in SOURCES:
+                    launches[k] = n
+            if name == HWNCS_STEP:
+                launches[RUN] = got[STAGE]
+            if name == STEMQ8_STEP:
+                launches[STEMQ8] = got[STEM]
+        with torch.no_grad():
+            phase_v2_f32_forwards(torch, serving, Q, q32, cfg, x.float(),
+                                  counters, n_pairs, card, launches, pool)
 
-    # ---- 5. the Tester -----------------------------------------------------
-    phase_tester(torch, dev, card, wrappers)
+        # ---- 4. the order predictors ----------------------------------------
+        CLOCK.begin('4 predictors')
+        launches.update(phase_predictors(torch, serving, resnet, TPL,
+                                         wrappers, x, dev, card, pool))
+        check(set(launches) == set(wrappers) | {RUN, STEMQ8, PREP_F32,
+                                                *F32_ROWS, *V2F32_ROWS},
+              f'every kernel launched on a main path: {sorted(launches)}')
 
-    # ---- 6. training ---------------------------------------------------------
-    phase_train(torch, dev, card, wrappers)
+        # ---- 5. the Tester --------------------------------------------------
+        CLOCK.begin('5 tester')
+        phase_tester(torch, dev, card, wrappers, pool)
 
-    # ---- 7. the MiDaS family -----------------------------------------------
-    phase_midas(torch, dev, card, wrappers)
+        # ---- 6. training ----------------------------------------------------
+        CLOCK.begin('6 training')
+        phase_train(torch, dev, card, wrappers, pool)
 
-    # ---- 8. PCNet-M ----------------------------------------------------------
-    pcnet = phase_pcnet(torch, dev, card, wrappers)
+        # ---- 7. the MiDaS family --------------------------------------------
+        CLOCK.begin('7 midas')
+        phase_midas(torch, dev, card, wrappers, pool)
 
-    # ---- 9. InstaDepthNet training -------------------------------------------
-    phase_depth(torch, dev, card, wrappers)
+        # ---- 8. PCNet-M -----------------------------------------------------
+        CLOCK.begin('8 pcnet')
+        pcnet = phase_pcnet(torch, dev, card, wrappers, pool)
 
-    # ---- 10. data parallel -------------------------------------------------
-    phase_data_parallel(torch, serving, resnet, TPL, wrappers, x, dev, card)
+        # ---- 9. InstaDepthNet training --------------------------------------
+        CLOCK.begin('9 depth training')
+        phase_depth(torch, dev, card, wrappers, pool)
 
-    # ---- 11. the last modules ----------------------------------------------
-    phase_last_modules(torch, dev, card, wrappers, pcnet.get('net'))
+        # ---- 10. data parallel ----------------------------------------------
+        CLOCK.begin('10 data parallel')
+        phase_data_parallel(torch, serving, resnet, TPL, wrappers, x, dev,
+                            card, pool)
 
-    # ---- 12. report ---------------------------------------------------------
-    kernels = []
-    for name, r in results.items():
-        t_bytes = r['bytes'] / H100_BYTES_PER_S * 1e3
-        t_ops = r['ops'] / r['ops_rate'] * 1e3
-        if 'chain_ms' in r:
-            print(f'{name}: kernel {r["ms"]:.4f} ms, plain cuDNN chain of '
-                  f'the JAX default route (several calls) '
-                  f'{r["chain_ms"]:.4f} ms')
-        if name.startswith(STEM):
-            unit = 'TOP/s' if r['ops_rate'] == H100_INT8_PER_S else 'TFLOP/s'
-            print(f'{name}: kernel {r["ms"]:.4f} ms, '
-                  f'{r["ops"] / r["ms"] / 1e9:.2f} {unit} at K = 245 '
-                  f'({100 * t_ops / r["ms"]:.1f}% of the {unit} peak)')
-        if 'conv_only_ms' in r:
-            print(f'{name}: kernel {r["ms"]:.4f} ms, its convolutions alone '
-                  f'(bf16 conv2d, channels_last) {r["conv_only_ms"]:.4f} ms')
-        if 'tf32_ops' in r:
-            # the f32 rows: the least time for f32-accurate work is the
-            # 3xTF32 method's on the tensor cores, below the f32 peak's
-            t_f32, t_ops = t_ops, r['tf32_ops'] / H100_TF32_PER_S * 1e3
-            print(f'{name}: kernel {r["ms"]:.4f} ms; 3xTF32 bound '
-                  f'{t_ops:.4f} ms ({100 * t_ops / r["ms"]:.1f}% of it), '
-                  f'f32 bound {t_f32:.4f} ms ({100 * t_f32 / r["ms"]:.1f}%)')
-        if 'floor_ops' in r:
-            # the f32 stem: its design's floor, the same method at the K
-            # it issues (the row's bound_ms stays at the real K = 245)
-            t_k = r['floor_ops'] / H100_TF32_PER_S * 1e3
-            print(f'{name}: kernel {r["ms"]:.4f} ms; design floor at its '
-                  f'padded K {t_k:.4f} ms ({100 * t_k / r["ms"]:.1f}% of '
-                  f'it)')
-        kernels.append({
-            'name': name, 'route': 'cuda', 'source': SOURCES[name],
-            'replaces': REPLACES[name], 'launches': launches[name],
-            'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
-            'plain_ms': r['plain_ms'], 'bound_ms': max(t_bytes, t_ops),
-            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
-            'library_ms': None, 'conv_only_ms': r.get('conv_only_ms')})
-    print(inventory.coverage_line(results))
-    check(not inventory.missing_rows(results),
-          'every kernel row of the inventory held against its plain version')
-    print(card)
-    print(json.dumps({'kernels': kernels}))
-    print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}))
-    return 0
+        # ---- 11. the last modules -------------------------------------------
+        CLOCK.begin('11 last modules')
+        phase_last_modules(torch, dev, card, wrappers, pcnet, pool)
+
+        # ---- 12. the deferred card-vs-CPU checks ----------------------------
+        CLOCK.begin('12 deferred checks')
+        pool.finish()
+        CLOCK.end()
+
+        # ---- 13. report -----------------------------------------------------
+        kernels = []
+        for name, r in results.items():
+            t_bytes = r['bytes'] / H100_BYTES_PER_S * 1e3
+            t_ops = r['ops'] / r['ops_rate'] * 1e3
+            if 'chain_ms' in r:
+                print(f'{name}: kernel {r["ms"]:.4f} ms, plain cuDNN chain of '
+                      f'the JAX default route (several calls) '
+                      f'{r["chain_ms"]:.4f} ms')
+            if name.startswith(STEM):
+                unit = ('TOP/s' if r['ops_rate'] == H100_INT8_PER_S
+                        else 'TFLOP/s')
+                print(f'{name}: kernel {r["ms"]:.4f} ms, '
+                      f'{r["ops"] / r["ms"] / 1e9:.2f} {unit} at K = 245 '
+                      f'({100 * t_ops / r["ms"]:.1f}% of the {unit} peak)')
+            if 'conv_only_ms' in r:
+                print(f'{name}: kernel {r["ms"]:.4f} ms, its convolutions '
+                      f'alone (bf16 conv2d, channels_last) '
+                      f'{r["conv_only_ms"]:.4f} ms')
+            if 'tf32_ops' in r:
+                # the f32 rows: the least time for f32-accurate work is the
+                # 3xTF32 method's on the tensor cores, below the f32 peak's
+                t_f32, t_ops = t_ops, r['tf32_ops'] / H100_TF32_PER_S * 1e3
+                print(f'{name}: kernel {r["ms"]:.4f} ms; 3xTF32 bound '
+                      f'{t_ops:.4f} ms ({100 * t_ops / r["ms"]:.1f}% of it), '
+                      f'f32 bound {t_f32:.4f} ms '
+                      f'({100 * t_f32 / r["ms"]:.1f}%)')
+            if 'floor_ops' in r:
+                # the f32 stem: its design's floor, the same method at the K
+                # it issues (the row's bound_ms stays at the real K = 245)
+                t_k = r['floor_ops'] / H100_TF32_PER_S * 1e3
+                print(f'{name}: kernel {r["ms"]:.4f} ms; design floor at its '
+                      f'padded K {t_k:.4f} ms ({100 * t_k / r["ms"]:.1f}% of '
+                      f'it)')
+            kernels.append({
+                'name': name, 'route': 'cuda', 'source': SOURCES[name],
+                'replaces': REPLACES[name], 'launches': launches[name],
+                'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+                'plain_ms': r['plain_ms'], 'bound_ms': max(t_bytes, t_ops),
+                'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+                'library_ms': None, 'conv_only_ms': r.get('conv_only_ms')})
+        print(inventory.coverage_line(results))
+        check(not inventory.missing_rows(results),
+              'every kernel row of the inventory held against its plain '
+              'version')
+        print(CLOCK.line())
+        print(card)
+        print(json.dumps({'kernels': kernels}))
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+            'count': torch.cuda.device_count()}}))
+        return 0
 
 
 if __name__ == '__main__':

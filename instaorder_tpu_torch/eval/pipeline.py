@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import inspect
 
 import numpy as np
@@ -340,6 +341,14 @@ class OrderPredictor:
         return occ.cpu().numpy(), dep.cpu().numpy()
 
 
+def _folded_fn(forward, p, s, c, x, **kw):
+    """A factory's apply_fn / siamese_fn: forward(p, c, x, **kw) of a
+    folded or quantized tree (no statistics); a partial of this is
+    picklable, so a predictor moved to the CPU can be sent to another
+    process."""
+    return forward(p, c, x, **kw)
+
+
 def _calib(calib_batches, dev):
     return [torch.as_tensor(c, dtype=torch.float32, device=dev)
             for c in calib_batches]
@@ -367,15 +376,12 @@ def make_folded_predictor(params, stats, cfg, method, dtype=None,
         if folded['conv1']['w'].dtype == torch.float32:
             add_f32_block_weights(folded)
 
-    def apply_fn(p, s, c, x):
-        return apply_folded(p, c, x, dtype=dtype, use_pallas=use_pallas)
-
-    def siamese_fn(p, s, c, x):
-        return apply_folded_siamese(p, c, x, dtype=dtype,
-                                    use_pallas=use_pallas)
-
-    return OrderPredictor(apply_fn, cfg, folded, stats, method,
-                          siamese_fn=siamese_fn, device=dev, **kw)
+    return OrderPredictor(
+        functools.partial(_folded_fn, apply_folded, dtype=dtype,
+                          use_pallas=use_pallas), cfg, folded, stats,
+        method, siamese_fn=functools.partial(
+            _folded_fn, apply_folded_siamese, dtype=dtype,
+            use_pallas=use_pallas), device=dev, **kw)
 
 
 def make_int8_predictor(params, stats, cfg, method, calib_batches,
@@ -394,14 +400,12 @@ def make_int8_predictor(params, stats, cfg, method, calib_batches,
     if dev.type == 'cuda':
         Q.add_kernel_weights(qp)
 
-    def apply_fn(p, s, c, x):
-        return Q.apply_folded_int8(p, c, x, use_pallas=use_pallas)
-
-    def siamese_fn(p, s, c, x):
-        return Q.apply_folded_int8_siamese(p, c, x, use_pallas=use_pallas)
-
-    return OrderPredictor(apply_fn, cfg, qp, stats, method,
-                          siamese_fn=siamese_fn, device=dev, **kw)
+    return OrderPredictor(
+        functools.partial(_folded_fn, Q.apply_folded_int8,
+                          use_pallas=use_pallas), cfg, qp, stats, method,
+        siamese_fn=functools.partial(_folded_fn, Q.apply_folded_int8_siamese,
+                                     use_pallas=use_pallas),
+        device=dev, **kw)
 
 
 def make_v2_predictor(params, stats, cfg, method, calib_batches,
@@ -428,14 +432,12 @@ def make_v2_predictor(params, stats, cfg, method, calib_batches,
         if cdt == torch.float32:
             add_f32_block_weights(qp)
 
-    def apply_fn(p, s, c, x):
-        return Q.apply_folded_v2(p, c, x, use_pallas=use_pallas)
-
-    def siamese_fn(p, s, c, x):
-        return Q.apply_folded_v2_siamese(p, c, x, use_pallas=use_pallas)
-
-    return OrderPredictor(apply_fn, cfg, qp, stats, method,
-                          siamese_fn=siamese_fn, device=dev, **kw)
+    return OrderPredictor(
+        functools.partial(_folded_fn, Q.apply_folded_v2,
+                          use_pallas=use_pallas), cfg, qp, stats, method,
+        siamese_fn=functools.partial(_folded_fn, Q.apply_folded_v2_siamese,
+                                     use_pallas=use_pallas),
+        device=dev, **kw)
 
 
 class DisparityOrderPredictor:

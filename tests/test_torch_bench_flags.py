@@ -14,13 +14,18 @@
     pixels);
   * --no-pallas calls no kernel wrapper of the model, whatever the
     dtype, and leaves the prep route alone (wrapper calls counted on the
-    CPU).
+    CPU);
+  * vs_baseline divides by a rate measured on the H100
+    (bench.BASELINE_PAIRS_PER_S, stated in bench.py's docstring), and no
+    file of the port's bench (bench.py, serving.py, trace.py) names the
+    TPU round's 10,000 pairs/s.
 """
 
 import functools
 import importlib.util
 import itertools
 import os
+import re
 
 import numpy as np
 import jax
@@ -254,3 +259,19 @@ def test_no_pallas_runs_no_model_kernel(monkeypatch, profile, dtype):
         outs = logits if isinstance(logits, tuple) else (logits,)
         assert all(torch.isfinite(o).all() for o in outs)
         assert ij.shape == (3,)
+
+
+@pytest.mark.parametrize('module', ['bench.py', 'serving.py', 'trace.py'])
+def test_no_tpu_baseline(module):
+    """The TPU round's target, 10,000 pairs/s, is no denominator of the
+    port's bench: neither 10000, 10,000, 10_000 nor 1e4 appears."""
+    path = os.path.join(os.path.dirname(tbench.__file__), module)
+    with open(path) as f:
+        src = f.read()
+    assert not re.search(r'(?<![\d.])(10[,_]?000(\.0*)?|1e4|1e\+04)(?![\d])',
+                         src), module
+
+
+def test_vs_baseline_divides_by_the_h100_rate():
+    assert 0 < tbench.BASELINE_PAIRS_PER_S != 1e4
+    assert f'{tbench.BASELINE_PAIRS_PER_S:,}' in tbench.__doc__

@@ -38,6 +38,8 @@ Bars:
     zero gradients.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,7 +54,7 @@ from instaorder_tpu.train import algos as JA
 
 from instaorder_tpu_torch import convert
 from instaorder_tpu_torch import losses as TL
-from instaorder_tpu_torch.core.nn import tree_leaves, tree_unflatten
+from instaorder_tpu_torch.core.nn import tree_cast, tree_leaves, tree_unflatten
 from instaorder_tpu_torch.models import midas as tmidas
 from instaorder_tpu_torch.models.registry import get_backbone
 from instaorder_tpu_torch.ops import morphology as TM
@@ -60,7 +62,7 @@ from instaorder_tpu_torch.train import algos as TA
 
 from test_torch_train_step import (  # noqa: F401 (a fixture)
     one_torch_thread, recorded_relu, relu_on, worst)
-import torch_threads  # noqa: F401 (the suite's torch thread cap)
+import torch_threads
 
 SMALL = (1, 1, 1, 1)
 SIZE = 64
@@ -201,9 +203,43 @@ def nets():
         ('midas', 'instadepthnet_d', 'instadepthnet_od'))}
 
 
+@contextlib.contextmanager
+def torch_relu_on(masks):
+    """torch.relu selects on `masks` (numpy, in call order) instead of
+    testing x > 0: a forward in another dtype or at another thread count
+    on the recorded ReLU branch."""
+    real = torch.relu
+    it = iter(masks)
+
+    def relu(x):
+        m = torch.from_numpy(next(it))
+        assert m.shape == x.shape, (m.shape, x.shape)
+        return torch.where(m, x, torch.zeros((), dtype=x.dtype))
+    torch.relu = relu
+    try:
+        yield
+    finally:
+        torch.relu = real
+    assert next(it, None) is None, 'fewer ReLUs than the recorded forward'
+
+
+def outputs(variant, out):
+    """apply_train's outputs of `variant` without its absent heads."""
+    return [out] if variant == 'midas' else [o for o in out if o is not None]
+
+
 @pytest.mark.parametrize('variant', ['midas', 'instadepthnet_d',
                                      'instadepthnet_od'])
 def test_apply_train_matches_jax(nets, variant):
+    """The outputs within 1e-5 of max |JAX| at the module's one thread,
+    and, at one thread and at PyTorch's default count, each output's f32
+    distance from an f64 run of the same net no larger in the port than
+    in JAX, all on the ReLU branch that JAX's run follows. The first bar
+    alone depends on the thread count: on an 8-core CPU at 2-8 threads
+    the _d / _od disparities lie 1.007e-5 / 1.072e-5 of max |JAX| from
+    JAX's, at one thread 8.503e-6 / 9.616e-6, while JAX's f32 lies
+    1.018e-5 / 8.797e-6 of max |f64| from f64 and the port's 3.954e-6 /
+    5.500e-6 at one thread, 4.772e-6 / 4.681e-6 at 2-8."""
     p, s, cfg = nets[variant]
     b = make_batch(4, 2)
     args = [b['rgb']] + ([] if variant == 'midas' else
@@ -214,9 +250,7 @@ def test_apply_train_matches_jax(nets, variant):
     with relu_on(masks):
         want, ws = jmidas.apply(convert.to_numpy(p), convert.to_numpy(s),
                                 cfg, *args, train=True)
-    got = [got] if variant == 'midas' else [o for o in got if o is not None]
-    want = [want] if variant == 'midas' else [o for o in want
-                                              if o is not None]
+    got, want = outputs(variant, got), outputs(variant, want)
     assert len(got) == len(want) == (1 if variant == 'midas' else
                                      2 if variant == 'instadepthnet_d' else 3)
     for g, w in zip(got, want):
@@ -225,6 +259,20 @@ def test_apply_train_matches_jax(nets, variant):
     assert list(gs) == list(ws)
     err, leaf = worst(convert.to_numpy(gs), ws, 'stats')
     assert err <= 1e-5, (leaf, err)
+    f64 = torch.float64
+    with torch.no_grad(), torch_relu_on(masks):
+        exact, _ = tmidas.apply_train(tree_cast(p, f64), tree_cast(s, f64),
+                                      cfg, *(tensor(a).double() for a in args))
+    exact = [e.numpy() for e in outputs(variant, exact)]
+    for n in sorted({1, torch_threads.DEFAULT}):
+        with torch.no_grad(), torch_threads.at(n), torch_relu_on(masks):
+            port = outputs(variant, tmidas.apply_train(
+                p, s, cfg, *map(tensor, args))[0])
+        for g, w, e in zip(port, want, exact):
+            scale = np.abs(e).max()
+            port_err = np.abs(g.numpy() - e).max() / scale
+            jax_err = np.abs(np.asarray(w, np.float64) - e).max() / scale
+            assert port_err <= jax_err, (n, port_err, jax_err)
 
 
 def port_value_and_grad(loss_fn, params, stats, batch, masks):

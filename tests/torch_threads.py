@@ -10,11 +10,11 @@ than alone. XLA's pool is left as tests/conftest.py sets it, and the
 spawned gloo ranks run on one thread each (tests/torch_parallel_ranks.py).
 
 The modules that take test_torch_train_step.one_torch_thread stay at one
-thread while they run, as before the cap: on an 8-core CPU
-test_torch_depth_train.py's apply_train forwards miss their 1e-5 bar by
-0.7% and 7.2% at eight threads. A comparison whose bar holds only at
-some thread counts runs inside `default()`: at PyTorch's own count, as
-before the cap.
+thread while they run, as before the cap. A check that depends on the
+thread count runs at the counts it names with `at(n)` (DEFAULT is
+PyTorch's own count): test_torch_depth_train.py's apply_train holds the
+port's distance from f64 at one thread and at DEFAULT, and
+test_torch_parallel_predictor.py holds its sharding at 1, 2, 4 and 8.
 """
 
 import contextlib
@@ -33,11 +33,11 @@ except RuntimeError:        # inter-op work has started: torch keeps its pool
 
 
 @contextlib.contextmanager
-def default():
-    """PyTorch's default intra-op thread count inside the block."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(DEFAULT)
+def at(n):
+    """n intra-op threads inside the block."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(n)
     try:
         yield
     finally:
-        torch.set_num_threads(n)
+        torch.set_num_threads(was)
