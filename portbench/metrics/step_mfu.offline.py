@@ -1,0 +1,3 @@
+"""step_mfu.offline: the useful FLOPs of the window over the chips' peak."""
+
+from portbench.readers import step_mfu as read  # noqa: F401
